@@ -1,0 +1,73 @@
+"""Import hygiene of the PyTorch port: it imports no JAX and nothing of
+the JAX package, and its entry points refuse to run on the CPU unless
+asked to."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "kubedl_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in PKG.rglob("*.py"))
+#: an import of the JAX package (``kubedl_tpu`` not followed by ``_torch``)
+_JAX_PKG_IMPORT = re.compile(r"\b(?:import|from)\s+kubedl_tpu(?!_torch)\b")
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = ("import sys\nsys.modules['jax'] = None\n"
+            "import importlib\n"
+            f"for name in {MODULES!r}:\n"
+            "    importlib.import_module(name)\n"
+            "assert not any(m == 'kubedl_tpu' or m.startswith('kubedl_tpu.')"
+            " for m in sys.modules)\n"
+            "print('ok', len(sys.modules))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_import_of_the_jax_package(path):
+    text = (ROOT / path).read_text()
+    assert not _JAX_PKG_IMPORT.search(text), path
+    assert not re.search(r"^\s*(?:import|from)\s+jax\b", text, re.M), path
+
+
+def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):
+    from kubedl_tpu_torch import resolve_device
+    from kubedl_tpu_torch.models import io, llama
+    from kubedl_tpu_torch.serving import engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama.LlamaConfig(vocab_size=64, d_model=32, n_layers=1,
+                            n_heads=2, n_kv_heads=1, d_ff=64,
+                            dtype="float32")
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    io.save_model(cfg, params, str(tmp_path))
+    calls = {
+        "resolve_device": lambda: resolve_device(),
+        "resolve_device(cuda)": lambda: resolve_device("cuda"),
+        "init_params": lambda: llama.init_params(
+            cfg, torch.Generator().manual_seed(0)),
+        "init_cache": lambda: llama.init_cache(cfg, 1, 8),
+        "load_model": lambda: io.load_model(str(tmp_path)),
+        "params_from_numpy": lambda: io.params_from_numpy(cfg, {}),
+        "InferenceEngine": lambda: engine.InferenceEngine(cfg, params),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # asked for explicitly, the CPU runs
+    eng = engine.InferenceEngine(cfg, params, device="cpu")
+    assert len(eng.generate([[1, 2, 3]], 2)[0]) == 2
