@@ -9,26 +9,39 @@ failure raises and the script exits non-zero before its last line:
 
 1. build — every kernel under ``kubedl_tpu_torch/csrc/`` with ``nvcc``
    for ``sm_90a`` (build seconds and ``ptxas`` resource lines printed);
-2. kernel check — each kernel against its plain PyTorch version on the
-   card, on the serving path's shape and on the edge cases, then timed
-   beside its plain version, a PyTorch library call and its bound;
+2. forward kernel check — the flash forward against its plain PyTorch
+   version on the card, on the serving path's shape and the edge cases,
+   timed beside its plain version, SDPA and its bound;
 3. serving — Llama-3-8B at full width (random bf16 weights from a seed)
    behind ``InferenceServer`` over ``InferenceEngine``: ``:predict``
    (buffered, streamed, and greedy held against ``greedy_rollout``),
    ``/v1/completions`` and ``/v1/embeddings``, whose every layer must
    launch the flash kernel once;
-4. the kernels line (JSON), the card's name and power limit, and the
+4. backward kernel check — the dQ and dK/dV kernels against their plain
+   versions on the forward's 13 cases and the training shape at b=1;
+5. timing at the training shape (b=4, s=2048, Llama-3-8B's heads, bf16,
+   causal) — each of the three kernels beside its plain version, SDPA's
+   forward or backward and its bound;
+6. training — ``python -m kubedl_tpu_torch.train``'s ``main`` in-process
+   on Llama-3-8B at full width, 8 layers deep, batch 4 x 2048, 6 steps
+   on one repeated batch: seconds per step, tokens/s, MFU, peak memory,
+   falling loss and the kernels' launches per step;
+7. gradient check — every parameter's gradient at b=1 through the
+   kernels against the gradient through the chunked attention path;
+8. the kernels line (JSON), the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
 import sys
 import time
 import urllib.request
+from pathlib import Path
 
 #: published H100 SXM peaks (NVIDIA data sheet), dense
 HBM_BYTES_PER_S = 3.35e12
@@ -43,6 +56,25 @@ MAIN = dict(b=2, sq=512, sk=512, nh=32, nkv=8, hd=128, dtype="bfloat16",
 #: sum in different orders before rounding); f32 to its last digits; lse
 #: is f32 on both sides
 ATOL = {"bfloat16": 1e-2, "float32": 2e-5, "lse": 1e-3}
+
+#: the training path's attention shape: Llama-3-8B's heads at the
+#: training slice's batch 4 x seq 2048
+TRAIN = dict(b=4, sq=2048, sk=2048, nh=32, nkv=8, hd=128, dtype="bfloat16",
+             causal=True)
+#: dq/dk/dv sum up to reps * s terms of growing size: bf16 results within
+#: 4 bf16 ulps (2**-7 each) at the scale of the largest value, f32 within
+#: 1e-5 of that scale
+BWD_TOL = {"bfloat16": 4 * 2.0 ** -7, "float32": 1e-5}
+#: operations per kept (row, key) pair: K1 q.k and p.v; K2 adds dO.v and
+#: ds.k; K3 q.k, dO.v, p^T.dO and ds^T.q
+OPS_PER_PAIR = {"flash_forward": 4, "flash_dq": 6, "flash_dkv": 8}
+TRAIN_STEPS = 6
+#: norm-wise relative gap of a parameter's gradient between the kernel
+#: path and the chunked path: both round attention outputs and dq/dk/dv
+#: to bf16 (unit roundoff 2**-9), at other places, through 8 layers; the
+#: bound allows ~25 roundoffs of drift
+GRAD_REL_BOUND = 0.05
+BUILD_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
 def log(msg: str) -> None:
@@ -96,30 +128,36 @@ def _time_ms(torch, fn, reps: int = 50, warmup: int = 5) -> float:
     return ms[len(ms) // 2]
 
 
-def _flash_bound(torch, case, seg) -> tuple:
+def _flash_bound(torch, case, seg, name="flash_forward") -> tuple:
     """(ms, "bytes" or "operations"): the least time for the work these
-    inputs need. Each of q/k/v/out/lse moves once at the HBM rate; the
-    products of the (row, key) pairs the mask keeps (4*hd operations
-    each: q.k and p.v) run at the peak rate of the input type."""
+    inputs need. Each input and output moves once at the HBM rate: K1
+    reads q/k/v and writes out/lse, K2 reads q/k/v/dO/lse/Δ and writes
+    dq, K3 reads the same and writes dk/dv. The products of the (row,
+    key) pairs the mask keeps (``OPS_PER_PAIR`` x hd operations each) run
+    at the peak rate of the input type."""
     b, sq, sk, nh, nkv, hd = (case[n] for n in
                               ("b", "sq", "sk", "nh", "nkv", "hd"))
     item = 2 if case["dtype"] == "bfloat16" else 4
-    moved = item * hd * (2 * b * sq * nh + 2 * b * sk * nkv) + 4 * b * nh * sq
-    rows = torch.arange(sq)[:, None]
+    q_side, kv_side, rows = b * sq * nh * hd, b * sk * nkv * hd, b * nh * sq
+    moved = {"flash_forward": item * (2 * q_side + 2 * kv_side) + 4 * rows,
+             "flash_dq": item * (3 * q_side + 2 * kv_side) + 8 * rows,
+             "flash_dkv": item * (2 * q_side + 4 * kv_side) + 8 * rows}[name]
+    rows_i = torch.arange(sq)[:, None]
     cols = torch.arange(sk)[None, :]
     keep = torch.ones(1, sq, sk, dtype=torch.bool)
     if case["causal"]:
         q_off, k_off = case.get("offsets") or (0, 0)
-        keep = (cols + k_off) <= (rows + q_off)
+        keep = (cols + k_off) <= (rows_i + q_off)
         if case.get("window", 0):
-            keep &= (cols + k_off) > (rows + q_off) - case["window"]
+            keep &= (cols + k_off) > (rows_i + q_off) - case["window"]
         keep = keep[None]
     if seg is not None:
         seg = seg.cpu()
         keep = keep & (seg[:, :, None] == seg[:, None, :])
     pairs = int(keep.expand(b, sq, sk).sum())
     t_bytes = moved / HBM_BYTES_PER_S
-    t_ops = 4 * hd * pairs * nh / PEAK_FLOPS_PER_S[case["dtype"]]
+    t_ops = (OPS_PER_PAIR[name] * hd * pairs * nh
+             / PEAK_FLOPS_PER_S[case["dtype"]])
     return 1e3 * max(t_bytes, t_ops), \
         ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -137,26 +175,29 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
+#: the kernels' check cases: the serving shape and the edge cases
+CASES = {
+    "main": MAIN,
+    "non_causal": {**MAIN, "causal": False},
+    "mha": {**MAIN, "nkv": 32},
+    "window_128": {**MAIN, "window": 128},
+    "segment_ids": {**MAIN, "segments": True},
+    "offsets": {**MAIN, "offsets": (256, 0)},
+    "offsets_masked_rows": {**MAIN, "offsets": (0, 256)},
+    "ragged_300": {**MAIN, "sq": 300, "sk": 300},
+    "sq_gt_sk": {**MAIN, "sq": 512, "sk": 256},
+    "float32": {**MAIN, "dtype": "float32"},
+    "hd_64": {**MAIN, "hd": 64, "sq": 200, "sk": 200},
+    "hd_256": {**MAIN, "hd": 256, "sq": 256, "sk": 256},
+    "hd_80_padded": {**MAIN, "hd": 80, "sq": 130, "sk": 130},
+}
+
+
 def phase_kernel_check(torch):
     from kubedl_tpu_torch.ops import attention as attn
 
-    cases = {
-        "main": MAIN,
-        "non_causal": {**MAIN, "causal": False},
-        "mha": {**MAIN, "nkv": 32},
-        "window_128": {**MAIN, "window": 128},
-        "segment_ids": {**MAIN, "segments": True},
-        "offsets": {**MAIN, "offsets": (256, 0)},
-        "offsets_masked_rows": {**MAIN, "offsets": (0, 256)},
-        "ragged_300": {**MAIN, "sq": 300, "sk": 300},
-        "sq_gt_sk": {**MAIN, "sq": 512, "sk": 256},
-        "float32": {**MAIN, "dtype": "float32"},
-        "hd_64": {**MAIN, "hd": 64, "sq": 200, "sk": 200},
-        "hd_256": {**MAIN, "hd": 256, "sq": 256, "sk": 256},
-        "hd_80_padded": {**MAIN, "hd": 80, "sq": 130, "sk": 130},
-    }
     errs = {}
-    for i, (name, case) in enumerate(cases.items()):
+    for i, (name, case) in enumerate(CASES.items()):
         q, k, v, seg = _inputs(torch, case, seed=100 + i)
         out, lse = attn.flash_forward(q, k, v, case["causal"], **_kw(case, seg))
         ref, ref_lse = attn.flash_forward_plain(q, k, v, case["causal"],
@@ -192,12 +233,8 @@ def phase_kernel_check(torch):
     log(f"[kernel] flash_forward at b=2 s=512 nh=32 nkv=8 hd=128 bf16 "
         f"causal: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    return {"name": "flash_forward", "route": "cuda",
-            "source": "kubedl_tpu_torch/csrc/flash_fwd.cu",
-            "replaces": "kubedl_tpu/ops/attention.py:259:_flash_kernel",
-            "max_abs_err": errs["main"], "ms": kernel_ms,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+    return {"max_abs_err": errs["main"], "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
 
@@ -343,6 +380,240 @@ def phase_serving(torch, cfg, device="cuda"):
     return launches
 
 
+def _bwd_err(torch, got, want, dtype) -> tuple:
+    """(max abs error, the stated tolerance at this value's scale)."""
+    top = max(float(want.float().abs().max()), 1.0)
+    return (float((got.float() - want.float()).abs().max()),
+            BWD_TOL[dtype] * top)
+
+
+def phase_bwd_check(torch):
+    """K2 and K3 against their plain versions on the forward's cases and
+    the training shape at b=1. Returns {kernel: max abs error} there."""
+    from kubedl_tpu_torch.ops import attention as attn
+
+    cases = {**CASES, "train_b1": {**TRAIN, "b": 1}}
+    errs = {}
+    for i, (name, case) in enumerate(cases.items()):
+        q, k, v, seg = _inputs(torch, case, seed=200 + i)
+        do = torch.randn(q.shape, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(300 + i)).to(q.dtype)
+        causal, kw = case["causal"], _kw(case, seg)
+        o, lse = attn.flash_forward(q, k, v, causal, **kw)
+        delta = attn.flash_delta(o, do)
+        dq = attn.flash_dq(q, k, v, do, lse, delta, causal, **kw)
+        dk, dv = attn.flash_dkv(q, k, v, do, lse, delta, causal, **kw)
+        ref_dq = attn.flash_dq_plain(q, k, v, do, lse, delta, causal, **kw)
+        ref_dk, ref_dv = attn.flash_dkv_plain(q, k, v, do, lse, delta,
+                                              causal, **kw)
+        torch.cuda.synchronize()
+        parts = []
+        for label, got, want in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                                 ("dv", dv, ref_dv)):
+            err, tol = _bwd_err(torch, got, want, case["dtype"])
+            ok = math.isfinite(err) and err <= tol and bool(
+                torch.isfinite(got.float()).all())
+            parts.append(f"{label} {err:.3e} (tol {tol:.3g})")
+            if not ok:
+                raise AssertionError(f"backward kernel disagrees with its "
+                                     f"plain version on case {name}: "
+                                     f"{label} error {err} > {tol}")
+            errs[(name, label)] = err
+        log(f"[bwd] {name}: " + ", ".join(parts) + " ok")
+    return {"flash_dq": errs[("train_b1", "dq")],
+            "flash_dkv": max(errs[("train_b1", "dk")],
+                             errs[("train_b1", "dv")])}
+
+
+def phase_timing(torch):
+    """K1, K2 and K3 at the training shape, each beside its plain
+    version, SDPA (forward for K1, backward for K2 and K3 together: the
+    one library call that computes dq/dk/dv) and its bound."""
+    from kubedl_tpu_torch.ops import attention as attn
+
+    case = TRAIN
+    q, k, v, _ = _inputs(torch, case, seed=400)
+    do = torch.randn(q.shape, device="cuda",
+                     generator=torch.Generator(device="cuda")
+                     .manual_seed(401)).to(q.dtype)
+    causal = case["causal"]
+    o, lse = attn.flash_forward(q, k, v, causal)
+    delta = attn.flash_delta(o, do)
+    args = (q, k, v, do, lse, delta, causal)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # yardsticks only (the port never calls SDPA): the forward with GQA,
+    # the backward on k/v repeated to the q heads
+    reps = case["nh"] // case["nkv"]
+    leaves = [t.detach().clone().requires_grad_() for t in
+              (qt, kt.repeat_interleave(reps, 1), vt.repeat_interleave(reps,
+                                                                      1))]
+    out = sdpa(*leaves, is_causal=causal)
+    gt = do.transpose(1, 2)
+    sdpa_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, gt, retain_graph=True))
+    timed = {
+        "flash_forward": (lambda: attn.flash_forward(q, k, v, causal),
+                          lambda: attn.flash_forward_plain(q, k, v, causal),
+                          _time_ms(torch, lambda: sdpa(
+                              qt, kt, vt, is_causal=causal,
+                              enable_gqa=True))),
+        "flash_dq": (lambda: attn.flash_dq(*args),
+                     lambda: attn.flash_dq_plain(*args), sdpa_bwd_ms),
+        "flash_dkv": (lambda: attn.flash_dkv(*args),
+                      lambda: attn.flash_dkv_plain(*args), sdpa_bwd_ms),
+    }
+    rows = {}
+    for name, (kernel, plain, library_ms) in timed.items():
+        ms = _time_ms(torch, kernel, reps=20, warmup=2)
+        plain_ms = _time_ms(torch, plain, reps=5, warmup=1)
+        bound_ms, bound_by = _flash_bound(torch, case, None, name)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[time] {name} at b=4 s=2048 nh=32 nkv=8 hd=128 bf16 causal: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+            f"{'backward ' if name != 'flash_forward' else ''}"
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return rows
+
+
+def _train_config() -> tuple:
+    """(config path, token path, config dict) of the training phase: the
+    slice's Llama-3-8B run on one batch of 4 x 2049 tokens from seed 0,
+    written as a token file so every step sees the same rows."""
+    import numpy as np
+
+    BUILD_OUT.mkdir(parents=True, exist_ok=True)
+    tokens = BUILD_OUT / "train_tokens.bin"
+    np.random.default_rng(0).integers(0, 128256, 4 * 2049,
+                                      dtype=np.int32).tofile(tokens)
+    cfg = {"model": "llama.llama3_8b", "model_overrides": {"n_layers": 8},
+           "mode": "pretrain", "data": {"kind": "tokens",
+                                        "path": str(tokens)},
+           "batch": 4, "seq": 2048, "steps": TRAIN_STEPS, "seed": 0,
+           "optimizer": {"warmup_steps": 1}, "log_every": 1}
+    path = BUILD_OUT / "train.json"
+    path.write_text(json.dumps(cfg))
+    return str(path), str(tokens), cfg
+
+
+def model_flops_per_token(cfg, seq: int) -> float:
+    """Fwd+bwd FLOPs per trained token (``bench.py``'s formula): 6*N
+    params term + causal-attention term 12*L*d_head*n_heads*(seq/2)."""
+    return (6.0 * cfg.num_params
+            + 12.0 * cfg.n_layers * cfg.hd * cfg.n_heads * (seq / 2))
+
+
+def phase_training(torch):
+    """``python -m kubedl_tpu_torch.train``'s main, in-process. Returns
+    (launches by kernel, config path, token path)."""
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.train import __main__ as train_main
+
+    cfg_path, tokens, cfg = _train_config()
+    config, _ = train_main.resolve_model(cfg, device="cuda")
+    n_layers = config.n_layers
+    marks = []
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[train] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"before training; model {config.num_params / 1e9:.3f} B params, "
+        f"{n_layers} layers, d_model {config.d_model}, heads "
+        f"{config.n_heads}/{config.n_kv_heads}, d_ff {config.d_ff}, vocab "
+        f"{config.vocab_size}, remat {config.remat}, loss_chunk "
+        f"{config.loss_chunk}")
+    kernels = (attn.flash_forward, attn.flash_dq, attn.flash_dkv)
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rc = train_main.main(["--config", cfg_path],
+                         on_step=lambda step, loss: marks.append(
+                             (time.perf_counter(), step, loss)))
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m[2] for m in marks]
+    if rc != 0 or len(marks) != TRAIN_STEPS:
+        raise AssertionError(f"training returned {rc} after {len(marks)} "
+                             f"steps")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"training loss not finite and falling: "
+                             f"{losses}")
+    want = {"flash_forward": 2 * n_layers * TRAIN_STEPS,
+            "flash_dq": n_layers * TRAIN_STEPS,
+            "flash_dkv": n_layers * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"training launched {launches}, want {want} "
+                             f"(K1 2*L per step with remat, K2/K3 L)")
+    steady = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+    step_s = sum(steady) / len(steady)
+    tokens_per_step = cfg["batch"] * cfg["seq"]
+    tok_s = tokens_per_step / step_s
+    mfu = (model_flops_per_token(config, cfg["seq"]) * tok_s
+           / PEAK_FLOPS_PER_S["bfloat16"])
+    log(f"[train] losses {[round(x, 4) for x in losses]}")
+    log(f"[train] first step {marks[0][0] - t0:.3f} s (model init, data "
+        f"and first launches included); steps 2-{TRAIN_STEPS}: "
+        f"{step_s:.4f} s per step, {tok_s:.1f} tokens/s, MFU "
+        f"{mfu:.4f} against 989 TFLOP/s bf16 "
+        f"({model_flops_per_token(config, cfg['seq']):.4e} FLOP/token)")
+    log(f"[train] per-step times {[round(x, 4) for x in steady]} s")
+    log(f"[train] {peak / 2**30:.2f} GiB peak device memory; launches "
+        f"{launches} over {TRAIN_STEPS} steps = "
+        f"{ {k: n // TRAIN_STEPS for k, n in launches.items()} } per step")
+    return launches, cfg, tokens
+
+
+def phase_grad_check(torch, cfg, tokens):
+    """One step's gradient of every parameter leaf at b=1, through the
+    kernels and through the chunked attention path, on the same weights
+    and tokens."""
+    from unittest import mock
+
+    import numpy as np
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.train import __main__ as train_main
+    from kubedl_tpu_torch.train.trainer import tree_leaves
+
+    config, _ = train_main.resolve_model(cfg, device="cuda")
+    row = np.fromfile(tokens, dtype=np.int32)[:cfg["seq"] + 1]
+    toks = torch.as_tensor(row[None].astype(np.int64), device="cuda")
+    params = llama.init_params(
+        config, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    leaves = tree_leaves(params)
+    for _, p in leaves:
+        p.requires_grad_(True)
+
+    def grads(impl):
+        patch = mock.patch.object(
+            llama, "multi_head_attention",
+            lambda *a, **k: attn.multi_head_attention(*a, impl=impl, **k))
+        with patch:
+            loss = llama.loss_fn(config, params, toks[:, :-1], toks[:, 1:])
+            out = torch.autograd.grad(loss, [p for _, p in leaves])
+        return loss.item(), out
+
+    before = attn.flash_dq.launches
+    loss_k, g_k = grads("kernel")
+    if attn.flash_dq.launches != before + config.n_layers:
+        raise AssertionError("the kernel path did not launch the dQ kernel "
+                             "once per layer")
+    loss_c, g_c = grads("chunked")
+    rel = {}
+    for (name, _), a, b in zip(leaves, g_k, g_c):
+        rel[name] = float((a.float() - b.float()).norm()
+                          / b.float().norm().clamp_min(1e-30))
+    worst = max(rel, key=rel.get)
+    log(f"[grad] b=1 s={cfg['seq']}: loss kernel {loss_k:.6f}, chunked "
+        f"{loss_c:.6f}; relative gradient gap per leaf "
+        f"{ {k: float(f'{x:.3e}') for k, x in rel.items()} }")
+    log(f"[grad] worst {worst} {rel[worst]:.4e} (bound {GRAD_REL_BOUND})")
+    if not rel[worst] <= GRAD_REL_BOUND:
+        raise AssertionError(f"gradient of {worst} through the kernels is "
+                             f"{rel[worst]:.3e} from the chunked path's")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -360,17 +631,51 @@ def main() -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_all = time.perf_counter()
     phase_build()
-    row = phase_kernel_check(torch)
+    fwd = phase_kernel_check(torch)
     from kubedl_tpu_torch.models import llama
-    row["launches"] = phase_serving(torch, llama.llama3_8b())
+    serving_launches = phase_serving(torch, llama.llama3_8b())
     log(f"[serve] {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak "
         "device memory")
+    gc.collect()                 # the 16 GB serving model goes first
+    torch.cuda.empty_cache()
+    bwd_err = phase_bwd_check(torch)
+    times = phase_timing(torch)
+    train_launches, cfg, tokens = phase_training(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_grad_check(torch, cfg, tokens)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [row]}))
+    src = "kubedl_tpu_torch/csrc/"
+    shape = "b=4 s=2048 nh=32 nkv=8 hd=128 bf16 causal"
+    rows = [
+        {"name": "flash_forward", "route": "cuda",
+         "source": src + "flash_fwd.cu",
+         "replaces": "kubedl_tpu/ops/attention.py:259:_flash_kernel",
+         "launches": serving_launches + train_launches["flash_forward"],
+         "launches_by_path": {
+             "serving": serving_launches,
+             "training": train_launches["flash_forward"]},
+         "max_abs_err": fwd["max_abs_err"], **times["flash_forward"],
+         "shape": shape, "library": "sdpa forward",
+         "serving": {k: fwd[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}},
+        {"name": "flash_dq", "route": "cuda", "source": src + "flash_bwd.cu",
+         "replaces": "kubedl_tpu/ops/attention.py:449:_flash_dq_kernel",
+         "launches": train_launches["flash_dq"],
+         "max_abs_err": bwd_err["flash_dq"], **times["flash_dq"],
+         "shape": shape, "library": "sdpa backward (dq, dk and dv)"},
+        {"name": "flash_dkv", "route": "cuda",
+         "source": src + "flash_bwd.cu",
+         "replaces": "kubedl_tpu/ops/attention.py:512:_flash_dkv_kernel",
+         "launches": train_launches["flash_dkv"],
+         "max_abs_err": bwd_err["flash_dkv"], **times["flash_dkv"],
+         "shape": shape, "library": "sdpa backward (dq, dk and dv)"},
+    ]
+    print(json.dumps({"kernels": rows}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

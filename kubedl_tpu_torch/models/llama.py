@@ -10,7 +10,10 @@ and RoPE run in float32. So a JAX artifact loads unchanged
 (``models/io.py``) and the two packages compute on the same tensors.
 
 Attention goes through ``ops.attention.multi_head_attention``: the
-hand-written flash kernel on the card, the chunked path on the CPU.
+hand-written flash kernels on the card (forward, and dQ/dK/dV when
+autograd records), the chunked path on the CPU. Training adds
+:func:`loss_fn`/:func:`lm_loss` (the chunked LM-head loss of
+``ops/loss.py``) and per-layer recomputation (``config.remat``).
 Context parallelism (ring, ulysses) and tensor parallelism arrive with
 the parallel slice; a ``mesh`` argument raises until then.
 """
@@ -23,9 +26,11 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.attention import multi_head_attention
+from ..ops.loss import chunked_softmax_xent
 from ..ops.quant import mm as _mm
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -104,6 +109,18 @@ class LlamaConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def num_params(self) -> int:
+        d, hd = self.d_model, self.hd
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * hd * d
+        if self.qkv_bias:
+            attn += hd * (self.n_heads + 2 * self.n_kv_heads)
+        mlp = 3 * d * self.d_ff
+        per_layer = attn + mlp + (4 if self.sandwich_norms else 2) * d
+        head = (1 if self.tie_embeddings else 2) * self.vocab_size * d
+        return self.n_layers * per_layer + head + d
 
     def to_dict(self) -> dict:
         """JSON-ready fields, dtype by name (``config.json``'s form)."""
@@ -387,7 +404,17 @@ def forward_hidden(config: LlamaConfig, params: dict, tokens,
 
     ``apply_layers(x, cos, sin) -> x`` (optional) replaces the layer
     stack while keeping the prologue (embed/embed_scale/rope) and the
-    final norm shared."""
+    final norm shared.
+
+    When autograd records (training), the stacked ``layers`` params are
+    unbound once, so the backward stacks each weight's gradient once
+    instead of adding a full-stack zero tensor per layer, and with
+    ``config.remat`` each layer runs under ``torch.utils.checkpoint``:
+    only its input is kept, and the backward recomputes the layer (the
+    flash forward kernel included) before differentiating it. The JAX
+    package keeps the matmul outputs (``checkpoint_dots_with_no_batch_dims``)
+    and recomputes the rest; this recomputes the whole layer, trading
+    matmul time for the simplest correct policy."""
     c = config
     _no_mesh(mesh)
     s = tokens.shape[1]
@@ -399,10 +426,20 @@ def forward_hidden(config: LlamaConfig, params: dict, tokens,
         x = apply_layers(x, cos, sin)
     else:
         flags = window_flags(c)
+        training = torch.is_grad_enabled()
+        if training:
+            stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
         for i in range(c.n_layers):
-            x = _layer_forward(c, x, layer_params(params, i), cos, sin,
-                               segment_ids,
-                               window_on=None if flags is None else flags[i])
+            lp = ({k: v[i] for k, v in stacked.items()} if training
+                  else layer_params(params, i))
+            window_on = None if flags is None else flags[i]
+            if training and c.remat:
+                x = checkpoint(
+                    _layer_forward, c, x, lp, cos, sin, segment_ids, None,
+                    window_on, use_reentrant=False)
+            else:
+                x = _layer_forward(c, x, lp, cos, sin, segment_ids,
+                                   window_on=window_on)
     return rms_norm(x, params["final_norm"], c.rms_eps, c.norm_weight_offset)
 
 
@@ -576,3 +613,37 @@ def forward_step(config: LlamaConfig, params: dict, tokens, cache: dict,
     x = rms_norm(x, params["final_norm"], c.rms_eps, c.norm_weight_offset)
     logits = _mm(x, _lm_head(c, params)).float()
     return _softcap(c, logits)[:, 0], cache
+
+
+# -- training loss -----------------------------------------------------------
+
+def lm_loss(config: LlamaConfig, x, params: dict, targets, mask=None):
+    """Next-token cross-entropy from final hidden states, mean over
+    unmasked targets (float32 scalar). With ``config.loss_chunk > 0`` the
+    LM-head product and softmax run in sequence chunks
+    (``ops.loss.chunked_softmax_xent``), so the [b, s, vocab] logits are
+    never materialized."""
+    head = _lm_head(config, params)
+    if config.loss_chunk > 0:
+        return chunked_softmax_xent(x, head, targets, mask=mask,
+                                    chunk=config.loss_chunk,
+                                    logit_softcap=config.logit_softcap)
+    logits = _softcap(config, (x @ head).float())
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def loss_fn(config: LlamaConfig, params: dict, tokens, targets, mask=None,
+            mesh=None, segment_ids=None, positions=None):
+    """Next-token cross-entropy, mean over unmasked targets.
+    ``segment_ids``/``positions`` [b, s] carry packed documents
+    (``train.data.pack_documents``): attention stays within segments and
+    RoPE positions restart per document."""
+    x = forward_hidden(config, params, tokens, positions=positions,
+                       segment_ids=segment_ids, mesh=mesh)
+    return lm_loss(config, x, params, targets, mask=mask)

@@ -1,7 +1,8 @@
-"""Tokenizers: text <-> token ids for serving.
+"""Tokenizers: text <-> token ids for serving and training.
 
 Copied from ``kubedl_tpu/tokenizer.py`` (the port imports nothing from the
-JAX package): the serving half of it.
+JAX package): the serving half of it, and ``text_documents`` for the
+training data path.
 
 * ``ByteTokenizer`` — zero-dependency UTF-8 byte fallback (256 byte ids
   + pad/bos/eos).
@@ -186,6 +187,29 @@ def render_chat(tokenizer, messages, add_generation_prompt: bool = True
         text, add_bos=getattr(tokenizer, "bos_id", -1) >= 0)
 
 
+def text_documents(path: str, tokenizer, add_bos: bool = True,
+                   add_eos: bool = True,
+                   text_key: str = "text") -> Iterable[List[int]]:
+    """Tokenized documents from a text corpus file, for
+    ``train.data.pack_documents``.
+
+    * ``*.jsonl`` — one JSON object per line; the document is
+      ``obj[text_key]``;
+    * anything else — plain text, one document per non-empty line.
+
+    Yields lazily: a corpus is never fully resident on the host.
+    """
+    import json
+    is_jsonl = path.endswith(".jsonl")
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line.strip():
+                continue
+            text = json.loads(line)[text_key] if is_jsonl else line
+            yield tokenizer.encode(text, add_bos=add_bos, add_eos=add_eos)
+
+
 __all__ = ["ByteTokenizer", "HFTokenizer", "StreamDecoder",
            "load_tokenizer", "encode_prompt", "render_chat",
-           "has_tokenizer_assets"]
+           "has_tokenizer_assets", "text_documents"]

@@ -5,18 +5,34 @@ Spans are ``(trace_id, span_id, parent_id, name, start, end,
 attributes)`` records written once both endpoints are known into a
 bounded ring buffer; overflow drops the oldest span and counts the drop.
 The disabled tracer (the default) returns after one attribute check.
-The serving engine records its prefill/decode spans here; ``spans()``
-reads them back.
+The serving engine records its prefill/decode spans here, the trainer its
+``train.step`` spans; ``spans()`` reads them back.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
+
+#: pod env var the operator injects so in-container payloads (the trainer)
+#: attach their spans to the owning job's trace
+ENV_TRACEPARENT = "KUBEDL_TRACEPARENT"
+
+_TRACEPARENT_RE = re.compile(
+    r"^00-([0-9a-f]{32})-([0-9a-f]{16})-[0-9a-f]{2}$")
+
+
+def parse_traceparent(value: str) -> Optional[tuple]:
+    """``(trace_id, span_id)`` of a ``00-<trace>-<span>-<flags>`` value,
+    or None for anything malformed (a bad context degrades to a fresh
+    trace, never an error)."""
+    mt = _TRACEPARENT_RE.match((value or "").strip().lower())
+    return (mt.group(1), mt.group(2)) if mt else None
 
 
 @dataclass

@@ -20,6 +20,15 @@ MODULES = sorted(
 _JAX_PKG_IMPORT = re.compile(r"\b(?:import|from)\s+kubedl_tpu(?!_torch)\b")
 
 
+def test_the_training_slice_modules_are_checked():
+    """The hygiene checks below walk the package: the training slice's
+    modules are among what they import and scan."""
+    assert {"kubedl_tpu_torch.ops.loss", "kubedl_tpu_torch.parallel.mesh",
+            "kubedl_tpu_torch.train", "kubedl_tpu_torch.train.data",
+            "kubedl_tpu_torch.train.trainer",
+            "kubedl_tpu_torch.train.__main__"} <= set(MODULES)
+
+
 def test_every_module_imports_with_jax_blocked():
     code = ("import sys\nsys.modules['jax'] = None\n"
             "import importlib\n"
@@ -47,6 +56,8 @@ def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):
     from kubedl_tpu_torch import resolve_device
     from kubedl_tpu_torch.models import io, llama
     from kubedl_tpu_torch.serving import engine
+    from kubedl_tpu_torch.train import Trainer
+    from kubedl_tpu_torch.train import __main__ as train_main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = llama.LlamaConfig(vocab_size=64, d_model=32, n_layers=1,
@@ -55,6 +66,8 @@ def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):
     params = llama.init_params(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
     io.save_model(cfg, params, str(tmp_path))
+    train_cfg = tmp_path / "train.json"
+    train_cfg.write_text('{"model": "llama.tiny", "steps": 1}')
     calls = {
         "resolve_device": lambda: resolve_device(),
         "resolve_device(cuda)": lambda: resolve_device("cuda"),
@@ -64,6 +77,10 @@ def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):
         "load_model": lambda: io.load_model(str(tmp_path)),
         "params_from_numpy": lambda: io.params_from_numpy(cfg, {}),
         "InferenceEngine": lambda: engine.InferenceEngine(cfg, params),
+        "Trainer.init_state": lambda: Trainer(lambda p, b: 0).init_state(
+            params),
+        "train.__main__.main": lambda: train_main.main(
+            ["--config", str(train_cfg)]),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):
