@@ -222,50 +222,49 @@ class Trainer:
     def step(self, state: TrainState, batch: dict):
         """One optimizer step on ``batch``; ``accum_steps > 1`` splits it
         into that many micro-batches along dim 0 and averages their
-        losses and float32 gradients. Returns (new state, loss)."""
-        n = self.config.accum_steps
-        if n > 1:
-            rows = next(iter(batch.values())).shape[0]
-            if rows % n:
-                raise ValueError(f"batch of {rows} rows does not split into "
-                                 f"accum_steps={n} micro-batches")
-            loss, grads = torch.zeros((), dtype=torch.float32), None
-            for i in range(n):
-                micro = {k: v.reshape((n, rows // n) + tuple(v.shape[1:]))[i]
-                         for k, v in batch.items()}
-                mloss, mgrads = self._value_and_grad(state.params, micro)
-                loss = loss.to(mloss.device) + mloss.float()
-                if grads is None:
-                    grads = {k: torch.zeros_like(g, dtype=torch.float32)
-                             for k, g in mgrads.items()}
-                for k, g in mgrads.items():
-                    grads[k].add_(g)
-                del mgrads
-            loss = loss / n
-            for g in grads.values():
-                g.div_(n)
-        else:
-            loss, grads = self._value_and_grad(state.params, batch)
-        opt = self.optimizer.apply(state.params, grads, state.opt_state)
+        losses and float32 gradients. Returns (new state, loss). The two
+        halves run under ``torch.profiler`` ranges ``train.loss_and_grads``
+        and ``train.optimizer``, which a profile window (``profile_dir``)
+        records."""
+        with torch.profiler.record_function("train.loss_and_grads"):
+            loss, grads = self._grads(state.params, batch)
+        with torch.profiler.record_function("train.optimizer"):
+            opt = self.optimizer.apply(state.params, grads, state.opt_state)
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=opt), loss
 
+    def _grads(self, params: dict, batch: dict):
+        n = self.config.accum_steps
+        if n == 1:
+            return self._value_and_grad(params, batch)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % n:
+            raise ValueError(f"batch of {rows} rows does not split into "
+                             f"accum_steps={n} micro-batches")
+        loss, grads = torch.zeros((), dtype=torch.float32), None
+        for i in range(n):
+            micro = {k: v.reshape((n, rows // n) + tuple(v.shape[1:]))[i]
+                     for k, v in batch.items()}
+            mloss, mgrads = self._value_and_grad(params, micro)
+            loss = loss.to(mloss.device) + mloss.float()
+            if grads is None:
+                grads = {k: torch.zeros_like(g, dtype=torch.float32)
+                         for k, g in mgrads.items()}
+            for k, g in mgrads.items():
+                grads[k].add_(g)
+            del mgrads
+        for g in grads.values():
+            g.div_(n)
+        return loss / n, grads
+
     def fit(self, state: TrainState, batches, num_steps: int,
-            log_every: int = 10, on_step=None, checkpoint_manager=None,
-            elastic_agent=None, eval_every: int = 0, eval_fn=None,
-            data_state_fn=None, tracer=None):
-        """Training loop. ``on_step(step, loss)`` runs after every step;
-        ``eval_fn(state) -> dict`` every ``eval_every`` steps and after the
-        last. ``tracer`` (``kubedl_tpu_torch.trace.Tracer``, enabled)
-        records one ``train.step`` span per step with its tokens and
-        replica, attached to ``$KUBEDL_TRACEPARENT``'s trace when the
-        operator injected one. Checkpoints and the elastic agent are
-        ROADMAP A6."""
-        if checkpoint_manager is not None or elastic_agent is not None \
-                or data_state_fn is not None:
-            raise NotImplementedError(
-                "checkpointing and the elastic checkpoint agent are not "
-                "ported yet: ROADMAP A6")
+            log_every: int = 10, on_step=None, tracer=None):
+        """Training loop. ``on_step(step, loss)`` runs after every step.
+        ``tracer`` (``kubedl_tpu_torch.trace.Tracer``, enabled) records
+        one ``train.step`` span per step with its tokens and replica,
+        attached to ``$KUBEDL_TRACEPARENT``'s trace when the operator
+        injected one. Checkpoints, the elastic agent and in-training
+        evaluation are ROADMAP A6."""
         tr = tracer if tracer is not None and tracer.enabled else None
         trace_id = parent_id = None
         replica = ""
@@ -313,13 +312,6 @@ class Trainer:
                     dt = time.time() - t0
                     print(f"step {state.step} loss {float(loss):.4f} "
                           f"{tokens / dt:.0f} tok/s")
-                if eval_fn is not None and eval_every and \
-                        ((i + 1) % eval_every == 0 or i + 1 == num_steps):
-                    res = eval_fn(state)
-                    print(f"step {state.step} eval "
-                          + " ".join(f"{k} {v:.4f}" if isinstance(v, float)
-                                     else f"{k} {v}"
-                                     for k, v in res.items()))
         finally:
             if prof is not None:
                 _stop_profile(prof, cfg.profile_dir, state.step)

@@ -24,6 +24,13 @@ pytestmark = pytest.mark.cuda
 ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
 ULPS = 4
 F32_TOL = 1e-5
+#: causal gradients are large at the first rows and keys and small in the
+#: bulk, where the bound above sits near a typical value; the norm-wise
+#: relative error cannot hide there. Rounding once, the two sides differ
+#: by at most one rounding (half an ulp ratio) where they differ: the
+#: bound is twice that, and 1e-5 for f32's reordered sums
+NORM_REL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+            torch.float32: 1e-5}
 
 
 def _tol(ref: torch.Tensor) -> float:
@@ -99,6 +106,8 @@ def test_backward_kernels_match_plain(card, case):
         assert bool(torch.isfinite(t.float()).all()), name
         torch.testing.assert_close(t.float(), w.float(), atol=_tol(w),
                                    rtol=0, msg=f"{case}: {name}")
+        rel = (t.float() - w.float()).norm() / w.float().norm()
+        assert rel <= NORM_REL[w.dtype], f"{case}: {name} norm-wise {rel}"
 
 
 def _block_grads(cfg, x, lp, cos, sin, impl):

@@ -407,9 +407,9 @@ def test_fit_records_train_step_spans(monkeypatch):
                                     "replica": "3"} for s in spans)
 
 
-def test_fit_runs_eval_and_writes_the_profile(tmp_path, capsys):
-    """``eval_fn`` every ``eval_every`` steps and after the last, and the
-    ``profile_dir`` window as one chrome trace."""
+def test_fit_writes_the_profile_window(tmp_path):
+    """The ``profile_dir`` window as one chrome trace, holding the step's
+    ``train.loss_and_grads`` and ``train.optimizer`` ranges."""
     tcfg = dataclasses.replace(tllama.tiny(vocab=64, seq=16),
                                dtype="float32", n_layers=1)
     params = tllama.init_params(tcfg, torch.Generator().manual_seed(0),
@@ -419,20 +419,16 @@ def test_fit_runs_eval_and_writes_the_profile(tmp_path, capsys):
         ttrainer.TrainConfig(profile_dir=str(tmp_path / "prof"),
                              profile_start_step=1, profile_steps=1),
         device="cpu")
-    evals = []
-
-    def eval_fn(state):
-        evals.append(state.step)
-        return {"val": 1.5}
-
     trainer.fit(trainer.init_state(params),
                 tdata.prefetch_to_device(
                     tdata.synthetic_lm_batches(2, 8, 64), device="cpu"),
-                num_steps=3, log_every=0, eval_every=2, eval_fn=eval_fn)
-    assert evals == [2, 3]
-    assert "step 2 eval val 1.5000" in capsys.readouterr().out
+                num_steps=3, log_every=0)
     assert [p.name for p in (tmp_path / "prof").iterdir()] == \
         ["train_step2.json"]
+    trace = json.loads((tmp_path / "prof" / "train_step2.json").read_text())
+    ranges = [e["name"] for e in trace["traceEvents"]
+              if e.get("cat") == "user_annotation"]
+    assert ranges == ["train.loss_and_grads", "train.optimizer"]
 
 
 @pytest.mark.parametrize("kind", ["tokens", "text", "mixture"])
