@@ -19,14 +19,18 @@ failure raises and the script exits non-zero before its last line:
    ``/v1/completions`` and ``/v1/embeddings``, whose every layer must
    launch the flash kernel once;
 4. backward kernel check — the dQ and dK/dV kernels against their plain
-   versions on the forward's 13 cases and the training shape at b=1;
+   versions on the forward's 13 cases and the training shape at b=1, each
+   case on the route ``flash_bwd_route`` gives it (``sm90``: the
+   tensor-core kernels of ``flash_bwd_sm90.cu`` for bf16/f16 at hd 64 and
+   128; ``simt``: ``flash_bwd.cu`` for the rest);
 5. timing at the training shape (b=4, s=2048, Llama-3-8B's heads, bf16,
    causal) — each of the three kernels beside its plain version, SDPA's
-   forward or backward and its bound;
+   forward or backward and its bound, and Δ (``flash_delta``);
 6. training — ``python -m kubedl_tpu_torch.train``'s ``main`` in-process
    on Llama-3-8B at full width, 8 layers deep, batch 4 x 2048, 6 steps
    on one repeated batch: seconds per step, tokens/s, MFU, peak memory,
-   falling loss and the kernels' launches per step;
+   falling loss and the kernels' launches per step, every backward
+   launch on the ``sm90`` route;
 7. gradient check — every parameter's gradient at b=1 through the
    kernels against the gradient through the chunked attention path;
 8. the kernels line (JSON), the card's name and power limit, and the
@@ -77,6 +81,18 @@ BWD_NORM_TOL = {"bfloat16": 2 * 2.0 ** -8, "float32": 1e-5}
 #: ds.k; K3 q.k, dO.v, p^T.dO and ds^T.q
 OPS_PER_PAIR = {"flash_forward": 4, "flash_dq": 6, "flash_dkv": 8}
 TRAIN_STEPS = 6
+#: the tensor-core backward kernels' designs, for the kernels line
+BWD_DESIGN = {
+    "flash_dq": "wgmma bf16, TMA ring of K/V tiles (2 stages) under "
+                "mbarriers, 1 producer warp + 2 consumer warpgroups of 64 q "
+                "rows, block per (b*nh, 128 q rows), heaviest first; S and "
+                "dP from smem, dQ += dS.K with dS from registers",
+    "flash_dkv": "wgmma bf16, K/V resident, TMA ring of (Q, dO, lse, delta) "
+                 "tiles (2 stages) under mbarriers, 1 producer warp + 2 "
+                 "consumer warpgroups of 64 k rows, block per (b*nkv, 128 k "
+                 "rows) over the GQA group's heads, heaviest first; S^T and "
+                 "dP^T from smem, dV += P^T.dO and dK += dS^T.Q from "
+                 "registers"}
 #: norm-wise relative gap of a parameter's gradient between the kernel
 #: path and the chunked path: both round attention outputs and dq/dk/dv
 #: to bf16 (unit roundoff 2**-9), at other places, through 8 layers; the
@@ -422,6 +438,7 @@ def phase_bwd_check(torch):
                          generator=torch.Generator(device="cuda")
                          .manual_seed(300 + i)).to(q.dtype)
         causal, kw = case["causal"], _kw(case, seg)
+        route = attn.flash_bwd_route(q.dtype, case["hd"])
         o, lse = attn.flash_forward(q, k, v, causal, **kw)
         delta = attn.flash_delta(o, do)
         dq = attn.flash_dq(q, k, v, do, lse, delta, causal, **kw)
@@ -442,7 +459,7 @@ def phase_bwd_check(torch):
                                      f"plain version on case {name}: "
                                      f"{label} {e}")
             errs[(name, label)] = e["max"]
-        log(f"[bwd] {name}: " + ", ".join(parts) + " ok")
+        log(f"[bwd] {name} ({route}): " + ", ".join(parts) + " ok")
     return {"flash_dq": errs[("train_b1", "dq")],
             "flash_dkv": max(errs[("train_b1", "dk")],
                              errs[("train_b1", "dv")])}
@@ -451,7 +468,8 @@ def phase_bwd_check(torch):
 def phase_timing(torch):
     """K1, K2 and K3 at the training shape, each beside its plain
     version, SDPA (forward for K1, backward for K2 and K3 together: the
-    one library call that computes dq/dk/dv) and its bound."""
+    one library call that computes dq/dk/dv) and its bound; and Δ, the
+    PyTorch op the backward runs before K2 and K3."""
     from kubedl_tpu_torch.ops import attention as attn
 
     case = TRAIN
@@ -497,6 +515,10 @@ def phase_timing(torch):
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
             f"{'backward ' if name != 'flash_forward' else ''}"
             f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    rows["flash_dq"]["delta_ms"] = _time_ms(
+        torch, lambda: attn.flash_delta(o, do), reps=20, warmup=2)
+    log(f"[time] flash_delta (PyTorch) at the same shape: "
+        f"{rows['flash_dq']['delta_ms']:.4f} ms")
     return rows
 
 
@@ -547,11 +569,15 @@ def phase_training(torch):
     kernels = (attn.flash_forward, attn.flash_dq, attn.flash_dkv)
     for fn in kernels:
         fn.launches = 0
+    for fn in kernels[1:]:
+        fn.launches_by_route = {"sm90": 0, "simt": 0}
     t0 = time.perf_counter()
     rc = train_main.main(["--config", cfg_path],
                          on_step=lambda step, loss: marks.append(
                              (time.perf_counter(), step, loss)))
     launches = {fn.__name__: fn.launches for fn in kernels}
+    by_route = {fn.__name__: dict(fn.launches_by_route)
+                for fn in kernels[1:]}
     peak = torch.cuda.max_memory_allocated()
     losses = [m[2] for m in marks]
     if rc != 0 or len(marks) != TRAIN_STEPS:
@@ -566,6 +592,10 @@ def phase_training(torch):
     if launches != want:
         raise AssertionError(f"training launched {launches}, want {want} "
                              f"(K1 2*L per step with remat, K2/K3 L)")
+    for name, routes in by_route.items():
+        if routes != {"sm90": want[name], "simt": 0}:
+            raise AssertionError(f"training launched {name} on routes "
+                                 f"{routes}: every launch should take sm90")
     steady = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
     step_s = sum(steady) / len(steady)
     tokens_per_step = cfg["batch"] * cfg["seq"]
@@ -581,7 +611,8 @@ def phase_training(torch):
     log(f"[train] per-step times {[round(x, 4) for x in steady]} s")
     log(f"[train] {peak / 2**30:.2f} GiB peak device memory; launches "
         f"{launches} over {TRAIN_STEPS} steps = "
-        f"{ {k: n // TRAIN_STEPS for k, n in launches.items()} } per step")
+        f"{ {k: n // TRAIN_STEPS for k, n in launches.items()} } per step; "
+        f"backward routes {by_route}")
     return launches, cfg, tokens
 
 
@@ -686,17 +717,22 @@ def main() -> int:
          "serving": {k: fwd[k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms")}},
-        {"name": "flash_dq", "route": "cuda", "source": src + "flash_bwd.cu",
+        {"name": "flash_dq", "route": "cuda",
+         "source": src + "flash_bwd_sm90.cu",
          "replaces": "kubedl_tpu/ops/attention.py:449:_flash_dq_kernel",
          "launches": train_launches["flash_dq"],
          "max_abs_err": bwd_err["flash_dq"], **times["flash_dq"],
-         "shape": shape, "library": "sdpa backward (dq, dk and dv)"},
+         "shape": shape, "library": "sdpa backward (dq, dk and dv)",
+         "kernel_route": "sm90",
+         "design": BWD_DESIGN["flash_dq"]},
         {"name": "flash_dkv", "route": "cuda",
-         "source": src + "flash_bwd.cu",
+         "source": src + "flash_bwd_sm90.cu",
          "replaces": "kubedl_tpu/ops/attention.py:512:_flash_dkv_kernel",
          "launches": train_launches["flash_dkv"],
          "max_abs_err": bwd_err["flash_dkv"], **times["flash_dkv"],
-         "shape": shape, "library": "sdpa backward (dq, dk and dv)"},
+         "shape": shape, "library": "sdpa backward (dq, dk and dv)",
+         "kernel_route": "sm90",
+         "design": BWD_DESIGN["flash_dkv"]},
     ]
     print(json.dumps({"kernels": rows}))
     print(f"nvidia-smi: {smi}")

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` alone into ``build/kubedl_tpu_torch/lib<name>-<hash>.so``, then
 loaded with ``ctypes``. No PyTorch header is included, so a build takes
 seconds rather than the minutes ``torch.utils.cpp_extension.load`` needs.
-The hash covers the source and the flags, so an edited kernel rebuilds
-and an unchanged one is reused. A failed build raises with the
+The hash covers the source, every header under ``csrc/`` and the flags,
+so an edited kernel or header rebuilds and an unchanged one is reused. A failed build raises with the
 compiler's output; nothing falls back.
 """
 
@@ -42,9 +42,13 @@ def sources() -> list:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{src.stem}-{digest[:12]}.so"
+    """The library ``src`` builds into, named by a hash of the source,
+    the headers beside it and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> dict:

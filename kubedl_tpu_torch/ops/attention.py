@@ -6,8 +6,10 @@ Counterpart of ``kubedl_tpu/ops/attention.py``, same layouts (q
 * ``kernel`` — :func:`flash_attention`, a ``torch.autograd.Function``
   whose forward is :func:`flash_forward` (``csrc/flash_fwd.cu``, the TPU
   ``_flash_kernel``) and whose backward is :func:`flash_backward`: the dQ
-  kernel (``csrc/flash_bwd.cu``, the TPU ``_flash_dq_kernel``) and the
-  dK/dV kernel (the TPU ``_flash_dkv_kernel``). CUDA tensors only.
+  kernel (the TPU ``_flash_dq_kernel``) and the dK/dV kernel (the TPU
+  ``_flash_dkv_kernel``), from ``csrc/flash_bwd_sm90.cu`` (tensor cores)
+  for bf16/f16 at head dims 64 and 128, else ``csrc/flash_bwd.cu``
+  (:func:`flash_bwd_route`). CUDA tensors only.
 * ``plain`` — the same Function on CPU tensors, where every wrapper runs
   its kernel's plain version: the CI path for the kernels' arithmetic
   (the counterpart of ``impl="pallas_interpret"``).
@@ -429,20 +431,67 @@ def flash_backward_plain(q, k, v, o, lse, do, causal, segment_ids=None,
     return dq, dk, dv
 
 
+def flash_bwd_route(dtype, hd: int) -> str:
+    """Which source a backward launch takes: ``"sm90"``
+    (``csrc/flash_bwd_sm90.cu``: wgmma tensor-core products, TMA loads)
+    for bf16 and f16 at head dims 64 and 128, which covers the training
+    path and every Llama-family config; ``"simt"`` (``csrc/flash_bwd.cu``,
+    f32 CUDA-core products) for float32 and every other head dim."""
+    if dtype in (torch.bfloat16, torch.float16) and hd in (64, 128):
+        return "sm90"
+    return "simt"
+
+
+#: route -> (kernel source under csrc/, prefix of its C entry points)
+_BWD_SOURCES = {"sm90": ("flash_bwd_sm90", "kubedl_flash_bwd90_"),
+                "simt": ("flash_bwd", "kubedl_flash_bwd_")}
+
+
 @functools.cache
-def _bwd_lib() -> ctypes.CDLL:
-    """``csrc/flash_bwd.cu``, built at first use, with its C signatures."""
+def _bwd_lib(route: str) -> ctypes.CDLL:
+    """The route's backward source, built at first use, with its C
+    signatures (both routes take the same arguments)."""
     from ._build import library
-    lib = library("flash_bwd")
+    name, prefix = _BWD_SOURCES[route]
+    lib = library(name)
     i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
     tail = [i32] * 7 + [i64] * 12 + [i32] * 5 + [ctypes.c_float, ptr]
-    lib.kubedl_flash_bwd_dq.argtypes = [ptr] * 8 + tail
-    lib.kubedl_flash_bwd_dq.restype = i32
-    lib.kubedl_flash_bwd_dkv.argtypes = [ptr] * 9 + tail
-    lib.kubedl_flash_bwd_dkv.restype = i32
+    for fn, n_ptr in (("dq", 8), ("dkv", 9)):
+        f = getattr(lib, prefix + fn)
+        f.argtypes = [ptr] * n_ptr + tail
+        f.restype = i32
     lib.kubedl_cuda_error_string.argtypes = [i32]
     lib.kubedl_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check_tma(name: str, *ts) -> None:
+    """The tensor-core route loads q, k, v and dO with TMA, which takes
+    only 16-byte aligned bases and strides."""
+    for t in ts:
+        if t.data_ptr() % 16 or any(x * t.element_size() % 16
+                                    for x in t.stride()[:-1]):
+            raise ValueError(
+                f"{name}: the sm90 route loads with TMA, which needs "
+                f"16-byte aligned bases and strides; got a {t.dtype} "
+                f"tensor at offset {t.data_ptr() % 16} with strides "
+                f"{tuple(t.stride())}")
+
+
+def _bwd_kernel(name: str, q, k, v, do, lse, delta, seg, outs, causal,
+                offsets, window, fn) -> None:
+    """Launch ``fn`` ("dq" or "dkv") on its route, raise on a failed
+    launch, and count it."""
+    route = flash_bwd_route(q.dtype, q.shape[-1])
+    if route == "sm90":
+        _check_tma(name, q, k, v, do)
+    lib = _bwd_lib(route)
+    err = _bwd_launch(getattr(lib, _BWD_SOURCES[route][1] + fn), q, k, v,
+                      do, lse, delta, seg, outs, causal, offsets, window)
+    _raise_on(lib, err, name)
+    wrapper = flash_dq if fn == "dq" else flash_dkv
+    wrapper.launches += 1
+    wrapper.launches_by_route[route] += 1
 
 
 def _bwd_args(name, q, k, v, do, lse, delta, segment_ids, window):
@@ -480,8 +529,9 @@ def _bwd_launch(fn, q, k, v, do, lse, delta, seg, outs, causal, offsets,
 def flash_dq(q, k, v, do, lse, delta, causal, segment_ids=None,
              offsets=None, window=0):
     """dQ kernel, same contract as :func:`flash_dq_plain`. On CUDA tensors
-    it launches ``kubedl_flash_bwd_dq`` of ``csrc/flash_bwd.cu`` (counted
-    in ``flash_dq.launches``); on CPU tensors it runs the plain version."""
+    it launches the dQ kernel of :func:`flash_bwd_route`'s source (counted
+    in ``flash_dq.launches`` and ``flash_dq.launches_by_route``); on CPU
+    tensors it runs the plain version."""
     if not q.is_cuda:
         return flash_dq_plain(q, k, v, do, lse, delta, causal,
                               segment_ids=segment_ids, offsets=offsets,
@@ -494,19 +544,17 @@ def flash_dq(q, k, v, do, lse, delta, causal, segment_ids=None,
         return dq
     if k.shape[1] == 0:
         raise ValueError("flash_dq needs at least one key")
-    lib = _bwd_lib()
-    err = _bwd_launch(lib.kubedl_flash_bwd_dq, q, k, v, do, lse, delta, seg,
-                      (dq,), causal, offsets, window)
-    _raise_on(lib, err, "flash_dq")
-    flash_dq.launches += 1
+    _bwd_kernel("flash_dq", q, k, v, do, lse, delta, seg, (dq,), causal,
+                offsets, window, "dq")
     return dq
 
 
 def flash_dkv(q, k, v, do, lse, delta, causal, segment_ids=None,
               offsets=None, window=0):
     """dK/dV kernel, same contract as :func:`flash_dkv_plain`. On CUDA
-    tensors it launches ``kubedl_flash_bwd_dkv`` of ``csrc/flash_bwd.cu``
-    (counted in ``flash_dkv.launches``); on CPU tensors it runs the plain
+    tensors it launches the dK/dV kernel of :func:`flash_bwd_route`'s
+    source (counted in ``flash_dkv.launches`` and
+    ``flash_dkv.launches_by_route``); on CPU tensors it runs the plain
     version."""
     if not q.is_cuda:
         return flash_dkv_plain(q, k, v, do, lse, delta, causal,
@@ -522,17 +570,17 @@ def flash_dkv(q, k, v, do, lse, delta, causal, segment_ids=None,
         return dk, dv
     if sq == 0:              # no query row: no gradient reaches any key
         return dk.zero_(), dv.zero_()
-    lib = _bwd_lib()
-    err = _bwd_launch(lib.kubedl_flash_bwd_dkv, q, k, v, do, lse, delta,
-                      seg, (dk, dv), causal, offsets, window)
-    _raise_on(lib, err, "flash_dkv")
-    flash_dkv.launches += 1
+    _bwd_kernel("flash_dkv", q, k, v, do, lse, delta, seg, (dk, dv), causal,
+                offsets, window, "dkv")
     return dk, dv
 
 
-#: kernel launches since the counts were last set to 0
+#: kernel launches since the counts were last set to 0, in all and by
+#: :func:`flash_bwd_route`
 flash_dq.launches = 0
 flash_dkv.launches = 0
+flash_dq.launches_by_route = {"sm90": 0, "simt": 0}
+flash_dkv.launches_by_route = {"sm90": 0, "simt": 0}
 
 
 def flash_backward(q, k, v, o, lse, do, causal, segment_ids=None,

@@ -1,6 +1,8 @@
 """The port's flash-attention backward kernels on the card, against their
 plain PyTorch versions, and the gradient of a llama attention block
-through them. A CUDA kernel has no CPU mode, so without a card these
+through them. Both routes are held: the tensor-core kernels
+(``flash_bwd_sm90.cu``, bf16/f16 at head dims 64 and 128) and the general
+ones (``flash_bwd.cu``). A CUDA kernel has no CPU mode, so without a card these
 tests skip. On the card (no JAX there, hence no conftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_flash_bwd_cuda.py
@@ -108,6 +110,73 @@ def test_backward_kernels_match_plain(card, case):
                                    rtol=0, msg=f"{case}: {name}")
         rel = (t.float() - w.float()).norm() / w.float().norm()
         assert rel <= NORM_REL[w.dtype], f"{case}: {name} norm-wise {rel}"
+
+
+#: tensor-core-route cases at the tile edges (K2: 128 q rows x 64 keys,
+#: K3: 128 keys x 64 q rows), on Llama-3-8B's GQA ratio of 4
+SM90_CASES = {
+    "ragged_130": dict(sq=130, sk=130),
+    "ragged_300": dict(sq=300, sk=300),
+    "sq_gt_sk": dict(sq=300, sk=190),
+    "offsets_q": dict(sq=320, sk=320, offsets=(256, 0)),
+    "offsets_k": dict(sq=320, sk=320, offsets=(0, 256)),
+    "window_128": dict(sq=384, sk=384, window=128),
+    "segments": dict(sq=300, sk=300, segments=True),
+    "hd_64": dict(hd=64, sq=300, sk=300),
+    "float16": dict(dtype=torch.float16, sq=300, sk=300),
+    "train_b1": dict(b=1, sq=2048, sk=2048, nh=32, nkv=8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SM90_CASES))
+def test_tensor_core_route_at_tile_edges(card, case):
+    kw = {"b": 2, "nh": 8, "nkv": 2, "hd": 128, "dtype": torch.bfloat16,
+          **SM90_CASES[case]}
+    b, sq, sk, nh, nkv, hd = (kw[n] for n in ("b", "sq", "sk", "nh", "nkv",
+                                               "hd"))
+    assert attn.flash_bwd_route(kw["dtype"], hd) == "sm90"
+    g = torch.Generator(device=card).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=card).to(kw["dtype"])
+
+    q, k, v = randn(b, sq, nh, hd), randn(b, sk, nkv, hd), randn(b, sk, nkv,
+                                                                  hd)
+    do = randn(b, sq, nh, hd)
+    seg = None
+    if kw.get("segments"):
+        pos = torch.arange(sq, device=card)
+        seg = torch.stack([(pos >= 97 + 13 * i).int() + (pos >= 201 - i).int()
+                           for i in range(b)])
+    opts = dict(segment_ids=seg, offsets=kw.get("offsets"),
+                window=kw.get("window", 0))
+    o, lse = attn.flash_forward(q, k, v, True, **opts)
+    before = (dict(attn.flash_dq.launches_by_route),
+              dict(attn.flash_dkv.launches_by_route))
+    got = attn.flash_backward(q, k, v, o, lse, do, True, **opts)
+    torch.cuda.synchronize()
+    assert attn.flash_dq.launches_by_route["sm90"] == before[0]["sm90"] + 1
+    assert attn.flash_dkv.launches_by_route["sm90"] == before[1]["sm90"] + 1
+    want = attn.flash_backward_plain(q, k, v, o, lse, do, True, **opts)
+    for name, t, w in zip(("dq", "dk", "dv"), got, want):
+        assert t.dtype == w.dtype and t.shape == w.shape, name
+        assert bool(torch.isfinite(t.float()).all()), name
+        torch.testing.assert_close(t.float(), w.float(), atol=_tol(w),
+                                   rtol=0, msg=f"{case}: {name}")
+        rel = (t.float() - w.float()).norm() / w.float().norm()
+        assert rel <= NORM_REL[w.dtype], f"{case}: {name} norm-wise {rel}"
+
+
+def test_tensor_core_route_refuses_what_tma_cannot_load(card):
+    """TMA takes 16-byte aligned bases and strides: a q that starts one
+    element into its storage is refused by name, not read wrongly."""
+    q = torch.randn(1, 64, 2, 64, device=card).bfloat16()
+    o, lse = attn.flash_forward(q, q, q, True)
+    delta = attn.flash_delta(o, q)
+    shifted = torch.randn(1 * 64 * 2 * 64 + 1, device=card).bfloat16()[1:]
+    shifted = shifted.view(1, 64, 2, 64)
+    with pytest.raises(ValueError, match="TMA"):
+        attn.flash_dq(shifted, q, q, q, lse, delta, True)
 
 
 def _block_grads(cfg, x, lp, cos, sin, impl):
