@@ -16,9 +16,9 @@
 // Bound on an H100 SXM at the training shape (b = 4, s = 2048, nh = 32,
 // nkv = 8, hd = 128, causal): K2 does 6*hd and K3 8*hd operations per kept
 // (row, key) pair, 0.21 and 0.28 ms at 989 TFLOP/s, against ~0.06 ms of
-// bytes: both are bound by tensor-core operations. PR 2's kernels ran them
+// bytes: both are bound by tensor-core operations. flash_bwd.cu runs them
 // on the f32 CUDA cores (67 TFLOP/s peak) from f32 tiles that every thread
-// staged. Here:
+// stages. Here:
 //   * every product is a wgmma on bf16/f16 operands with f32 sums;
 //   * one producer warp streams tiles with TMA (128-byte swizzle, zero fill
 //     past the tensor's end) into a 2-stage ring under mbarriers, while two

@@ -8,10 +8,10 @@
 // the other. Every tile starts on a 1024-byte boundary (one swizzle
 // period), so the descriptors' base-offset field stays 0.
 //
-// The driver's cuTensorMapEncodeTiled is fetched through
-// cudaGetDriverEntryPoint rather than by linking -lcuda: the library then
-// needs only the runtime that nvcc links by default, and the build needs
-// no driver stub on its link path.
+// libcuda's cuTensorMapEncodeTiled is fetched at run time through the
+// runtime's entry-point query rather than by linking -lcuda: the library
+// then needs only the runtime that nvcc links by default, and the build
+// needs no libcuda stub on its link path.
 #pragma once
 
 #include <cuda.h>
