@@ -11,13 +11,15 @@ failure raises and the script exits non-zero before its last line:
    for ``sm_90a`` (build seconds and ``ptxas`` resource lines printed);
 2. forward kernel check — the flash forward against its plain PyTorch
    version on the card, on the serving path's shape, the edge cases and
-   the training shape at b=1, timed beside its plain version, SDPA and
-   its bound;
+   the training shape at b=1, each case on the route ``flash_fwd_route``
+   gives it (``sm90``: the tensor-core kernel of ``flash_fwd_sm90.cu``
+   for bf16/f16 at hd 64 and 128; ``simt``: ``flash_fwd.cu`` for the
+   rest), timed beside its plain version, SDPA and its bound;
 3. serving — Llama-3-8B at full width (random bf16 weights from a seed)
    behind ``InferenceServer`` over ``InferenceEngine``: ``:predict``
    (buffered, streamed, and greedy held against ``greedy_rollout``),
    ``/v1/completions`` and ``/v1/embeddings``, whose every layer must
-   launch the flash kernel once;
+   launch the flash kernel once, every launch on the ``sm90`` route;
 4. backward kernel check — the dQ and dK/dV kernels against their plain
    versions on the forward's 13 cases and the training shape at b=1, each
    case on the route ``flash_bwd_route`` gives it (``sm90``: the
@@ -29,8 +31,8 @@ failure raises and the script exits non-zero before its last line:
 6. training — ``python -m kubedl_tpu_torch.train``'s ``main`` in-process
    on Llama-3-8B at full width, 8 layers deep, batch 4 x 2048, 6 steps
    on one repeated batch: seconds per step, tokens/s, MFU, peak memory,
-   falling loss and the kernels' launches per step, every backward
-   launch on the ``sm90`` route;
+   falling loss and the kernels' launches per step, every forward and
+   backward launch on the ``sm90`` route;
 7. gradient check — every parameter's gradient at b=1 through the
    kernels against the gradient through the chunked attention path;
 8. the kernels line (JSON), the card's name and power limit, and the
@@ -81,8 +83,17 @@ BWD_NORM_TOL = {"bfloat16": 2 * 2.0 ** -8, "float32": 1e-5}
 #: ds.k; K3 q.k, dO.v, p^T.dO and ds^T.q
 OPS_PER_PAIR = {"flash_forward": 4, "flash_dq": 6, "flash_dkv": 8}
 TRAIN_STEPS = 6
-#: the tensor-core backward kernels' designs, for the kernels line
-BWD_DESIGN = {
+#: the tensor-core kernels' designs, for the kernels line
+DESIGN = {
+    "flash_forward": "wgmma bf16, persistent grid (1 block per SM) dealing "
+                     "(b*nh, 128 q rows) tiles heaviest first; TMA Q and a "
+                     "3-stage ring of 128-key K/V tiles (K and V under "
+                     "their own mbarriers) run on across tiles; 1 producer "
+                     "warp + 2 consumer warpgroups of 64 q rows; S = Q.K^T "
+                     "from smem, online softmax in registers (exp2, quad "
+                     "reductions, branch-free masks), O += P.V with P from "
+                     "registers (rest of P in a second product on edge "
+                     "tiles), O through smem by TMA store",
     "flash_dq": "wgmma bf16, TMA ring of K/V tiles (2 stages) under "
                 "mbarriers, 1 producer warp + 2 consumer warpgroups of 64 q "
                 "rows, block per (b*nh, 128 q rows), heaviest first; S and "
@@ -99,6 +110,8 @@ BWD_DESIGN = {
 #: bound allows ~25 roundoffs of drift
 GRAD_REL_BOUND = 0.05
 BUILD_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke"
+#: cycles of the spin before each timed call (~0.25 ms at the H100's clock)
+SPIN_CYCLES = 500_000
 
 
 def log(msg: str) -> None:
@@ -134,13 +147,17 @@ def _kw(case, seg):
 def _time_ms(torch, fn, reps: int = 50, warmup: int = 5) -> float:
     """Median device time of one call. A 64 MB write between calls pushes
     the inputs out of the 50 MB L2, as a layer's worth of other work does
-    on the serving path."""
+    on the serving path. A spin on the card (~0.25 ms) then keeps it busy
+    while the host runs the call's Python and launch path, so the start
+    event does not fire before the call's first kernel is queued and the
+    time is the card's alone (the host's share is timed apart)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -195,7 +212,8 @@ def phase_build():
         f"{sorted(logs)} in {dt:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
+            if any(w in line for w in ("Used", "spill", "wgmma",
+                                       "Performance")):
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -226,6 +244,8 @@ def phase_kernel_check(torch):
     for i, (name, case) in enumerate({**CASES,
                                       "train_b1": TRAIN_B1}.items()):
         q, k, v, seg = _inputs(torch, case, seed=100 + i)
+        route = attn.flash_fwd_route(q.dtype, case["hd"])
+        before = attn.flash_forward.launches_by_route[route]
         out, lse = attn.flash_forward(q, k, v, case["causal"], **_kw(case, seg))
         ref, ref_lse = attn.flash_forward_plain(q, k, v, case["causal"],
                                                 **_kw(case, seg))
@@ -234,9 +254,10 @@ def phase_kernel_check(torch):
         lse_err = (lse - ref_lse).abs().max().item()
         ok = (math.isfinite(err) and err <= ATOL[case["dtype"]]
               and lse_err <= ATOL["lse"]
-              and bool(torch.isfinite(out.float()).all()))
-        log(f"[kernel] flash_forward {name}: out max_abs_err {err:.3e} "
-            f"(atol {ATOL[case['dtype']]:g}), lse max_abs_err "
+              and bool(torch.isfinite(out.float()).all())
+              and attn.flash_forward.launches_by_route[route] == before + 1)
+        log(f"[kernel] flash_forward {name} ({route}): out max_abs_err "
+            f"{err:.3e} (atol {ATOL[case['dtype']]:g}), lse max_abs_err "
             f"{lse_err:.3e} (atol {ATOL['lse']:g}) "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -257,13 +278,22 @@ def phase_kernel_check(torch):
     library_ms = _time_ms(
         torch, lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True))
     bound_ms, bound_by = _flash_bound(torch, MAIN, seg)
+    # the host's share: back-to-back calls, not synchronised, so the card
+    # (faster here) waits on the wrapper's checks and the launch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        attn.flash_forward(q, k, v, causal)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 100
+    torch.cuda.synchronize()
     log(f"[kernel] flash_forward at b=2 s=512 nh=32 nkv=8 hd=128 bf16 "
         f"causal: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"host path {host_ms:.4f} ms per call back to back")
     return {"max_abs_err": errs["main"], "train_max_abs_err":
             errs["train_b1"], "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "host_ms": host_ms}
 
 
 def _post(url: str, path: str, body: dict) -> str:
@@ -305,6 +335,7 @@ def phase_serving(torch, cfg, device="cuda"):
     rng = np.random.default_rng(0)
     try:
         attn.flash_forward.launches = 0
+        attn.flash_forward.launches_by_route = {"sm90": 0, "simt": 0}
         # 1. buffered :predict, 4 instances of mixed lengths
         lens = (256, 200, 97, 31)
         prompts = [rng.integers(3, cfg.vocab_size, n).tolist() for n in lens]
@@ -340,22 +371,25 @@ def phase_serving(torch, cfg, device="cuda"):
         texts = ["kubedl " * 73, "a TPU kernel ported by hand to Hopper " * 8]
         texts[0] = texts[0][:511]          # + BOS = 512 tokens: MAIN's shape
         before = attn.flash_forward.launches
+        before_sm90 = attn.flash_forward.launches_by_route["sm90"]
         t0 = time.perf_counter()
         emb = json.loads(_post(srv.url, "/v1/embeddings", {"input": texts}))
         emb_s = time.perf_counter() - t0
         launched = attn.flash_forward.launches - before
+        on_sm90 = attn.flash_forward.launches_by_route["sm90"] - before_sm90
         vecs = np.asarray([d["embedding"] for d in emb["data"]])
         norms = np.linalg.norm(vecs, axis=-1)
         if vecs.shape != (2, cfg.d_model) or not np.isfinite(vecs).all() \
                 or np.abs(norms - 1).max() > 1e-3:
             raise AssertionError(f"bad embeddings: shape {vecs.shape}, "
                                  f"norms {norms}")
-        if launched != cfg.n_layers:
+        if launched != cfg.n_layers or on_sm90 != launched:
             raise AssertionError(f"embeddings launched flash_forward "
-                                 f"{launched} times, want {cfg.n_layers}")
+                                 f"{launched} times, {on_sm90} on sm90; "
+                                 f"want {cfg.n_layers}, all on sm90")
         log(f"[serve] /v1/embeddings 2 inputs ({emb['usage']['prompt_tokens']}"
             f" tokens) in {emb_s:.3f} s: {launched} flash_forward launches, "
-            f"unit norms {norms.round(6).tolist()}")
+            f"all sm90, unit norms {norms.round(6).tolist()}")
         # 5. greedy :predict with equal lengths against greedy_rollout
         same = rng.integers(3, cfg.vocab_size, (4, 128))
         got = json.loads(_post(srv.url, "/v1/models/llama3-8b:predict", {
@@ -368,6 +402,12 @@ def phase_serving(torch, cfg, device="cuda"):
                                  f"greedy_rollout {rolled}")
         log("[serve] greedy :predict (4 x 128 tokens) == greedy_rollout")
         launches = attn.flash_forward.launches
+        if attn.flash_forward.launches_by_route != {"sm90": launches,
+                                                    "simt": 0}:
+            raise AssertionError(
+                f"serving launched flash_forward on routes "
+                f"{attn.flash_forward.launches_by_route}: every launch "
+                f"should take sm90")
 
         # the embeddings against the same forward with the plain attention
         # path (chunked) in place of the kernel
@@ -569,15 +609,14 @@ def phase_training(torch):
     kernels = (attn.flash_forward, attn.flash_dq, attn.flash_dkv)
     for fn in kernels:
         fn.launches = 0
-    for fn in kernels[1:]:
+    for fn in kernels:
         fn.launches_by_route = {"sm90": 0, "simt": 0}
     t0 = time.perf_counter()
     rc = train_main.main(["--config", cfg_path],
                          on_step=lambda step, loss: marks.append(
                              (time.perf_counter(), step, loss)))
     launches = {fn.__name__: fn.launches for fn in kernels}
-    by_route = {fn.__name__: dict(fn.launches_by_route)
-                for fn in kernels[1:]}
+    by_route = {fn.__name__: dict(fn.launches_by_route) for fn in kernels}
     peak = torch.cuda.max_memory_allocated()
     losses = [m[2] for m in marks]
     if rc != 0 or len(marks) != TRAIN_STEPS:
@@ -612,7 +651,7 @@ def phase_training(torch):
     log(f"[train] {peak / 2**30:.2f} GiB peak device memory; launches "
         f"{launches} over {TRAIN_STEPS} steps = "
         f"{ {k: n // TRAIN_STEPS for k, n in launches.items()} } per step; "
-        f"backward routes {by_route}")
+        f"routes {by_route}")
     return launches, cfg, tokens
 
 
@@ -706,7 +745,7 @@ def main() -> int:
     shape = "b=4 s=2048 nh=32 nkv=8 hd=128 bf16 causal"
     rows = [
         {"name": "flash_forward", "route": "cuda",
-         "source": src + "flash_fwd.cu",
+         "source": src + "flash_fwd_sm90.cu",
          "replaces": "kubedl_tpu/ops/attention.py:259:_flash_kernel",
          "launches": serving_launches + train_launches["flash_forward"],
          "launches_by_path": {
@@ -716,7 +755,8 @@ def main() -> int:
          "shape": shape, "library": "sdpa forward",
          "serving": {k: fwd[k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
-                                         "library_ms")}},
+                                         "library_ms", "host_ms")},
+         "kernel_route": "sm90", "design": DESIGN["flash_forward"]},
         {"name": "flash_dq", "route": "cuda",
          "source": src + "flash_bwd_sm90.cu",
          "replaces": "kubedl_tpu/ops/attention.py:449:_flash_dq_kernel",
@@ -724,7 +764,7 @@ def main() -> int:
          "max_abs_err": bwd_err["flash_dq"], **times["flash_dq"],
          "shape": shape, "library": "sdpa backward (dq, dk and dv)",
          "kernel_route": "sm90",
-         "design": BWD_DESIGN["flash_dq"]},
+         "design": DESIGN["flash_dq"]},
         {"name": "flash_dkv", "route": "cuda",
          "source": src + "flash_bwd_sm90.cu",
          "replaces": "kubedl_tpu/ops/attention.py:512:_flash_dkv_kernel",
@@ -732,7 +772,7 @@ def main() -> int:
          "max_abs_err": bwd_err["flash_dkv"], **times["flash_dkv"],
          "shape": shape, "library": "sdpa backward (dq, dk and dv)",
          "kernel_route": "sm90",
-         "design": BWD_DESIGN["flash_dkv"]},
+         "design": DESIGN["flash_dkv"]},
     ]
     print(json.dumps({"kernels": rows}))
     print(f"nvidia-smi: {smi}")

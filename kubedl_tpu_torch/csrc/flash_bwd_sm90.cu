@@ -44,12 +44,12 @@
 // element (b*nh + h)*sq + q0, which TMA cannot take unless it falls on 16
 // bytes (sq a multiple of 4).
 
-#include "sm90.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;       // masked score, as the reference
-constexpr float LOG2E = 1.4426950408889634f;
+using namespace flash;
+
 constexpr int NT = 384;                 // 2 consumer warpgroups + producer
 constexpr int STAGES = 2;
 
@@ -65,29 +65,6 @@ struct Params {
   int causal, window, has_off, q_off, k_off;
   float scale;
 };
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  const uint32_t a = sm90::smem_u32(p);
-  return p + ((1024 - (a & 1023)) & 1023);
-}
-
-// the forward's keep-mask for global row/column positions
-__device__ __forceinline__ bool keep_pair(const Params& p, int row, int col) {
-  if (!p.causal) return true;
-  const int gr = row + p.q_off, gc = col + p.k_off;
-  return gc <= gr && (p.window <= 0 || gc > gr - p.window);
-}
-
-// true when no element of rows [r0, r0 + nr) x cols [c0, c0 + nc) needs a
-// mask: inside sq/sk, no segments, and wholly inside the causal band
-__device__ __forceinline__ bool tile_unmasked(const Params& p, int r0, int nr,
-                                              int c0, int nc) {
-  if (p.seg != nullptr || r0 + nr > p.sq || c0 + nc > p.sk) return false;
-  if (!p.causal) return true;
-  const int top = r0 + p.q_off, bottom = r0 + nr - 1 + p.q_off;
-  const int left = c0 + p.k_off, right = c0 + nc - 1 + p.k_off;
-  return right <= top && (p.window <= 0 || left > bottom - p.window);
-}
 
 // lanes of the producer warp copy n values of lse (times log2 e, for exp2)
 // and delta, rows past sq as 0; the lane that then arrives on the tile's
@@ -106,10 +83,6 @@ __device__ __forceinline__ void copy_rows(const Params& p, int bh, int q0,
   }
   __syncwarp();
 }
-
-template <bool F16> struct Elem;
-template <> struct Elem<false> { using T = __nv_bfloat16; };
-template <> struct Elem<true> { using T = __half; };
 
 template <int HD> struct DkvSmem {
   static constexpr int BK = 128, BQ = 64;

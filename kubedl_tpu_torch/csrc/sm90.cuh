@@ -76,6 +76,38 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// a box of shared memory into a rank-4 tensor map; elements outside the
+// tensor are not written. Reads of shared memory complete in order with
+// bulk_wait_read, writes to global memory with bulk_wait.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N committed stores still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+// until at most N committed stores are still incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// order this thread's writes to shared memory before later async-proxy
+// (TMA, wgmma) reads of it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------------- wgmma
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -145,6 +177,19 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
   else KUBEDL_WGMMA_SS64("bf16");
 }
 
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, both K-major in shared memory
+#define KUBEDL_WGMMA_SS128(TY)                                             \
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"              \
+               " wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY   \
+               " {" KUBEDL_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"          \
+               : KUBEDL_D64(d) : "l"(a), "l"(b), "r"(acc))
+template <bool F16>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int acc) {
+  if constexpr (F16) KUBEDL_WGMMA_SS128("f16");
+  else KUBEDL_WGMMA_SS128("bf16");
+}
+
 // d[64 x N] (+)= A[64 x 16] . B[16 x N]: A from registers (the fragment
 // of a 64 x 16 slice of an accumulator), B MN-major in shared memory
 #define KUBEDL_WGMMA_RS64(TY)                                              \
@@ -194,6 +239,17 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   } else {
     __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&h);
+  }
+}
+
+// the two values of a pack2 register back in f32, lo first
+template <bool F16>
+__device__ __forceinline__ float2 unpack2(uint32_t r) {
+  if constexpr (F16) {
+    return __half22float2(*reinterpret_cast<__half2*>(&r));
+  } else {
+    return make_float2(__uint_as_float(r << 16),
+                       __uint_as_float(r & 0xffff0000u));
   }
 }
 

@@ -4,12 +4,15 @@ Counterpart of ``kubedl_tpu/ops/attention.py``, same layouts (q
 ``[b, s, nh, hd]``, k/v ``[b, s, nkv, hd]``, GQA by blocked grouping):
 
 * ``kernel`` — :func:`flash_attention`, a ``torch.autograd.Function``
-  whose forward is :func:`flash_forward` (``csrc/flash_fwd.cu``, the TPU
-  ``_flash_kernel``) and whose backward is :func:`flash_backward`: the dQ
-  kernel (the TPU ``_flash_dq_kernel``) and the dK/dV kernel (the TPU
-  ``_flash_dkv_kernel``), from ``csrc/flash_bwd_sm90.cu`` (tensor cores)
-  for bf16/f16 at head dims 64 and 128, else ``csrc/flash_bwd.cu``
-  (:func:`flash_bwd_route`). CUDA tensors only.
+  whose forward is :func:`flash_forward` (the TPU ``_flash_kernel``) and
+  whose backward is :func:`flash_backward`: the dQ kernel (the TPU
+  ``_flash_dq_kernel``) and the dK/dV kernel (the TPU
+  ``_flash_dkv_kernel``). Each runs on one of two routes
+  (:func:`flash_fwd_route`, :func:`flash_bwd_route`, one rule): ``sm90``,
+  the tensor-core sources ``csrc/flash_fwd_sm90.cu`` and
+  ``csrc/flash_bwd_sm90.cu``, for bf16/f16 at head dims 64 and 128;
+  ``simt``, ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, for the rest.
+  CUDA tensors only.
 * ``plain`` — the same Function on CPU tensors, where every wrapper runs
   its kernel's plain version: the CI path for the kernels' arithmetic
   (the counterpart of ``impl="pallas_interpret"``).
@@ -282,58 +285,105 @@ def _raise_on(lib, err: int, name: str) -> None:
                            f"({lib.kubedl_cuda_error_string(err).decode()})")
 
 
+def _tensor_core_route(dtype, hd: int) -> str:
+    """The one rule of both flash routes: ``"sm90"`` (wgmma tensor-core
+    products, TMA loads) for bf16 and f16 at head dims 64 and 128, which
+    covers the serving and training paths and every Llama-family config;
+    ``"simt"`` (f32 CUDA-core products) for float32 and every other head
+    dim."""
+    if dtype in (torch.bfloat16, torch.float16) and hd in (64, 128):
+        return "sm90"
+    return "simt"
+
+
+def flash_fwd_route(dtype, hd: int) -> str:
+    """Which source a forward launch takes: ``"sm90"``
+    (``csrc/flash_fwd_sm90.cu``) or ``"simt"`` (``csrc/flash_fwd.cu``), by
+    :func:`_tensor_core_route`'s rule."""
+    return _tensor_core_route(dtype, hd)
+
+
+#: route -> (forward kernel source under csrc/, its C entry point)
+_FWD_SOURCES = {"sm90": ("flash_fwd_sm90", "kubedl_flash_fwd90"),
+                "simt": ("flash_fwd", "kubedl_flash_fwd")}
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """``csrc/flash_fwd.cu``, built at first use, with its C signature."""
+def _fwd_lib(route: str) -> ctypes.CDLL:
+    """The route's forward source, built at first use, with its C
+    signature (both routes take the same arguments)."""
     from ._build import library
-    lib = library("flash_fwd")
+    name, entry = _FWD_SOURCES[route]
+    return _bind_fwd(library(name), entry)
+
+
+def _bind_fwd(lib: ctypes.CDLL, entry: str) -> ctypes.CDLL:
+    """Set the C signature of a forward library's entry point ``entry``
+    and of its error-string function."""
     i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-    lib.kubedl_flash_fwd.argtypes = (
-        [ptr] * 6 + [i32] * 7 + [i64] * 9 + [i32] * 5 + [ctypes.c_float, ptr])
-    lib.kubedl_flash_fwd.restype = i32
+    fn = getattr(lib, entry)
+    fn.argtypes = [ptr] * 6 + [i32] * 7 + [i64] * 9 + [i32] * 5 + [
+        ctypes.c_float, ptr]
+    fn.restype = i32
     lib.kubedl_cuda_error_string.argtypes = [i32]
     lib.kubedl_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def flash_forward(q, k, v, causal, segment_ids=None, offsets=None,
-                  window=0):
-    """FlashAttention-2 forward, same contract as
-    :func:`flash_forward_plain`. On CUDA tensors it launches
-    ``csrc/flash_fwd.cu`` (and counts the launch in
-    ``flash_forward.launches``); on CPU tensors it runs the plain
-    version. Anything the kernel does not take raises."""
-    if not q.is_cuda:
-        return flash_forward_plain(q, k, v, causal, segment_ids=segment_ids,
-                                   offsets=offsets, window=window)
-    _check_qkv("flash_forward", q, k, v, window)
+def _fwd_launch(fn, q, k, v, seg, out, lse, causal, offsets, window) -> int:
+    """Call a forward entry point ``fn`` on checked, unit-stride operands;
+    returns its CUDA error code."""
     b, sq, nh, hd = q.shape
     sk, nkv = k.shape[1], k.shape[2]
-    q, k, v = _unit_stride(q, k, v)
-    seg = _segments(segment_ids, b, sq, sk, q.device)
     q_off, k_off = _offsets(offsets)
-    out = torch.empty((b, sq, nh, hd), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b * nh, sq), dtype=torch.float32, device=q.device)
-    if sq == 0 or b * nh == 0:
-        return out, lse
-    if sk == 0:
-        raise ValueError("flash_forward needs at least one key")
-    lib = _lib()
-    err = lib.kubedl_flash_fwd(
+    return fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), 0 if seg is None else seg.data_ptr(),
         _DTYPE_CODES[q.dtype], b, sq, sk, nh, nkv, hd, *_strides(q, k, v),
         int(bool(causal)), int(window), int(offsets is not None), q_off,
         k_off, 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_forward(q, k, v, causal, segment_ids=None, offsets=None,
+                  window=0):
+    """FlashAttention-2 forward, same contract as
+    :func:`flash_forward_plain`. On CUDA tensors it launches the forward
+    kernel of :func:`flash_fwd_route`'s source (counted in
+    ``flash_forward.launches`` and ``flash_forward.launches_by_route``);
+    on CPU tensors it runs the plain version. Anything the kernel does not
+    take raises."""
+    if not q.is_cuda:
+        return flash_forward_plain(q, k, v, causal, segment_ids=segment_ids,
+                                   offsets=offsets, window=window)
+    _check_qkv("flash_forward", q, k, v, window)
+    b, sq, nh, hd = q.shape
+    sk = k.shape[1]
+    q, k, v = _unit_stride(q, k, v)
+    seg = _segments(segment_ids, b, sq, sk, q.device)
+    out = torch.empty((b, sq, nh, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * nh, sq), dtype=torch.float32, device=q.device)
+    if sq == 0 or b * nh == 0:
+        return out, lse
+    if sk == 0:
+        raise ValueError("flash_forward needs at least one key")
+    route = flash_fwd_route(q.dtype, hd)
+    if route == "sm90":
+        _check_tma("flash_forward", q, k, v)
+    lib = _fwd_lib(route)
+    err = _fwd_launch(getattr(lib, _FWD_SOURCES[route][1]), q, k, v, seg,
+                      out, lse, causal, offsets, window)
     _raise_on(lib, err, "flash_forward")
     flash_forward.launches += 1
+    flash_forward.launches_by_route[route] += 1
     return out, lse
 
 
-#: kernel launches since the count was last set to 0 (chip_smoke.py reads
-#: it to show the serving and training paths went through the kernel)
+#: kernel launches since the counts were last set to 0, in all and by
+#: :func:`flash_fwd_route` (chip_smoke.py reads them to show the serving
+#: and training paths went through the kernel)
 flash_forward.launches = 0
+flash_forward.launches_by_route = {"sm90": 0, "simt": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -433,13 +483,9 @@ def flash_backward_plain(q, k, v, o, lse, do, causal, segment_ids=None,
 
 def flash_bwd_route(dtype, hd: int) -> str:
     """Which source a backward launch takes: ``"sm90"``
-    (``csrc/flash_bwd_sm90.cu``: wgmma tensor-core products, TMA loads)
-    for bf16 and f16 at head dims 64 and 128, which covers the training
-    path and every Llama-family config; ``"simt"`` (``csrc/flash_bwd.cu``,
-    f32 CUDA-core products) for float32 and every other head dim."""
-    if dtype in (torch.bfloat16, torch.float16) and hd in (64, 128):
-        return "sm90"
-    return "simt"
+    (``csrc/flash_bwd_sm90.cu``) or ``"simt"`` (``csrc/flash_bwd.cu``), by
+    :func:`_tensor_core_route`'s rule, the forward's."""
+    return _tensor_core_route(dtype, hd)
 
 
 #: route -> (kernel source under csrc/, prefix of its C entry points)
@@ -466,8 +512,8 @@ def _bwd_lib(route: str) -> ctypes.CDLL:
 
 
 def _check_tma(name: str, *ts) -> None:
-    """The tensor-core route loads q, k, v and dO with TMA, which takes
-    only 16-byte aligned bases and strides."""
+    """The tensor-core route loads q, k, v (and the backward's dO) with
+    TMA, which takes only 16-byte aligned bases and strides."""
     for t in ts:
         if t.data_ptr() % 16 or any(x * t.element_size() % 16
                                     for x in t.stride()[:-1]):

@@ -1,6 +1,6 @@
-"""Which source a backward launch takes, what the tensor-core route
-refuses, and the kernel build cache, all on the CPU: no ``nvcc`` and no
-card are needed to decide a route, check an operand or name a build."""
+"""Which source a forward or backward launch takes, what the tensor-core
+route refuses, and the kernel build cache, all on the CPU: no ``nvcc`` and
+no card are needed to decide a route, check an operand or name a build."""
 
 import shutil
 
@@ -24,14 +24,21 @@ ROUTES = [
 ]
 
 
+#: the two route functions, which share one rule
+ROUTE_FNS = {"forward": attn.flash_fwd_route,
+             "backward": attn.flash_bwd_route}
+
+
+@pytest.mark.parametrize("direction", sorted(ROUTE_FNS))
 @pytest.mark.parametrize("dtype,hd,route", ROUTES,
                          ids=[f"{str(d).split('.')[-1]}-hd{h}"
                               for d, h, _ in ROUTES])
-def test_backward_route(dtype, hd, route):
-    """bf16/f16 at head dims 64 and 128 (the training path, every
-    Llama-family config) take the tensor-core kernels; float32 and every
-    other head dim keep the general kernels."""
-    assert attn.flash_bwd_route(dtype, hd) == route
+def test_kernel_route(direction, dtype, hd, route):
+    """bf16/f16 at head dims 64 and 128 (the serving and training paths,
+    every Llama-family config) take the tensor-core kernels, forward and
+    backward; float32 and every other head dim keep the general
+    kernels."""
+    assert ROUTE_FNS[direction](dtype, hd) == route
 
 
 def test_every_route_names_a_source_with_both_entry_points():
@@ -41,6 +48,26 @@ def test_every_route_names_a_source_with_both_entry_points():
             assert f"int {prefix}{fn}(" in src, (route, fn)
         assert attn.flash_dq.launches_by_route.keys() \
             == attn._BWD_SOURCES.keys()
+
+
+def test_every_forward_route_names_a_source_with_its_entry_point():
+    assert attn._FWD_SOURCES.keys() == {"sm90", "simt"}
+    for route, (name, entry) in attn._FWD_SOURCES.items():
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert f"int {entry}(" in src, route
+    assert attn.flash_forward.launches_by_route.keys() \
+        == attn._FWD_SOURCES.keys()
+
+
+def test_cpu_tensors_take_the_plain_forward_and_count_no_launch():
+    q = torch.randn(1, 8, 2, 64).bfloat16()
+    before = (attn.flash_forward.launches,
+              dict(attn.flash_forward.launches_by_route))
+    out, lse = attn.flash_forward(q, q, q, True)
+    ref, ref_lse = attn.flash_forward_plain(q, q, q, True)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    assert (attn.flash_forward.launches,
+            attn.flash_forward.launches_by_route) == before
 
 
 CHECKED = {
@@ -76,25 +103,33 @@ def test_build_name_covers_headers(tmp_path):
     shutil.copytree(_build.CSRC, csrc)
     sources = sorted(csrc.glob("*.cu"))
     assert {s.name for s in sources} >= {"flash_fwd.cu", "flash_bwd.cu",
-                                         "flash_bwd_sm90.cu"}
+                                         "flash_bwd_sm90.cu",
+                                         "flash_fwd_sm90.cu"}
     before = {s.name: _build._target(s) for s in sources}
     assert before == {s.name: _build._target(_build.CSRC / s.name)
                       for s in sources}
-    header = csrc / "sm90.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = {s.name: _build._target(s) for s in sources}
-    for name in before:
-        assert after[name] != before[name], name
-        assert after[name].parent == _build.BUILD_DIR
-        assert after[name].name.startswith(f"lib{name[:-3]}-")
+    headers = sorted(csrc.glob("*.cuh"))
+    assert {h.name for h in headers} >= {"sm90.cuh", "flash_common.cuh"}
+    for header in headers:
+        header.write_text(header.read_text() + "\n// edited\n")
+        after = {s.name: _build._target(s) for s in sources}
+        for name in before:
+            assert after[name] != before[name], (header.name, name)
+            assert after[name].parent == _build.BUILD_DIR
+            assert after[name].name.startswith(f"lib{name[:-3]}-")
+        before = after
 
 
 def test_build_name_covers_the_source(tmp_path):
+    """An edited source renames its own library and no other."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
-    src = csrc / "flash_bwd_sm90.cu"
-    other = csrc / "flash_fwd.cu"
-    before = (_build._target(src), _build._target(other))
-    src.write_text(src.read_text() + "\n// edited\n")
-    assert _build._target(src) != before[0]
-    assert _build._target(other) == before[1]
+    sources = sorted(csrc.glob("*.cu"))
+    for name in ("flash_bwd_sm90.cu", "flash_fwd_sm90.cu"):
+        before = {s.name: _build._target(s) for s in sources}
+        src = csrc / name
+        src.write_text(src.read_text() + "\n// edited\n")
+        after = {s.name: _build._target(s) for s in sources}
+        assert after[name] != before[name], name
+        assert {n: t for n, t in after.items() if n != name} \
+            == {n: t for n, t in before.items() if n != name}, name
