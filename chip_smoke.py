@@ -14,7 +14,8 @@ failure raises and the script exits non-zero before its last line:
    the training shape at b=1, each case on the route ``flash_fwd_route``
    gives it (``sm90``: the tensor-core kernel of ``flash_fwd_sm90.cu``
    for bf16/f16 at hd 64 and 128; ``simt``: ``flash_fwd.cu`` for the
-   rest), timed beside its plain version, SDPA and its bound;
+   rest), timed beside its plain version, SDPA, its bound and the
+   earlier design (``flash_fwd.cu`` on the same bf16 inputs);
 3. serving — Llama-3-8B at full width (random bf16 weights from a seed)
    behind ``InferenceServer`` over ``InferenceEngine``: ``:predict``
    (buffered, streamed, and greedy held against ``greedy_rollout``),
@@ -27,7 +28,8 @@ failure raises and the script exits non-zero before its last line:
    128; ``simt``: ``flash_bwd.cu`` for the rest);
 5. timing at the training shape (b=4, s=2048, Llama-3-8B's heads, bf16,
    causal) — each of the three kernels beside its plain version, SDPA's
-   forward or backward and its bound, and Δ (``flash_delta``);
+   forward or backward and its bound (the forward also beside its
+   earlier design), and Δ (``flash_delta``);
 6. training — ``python -m kubedl_tpu_torch.train``'s ``main`` in-process
    on Llama-3-8B at full width, 8 layers deep, batch 4 x 2048, 6 steps
    on one repeated batch: seconds per step, tokens/s, MFU, peak memory,
@@ -47,6 +49,7 @@ import math
 import subprocess
 import sys
 import time
+import unittest.mock
 import urllib.request
 from pathlib import Path
 
@@ -169,6 +172,19 @@ def _time_ms(torch, fn, reps: int = 50, warmup: int = 5) -> float:
     return ms[len(ms) // 2]
 
 
+def _earlier_fwd_ms(torch, attn, fn, **kw) -> float:
+    """``_time_ms`` of ``fn`` with every forward launch sent to the
+    ``simt`` route: the earlier design of K1 (``flash_fwd.cu``) on inputs
+    the ``sm90`` route takes, timed as the new design is."""
+    with unittest.mock.patch.object(attn, "flash_fwd_route",
+                                    lambda dtype, hd: "simt"):
+        before = attn.flash_forward.launches_by_route["simt"]
+        ms = _time_ms(torch, fn, **kw)
+        if attn.flash_forward.launches_by_route["simt"] == before:
+            raise AssertionError("the earlier design was not launched")
+    return ms
+
+
 def _flash_bound(torch, case, seg, name="flash_forward") -> tuple:
     """(ms, "bytes" or "operations"): the least time for the work these
     inputs need. Each input and output moves once at the HBM rate: K1
@@ -278,6 +294,8 @@ def phase_kernel_check(torch):
     library_ms = _time_ms(
         torch, lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True))
     bound_ms, bound_by = _flash_bound(torch, MAIN, seg)
+    earlier_ms = _earlier_fwd_ms(
+        torch, attn, lambda: attn.flash_forward(q, k, v, causal))
     # the host's share: back-to-back calls, not synchronised, so the card
     # (faster here) waits on the wrapper's checks and the launch
     torch.cuda.synchronize()
@@ -288,12 +306,14 @@ def phase_kernel_check(torch):
     torch.cuda.synchronize()
     log(f"[kernel] flash_forward at b=2 s=512 nh=32 nkv=8 hd=128 bf16 "
         f"causal: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-        f"host path {host_ms:.4f} ms per call back to back")
+        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"earlier design (flash_fwd.cu) {earlier_ms:.4f} ms; host path "
+        f"{host_ms:.4f} ms per call back to back")
     return {"max_abs_err": errs["main"], "train_max_abs_err":
             errs["train_b1"], "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "host_ms": host_ms}
+            "library_ms": library_ms, "earlier_design_ms": earlier_ms,
+            "host_ms": host_ms}
 
 
 def _post(url: str, path: str, body: dict) -> str:
@@ -551,10 +571,16 @@ def phase_timing(torch):
         bound_ms, bound_by = _flash_bound(torch, case, None, name)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
+        if name == "flash_forward":
+            rows[name]["earlier_design_ms"] = _earlier_fwd_ms(
+                torch, attn, kernel, reps=20, warmup=2)
         log(f"[time] {name} at b=4 s=2048 nh=32 nkv=8 hd=128 bf16 causal: "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
             f"{'backward ' if name != 'flash_forward' else ''}"
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+            + (f", earlier design (flash_fwd.cu) "
+               f"{rows[name]['earlier_design_ms']:.4f} ms"
+               if name == "flash_forward" else ""))
     rows["flash_dq"]["delta_ms"] = _time_ms(
         torch, lambda: attn.flash_delta(o, do), reps=20, warmup=2)
     log(f"[time] flash_delta (PyTorch) at the same shape: "
@@ -755,7 +781,8 @@ def main() -> int:
          "shape": shape, "library": "sdpa forward",
          "serving": {k: fwd[k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
-                                         "library_ms", "host_ms")},
+                                         "library_ms", "earlier_design_ms",
+                                         "host_ms")},
          "kernel_route": "sm90", "design": DESIGN["flash_forward"]},
         {"name": "flash_dq", "route": "cuda",
          "source": src + "flash_bwd_sm90.cu",

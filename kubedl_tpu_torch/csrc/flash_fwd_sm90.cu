@@ -38,8 +38,7 @@
 //     (from the f32 P) and reduced once per q tile, exp is one
 //     ex2.approx; only tiles that tile_unmasked does not clear are masked,
 //     branch-free. The two warpgroups' products and softmaxes interleave
-//     on the SM's tensor cores and other units (issuing the next S with
-//     this P.V, KUBEDL_FWD_AHEAD, measured no faster);
+//     on the SM's tensor cores and other units;
 //   * P is rounded to the operand type before P.V (as SDPA does), except
 //     on the edge tiles that need a mask (the causal diagonal, window
 //     edges, ragged tails, segments): there a row may see only a few keys
@@ -54,33 +53,24 @@
 // exactly, and a row whose max is still that value writes -1e30 +
 // log(sum), as the reference's -1e30 + log(n) rounds; the others write
 // m2 * ln 2 + log(sum). The backward's fully masked rows depend on it.
-// The knobs below select the variants measured by
-// kubedl_tpu_torch/ops/tune_flash_fwd.py; the defaults are the fastest at
-// the training shape within the spread of repeated runs, and the
-// fastest of those at the serving shape.
+// The tile sizes and stages are the fastest of the variants timed on an
+// H100 (PERF.md): 64-key tiles, 2 stages, one warpgroup per block (2
+// blocks per SM) and the next S issued with this P.V were slower at the
+// training shape.
 
 #include <math_constants.h>
 
 #include "flash_common.cuh"
-
-#ifndef KUBEDL_FWD_NWG
-#define KUBEDL_FWD_NWG 2        // consumer warpgroups per block (1: 2 blocks/SM)
-#endif
-#ifndef KUBEDL_FWD_BK
-#define KUBEDL_FWD_BK 128       // keys per K/V tile: 64 or 128
-#endif
-#ifndef KUBEDL_FWD_STAGES
-#define KUBEDL_FWD_STAGES 3     // K/V tiles in flight
-#endif
-#ifndef KUBEDL_FWD_AHEAD
-#define KUBEDL_FWD_AHEAD 0      // 1: issue the next S with this P.V
-#endif
 
 namespace {
 
 using namespace flash;
 
 constexpr float LN2 = 0.6931471805599453f;
+constexpr int NWG = 2;          // consumer warpgroups per block, 1 block/SM
+constexpr int BQ = 64 * NWG;    // q rows per tile
+constexpr int BK = 128;         // keys per K/V tile
+constexpr int ST = 3;           // K/V tiles in flight
 
 struct Params {
   CUtensorMap tm_q, tm_k, tm_v, tm_o;   // tm_o: out [b, sq, nh, hd]
@@ -92,8 +82,7 @@ struct Params {
   float scale;
 };
 
-template <int HD, int NWG, int BK, int ST> struct FwdSmem {
-  static constexpr int BQ = 64 * NWG;
+template <int HD> struct FwdSmem {
   static constexpr int Q = BQ * HD * 2, KV = BK * HD * 2;
   static constexpr int QS = 0, KS = Q, VS = KS + ST * KV;
   static constexpr int BAR = VS + ST * KV;
@@ -101,22 +90,21 @@ template <int HD, int NWG, int BK, int ST> struct FwdSmem {
 };
 
 // S = Q . K^T for one warpgroup's 64 rows and one BK-key tile
-template <bool F16, int HD, int BK>
+template <bool F16, int HD>
 __device__ __forceinline__ void issue_s(float (&s)[BK / 2], uint32_t q_u,
-                                        uint32_t k_u, int bq) {
+                                        uint32_t k_u) {
   #pragma unroll
   for (int k = 0; k < HD / 16; ++k) {
-    const uint64_t a = sm90::desc_sw128(q_u + (k / 4) * bq * 128 + (k % 4) * 32,
+    const uint64_t a = sm90::desc_sw128(q_u + (k / 4) * BQ * 128 + (k % 4) * 32,
                                         16, 1024);
     const uint64_t b = sm90::desc_sw128(k_u + (k / 4) * BK * 128 + (k % 4) * 32,
                                         16, 1024);
-    if constexpr (BK == 64) sm90::wgmma_ss_n64<F16>(s, a, b, k);
-    else sm90::wgmma_ss_n128<F16>(s, a, b, k);
+    sm90::wgmma_ss_n128<F16>(s, a, b, k);
   }
 }
 
 // O += P . V over one tile's BK keys, P from registers, V MN-major
-template <bool F16, int HD, int BK>
+template <bool F16, int HD>
 __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
                                          const uint32_t (&pa)[BK / 4],
                                          uint32_t v_u) {
@@ -131,7 +119,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
 // running max m2 (log2 units) and per-lane sum l are updated, and alpha
 // is the O rescale per row. An edge tile (one that needs a mask) is
 // masked first.
-template <int BK>
 __device__ __forceinline__ void softmax_tile(
     const Params& p, bool edge, float (&s)[BK / 2], float (&m2)[2],
     float (&l)[2], float (&alpha)[2], int seg_base, const int (&seg_q)[2],
@@ -184,7 +171,7 @@ __device__ __forceinline__ void softmax_tile(
 }
 
 // P rounded to the operand type, as the A operand of P . V
-template <bool F16, int BK>
+template <bool F16>
 __device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
                                        uint32_t (&pa)[BK / 4]) {
   #pragma unroll
@@ -193,16 +180,16 @@ __device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
 
 // the tiles [a, b) of the block's range [lower, lower + n_iter) that the
 // rows [qw0, qw0 + 64) can see (causal without offsets); none past sq
-__device__ __forceinline__ int2 wg_tiles(const Params& p, int qw0, int bk,
-                                         int lower, int n_iter) {
+__device__ __forceinline__ int2 wg_tiles(const Params& p, int qw0, int lower,
+                                         int n_iter) {
   int a = 0, b = n_iter;
   if (qw0 >= p.sq) {
     b = 0;
   } else if (p.causal && !p.has_off) {
-    b = min(n_iter, (qw0 + 64 + bk - 1) / bk - lower);
+    b = min(n_iter, (qw0 + 64 + BK - 1) / BK - lower);
     if (p.window > 0) {
       const int first_col = qw0 - (p.window - 1);
-      a = max(0, (first_col > 0 ? first_col / bk : 0) - lower);
+      a = max(0, (first_col > 0 ? first_col / BK : 0) - lower);
     }
   }
   return make_int2(a, b);
@@ -213,9 +200,9 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
-// A persistent grid: each block takes (b*nh, 64 * NWG-row q) tiles in
-// turn, so one tile's epilogue and the next one's Q load overlap the
-// K/V stream, which runs on across tiles. The tiles are ordered heaviest
+// A persistent grid: each block takes (b*nh, BQ-row q) tiles in turn, so
+// one tile's epilogue and the next one's Q load overlap the K/V stream,
+// which runs on across tiles. The tiles are ordered heaviest
 // q tile first and dealt in a snake (round k: block i takes tile k*G + i,
 // or k*G + G-1-i on odd rounds), which balances the causal work. The
 // producer streams each tile's K/V tiles inside the causal and window
@@ -223,11 +210,11 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 // once S is computed. Each consumer warpgroup owns 64 q rows; it writes
 // its O rows through shared memory (its Q rows, dead after its last S)
 // with a TMA store, and lse from registers.
-template <bool F16, int HD, int NWG, int BK, int ST, bool AHEAD>
-__global__ void __launch_bounds__(128 * (NWG + 1), 2 / NWG)
+template <bool F16, int HD>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
 flash_fwd_kernel(const __grid_constant__ Params p) {
-  using L = FwdSmem<HD, NWG, BK, ST>;
-  constexpr int BQ = L::BQ, NB = HD / 64;
+  using L = FwdSmem<HD>;
+  constexpr int NB = HD / 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
@@ -279,8 +266,7 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
   // it controls (ptxas serializes wgmma on paths it thinks divergent)
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == NWG) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 :: "n"(NWG == 2 ? 40 : 24));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     // lane 0 of the producer warpgroup's first warp streams K/V, lane 0 of
     // its second warp loads each tile's Q once the previous tile's O has
     // left the Q rows, so the K/V stream runs on across tiles
@@ -315,8 +301,7 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
-                 :: "n"(NWG == 2 ? 232 : 216));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int r0 = 16 * warp + lane / 4;     // my q rows: r0 and r0 + 8
     const int cq = 2 * (lane % 4);           // my columns: 8j + cq + {0, 1}
@@ -360,7 +345,7 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
       sm90::fence_regs(s);
       __syncwarp();
       sm90::wgmma_fence();
-      issue_s<F16, HD, BK>(s, q_u, k_smem(it), BQ);
+      issue_s<F16, HD>(s, q_u, k_smem(it));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(s);
@@ -373,7 +358,7 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
       sm90::fence_regs(pa);
       __syncwarp();
       sm90::wgmma_fence();
-      issue_pv<F16, HD, BK>(o, pa, v_smem(it));
+      issue_pv<F16, HD>(o, pa, v_smem(it));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
@@ -381,8 +366,7 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
       release(empty_v, it);
     };
     // on an edge tile, O += (P - pa).V with the rest rounded again, waited
-    // for: with pa.V it keeps P.V to ~2^-17 of P. Its registers live only
-    // here, not across the softmax that runs under the next P.V
+    // for: with pa.V it keeps P.V to ~2^-17 of P
     auto pv_rest = [&](int it) {
       uint32_t lo[BK / 4];
       #pragma unroll
@@ -395,7 +379,7 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
       sm90::fence_regs(lo);
       __syncwarp();
       sm90::wgmma_fence();
-      issue_pv<F16, HD, BK>(o, lo, v_smem(it));
+      issue_pv<F16, HD>(o, lo, v_smem(it));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
@@ -409,7 +393,7 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
       const int qw0 = tl.q0 + 64 * wg;       // this warpgroup's first q row
       // the tiles [a, b) this warpgroup's rows can see; it only releases
       // the others
-      const int2 ab = wg_tiles(p, qw0, BK, lower, n_iter);
+      const int2 ab = wg_tiles(p, qw0, lower, n_iter);
       const int a = ab.x, b = ab.y;
       int seg_q[2] = {0, 0};
       if (p.seg != nullptr)
@@ -420,70 +404,22 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
       for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
       m2[0] = m2[1] = neg_l2;
       l[0] = l[1] = 0.f;
-      // tiles that need a mask: there a row may see only a few keys, its
-      // output then has the size of one V row, and P.V takes the rest of
-      // P too (pv_rest)
-      auto edge_tile = [&](int it) {
-        return !tile_unmasked(p, qw0, 64, (lower + it) * BK, BK);
-      };
-      // softmax of tile it in place in S, P packed; the rescale of O by
-      // alpha is the caller's
-      auto softmax = [&](int it, bool edge) {
-        softmax_tile<BK>(p, edge, s, m2, l, alpha, seg_base, seg_q, qw0, r0,
-                         cq, (lower + it) * BK, scale_l2, neg_l2);
-      };
-
       sm90::mbar_wait(q_full, k & 1);
       for (int it = 0; it < min(a, n_iter); ++it) skip(it);
-      if constexpr (!AHEAD) {
-        for (int it = a; it < b; ++it) {
-          s_tile(it);
-          const bool edge = edge_tile(it);
-          softmax(it, edge);
-          pack_p<F16, BK>(s, pa);
-          #pragma unroll
-          for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-          if (edge) pv_rest(it);
-          pv_tile(it);
-        }
-      } else if (a < b) {
-        // S of tile a; then per tile, S of the next tile and P.V of this
-        // one in flight together, the next softmax under P.V; P.V of the
-        // last tile alone
-        s_tile(a);
-        const bool edge = edge_tile(a);
-        softmax(a, edge);
-        pack_p<F16, BK>(s, pa);
-        if (edge) pv_rest(a);
-        for (int it = a; it < b - 1; ++it) {
-          const bool edge_next = edge_tile(it + 1);
-          wait_k(it + 1);
-          wait_v(it);
-          sm90::fence_regs(o);
-          sm90::fence_regs(pa);
-          sm90::fence_regs(s);
-          __syncwarp();
-          sm90::wgmma_fence();
-          issue_s<F16, HD, BK>(s, q_u, k_smem(it + 1), BQ);
-          sm90::wgmma_commit();
-          issue_pv<F16, HD, BK>(o, pa, v_smem(it));
-          sm90::wgmma_commit();
-          // the next softmax in place in S while P.V runs; P is packed
-          // once P.V has read the registers it overwrites
-          sm90::wgmma_wait<1>();
-          sm90::fence_regs(s);
-          release(empty_k, it + 1);
-          softmax(it + 1, edge_next);
-          sm90::wgmma_wait<0>();
-          sm90::fence_regs(o);
-          sm90::fence_regs(pa);
-          release(empty_v, it);
-          #pragma unroll
-          for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-          pack_p<F16, BK>(s, pa);
-          if (edge_next) pv_rest(it + 1);
-        }
-        pv_tile(b - 1);
+      for (int it = a; it < b; ++it) {
+        s_tile(it);
+        // a tile that needs a mask: there a row may see only a few keys,
+        // its output then has the size of one V row, and P.V takes the
+        // rest of P too (pv_rest)
+        const int k0 = (lower + it) * BK;
+        const bool edge = !tile_unmasked(p, qw0, 64, k0, BK);
+        softmax_tile(p, edge, s, m2, l, alpha, seg_base, seg_q, qw0, r0, cq,
+                     k0, scale_l2, neg_l2);
+        pack_p<F16>(s, pa);
+        #pragma unroll
+        for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        if (edge) pv_rest(it);
+        pv_tile(it);
       }
       for (int it = max(a, b); it < n_iter; ++it) skip(it);
       g0 += n_iter;
@@ -536,20 +472,16 @@ struct Args {
 
 template <bool F16, int HD>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int NWG = KUBEDL_FWD_NWG, BK = KUBEDL_FWD_BK, ST = KUBEDL_FWD_STAGES;
-  using L = FwdSmem<HD, NWG, BK, ST>;
-  static_assert(NWG == 1 || NWG == 2, "1 or 2 consumer warpgroups");
-  static_assert(BK == 64 || BK == 128, "K/V tiles of 64 or 128 keys");
-  static_assert(L::BYTES <= (NWG == 2 ? 227 : 113) * 1024,
-                "the stages do not fit the shared memory of 2 / NWG blocks");
-  auto kernel = flash_fwd_kernel<F16, HD, NWG, BK, ST, KUBEDL_FWD_AHEAD != 0>;
+  using L = FwdSmem<HD>;
+  static_assert(L::BYTES <= 227 * 1024, "the stages do not fit the SM");
+  auto kernel = flash_fwd_kernel<F16, HD>;
   Params p;
   const bool f16 = a.dtype == 2;
   // out is the wrapper's contiguous [b, sq, nh, hd]; its boxes are one
   // warpgroup's 64 rows
   const int64_t o_ss = static_cast<int64_t>(a.nh) * a.hd;
   if (!sm90::map_bshd(&p.tm_q, a.q, f16, a.b, a.sq, a.nh, a.hd, a.q_sb,
-                      a.q_ss, a.q_sh, L::BQ)
+                      a.q_ss, a.q_sh, BQ)
       || !sm90::map_bshd(&p.tm_k, a.k, f16, a.b, a.sk, a.nkv, a.hd, a.k_sb,
                          a.k_ss, a.k_sh, BK)
       || !sm90::map_bshd(&p.tm_v, a.v, f16, a.b, a.sk, a.nkv, a.hd, a.v_sb,
@@ -561,22 +493,20 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   p.seg = static_cast<const int32_t*>(a.seg);
   p.sq = a.sq; p.sk = a.sk; p.nh = a.nh; p.nkv = a.nkv;
   p.bhn = a.b * a.nh;
-  p.num_qt = (a.sq + L::BQ - 1) / L::BQ;
+  p.num_qt = (a.sq + BQ - 1) / BQ;
   p.causal = a.causal; p.window = a.window; p.has_off = a.has_off;
   p.q_off = a.q_off; p.k_off = a.k_off; p.scale = a.scale;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return err;
-  // a persistent grid: as many blocks as are resident at once (2 / NWG
-  // per SM), none idle
+  // a persistent grid: one block per SM, none idle
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess
       || (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                        dev)) != cudaSuccess)
     return err;
   const int64_t n_tiles = static_cast<int64_t>(p.bhn) * p.num_qt;
-  const int grid = static_cast<int>(
-      n_tiles < sms * (2 / NWG) ? n_tiles : sms * (2 / NWG));
+  const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
   kernel<<<grid, 128 * (NWG + 1), L::BYTES, stream>>>(p);
   return cudaGetLastError();
 }

@@ -314,12 +314,7 @@ def _fwd_lib(route: str) -> ctypes.CDLL:
     signature (both routes take the same arguments)."""
     from ._build import library
     name, entry = _FWD_SOURCES[route]
-    return _bind_fwd(library(name), entry)
-
-
-def _bind_fwd(lib: ctypes.CDLL, entry: str) -> ctypes.CDLL:
-    """Set the C signature of a forward library's entry point ``entry``
-    and of its error-string function."""
+    lib = library(name)
     i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
     fn = getattr(lib, entry)
     fn.argtypes = [ptr] * 6 + [i32] * 7 + [i64] * 9 + [i32] * 5 + [
@@ -328,21 +323,6 @@ def _bind_fwd(lib: ctypes.CDLL, entry: str) -> ctypes.CDLL:
     lib.kubedl_cuda_error_string.argtypes = [i32]
     lib.kubedl_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _fwd_launch(fn, q, k, v, seg, out, lse, causal, offsets, window) -> int:
-    """Call a forward entry point ``fn`` on checked, unit-stride operands;
-    returns its CUDA error code."""
-    b, sq, nh, hd = q.shape
-    sk, nkv = k.shape[1], k.shape[2]
-    q_off, k_off = _offsets(offsets)
-    return fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), 0 if seg is None else seg.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, sq, sk, nh, nkv, hd, *_strides(q, k, v),
-        int(bool(causal)), int(window), int(offsets is not None), q_off,
-        k_off, 1.0 / math.sqrt(hd),
-        torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_forward(q, k, v, causal, segment_ids=None, offsets=None,
@@ -358,9 +338,10 @@ def flash_forward(q, k, v, causal, segment_ids=None, offsets=None,
                                    offsets=offsets, window=window)
     _check_qkv("flash_forward", q, k, v, window)
     b, sq, nh, hd = q.shape
-    sk = k.shape[1]
+    sk, nkv = k.shape[1], k.shape[2]
     q, k, v = _unit_stride(q, k, v)
     seg = _segments(segment_ids, b, sq, sk, q.device)
+    q_off, k_off = _offsets(offsets)
     out = torch.empty((b, sq, nh, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * nh, sq), dtype=torch.float32, device=q.device)
     if sq == 0 or b * nh == 0:
@@ -371,8 +352,13 @@ def flash_forward(q, k, v, causal, segment_ids=None, offsets=None,
     if route == "sm90":
         _check_tma("flash_forward", q, k, v)
     lib = _fwd_lib(route)
-    err = _fwd_launch(getattr(lib, _FWD_SOURCES[route][1]), q, k, v, seg,
-                      out, lse, causal, offsets, window)
+    err = getattr(lib, _FWD_SOURCES[route][1])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), 0 if seg is None else seg.data_ptr(),
+        _DTYPE_CODES[q.dtype], b, sq, sk, nh, nkv, hd, *_strides(q, k, v),
+        int(bool(causal)), int(window), int(offsets is not None), q_off,
+        k_off, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, err, "flash_forward")
     flash_forward.launches += 1
     flash_forward.launches_by_route[route] += 1

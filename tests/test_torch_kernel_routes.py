@@ -70,6 +70,23 @@ def test_cpu_tensors_take_the_plain_forward_and_count_no_launch():
             attn.flash_forward.launches_by_route) == before
 
 
+@pytest.mark.parametrize("dtype,hd", [(torch.float16, 128),
+                                      (torch.float32, 64)])
+def test_cpu_tensors_take_the_plain_forward_on_either_route(dtype, hd):
+    """Whichever route the dtype and head dim name, CPU tensors take the
+    plain version, with its window and offsets, and launch nothing."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 24, 4, hd, generator=g).to(dtype)
+    k, v = (torch.randn(1, 40, 2, hd, generator=g).to(dtype)
+            for _ in range(2))
+    kw = dict(offsets=(16, 0), window=12)
+    before = dict(attn.flash_forward.launches_by_route)
+    out, lse = attn.flash_forward(q, k, v, True, **kw)
+    ref, ref_lse = attn.flash_forward_plain(q, k, v, True, **kw)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    assert attn.flash_forward.launches_by_route == before
+
+
 CHECKED = {
     "contiguous": (lambda t: t, True),
     "transposed_heads": (lambda t: t.transpose(1, 2).contiguous()
