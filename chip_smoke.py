@@ -327,7 +327,8 @@ def _post(url: str, path: str, body: dict) -> str:
 
 
 def phase_serving(torch, cfg, device="cuda"):
-    """Drive the serving path; returns flash_forward launches during it."""
+    """Drive the serving path; returns (flash_forward launches during it,
+    the model's parameters)."""
     import numpy as np
 
     from kubedl_tpu_torch.models import llama
@@ -465,7 +466,556 @@ def phase_serving(torch, cfg, device="cuda"):
             f"({perf['decode_tokens_per_s']:.1f} tokens/s)")
     finally:
         srv.stop()
-    return launches
+    return launches, eng.params
+
+
+#: how far a served greedy token may lie from the reference, the plain
+#: forward teacher-forced on the served tokens: its logit below the
+#: reference's largest, and its log-probability from the reference's. Two
+#: bf16 computations of one logit row that round at other places (a
+#: [lanes, 1] decode tick against a prompt-long prefill, bucket padding, a
+#: verify chunk) differ by up to two bf16 ulps at |logit| 4-8, where this
+#: model's largest logits lie (0.0625), so candidates that close are a tie
+#: either side may win. A run passes when at most ``NEAR_TIE_SHARE`` of
+#: its tokens lie beyond ``NEAR_TIE`` and none beyond twice it; the
+#: continuous phase plants lost K/V writes that must fail this.
+NEAR_TIE = 0.07
+NEAR_TIE_SHARE = 0.01
+#: the continuous-serving phase's 16 prompts (31-512 tokens); those at
+#: PREFIXED start with one 256-token system prompt (4 pool blocks of 64)
+CONT_LENS = (31, 512, 97, 300, 64, 200, 128, 450, 40, 256, 77, 380, 150,
+             500, 90, 220)
+PREFIXED = (3, 7, 11, 13)
+SYSTEM_LEN = 256
+CONT_LANES, CONT_MAX_LEN = 8, 1024
+
+
+def _cont_requests(cfg) -> tuple:
+    """(system prompt, [(prompt, max_new)] x 16): 32-64 new tokens each."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    system = rng.integers(3, cfg.vocab_size, SYSTEM_LEN).tolist()
+    reqs = []
+    for i, n in enumerate(CONT_LENS):
+        p = rng.integers(3, cfg.vocab_size, n).tolist()
+        if i in PREFIXED:
+            p = system + p[SYSTEM_LEN:]
+        reqs.append((p, 32 + (7 * i) % 33))
+    return system, reqs
+
+
+def _gaps(torch, cfg, params, prompt, toks, lps=None) -> tuple:
+    """Per generated position: the reference's largest logit minus its
+    logit of the served token (0 where that token is its argmax) and, with
+    the served log-probabilities ``lps``, their distance from the
+    reference's (else None). The reference is ``forward_step`` over
+    prompt + served tokens in one pass."""
+    from kubedl_tpu_torch.models import llama
+    seq = torch.as_tensor([prompt + toks[:-1]], device="cuda")
+    with torch.no_grad():
+        cache = llama.init_cache(cfg, 1, seq.shape[1], device="cuda")
+        logits, _ = llama.forward_step(cfg, params, seq, cache, 0,
+                                       all_logits=True)
+    ref = logits[0, len(prompt) - 1:]
+    got = torch.as_tensor(toks, device="cuda")[:, None]
+    top, mine = ref.max(-1).values, ref.gather(-1, got)[:, 0]
+    if lps is None:
+        return (top - mine).cpu(), None
+    lp = torch.log_softmax(ref, -1).gather(-1, got)[:, 0]
+    return (top - mine).cpu(), (torch.as_tensor(lps, device="cuda")
+                                - lp).abs().cpu()
+
+
+def _reading(torch, cfg, params, reqs, outs, lps=None) -> dict:
+    """The served tokens against the reference (see ``_gaps``): positions
+    off its argmax, the largest gap and log-probability distance, the
+    positions beyond ``NEAR_TIE`` on either, and whether the run passes
+    (``ok``)."""
+    r = {"tokens": sum(len(t) for t in outs), "off_argmax": 0,
+         "max_gap": 0.0, "max_dlp": None, "beyond": 0}
+    for i, ((prompt, n), toks) in enumerate(zip(reqs, outs)):
+        if len(toks) != n:
+            raise AssertionError(f"request {i} got {len(toks)} tokens, "
+                                 f"wants {n}")
+        g, d = _gaps(torch, cfg, params, prompt, toks,
+                     None if lps is None else lps[i])
+        r["off_argmax"] += int((g > 0).sum())
+        r["max_gap"] = max(r["max_gap"], float(g.max()))
+        beyond = g > NEAR_TIE
+        if d is not None:
+            r["max_dlp"] = max(r["max_dlp"] or 0.0, float(d.max()))
+            beyond |= d > NEAR_TIE
+        r["beyond"] += int(beyond.sum())
+    worst = max(r["max_gap"], r["max_dlp"] or 0.0)
+    r["ok"] = (worst <= 2 * NEAR_TIE
+               and r["beyond"] <= NEAR_TIE_SHARE * r["tokens"])
+    return r
+
+
+def _describe(r) -> str:
+    lp = ("" if r["max_dlp"] is None else
+          f", of a log-probability {r['max_dlp']:.4f}")
+    return (f"{r['tokens']} tokens; the reference's greedy choice at all but "
+            f"{r['off_argmax']} positions; largest gap {r['max_gap']:.4f}"
+            f"{lp}; {r['beyond']} positions beyond {NEAR_TIE} (limits: "
+            f"{NEAR_TIE_SHARE:.0%} of the tokens, none beyond "
+            f"{2 * NEAR_TIE})")
+
+
+def _hold(torch, cfg, params, reqs, outs, label, want=None,
+          want_label="", exact=False, lps=None) -> dict:
+    """Every served token is the reference's greedy choice up to a near
+    tie and, with ``lps``, has its log-probability (``_reading``'s
+    limits); with ``want``, count the requests whose tokens are identical
+    to it and, with ``exact``, require all of them to be."""
+    try:
+        r = _reading(torch, cfg, params, reqs, outs, lps)
+    except AssertionError as e:
+        raise AssertionError(f"{label}: {e}") from None
+    same, diverge = 0, []
+    for i, toks in enumerate(outs if want is not None else []):
+        if toks == want[i]:
+            same += 1
+        else:
+            diverge.append((i, next(j for j, (a, b) in
+                                     enumerate(zip(toks, want[i]))
+                                     if a != b)))
+    msg = f"[cont] {label}: {len(outs)} requests, {_describe(r)}"
+    if want is not None:
+        msg += (f"; identical to {want_label}: {same}/{len(outs)} requests"
+                + (f", first divergence (request, token) {diverge}"
+                   if diverge else ""))
+    log(msg)
+    if not r["ok"]:
+        raise AssertionError(f"{label}: the served tokens lie beyond the "
+                             f"near-tie limits of the reference")
+    if exact and diverge:
+        raise AssertionError(f"{label}: tokens differ from {want_label} at "
+                             f"{diverge}")
+    return {**r, "identical": same}
+
+
+def _run(eng, reqs) -> tuple:
+    """``eng.run(reqs)`` with each token's log-probability: (tokens,
+    log-probabilities), one list per request."""
+    rs = [eng.submit(p, n, logprobs=True) for p, n in reqs]
+    eng.run([])                     # steps inline until every request ends
+    return [r.result() for r in rs], [list(r.logprobs) for r in rs]
+
+
+def _lost_write(llama, pool, layer):
+    """``attention_step`` with ``layer``'s decode-tick K/V writes lost: the
+    tick writes into a copy of that layer's pool, so later ticks read
+    whatever the slots held before. A planted fault for the check."""
+    orig = llama.attention_step
+    ptr = pool["k"][layer].data_ptr()
+
+    def step(config, x, lp, kc, vc, *args, **kw):
+        if x.shape[1] == 1 and kc.data_ptr() == ptr:
+            x = orig(config, x, lp, kc.clone(), vc.clone(), *args, **kw)[0]
+            return x, kc, vc
+        return orig(config, x, lp, kc, vc, *args, **kw)
+
+    return step
+
+
+def _graph_only(eng, label) -> dict:
+    """Every decode tick the engine ran on the card took the graph route."""
+    ticks = eng.tick_launches
+    if ticks["eager"] or not ticks["graph"]:
+        raise AssertionError(f"{label}: decode ticks by route {ticks}; every "
+                             f"card tick should replay the graph")
+    return ticks
+
+
+def _tick_ms(torch, eng, route, reps=20) -> float:
+    """Host wall time of one decode tick on the engine's lane state, the
+    sampled tokens on the host (what the scheduler waits for)."""
+    for _ in range(3):
+        eng.decode_tick(route).argmax(-1).cpu()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eng.decode_tick(route).argmax(-1).cpu()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _tick_bound_ms(cfg, params, lanes, live) -> tuple:
+    """(ms, weight GB): every weight read once except the embedding
+    table, of which only the lanes' rows are read; the K/V of the ``live``
+    cached tokens read and the lanes' new K/V written, at the HBM rate.
+    The tick's 2 x params x lanes operations take ~1% of that at the bf16
+    peak, so bytes bound it."""
+    w = sum(t.numel() * t.element_size()
+            for k, v in params.items() if k != "embed"
+            for t in (v.values() if isinstance(v, dict) else [v]))
+    w += lanes * cfg.d_model * params["embed"].element_size()
+    kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2 * (live + lanes)
+    return 1e3 * (w + kv) / HBM_BYTES_PER_S, w / 1e9
+
+
+def _tick_launches(torch, eng, route) -> tuple:
+    """(host launch calls, device kernels, device busy ms) of one tick,
+    counted as ``profile_torch_serving.py`` counts them."""
+    from profile_torch_serving import device_profile
+    eng.decode_tick(route).argmax(-1).cpu()
+    p = device_profile(lambda: eng.decode_tick(route).argmax(-1).cpu())
+    return p["host_calls"], len(p["kernels"]), p["busy_us"] / 1e3
+
+
+def phase_continuous(torch, cfg, params) -> dict:
+    """The predictor's engine, ``ContinuousBatchingEngine``, on Llama-3-8B
+    at full width and depth (the serving phase's weights): (a) 16 greedy
+    requests through ``InferenceServer`` against ``greedy_rollout``; (b)
+    parity, a shrunk pool that preempts and prefill lanes that hand off;
+    (c) a registered prefix; (d) speculative lanes with the target's
+    first 2 layers as the draft; (e) the graph tick against the eager tick
+    at 1, 4 and 8 lanes. Between (a) and (b), lost K/V writes are planted
+    and the check must refuse them."""
+    import dataclasses
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          InferenceServer, ServerConfig)
+    from kubedl_tpu_torch.serving.engine import greedy_rollout
+
+    torch.cuda.reset_peak_memory_stats()
+    system, reqs = _cont_requests(cfg)
+    out = {}
+
+    def engine(**kw):
+        kw.setdefault("lanes", CONT_LANES)
+        return ContinuousBatchingEngine(cfg, params, max_len=CONT_MAX_LEN,
+                                        device="cuda", **kw)
+
+    # (a) the predictor's default engine (paged, 8 lanes) behind the server
+    eng = engine().start()
+    srv = InferenceServer(eng, ServerConfig(
+        model_name="llama3-8b", host="127.0.0.1", port=0, max_batch=16,
+        max_new_tokens=128)).start()
+    try:
+        t0 = time.perf_counter()
+        json.loads(_post(srv.url, "/v1/models/llama3-8b:predict", {
+            "instances": [{"prompt_tokens": [1, 2, 3], "max_tokens": 2}]}))
+        log(f"[cont] first request (captures the decode graph) "
+            f"{time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        got = json.loads(_post(srv.url, "/v1/models/llama3-8b:predict", {
+            "instances": [{"prompt_tokens": p, "max_tokens": n,
+                           "logprobs": True} for p, n in reqs]}))
+        wall = time.perf_counter() - t0
+        served = [p["tokens"] for p in got["predictions"]]
+        served_lps = [p["logprobs"] for p in got["predictions"]]
+        n_tok = sum(len(t) for t in served)
+        out["tokens_per_s"] = n_tok / wall
+        log(f"[cont] (a) 16 requests (prompts {min(CONT_LENS)}-"
+            f"{max(CONT_LENS)} tokens, {sum(n for _, n in reqs)} new) on 8 "
+            f"lanes through :predict in {wall:.3f} s: {n_tok} tokens, "
+            f"{out['tokens_per_s']:.1f} tokens/s, peak active lanes "
+            f"{eng.peak_active}")
+        ttft = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.submit(reqs[1][0], 1).result(timeout=120)
+            ttft.append(1e3 * (time.perf_counter() - t0))
+        out["ttft_ms"] = ttft
+        log(f"[cont] TTFT of a 512-token prompt (prefill + first token, one "
+            f"request on an idle engine): {[round(x, 3) for x in ttft]} ms")
+    finally:
+        srv.stop()
+        eng.stop()
+    out["ticks_a"] = _graph_only(eng, "(a)")
+    del eng
+    gc.collect()                 # an engine and its ticks form a cycle
+    t0 = time.perf_counter()
+    rolled = [greedy_rollout(cfg, params, [p], n)[0].tolist()
+              for p, n in reqs]
+    log(f"[cont] greedy_rollout of the 16 prompts in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["a"] = _hold(torch, cfg, params, reqs, served, "(a) continuous",
+                     want=rolled, want_label="greedy_rollout",
+                     lps=served_lps)
+
+    # the check must refuse a faulty engine: one layer's decode-tick K/V
+    # writes lost, planted in the middle layer and in the last
+    out["planted"] = {}
+    for layer in (cfg.n_layers // 2, cfg.n_layers - 1):
+        bad = engine()
+        with unittest.mock.patch.object(
+                llama, "attention_step", _lost_write(llama, bad._pool, layer)):
+            got, lps = _run(bad, reqs)
+        r = _reading(torch, cfg, params, reqs, got, lps)
+        r["identical"] = sum(a == b for a, b in zip(got, served))
+        out["planted"][layer] = r
+        log(f"[cont] planted fault, layer {layer}'s decode K/V writes lost: "
+            f"{_describe(r)}; identical to (a): {r['identical']}/16 requests")
+        if r["ok"]:
+            raise AssertionError(f"the check passes an engine that loses "
+                                 f"layer {layer}'s K/V writes")
+        del bad
+        gc.collect()
+
+    # (b) parity on 4 requests; a shrunk pool; prefill lanes
+    sub = list(range(4))
+    par = engine(kv_mode="parity")
+    got, lps = _run(par, [reqs[i] for i in sub])
+    _graph_only(par, "(b) parity")
+    _hold(torch, cfg, params, [reqs[i] for i in sub], got,
+          "(b) parity (dense and paged asserted every step)",
+          want=[served[i] for i in sub], want_label="(a)", exact=True,
+          lps=lps)
+    del par
+    gc.collect()
+    small = engine(pool_blocks=2 * CONT_MAX_LEN // 64)
+    got, lps = _run(small, reqs)
+    out["preempted"] = small.preempted
+    if small.preempted < 1:
+        raise AssertionError("the shrunk pool never preempted")
+    log(f"[cont] (b) pool of {small.pool_blocks} blocks for 8 lanes: "
+        f"{small.preempted} preemptions, peak active lanes "
+        f"{small.peak_active}")
+    _graph_only(small, "(b) shrunk pool")
+    out["b_preempt"] = _hold(torch, cfg, params, reqs, got,
+                             "(b) shrunk pool", want=served, want_label="(a)",
+                             lps=lps)
+    del small
+    gc.collect()
+    dis = engine(prefill_lanes=2)
+    got, lps = _run(dis, reqs)
+    out["handoffs"] = dis.handoffs
+    if dis.handoffs < 1:
+        raise AssertionError("the prefill lanes handed nothing off")
+    log(f"[cont] (b) 2 prefill lanes + 6 decode lanes: {dis.handoffs} "
+        f"block-table handoffs")
+    _graph_only(dis, "(b) prefill lanes")
+    _hold(torch, cfg, params, reqs, got, "(b) prefill lanes", want=served,
+          want_label="(a)", exact=True, lps=lps)
+    del dis
+    gc.collect()
+
+    # (c) the registered prefix
+    pre = engine()
+    pre.register_prefix(system)
+    hits = [reqs[i] for i in PREFIXED]
+    got, lps = _run(pre, hits)
+    prefilled = sum(len(p) for p, _ in hits)
+    if pre.prefill_tokens_total != prefilled - len(hits) * SYSTEM_LEN:
+        raise AssertionError(f"prefix hits prefilled "
+                             f"{pre.prefill_tokens_total} tokens of "
+                             f"{prefilled}")
+    log(f"[cont] (c) {len(hits)} prefix hits prefilled "
+        f"{pre.prefill_tokens_total} of {prefilled} prompt tokens "
+        f"({pre.pool_stats()['blocks_pinned']} blocks pinned)")
+    _graph_only(pre, "(c) prefix")
+    out["c_prefix"] = _hold(torch, cfg, params, hits, got, "(c) prefix hits",
+                            want=[served[i] for i in PREFIXED],
+                            want_label="(a)", lps=lps)
+    del pre
+    gc.collect()
+
+    # (d) speculative lanes, the draft = the target's first 2 layers
+    dcfg = dataclasses.replace(cfg, n_layers=2)
+    dparams = {**params, "layers": {k: v[:2]
+                                    for k, v in params["layers"].items()}}
+    spec = engine(draft_config=dcfg, draft_params=dparams, spec_k=4)
+    t0 = time.perf_counter()
+    got, lps = _run(spec, reqs)
+    wall = time.perf_counter() - t0
+    out["acceptance"] = spec.stats.acceptance_rate
+    log(f"[cont] (d) speculative lanes (k=4, 2-layer draft) in {wall:.3f} "
+        f"s: acceptance {spec.stats.accepted}/{spec.stats.proposed} = "
+        f"{spec.stats.acceptance_rate:.4f}; decode ticks by route (target "
+        f"and draft) {spec.tick_launches}")
+    _graph_only(spec, "(d) speculative")
+    out["d_spec"] = _hold(torch, cfg, params, reqs, got,
+                          "(d) speculative lanes", want=served,
+                          want_label="(a)", lps=lps)
+    del spec
+    gc.collect()
+
+    # (e) the graph tick against the eager tick, at 1, 4 and 8 lanes
+    out["ticks"] = {}
+    for lanes in (1, 4, 8):
+        eng = engine(lanes=lanes)
+        for i in range(lanes):
+            eng.submit(reqs[1][0][:500] + [i + 3], 256)
+        eng.step()                      # prefill every lane + one tick
+        live = lanes * 502               # every lane's K/V after the tick
+        graph_ms = _tick_ms(torch, eng, None)
+        eager_ms = _tick_ms(torch, eng, "eager")
+        graph_ms2 = _tick_ms(torch, eng, None)
+        bound_ms, w_gb = _tick_bound_ms(cfg, params, lanes, live)
+        row = {"graph_ms": [graph_ms, graph_ms2], "eager_ms": eager_ms,
+               "bound_ms": bound_ms, "live_tokens": live}
+        if lanes == 8:
+            g = eng.decode_tick().float().cpu()
+            e = eng.decode_tick("eager").float().cpu()
+            row["max_abs_diff"] = float((g - e).abs().max())
+            if not torch.equal(g.argmax(-1), e.argmax(-1)):
+                raise AssertionError("the graph tick's greedy tokens differ "
+                                     "from the eager tick's")
+            row["launches_graph"] = _tick_launches(torch, eng, None)
+            row["launches_eager"] = _tick_launches(torch, eng, "eager")
+        _graph_only(eng, f"(e) {lanes} lanes")
+        out["ticks"][lanes] = row
+        log(f"[cont] (e) {lanes} lane(s), {live} live tokens: decode tick "
+            f"graph {graph_ms:.3f} / {graph_ms2:.3f} ms, eager "
+            f"{eager_ms:.3f} ms, bound {bound_ms:.3f} ms (bytes: "
+            f"{w_gb:.2f} GB of weights read once + the live K/V at 3.35 "
+            f"TB/s; all 16.06 GB of weights would take 4.79 ms)")
+        del eng
+        gc.collect()
+    t8 = out["ticks"][8]
+    log(f"[cont] (e) 8 lanes, same state: graph vs eager logits max abs "
+        f"diff {t8['max_abs_diff']:.3e}, same greedy tokens; per tick "
+        f"(host launch calls, device kernels, device busy ms): graph "
+        f"{t8['launches_graph']}, eager {t8['launches_eager']}")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[cont] {out['peak_gib']:.2f} GiB peak device memory in the phase "
+        f"(16.06 GB of weights)")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _wait_ready(url: str, proc, log_path, timeout: float) -> None:
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"the predictor exited {proc.returncode}: "
+                                 f"{log_path.read_text()[-3000:]}")
+        try:
+            with urllib.request.urlopen(url + "/healthz", timeout=5) as r:
+                if r.status == 200:
+                    return
+        except OSError:
+            time.sleep(0.5)
+    raise AssertionError(f"the predictor never became ready: "
+                         f"{log_path.read_text()[-3000:]}")
+
+
+def phase_predictor(torch, cfg, params) -> dict:
+    """``python -m kubedl_tpu_torch.serving`` as a subprocess on the card,
+    over a ``save_model`` artifact of Llama-3-8B's width cut to its first
+    2 layers (the float32 ``params.npz`` of 32 layers would be ~32 GB):
+    readiness, buffered and streamed ``:predict``, ``:registerPrefix``,
+    ``/metrics``, SIGTERM → exit 0; then the batch mode on the same
+    artifact. The tokens are held against the in-process engine at the
+    predictor's settings and against the plain reference."""
+    import dataclasses
+    import os
+    import shutil
+    import signal
+
+    import numpy as np
+
+    from kubedl_tpu_torch.models import io
+    from kubedl_tpu_torch.serving import ContinuousBatchingEngine
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params2 = {**params, "layers": {k: v[:2]
+                                    for k, v in params["layers"].items()}}
+    path = BUILD_OUT / "predictor_model"
+    t0 = time.perf_counter()
+    io.save_model(cfg2, params2, str(path))
+    size = (path / "params.npz").stat().st_size
+    log(f"[pred] artifact {path.relative_to(BUILD_OUT.parent.parent)}: "
+        f"{size / 1e9:.2f} GB params.npz written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist() for n in (40, 130)]
+    system = rng.integers(3, cfg.vocab_size, 128).tolist()
+    hit = system + prompts[0][:5]
+    reqs = [(prompts[0], 12), (prompts[1], 12), (hit, 8)]
+    ref = ContinuousBatchingEngine(cfg2, params2, lanes=4,
+                                   max_len=CONT_MAX_LEN, device="cuda")
+    want = ref.run(reqs[:2])
+    ref.register_prefix(system)
+    want += ref.run(reqs[2:])
+    del ref
+    gc.collect()
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root),
+           "KUBEDL_MODEL_PATH": str(path), "KUBEDL_MODEL_NAME": "m",
+           "KUBEDL_SERVING_LANES": "4",
+           "KUBEDL_SERVING_MAX_LEN": str(CONT_MAX_LEN),
+           "KUBEDL_TOKENIZER": "off", "KUBEDL_SERVING_PORT": str(port)}
+    env.pop("KUBEDL_KV_MODE", None)
+    log_path = BUILD_OUT / "predictor.log"
+    cmd = [sys.executable, "-m", "kubedl_tpu_torch.serving"]
+    out = {}
+    with open(log_path, "w") as logf:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, env=env, cwd=root, stdout=logf,
+                                stderr=subprocess.STDOUT)
+        try:
+            _wait_ready(url, proc, log_path, timeout=600)
+            out["ready_s"] = time.perf_counter() - t0
+            got = json.loads(_post(url, "/v1/models/m:predict", {
+                "instances": [{"prompt_tokens": p, "max_tokens": n}
+                              for p, n in reqs[:2]]}))
+            served = [p["tokens"] for p in got["predictions"]]
+            raw = _post(url, "/v1/models/m:predict", {
+                "stream": True, "instances": [{"prompt_tokens": prompts[0],
+                                               "max_tokens": 12}]})
+            events = [json.loads(ln[6:]) for ln in raw.splitlines()
+                      if ln.startswith("data: ")]
+            streamed = [e["token"] for e in events if "token" in e]
+            if not (events[-1].get("done")
+                    and events[-1]["tokens"] == streamed == served[0]):
+                raise AssertionError(f"bad stream {events}")
+            reg = json.loads(_post(url, "/v1/models/m:registerPrefix",
+                                   {"prefix_tokens": system}))
+            if reg != {"registered": len(system)}:
+                raise AssertionError(f"bad :registerPrefix answer {reg}")
+            got = json.loads(_post(url, "/v1/models/m:predict", {
+                "instances": [{"prompt_tokens": hit, "max_tokens": 8}]}))
+            served.append(got["predictions"][0]["tokens"])
+            with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+                page = r.read().decode()
+            gauges = {ln.split()[0]: ln.split()[1] for ln in page.splitlines()
+                      if ln.startswith("kubedl_serving_kv_")}
+            if gauges.get("kubedl_serving_kv_blocks_pinned") != "2.0":
+                raise AssertionError(f"bad /metrics KV gauges {gauges}")
+            log(f"[pred] ready in {out['ready_s']:.1f} s (load, graph "
+                f"capture, bind); buffered + streamed :predict, "
+                f":registerPrefix, /metrics KV gauges {gauges}")
+            proc.send_signal(signal.SIGTERM)
+            out["sigterm_rc"] = proc.wait(timeout=120)
+            if out["sigterm_rc"] != 0:
+                raise AssertionError(f"the predictor exited "
+                                     f"{out['sigterm_rc']} on SIGTERM")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        _hold(torch, cfg2, params2, reqs, served, "(f) predictor subprocess",
+              want=want, want_label="the in-process engine")
+        inp, res = BUILD_OUT / "batch_in.jsonl", BUILD_OUT / "batch_out.jsonl"
+        inp.write_text("\n".join(json.dumps({"prompt": p, "max_tokens": n})
+                                 for p, n in reqs[:2]))
+        t0 = time.perf_counter()
+        rc = subprocess.run(cmd + ["--batch-input", str(inp),
+                                   "--batch-output", str(res)],
+                            env=env, cwd=root, stdout=logf,
+                            stderr=subprocess.STDOUT, timeout=900).returncode
+    if rc != 0:
+        raise AssertionError(f"batch mode exited {rc}: "
+                             f"{log_path.read_text()[-3000:]}")
+    rows = [json.loads(ln) for ln in res.read_text().splitlines()]
+    log(f"[pred] batch mode: {len(rows)} rows in "
+        f"{time.perf_counter() - t0:.1f} s, exit 0")
+    _hold(torch, cfg2, params2, reqs[:2], [r["tokens"] for r in rows],
+          "(f) batch mode", want=want[:2],
+          want_label="the in-process engine")
+    shutil.rmtree(path)                  # ~6 GB of float32 weights
+    return out
 
 
 def _bwd_err(torch, got, want, dtype) -> dict:
@@ -748,25 +1298,39 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_all = time.perf_counter()
-    phase_build()
-    fwd = phase_kernel_check(torch)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f"[phase] {name} {seconds[name]:.1f} s")
+        return res
+
+    timed("build", phase_build)
+    fwd = timed("kernel_check", phase_kernel_check, torch)
     from kubedl_tpu_torch.models import llama
-    serving_launches = phase_serving(torch, llama.llama3_8b())
+    cfg8b = llama.llama3_8b()
+    serving_launches, params = timed("serving", phase_serving, torch, cfg8b)
     log(f"[serve] {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak "
         "device memory")
+    timed("continuous", phase_continuous, torch, cfg8b, params)
+    timed("predictor", phase_predictor, torch, cfg8b, params)
+    del params
     gc.collect()                 # the 16 GB serving model goes first
     torch.cuda.empty_cache()
-    bwd_err = phase_bwd_check(torch)
-    times = phase_timing(torch)
-    train_launches, cfg, tokens = phase_training(torch)
+    bwd_err = timed("bwd_check", phase_bwd_check, torch)
+    times = timed("timing", phase_timing, torch)
+    train_launches, cfg, tokens = timed("training", phase_training, torch)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_grad_check(torch, cfg, tokens)
+    timed("grad_check", phase_grad_check, torch, cfg, tokens)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    log(f"[done] {time.perf_counter() - t_all:.1f} s")
+    log(f"[done] {time.perf_counter() - t_all:.1f} s; by phase "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }")
     src = "kubedl_tpu_torch/csrc/"
     shape = "b=4 s=2048 nh=32 nkv=8 hd=128 bf16 causal"
     rows = [

@@ -2,7 +2,8 @@
 
 Copied from ``kubedl_tpu/metrics/registry.py`` (the port imports nothing
 from the JAX package): ``Registry``, ``Counter``, ``Gauge`` and
-``Histogram``, the part the predictor server's ``/metrics`` uses.
+``Histogram``, and ``PagedKVMetrics``: the part the predictor server's
+``/metrics`` uses.
 """
 
 from __future__ import annotations
@@ -117,6 +118,57 @@ class Registry:
                 for k, v in values_snap.items():
                     out.append(f"{mt.name}{_wrap(_fmt_labels(mt.label_names, k))} {v}")
         return "\n".join(out) + "\n"
+
+
+class PagedKVMetrics:
+    """Paged KV-cache pool instrumentation for the serving predictor's
+    ``/metrics``: pool occupancy (capacity planning), the shared-block
+    ratio (how much memory prefix copy-on-write sharing is saving), and
+    the preemption counter (a rising rate means the pool is undersized
+    for the offered load). Refreshed from the engine's ``pool_stats()``
+    snapshot on scrape."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.blocks_total = r.gauge(
+            "kubedl_serving_kv_blocks_total",
+            "Usable KV pool blocks (excludes the garbage sink)")
+        self.blocks_free = r.gauge(
+            "kubedl_serving_kv_blocks_free",
+            "KV pool blocks currently unreferenced")
+        self.blocks_pinned = r.gauge(
+            "kubedl_serving_kv_blocks_pinned",
+            "KV pool blocks pinned by registered prefixes")
+        self.shared_ratio = r.gauge(
+            "kubedl_serving_kv_shared_block_ratio",
+            "Fraction of in-use KV blocks referenced by more than one "
+            "holder (prefix sharing)")
+        # a true Counter (not a gauge wearing the _total suffix):
+        # rate()/increase() and reset detection need counter semantics,
+        # so refresh() feeds it the delta since the last snapshot
+        self.preemptions = r.counter(
+            "kubedl_serving_kv_preemptions_total",
+            "Lanes evicted back to the queue because the pool ran dry")
+        self._preempt_seen = 0
+        self.peak_active = r.gauge(
+            "kubedl_serving_peak_active_lanes",
+            "Peak simultaneously-active continuous-batching lanes")
+
+    def refresh(self, stats: dict) -> None:
+        """Push one ``ContinuousBatchingEngine.pool_stats()`` snapshot."""
+        self.peak_active.set(stats.get("peak_active", 0))
+        if "blocks_total" not in stats:
+            return                       # dense mode: no pool
+        self.blocks_total.set(stats["blocks_total"])
+        self.blocks_free.set(stats["blocks_free"])
+        self.blocks_pinned.set(stats["blocks_pinned"])
+        used = stats["blocks_used"]
+        self.shared_ratio.set(stats["blocks_shared"] / used if used else 0.0)
+        delta = stats["preempted"] - self._preempt_seen
+        if delta > 0:
+            self.preemptions.inc(delta)
+            self._preempt_seen = stats["preempted"]
 
 
 def _escape_label(value: str) -> str:

@@ -310,8 +310,9 @@ def _softcap(config: LlamaConfig, logits):
 def _embed(config: LlamaConfig, params: dict, tokens):
     x = params["embed"][tokens].to(config.dtype)
     if config.embed_scale:
-        x = x * torch.tensor(math.sqrt(config.d_model), dtype=config.dtype,
-                             device=x.device)
+        # a fill, not a host-to-device copy: legal inside a CUDA graph
+        x = x * torch.full((), math.sqrt(config.d_model), dtype=config.dtype,
+                           device=x.device)
     return x
 
 
@@ -464,8 +465,23 @@ def init_cache(config: LlamaConfig, batch: int, max_len: int, dtype=None,
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
+def init_block_pool(config: LlamaConfig, num_blocks: int, block: int,
+                    dtype=None, device=None) -> dict:
+    """Paged KV pool [n_layers, num_blocks, block, n_kv_heads, hd]: one
+    shared arena of fixed-size token blocks instead of a dense per-lane
+    slab. Block 0 is the garbage sink by convention: free, dead and
+    parked rows point their table entries at it, so their writes never
+    land in a live block."""
+    c = config
+    shape = (c.n_layers, num_blocks, block, c.n_kv_heads, c.hd)
+    dev = resolve_device(device)
+    dt = dtype or c.dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
 def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
-                   valid=None, window_on=None):
+                   valid=None, window_on=None, tables=None):
     """Cache-aware attention sublayer (with residual): write this chunk's
     K/V at ``start_pos`` and attend against the cache with a position
     mask. ``start_pos`` is an int (whole batch at one position) or a [b]
@@ -481,13 +497,24 @@ def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
     ``[0, start_pos + s)``. The slots dropped are causally masked for every
     query, so the result is the same for every query that sees a key —
     and the same shapes run whatever the cache capacity, so the engine and
-    ``greedy_rollout`` compute the same numbers."""
+    ``greedy_rollout`` compute the same numbers.
+
+    With ``tables`` [b, blocks_per_row] (int64), ``kc``/``vc`` are one
+    layer of an :func:`init_block_pool` arena [num_blocks, block, nkv, hd]
+    and row ``i``'s logical slot ``p`` lives at ``(tables[i, p // block],
+    p % block)``. The chunk's K/V is written there first, then the rows'
+    blocks are gathered into a dense [b, L, nkv, hd] view for the read
+    (``L`` = blocks_per_row * block with per-row positions, the live
+    prefix's blocks with one shared position). The JAX body gathers the
+    view, writes into it and scatters the whole view back; a gathered
+    view here is a copy, so writing the pool first is what keeps the
+    writes, at a chunk's bytes instead of a second pass over the view."""
     c = config
     b, s, _ = x.shape
     nh, nkv, hd = c.n_heads, c.n_kv_heads, c.hd
-    max_len = kc.shape[1]
     dev = x.device
     row_pos = torch.is_tensor(start_pos) and start_pos.ndim == 1
+    pool_k, pool_v = kc, vc
 
     h = rms_norm(x, lp["attn_norm"], c.rms_eps, c.norm_weight_offset)
     q = apply_rope(_qkv(c, h, lp, "wq", "bq").reshape(b, s, nh, hd),
@@ -496,13 +523,31 @@ def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
                    cos, sin)
     v = _qkv(c, h, lp, "wv", "bv").reshape(b, s, nkv, hd)
     steps = torch.arange(s, device=dev)
-    if row_pos:
+    if tables is not None:
+        blk = kc.shape[1]
+        if row_pos:
+            cols = start_pos.to(dev)[:, None] + steps[None, :]  # [b, s]
+            n_blocks = tables.shape[1]
+        else:
+            start = int(start_pos)
+            cols = (start + steps)[None, :].expand(b, s)
+            n_blocks = -(-(start + s) // blk)
+        phys = torch.gather(tables, 1, torch.div(cols, blk,
+                                                 rounding_mode="floor"))
+        kc.index_put_((phys, cols % blk), k.to(kc.dtype))
+        vc.index_put_((phys, cols % blk), v.to(vc.dtype))
+        view = tables[:, :n_blocks]
+        kc = kc[view].reshape(b, n_blocks * blk, nkv, hd)
+        vc = vc[view].reshape(b, n_blocks * blk, nkv, hd)
+        q_pos = cols if row_pos else cols[:1]
+        live = n_blocks * blk if row_pos else start + s
+    elif row_pos:
         rows = torch.arange(b, device=dev)[:, None]
         cols = start_pos.to(dev)[:, None] + steps[None, :]
         kc.index_put_((rows, cols), k.to(kc.dtype))
         vc.index_put_((rows, cols), v.to(vc.dtype))
         q_pos = cols                                            # [b, s]
-        live = max_len
+        live = kc.shape[1]
     else:
         start = int(start_pos)
         idx = start + steps
@@ -510,6 +555,7 @@ def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
         vc.index_copy_(1, idx, v.to(vc.dtype))
         q_pos = idx[None, :]                                    # [1, s]
         live = start + s
+    max_len = kc.shape[1]
 
     ka, va = kc[:, :live], vc[:, :live]
     k_pos = torch.arange(live, device=dev)
@@ -561,14 +607,14 @@ def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
     if c.sandwich_norms:
         delta = rms_norm(delta, lp["post_attn_norm"], c.rms_eps,
                          c.norm_weight_offset)
-    return x + delta, kc, vc
+    return x + delta, pool_k, pool_v
 
 
 def _layer_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
-                valid=None, window_on=None):
+                valid=None, window_on=None, tables=None):
     """Cache-aware layer: attention step + gated MLP."""
     x, kc, vc = attention_step(config, x, lp, kc, vc, cos, sin, start_pos,
-                               valid, window_on)
+                               valid, window_on, tables=tables)
     return _mlp(config, x, lp), kc, vc
 
 
@@ -613,6 +659,37 @@ def forward_step(config: LlamaConfig, params: dict, tokens, cache: dict,
     x = rms_norm(x, params["final_norm"], c.rms_eps, c.norm_weight_offset)
     logits = _mm(x, _lm_head(c, params)).float()
     return _softcap(c, logits)[:, 0], cache
+
+
+def paged_layer_body(tables):
+    """A per-layer decode body with ``_layer_step``'s signature whose KV
+    reads and writes go through a block pool. ``tables`` [b,
+    blocks_per_row] int64 maps each row's logical block to a physical
+    pool block. Rows sharing blocks (copy-on-write prefixes) never write
+    inside a shared block — the host scheduler guarantees it — and
+    duplicate sink entries only ever receive causally invisible data."""
+
+    def body(c, x, lp, kp, vp, cos, sin, start_pos, valid=None, *rest):
+        return _layer_step(c, x, lp, kp, vp, cos, sin, start_pos, valid,
+                           *rest, tables=tables)
+
+    return body
+
+
+def forward_step_paged(config: LlamaConfig, params: dict, tokens,
+                       pool: dict, tables, start_pos, valid=None,
+                       last_pos=None, all_logits: bool = False):
+    """:func:`forward_step` against a paged KV pool: same contract, but
+    the cache operand is an :func:`init_block_pool` arena plus per-row
+    block ``tables`` [b, blocks_per_row]. The dense view exists one layer
+    at a time, so persistent memory is the pool, sized to live tokens
+    rather than ``rows * max_len``. With per-row positions every shape is
+    fixed by (b, blocks_per_row), so growing, sharing or freeing blocks
+    changes only the tables' values — a captured CUDA graph of the step
+    stays valid. ``valid`` masks against the view length."""
+    return forward_step(config, params, tokens, pool, start_pos, valid,
+                        layer_body=paged_layer_body(tables),
+                        last_pos=last_pos, all_logits=all_logits)
 
 
 # -- training loss -----------------------------------------------------------

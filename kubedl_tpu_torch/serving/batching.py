@@ -1,0 +1,1752 @@
+"""Continuous batching: slot-scheduled decoding over a shared KV cache.
+
+Counterpart of ``kubedl_tpu/serving/batching.py``. The engine keeps a
+fixed set of ``lanes`` (batch rows of one shared cache) and schedules
+requests onto free lanes as they open:
+
+* ONE decode step for all lanes per tick, with **per-row positions**
+  (``llama.attention_step``'s vector ``start_pos``): requests of
+  different lengths come and go without re-padding;
+* prefill writes a single lane of the shared cache in place, with
+  prompts right-padded into power-of-two buckets (the JAX engine's
+  bucket shapes);
+* dead lanes keep decoding garbage (masking happens in the scheduler,
+  not the step), and their cache writes land on slots that are
+  overwritten before ever becoming attendable;
+* scheduling (arrivals, eos, lane reuse) is host-side Python between
+  ticks.
+
+**Paged KV (the default, ``KUBEDL_KV_MODE=paged``)**: KV lives in ONE
+pool of fixed-size token blocks (``models.llama.init_block_pool``)
+indexed through per-lane host-side block tables that grow on demand.
+Registered prefixes pin their full blocks once and every matching
+request's table references them (copy-on-write sharing with refcounts);
+admission requires free blocks for the prompt plus headroom, and when
+the pool runs dry mid-decode the lowest-progress lane is preempted back
+to the queue (resumed later by re-prefilling prompt + generated-so-far).
+``KUBEDL_KV_MODE=dense`` keeps a per-lane slab; ``parity`` runs both and
+asserts token-identical logits every step.
+
+**The decode tick on the card is a CUDA graph.** The JAX engine jits its
+decode tick into one XLA program with the block tables as a traced
+operand. Here :class:`DecodeTick` captures ``forward_step`` at
+``[lanes, 1]`` once per engine, KV layout and model (the draft too), with
+the tokens, positions and tables in one static buffer that is refilled
+before each replay: growing, sharing or freeing blocks changes the
+tables' values, never a shape. Sampling stays outside the graph, and so
+do the prefill buckets and the speculative verify pass (eager). On the
+CPU the tick runs eagerly; :func:`decode_tick_route` names the route.
+
+Not ported yet, each refused by name: weight quantization and adapters
+(ROADMAP A4), a tensor-parallel ``mesh`` (A5).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..trace import NOOP_TRACER
+from .engine import (GenerateConfig, SpecStats, filtered_probs, hit_stop,
+                     params_to, resolve_family, sample_logits,
+                     sample_logits_many, spec_accept, token_logprobs)
+
+
+def _bucket(n: int, lo: int = 16) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _pow2_floor(n: int) -> int:
+    """Largest power of two <= n (n >= 1)."""
+    return 1 << (max(n, 1).bit_length() - 1)
+
+
+ENV_KV_MODE = "KUBEDL_KV_MODE"
+KV_MODES = ("dense", "paged", "parity")
+
+
+def resolve_kv_mode(mode: Optional[str] = None) -> str:
+    """KV layout mode: explicit arg wins, then ``$KUBEDL_KV_MODE``, then
+    the paged default. ``dense`` keeps the per-lane slab; ``parity`` runs
+    both and asserts token-identical logits each step."""
+    mode = mode or os.environ.get(ENV_KV_MODE, "") or "paged"
+    if mode not in KV_MODES:
+        raise ValueError(
+            f"unknown KV mode {mode!r}; one of {KV_MODES}")
+    return mode
+
+
+def fit_block(block: int, max_len: int) -> int:
+    """Largest block size <= ``block`` that divides ``max_len`` (halving
+    search, floor 1). Divisibility makes the paged gather view EXACTLY
+    ``max_len`` slots, so parity mode's logits compare with the dense
+    slab's at the same reduction lengths."""
+    b = max(int(block), 1)
+    while max_len % b:
+        b //= 2
+    return max(b, 1)
+
+
+class BlockPool:
+    """Host-side allocator for the paged KV pool.
+
+    Physical block ids run ``1..total`` — id 0 is the reserved garbage
+    sink every free table entry points at. Blocks are refcounted so
+    registered prefixes can pin blocks that many lanes reference
+    concurrently: ``alloc`` starts a block at refcount 1, ``incref``
+    adds a sharer, ``decref`` returns the block to the free list at
+    zero. ``allocs`` counts lifetime block allocations."""
+
+    def __init__(self, total: int):
+        if total < 1:
+            raise ValueError(f"pool needs >= 1 usable block, got {total}")
+        self.total = total
+        # pop() hands out low ids first
+        self._free = list(range(total, 0, -1))
+        self._ref: dict[int, int] = {}
+        self.allocs = 0
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_count(self) -> int:
+        return self.total - len(self._free)
+
+    @property
+    def shared_count(self) -> int:
+        """Blocks referenced by more than one holder (prefix sharing)."""
+        return sum(1 for r in self._ref.values() if r > 1)
+
+    def alloc(self, n: int) -> Optional[list]:
+        """n fresh blocks at refcount 1, or None when the pool is dry
+        (all-or-nothing: a partial grant would leak on the retry path)."""
+        if n < 0:
+            raise ValueError(f"alloc({n})")
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            self._ref[b] = 1
+        self.allocs += n
+        return out
+
+    def incref(self, blocks: Sequence[int]) -> None:
+        for b in blocks:
+            self._ref[b] += 1
+
+    def decref(self, blocks: Sequence[int]) -> None:
+        for b in blocks:
+            r = self._ref[b] - 1
+            if r:
+                self._ref[b] = r
+            else:
+                del self._ref[b]
+                self._free.append(b)
+
+    def refcounts(self) -> dict:
+        """Live block -> refcount snapshot (leak checks)."""
+        return dict(self._ref)
+
+
+@dataclass(frozen=True)
+class _Prefix:
+    """One registered prompt prefix. ``stored`` is the dense-mode full KV
+    copy; ``blocks`` are the paged pool blocks pinned for the prefix's
+    FULL blocks only — the partial tail block is never shared (two lanes
+    would write different tokens into it), it is re-prefilled per lane.
+    ``pinned`` prefixes are exempt from the least-recently-hit eviction
+    at ``max_prefixes``. ``model`` scopes the entry ("" = base model)."""
+    key: tuple
+    plen: int
+    stored: Optional[dict] = None
+    blocks: tuple = ()
+    pinned: bool = False
+    model: str = ""
+
+
+@dataclass
+class Request:
+    """One in-flight generation; ``done`` fires when ``tokens`` is final
+    (or the engine stopped — then ``cancelled`` is set). With
+    ``want_logprobs`` each generated token's full-softmax log p lands in
+    ``logprobs``.
+
+    Tokens are appended by the scheduler thread as they decode;
+    :meth:`stream` consumes them incrementally (the server's SSE path
+    rides this), :meth:`result` waits for the final list."""
+    prompt: list
+    max_new: int
+    tokens: list = field(default_factory=list)
+    logprobs: list = field(default_factory=list)
+    want_logprobs: bool = False
+    #: adapter id ("" = the base model; the only one this port serves)
+    model: str = ""
+    #: per-request sampling overrides; None = the engine's GenerateConfig
+    temperature: Optional[float] = None
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    done: threading.Event = field(default_factory=threading.Event)
+    cancelled: bool = False
+    #: client-requested stop (set via :meth:`cancel`): the scheduler frees
+    #: the lane at its next tick; tokens decoded so far remain
+    cancel_requested: bool = False
+    #: scheduler-reported failure (e.g. a request that can never be
+    #: admitted because the KV pool is too small after prefix pins)
+    error: Optional[str] = None
+    #: request trace id, assigned at submit when the engine carries an
+    #: enabled tracer; "" otherwise
+    trace_id: str = ""
+    _cond: threading.Condition = field(default_factory=threading.Condition)
+    # trace bookkeeping (engine-side; meaningless when trace_id == "")
+    _span_root: str = ""
+    _t_submit: float = 0.0
+    _t_queue: float = 0.0     # when the request (re-)entered the queue
+    _t_decode: float = 0.0
+    _preempts: int = 0
+    #: speculative lanes: the per-request host rng of the sampled accept
+    #: rule, made at first admission (a resumed request keeps it)
+    _spec_rng: Optional[np.random.Generator] = None
+
+    def cancel(self) -> None:
+        """Stop generating for this request. Unlike engine shutdown,
+        ``result()`` still returns the tokens decoded so far."""
+        self.cancel_requested = True
+
+    def result(self, timeout: Optional[float] = None) -> list:
+        if not self.done.wait(timeout):
+            raise TimeoutError("generation did not finish in time")
+        if self.cancelled:
+            raise RuntimeError(
+                self.error or "generation cancelled: engine stopped")
+        return self.tokens
+
+    def stream(self, timeout: Optional[float] = None):
+        """Yield ``(token_id, logprob_or_None)`` as the scheduler emits
+        them; returns when generation finishes. ``timeout`` bounds the
+        wait for EACH next token."""
+        sent = 0
+        while True:
+            with self._cond:
+                while len(self.tokens) <= sent and not self.done.is_set():
+                    if not self._cond.wait(timeout):
+                        raise TimeoutError(
+                            "no token within the streaming timeout")
+                # snapshot under the lock: _push appends token and logprob
+                # in one critical section, so the pairs read here align
+                fresh = []
+                while sent < len(self.tokens):
+                    lp = (self.logprobs[sent] if self.want_logprobs
+                          and sent < len(self.logprobs) else None)
+                    fresh.append((self.tokens[sent], lp))
+                    sent += 1
+                finished = self.done.is_set() and sent >= len(self.tokens)
+                cancelled = self.cancelled
+            yield from fresh
+            if finished:
+                if cancelled:
+                    raise RuntimeError(
+                        self.error or "generation cancelled: engine stopped")
+                return
+
+    # -- scheduler-side helpers (single writer: the scheduler thread) ----
+
+    def _push(self, tok: int, lp: Optional[float]) -> None:
+        with self._cond:
+            self.tokens.append(tok)
+            if lp is not None:
+                self.logprobs.append(lp)
+            self._cond.notify_all()
+
+    def _finish(self, cancelled: bool = False) -> None:
+        with self._cond:
+            self.cancelled = self.cancelled or cancelled
+            self.done.set()
+            self._cond.notify_all()
+
+
+@dataclass
+class _Lane:
+    request: Optional[Request] = None    # None = free
+    pos: int = 0               # next write position (== tokens so far)
+    remaining: int = 0
+    #: paged modes: pool blocks this lane references, in logical order
+    #: (shared prefix blocks first, then private); freed via decref
+    blocks: list = field(default_factory=list)
+    #: disaggregated serving: a prefill lane whose request finished
+    #: prefilling and waits for a free decode lane to take the
+    #: block-table handoff; masked out of decode ticks
+    parked: bool = False
+    parked_at: float = 0.0     # tracer clock at park (handoff span)
+
+    def reset(self) -> None:
+        self.request = None
+        self.pos = 0
+        self.remaining = 0
+        self.blocks = []
+        self.parked = False
+        self.parked_at = 0.0
+
+
+def decode_tick_route(device) -> str:
+    """How a decode tick runs on ``device``: ``graph`` on a CUDA device
+    (a captured CUDA graph, replayed every tick; a capture that fails
+    raises, there is no eager fallback), ``eager`` elsewhere."""
+    return "graph" if torch.device(device).type == "cuda" else "eager"
+
+
+class DecodeTick:
+    """One ``[lanes, 1]`` decode step of one model over one KV store.
+
+    ``step(cur [lanes, 1], pos [lanes], tables [lanes, n] or None) ->
+    logits [lanes, vocab]`` writes the tick's K/V in place. On the
+    ``graph`` route the first call copies its inputs into one static
+    int64 buffer (tokens, positions, then tables), runs ``step`` twice on
+    a side stream (the allocator's and the libraries' warm-up) and
+    captures it; every call then refills the buffer with one
+    host-to-device copy and replays. The logits come back in the graph's
+    static output, valid until the next call. Re-running a tick on the
+    same inputs rewrites the same K/V at the same slots, so the warm-up
+    runs on live lane state are harmless. ``launches`` counts ticks by
+    route."""
+
+    def __init__(self, step, lanes: int, n_tables: int, device):
+        self._step = step
+        self.lanes = lanes
+        self.n_tables = n_tables
+        self.device = torch.device(device)
+        self.route = decode_tick_route(self.device)
+        self.launches = {"graph": 0, "eager": 0}
+        self._graph = None
+        self._static = None
+        self._logits = None
+
+    def _views(self, buf):
+        n = self.lanes
+        tables = buf[2 * n:].view(n, self.n_tables) if self.n_tables else None
+        return buf[:n].view(n, 1), buf[n:2 * n], tables
+
+    def _pack(self, cur, pos, tables) -> torch.Tensor:
+        parts = [np.asarray(cur).reshape(-1), np.asarray(pos).reshape(-1)]
+        if self.n_tables:
+            parts.append(np.asarray(tables).reshape(-1))
+        return torch.from_numpy(np.concatenate(parts).astype(np.int64))
+
+    def eager(self, cur, pos, tables=None):
+        """The tick run eagerly, whatever the route (the comparison path;
+        not counted in ``launches``)."""
+        return self._step(*self._views(
+            self._pack(cur, pos, tables).to(self.device)))
+
+    def __call__(self, cur, pos, tables=None):
+        if self.route == "eager":
+            self.launches["eager"] += 1
+            return self.eager(cur, pos, tables)
+        host = self._pack(cur, pos, tables)
+        if self._graph is None:
+            self._capture(host)
+        self._static.copy_(host)
+        self._graph.replay()
+        self.launches["graph"] += 1
+        return self._logits
+
+    def _capture(self, host: torch.Tensor) -> None:
+        static = host.to(self.device)
+        args = self._views(static)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._step(*args)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the HTTP threads may touch the card meanwhile
+        # (an embeddings forward); only this thread's calls are captured
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            logits = self._step(*args)
+        self._static, self._logits, self._graph = static, logits, graph
+
+    def reset(self) -> None:
+        """Drop the captured graph (the next call captures anew)."""
+        self._graph = self._static = self._logits = None
+
+
+def _refuse_unported(quantize, quantize_draft, mesh, adapters,
+                     max_adapters) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: tensor-parallel serving is not ported yet: ROADMAP A5")
+    for name, value in (("quantize", quantize),
+                        ("quantize_draft", quantize_draft)):
+        if value:
+            raise NotImplementedError(
+                f"{name}={value!r}: weight quantization is not ported "
+                "yet: ROADMAP A4")
+    if adapters is not None or max_adapters is not None:
+        raise NotImplementedError(
+            "adapters/max_adapters: multi-model LoRA pages are not ported "
+            "yet: ROADMAP A4")
+
+
+class ContinuousBatchingEngine:
+    """Slot-scheduled generation over one shared cache, on ``device``
+    (``None``: the card; ``"cpu"`` only when asked).
+
+    ``run(requests)`` takes ``[(prompt_tokens, max_new_tokens), ...]`` in
+    arrival order and returns one generated-id list per request; requests
+    are admitted to lanes as earlier ones finish, so a short request never
+    waits on a long co-batched one."""
+
+    def __init__(self, config, params: dict,
+                 lanes: int = 4, max_len: int = 1024,
+                 gen: Optional[GenerateConfig] = None,
+                 quantize: Optional[str] = None, seed: int = 0,
+                 mesh=None, draft_config=None, draft_params=None,
+                 spec_k: int = 0, quantize_draft: Optional[str] = None,
+                 kv_mode: Optional[str] = None, kv_block: int = 64,
+                 pool_blocks: Optional[int] = None,
+                 headroom_blocks: int = 1, tracer=None,
+                 prefill_lanes: int = 0, adapters=None,
+                 max_adapters: Optional[int] = None, device=None):
+        _refuse_unported(quantize, quantize_draft, mesh, adapters,
+                         max_adapters)
+        self.family = family = resolve_family(config)
+        self.device = dev = resolve_device(device)
+        self.config = config
+        #: per-request span recorder (queue/prefill/decode/preemption)
+        self.tracer = tracer if tracer is not None else NOOP_TRACER
+        self.lanes = lanes
+        self.max_len = max_len
+        self.gen = gen or GenerateConfig(max_len=max_len)
+        #: KV layout: "paged" (default), "dense" (per-lane slab), or
+        #: "parity" (both, asserted token-identical)
+        self.kv_mode = resolve_kv_mode(kv_mode)
+        #: tokens per pool block, clamped so it divides max_len
+        self.kv_block = fit_block(kv_block, max_len)
+        self._bpl = max_len // self.kv_block   # table entries per lane
+        #: usable pool blocks (the garbage sink rides on top); the
+        #: default matches the dense slab's capacity
+        self.pool_blocks = (int(pool_blocks) if pool_blocks
+                            else lanes * self._bpl)
+        if self.pool_blocks < self._bpl:
+            raise ValueError(
+                f"pool_blocks {self.pool_blocks} < {self._bpl} blocks "
+                f"needed for one full-length request (max_len {max_len} "
+                f"/ block {self.kv_block})")
+        #: admission watermark: free blocks required beyond the prompt's
+        self.headroom_blocks = max(int(headroom_blocks), 0)
+        #: disaggregated prefill/decode: the first ``prefill_lanes`` lanes
+        #: only run prefills and hand their block table to a free decode
+        #: lane (no KV copied)
+        self.prefill_lanes = int(prefill_lanes)
+        if self.prefill_lanes:
+            if self.kv_mode != "paged":
+                raise ValueError(
+                    "disaggregated prefill lanes require the paged KV "
+                    "layout (the handoff moves block-table references; "
+                    "a dense slab would need a device KV copy)")
+            if not 0 < self.prefill_lanes < lanes:
+                raise ValueError(
+                    f"prefill_lanes {self.prefill_lanes} must leave at "
+                    f"least one decode lane (lanes {lanes})")
+            if draft_params is not None and spec_k:
+                raise ValueError(
+                    "speculative decoding and disaggregated prefill "
+                    "lanes are mutually exclusive (the verify round "
+                    "spans every lane)")
+        #: lifetime prefill→decode block-table handoffs (/metrics)
+        self.handoffs = 0
+        #: prompt tokens prefilled in the current / all scheduler ticks
+        self.prefill_tokens_step = 0
+        self.prefill_tokens_total = 0
+        #: lifetime preemption count (pool ran dry; /metrics counter)
+        self.preempted = 0
+        #: peak simultaneously-active lanes
+        self.peak_active = 0
+        self.params = params_to(params, dev)
+
+        # -- speculative decoding per lane: the draft proposes spec_k
+        # tokens for EVERY lane, the target verifies all lanes' chunks in
+        # one [lanes, k+1] pass
+        self.spec_k = int(spec_k) if draft_params is not None else 0
+        if self.spec_k:
+            if draft_config.vocab_size != config.vocab_size:
+                raise ValueError(
+                    "target and draft must share a vocabulary")
+            self.dcfg = draft_config
+            self.dfam = resolve_family(draft_config)
+            self.dparams = params_to(draft_params, dev)
+            #: aggregate + per-lane acceptance accounting (/metrics)
+            self.stats = SpecStats()
+            self.lane_stats = [SpecStats() for _ in range(lanes)]
+            # the draft cache stays a dense slab in every kv mode
+            self._d_cache = self.dfam.init_cache(self.dcfg, lanes, max_len,
+                                                 device=dev)
+            self._d_tick = DecodeTick(
+                lambda cur, pos, _: self.dfam.forward_step(
+                    self.dcfg, self.dparams, cur, self._d_cache, pos)[0],
+                lanes, 0, dev)
+            #: per-request host rng for the sampled accept rule,
+            #: allocated at admission (seed + admission ordinal)
+            self._spec_admitted = 0
+
+        self._prefixes: list = []   # sorted [_Prefix], longest first
+        #: admission-time hit ordinals per prefix key — the
+        #: least-recently-hit order register_prefix evicts in
+        self._prefix_hits: dict = {}
+        self._prefix_hit_clock = 0
+        # live scheduler state: one shared cache (dense slab and/or paged
+        # pool per kv_mode) + lane bookkeeping; the host mirrors
+        # (cur/pos/tables) feed the per-tick decode call
+        if self.kv_mode in ("dense", "parity"):
+            self._cache = family.init_cache(config, lanes, max_len,
+                                            device=dev)
+            self._tick = DecodeTick(
+                lambda cur, pos, _: family.forward_step(
+                    config, self.params, cur, self._cache, pos)[0],
+                lanes, 0, dev)
+        if self.kv_mode in ("paged", "parity"):
+            self._pool = family.init_block_pool(
+                config, self.pool_blocks + 1, self.kv_block, device=dev)
+            self._bpool = BlockPool(self.pool_blocks)
+            self._tables = np.zeros((lanes, self._bpl), np.int64)
+            self._tick_p = DecodeTick(
+                lambda cur, pos, tables: family.forward_step_paged(
+                    config, self.params, cur, self._pool, tables, pos)[0],
+                lanes, self._bpl, dev)
+        #: monotonic residency generation: bumped whenever the prefix set
+        #: changes, so a router can cache residency snapshots
+        self.residency_epoch = 0
+        self._lane_state = [_Lane() for _ in range(lanes)]
+        self._cur = np.zeros((lanes, 1), np.int64)
+        self._pos = np.zeros((lanes,), np.int64)
+        self._seed = seed
+        self._rng = torch.Generator(device=dev).manual_seed(seed)
+        self._queue: deque[Request] = deque()
+        self._cv = threading.Condition()
+        #: serializes the whole scheduler step (the shared cache and the
+        #: lane bookkeeping): inline run() callers and the background
+        #: loop can never tick concurrently
+        self._sched_lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self._stopped = False
+
+    # -- the device steps (stubbable seams) ---------------------------------
+
+    def _decode(self, cur, pos):
+        """Dense decode tick: logits [lanes, vocab] on the device."""
+        return self._tick(cur, pos)
+
+    def _decode_p(self, cur, pos, tables):
+        """Paged decode tick: logits [lanes, vocab] on the device."""
+        return self._tick_p(cur, pos, tables)
+
+    def _d_decode(self, cur, pos):
+        """Draft decode tick over the draft's dense cache."""
+        return self._d_tick(cur, pos)
+
+    def _ticks(self) -> list:
+        return [t for t in (getattr(self, "_tick", None),
+                            getattr(self, "_tick_p", None),
+                            getattr(self, "_d_tick", None)) if t is not None]
+
+    @property
+    def tick_launches(self) -> dict:
+        """Decode ticks run so far by route, over every tick of the
+        engine (target dense and paged, draft)."""
+        out = {"graph": 0, "eager": 0}
+        for t in self._ticks():
+            for route, n in t.launches.items():
+                out[route] += n
+        return out
+
+    @torch.no_grad()
+    def decode_tick(self, route: Optional[str] = None):
+        """One target decode tick on the engine's current lane state,
+        without advancing any lane: it rewrites the K/V the next real
+        tick writes, at the same slots. Returns the logits [lanes, vocab]
+        on the device (a graph's static output: read them before the next
+        tick). ``route`` is ``"eager"`` or the engine's own route
+        (``None``: :func:`decode_tick_route` of its device); the paged
+        tick where the engine has one. For timing the tick, and holding
+        the graph against the eager tick on one state."""
+        with self._sched_lock:
+            paged = self.kv_mode != "dense"
+            tick = self._tick_p if paged else self._tick
+            args = ((self._cur, self._pos, self._tables) if paged
+                    else (self._cur, self._pos))
+            if route == "eager":
+                return tick.eager(*args)
+            if route in (None, tick.route):
+                return tick(*args)
+            raise ValueError(f"route {route!r} does not run on "
+                             f"{self.device.type}")
+
+    # -- public API -------------------------------------------------------
+
+    @torch.no_grad()
+    def register_prefix(self, tokens: Sequence[int],
+                        max_prefixes: Optional[int] = None,
+                        pinned: bool = False, model: str = "") -> None:
+        """Prefill a shared prompt prefix ONCE; later requests whose
+        prompts start with it skip re-prefilling it. Greedy outputs are
+        unchanged (the shared KV is what the full prefill would have
+        written).
+
+        Dense mode stashes a full KV copy that is written into each
+        matching lane. Paged modes pin the prefix's FULL blocks in the
+        pool instead: matching lanes point their block tables at them
+        (refcounted copy-on-write sharing, no device copy at admission);
+        the partial tail block is never shared and is re-prefilled per
+        lane.
+
+        At ``max_prefixes`` the LEAST-RECENTLY-HIT unpinned prefix is
+        evicted (its pin decref'd — lanes still referencing the blocks
+        keep them alive until they finish); only when every stored prefix
+        is ``pinned`` does the cap raise. ``model`` scopes the entry
+        ("" = base model)."""
+        tokens = list(tokens)
+        if not tokens:
+            raise ValueError("empty prefix")
+        plen = len(tokens)
+        if plen >= self.max_len:
+            raise ValueError(
+                f"prefix {plen} exceeds cache capacity {self.max_len}")
+        key = tuple(tokens)
+        model = model or ""
+        if max_prefixes is not None and \
+                not any(p.key == key and p.model == model
+                        for p in self._prefixes) and \
+                len(self._prefixes) >= max_prefixes and \
+                all(p.pinned for p in self._prefixes):
+            # optimistic pre-check: a rejected registration must not first
+            # burn a full device prefill (the authoritative check below
+            # runs under the lock)
+            raise ValueError(
+                f"prefix limit {max_prefixes} reached and every stored "
+                "prefix is pinned (each prefix pins a KV block in memory)")
+        stored = None
+        if self.kv_mode == "dense":
+            stored = self._fill_prefix(tokens)
+        with self._sched_lock:
+            # dedup (re-registering replaces) + longest-first ordering so
+            # the best match wins during admission; swap in a NEW list so
+            # concurrent _match_prefix iterations never see a mid-sort view
+            entries = [p for p in self._prefixes
+                       if not (p.key == key and p.model == model)]
+            # the cap is enforced here, under the lock: an idempotent
+            # re-register (key already stored) is never rejected
+            evicted: list = []
+            if max_prefixes is not None:
+                while len(entries) >= max_prefixes:
+                    victims = [p for p in entries if not p.pinned]
+                    if not victims:
+                        raise ValueError(
+                            f"prefix limit {max_prefixes} reached and "
+                            "every stored prefix is pinned (each prefix "
+                            "pins a KV block in memory)")
+                    victim = min(victims, key=lambda p: (
+                        self._prefix_hits.get((p.model, p.key), 0),
+                        p.model, p.key))
+                    entries = [p for p in entries
+                               if not (p.key == victim.key
+                                       and p.model == victim.model)]
+                    evicted.append(victim)
+            blocks: tuple = ()
+            if self.kv_mode != "dense":
+                # release a replaced pin BEFORE allocating the new one: an
+                # idempotent re-register never needs net-new blocks. The
+                # entry list is swapped in first so a failed re-fill never
+                # leaves a registered entry pointing at freed blocks
+                for old in self._prefixes:
+                    if old.key == key and old.model == model \
+                            and old.blocks:
+                        self._bpool.decref(old.blocks)
+                for victim in evicted:
+                    if victim.blocks:
+                        self._bpool.decref(victim.blocks)
+                self._prefixes = entries
+                # KV at position p depends only on tokens <= p, so the
+                # shareable full blocks need exactly the first
+                # n_full*block tokens prefilled — the tail is per-lane
+                n_full = plen // self.kv_block
+                if n_full:
+                    got = self._bpool.alloc(n_full)
+                    if got is None:
+                        raise ValueError(
+                            f"KV pool exhausted: prefix needs {n_full} "
+                            f"blocks, {self._bpool.free_count} free")
+                    blocks = tuple(got)
+                    try:
+                        self._fill_prefix_blocks(
+                            blocks, tokens[:n_full * self.kv_block])
+                    except BaseException:
+                        # `got` would stay at refcount 1 with no owner:
+                        # rebuild pool + allocator + surviving pins, as
+                        # after a failed inline step
+                        self._recover_locked()
+                        raise
+            for victim in evicted:
+                self._prefix_hits.pop((victim.model, victim.key), None)
+            # seed the hit clock at registration: a never-yet-admitted
+            # prefix ranks by registration recency, not a tie at 0
+            self._record_prefix_hit((model, key))
+            entries = entries + [_Prefix(key=key, plen=plen,
+                                         stored=stored, blocks=blocks,
+                                         pinned=bool(pinned),
+                                         model=model)]
+            entries.sort(key=lambda p: -p.plen)
+            self._prefixes = entries
+            self.residency_epoch += 1
+
+    def _chunked_prefill(self, step, seq: list, start: int):
+        """THE chunking rule, shared by every prefill path (dense lane,
+        paged lane, prefix fill, draft): feed ``seq[start:]`` through
+        ``step(toks [1, bucket] np.int64, pos0, n) -> logits`` in
+        right-padded power-of-two chunks that fit the remaining cache
+        space, so a padded chunk never runs past the cache end. Returns
+        the last chunk's logits. validate() guarantees the fit."""
+        logits = None
+        pos0, remaining = start, list(seq[start:])
+        while remaining:
+            space = self.max_len - pos0
+            bucket = min(_bucket(len(remaining)), _pow2_floor(space))
+            n = min(len(remaining), bucket)
+            chunk, remaining = remaining[:n], remaining[n:]
+            toks = np.zeros((1, bucket), np.int64)
+            toks[0, :n] = chunk
+            logits = step(toks, pos0, n)
+            pos0 += n
+        return logits
+
+    def _prefill_step(self, family, cfg, params, cache, tables=None):
+        """``step`` for :meth:`_chunked_prefill`: one bucket through
+        ``forward_step`` (or ``forward_step_paged`` with ``tables``)
+        against ``cache``, returning the real last token's logits. The
+        valid mask marks the live cache region, as the JAX prefill's."""
+        dev = self.device
+        view = cache["k"].shape[2] if tables is None else \
+            tables.shape[1] * self.kv_block
+
+        def step(toks, pos0, n):
+            valid = (torch.arange(view, device=dev) < pos0 + n)[None, :]
+            toks_t = torch.as_tensor(toks, device=dev)
+            if tables is None:
+                logits, _ = family.forward_step(
+                    cfg, params, toks_t, cache, pos0, valid=valid,
+                    last_pos=n - 1)
+            else:
+                logits, _ = family.forward_step_paged(
+                    cfg, params, toks_t, cache, tables, pos0, valid=valid,
+                    last_pos=n - 1)
+            return logits
+
+        return step
+
+    def _fill_prefix(self, tokens: list) -> dict:
+        """Dense mode: prefill a prefix on a scratch single-lane cache
+        sized to its bucket (garbage beyond plen is causally invisible
+        once loaded into a lane)."""
+        plen = len(tokens)
+        bucket = min(_bucket(plen), self.max_len)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :plen] = tokens
+        scratch = self.family.init_cache(self.config, 1, bucket,
+                                         device=self.device)
+        step = self._prefill_step(self.family, self.config, self.params,
+                                  scratch)
+        step(toks, 0, plen)
+        return scratch
+
+    def _load_prefix(self, stored: dict, lane: int) -> None:
+        """Copy a stored prefix KV block into one lane's cache rows."""
+        for k, c in self._cache.items():
+            s = stored[k]
+            c[:, lane, :s.shape[2]].copy_(s[:, 0])
+
+    def _fill_prefix_blocks(self, blocks: Sequence[int],
+                            tokens: list) -> None:
+        """Chunk-prefill ``tokens`` into ``blocks`` through a scratch
+        table row (caller holds ``_sched_lock``)."""
+        row = np.zeros((1, self._bpl), np.int64)
+        row[0, :len(blocks)] = blocks
+        step = self._prefill_step(
+            self.family, self.config, self.params, self._pool,
+            torch.as_tensor(row, device=self.device))
+        self._chunked_prefill(step, list(tokens), 0)
+
+    @property
+    def prefix_count(self) -> int:
+        return len(self._prefixes)
+
+    def clear_prefixes(self) -> None:
+        """Drop every stored prefix KV block (frees device memory /
+        unpins pool blocks)."""
+        with self._sched_lock:
+            for p in self._prefixes:
+                if p.blocks:
+                    self._bpool.decref(p.blocks)
+            self._prefixes = []
+            self._prefix_hits = {}
+            self.residency_epoch += 1
+
+    def _record_prefix_hit(self, key: tuple) -> None:
+        """Admission-time LRU bookkeeping (caller holds _sched_lock)."""
+        self._prefix_hit_clock += 1
+        self._prefix_hits[key] = self._prefix_hit_clock
+
+    def _match_prefix(self, prompt: list, model: str = "",
+                      record_hit: bool = True):
+        """Dense-mode match: (stored KV, suffix start)."""
+        for p in self._prefixes:
+            if p.model == model and len(prompt) >= p.plen \
+                    and tuple(prompt[:p.plen]) == p.key:
+                if record_hit:
+                    self._record_prefix_hit((p.model, p.key))
+                # keep at least one suffix token so the prefill has a
+                # position to read logits from (re-running the prefix's
+                # last token overwrites its own slot with identical KV)
+                return p.stored, min(p.plen, len(prompt) - 1)
+        return None, 0
+
+    def _match_prefix_blocks(self, prompt: list, model: str = "",
+                             record_hit: bool = True):
+        """Paged-mode match: (shareable block ids, suffix start). Shares
+        only FULL blocks, clamped so at least one suffix token remains to
+        prefill (start = n_shared * block <= len(prompt) - 1)."""
+        for p in self._prefixes:
+            if p.model == model and len(prompt) >= p.plen \
+                    and tuple(prompt[:p.plen]) == p.key:
+                if record_hit:
+                    self._record_prefix_hit((p.model, p.key))
+                n = min(len(p.blocks), (len(prompt) - 1) // self.kv_block)
+                return list(p.blocks[:n]), n * self.kv_block
+        return [], 0
+
+    def prefix_residency(self, prompt: Sequence[int],
+                         model: str = "") -> int:
+        """Pool blocks a registered prefix would share with this prompt
+        right now (0 = no resident prefix): a router's placement signal.
+        Does NOT touch the LRU hit clock."""
+        if self.kv_mode == "dense":
+            return 0
+        with self._sched_lock:
+            shared, _ = self._match_prefix_blocks(list(prompt),
+                                                  model=model or "",
+                                                  record_hit=False)
+        return len(shared)
+
+    def residency_snapshot(self) -> tuple:
+        """One consistent ``(epoch, prefixes, resident_adapters,
+        kv_block)`` view, where ``prefixes`` is the longest-first
+        ``(model, key, n_blocks)`` list the match walks. This port serves
+        no adapters, so the resident set is empty."""
+        with self._sched_lock:
+            return (self.residency_epoch,
+                    tuple((p.model, p.key, len(p.blocks))
+                          for p in self._prefixes),
+                    frozenset(), self.kv_block)
+
+    @property
+    def queue_depth(self) -> int:
+        with self._cv:
+            return len(self._queue)
+
+    def health(self) -> dict:
+        """An autoscaler's control inputs: free pool blocks, queue depth,
+        lane occupancy, handoff and preemption counters — one consistent
+        snapshot per lock."""
+        with self._sched_lock:
+            active = sum(1 for l in self._lane_state
+                         if l.request is not None)
+            parked = sum(1 for l in self._lane_state if l.parked)
+            free = (self._bpool.free_count if self.kv_mode != "dense"
+                    else None)
+        return {
+            "queue_depth": self.queue_depth,
+            "active_lanes": active,
+            "parked_lanes": parked,
+            "free_blocks": free,
+            "lanes": self.lanes,
+            "prefill_lanes": self.prefill_lanes,
+            "handoffs": self.handoffs,
+            "preempted": self.preempted,
+        }
+
+    def validate(self, prompt: Sequence[int], max_new: int) -> None:
+        """Raise ValueError if the request can never fit the cache —
+        callers batching several submits should validate ALL of them
+        first so a bad late request doesn't strand earlier ones."""
+        plen = max(len(prompt), 1)
+        if plen + max_new > self.max_len:
+            raise ValueError(
+                f"prompt {plen} + new {max_new} exceeds cache capacity "
+                f"{self.max_len}")
+
+    def submit(self, prompt: Sequence[int], max_new: int,
+               logprobs: bool = False, temperature: Optional[float] = None,
+               top_k: Optional[int] = None,
+               top_p: Optional[float] = None,
+               model: str = "") -> Request:
+        """Enqueue one generation; returns a Request whose ``result()``
+        blocks until finished. Thread-safe. ``temperature``/``top_k``/
+        ``top_p`` override the engine's GenerateConfig for THIS request
+        only (each lane samples with its own request's params)."""
+        self.validate(prompt, max_new)
+        sampling = self.validate_sampling(temperature=temperature,
+                                          top_k=top_k, top_p=top_p)
+        model = self.validate_model(model)
+        req = Request(prompt=list(prompt), max_new=max_new,
+                      want_logprobs=logprobs, model=model, **sampling)
+        if self.tracer.enabled:
+            req.trace_id = self.tracer.new_trace_id()
+            req._span_root = self.tracer.new_span_id()
+            req._t_submit = req._t_queue = self.tracer.clock()
+        if max_new <= 0:
+            req._finish()          # nothing requested: empty output
+            return req
+        with self._cv:
+            if self._stopped:
+                raise RuntimeError("engine stopped")
+            self._queue.append(req)
+            self._cv.notify()
+        return req
+
+    def validate_model(self, model: Optional[str]) -> str:
+        """Normalize a request's adapter id in the caller's thread:
+        returns "" for the base model, the only one this engine serves."""
+        if not model:
+            return ""
+        raise ValueError(
+            f"model {model!r} requested but this engine serves only its "
+            "base model (no adapter catalog configured)")
+
+    def validate_sampling(self, temperature=None, top_k=None,
+                          top_p=None) -> dict:
+        """Bounds-check per-request sampling overrides in the CALLER's
+        thread (a bad value must 400 one request, never reach the
+        scheduler loop, where a raise stops the engine and cancels every
+        lane). Returns the normalized dict."""
+        if temperature is not None:
+            temperature = float(temperature)
+            if not (0.0 <= temperature < 1e4):
+                raise ValueError(f"temperature out of range: {temperature}")
+        if top_k is not None:
+            top_k = int(top_k)
+            if not (0 <= top_k <= self.config.vocab_size):
+                raise ValueError(
+                    f"top_k out of range [0, {self.config.vocab_size}]: "
+                    f"{top_k}")
+        if top_p is not None:
+            top_p = float(top_p)
+            if not (0.0 < top_p <= 1.0):
+                raise ValueError(f"top_p out of range (0, 1]: {top_p}")
+        return {"temperature": temperature, "top_k": top_k, "top_p": top_p}
+
+    def reseed(self, seed: int) -> None:
+        """Rebase the sampling stream on ``seed``: identical submissions
+        after an identical ``reseed`` sample identical token streams.
+        Refused while the background loop runs (other clients share the
+        stream)."""
+        if self._thread is not None:
+            raise ValueError(
+                "cannot reseed a running engine (other clients share "
+                "the sampling stream)")
+        with self._sched_lock:
+            self._rng = torch.Generator(device=self.device).manual_seed(seed)
+            if self.spec_k:
+                # the speculative accept rule draws from per-request host
+                # rngs (seed + admission ordinal): rebase both
+                self._seed = seed
+                self._spec_admitted = 0
+
+    def run(self, requests: Sequence[tuple],
+            seed: Optional[int] = None) -> list:
+        """requests: [(prompt_token_list, max_new_tokens), ...] in arrival
+        order. Returns one generated-id list per request. Inline when no
+        background loop is running; otherwise defers to it."""
+        # validate everything up front: a bad late request must not strand
+        # earlier ones in the queue
+        for prompt, max_new in requests:
+            self.validate(prompt, max_new)
+        if seed is not None:
+            self.reseed(seed)
+        reqs = [self.submit(p, n) for p, n in requests]
+        if self._thread is None:
+            with self._sched_lock:
+                try:
+                    while self._step_once():
+                        pass
+                except BaseException:
+                    # restore invariants and cancel in-flight requests so
+                    # waiters unblock
+                    self._recover_locked()
+                    raise
+        return [r.result() for r in reqs]
+
+    def step(self) -> bool:
+        """Run ONE inline scheduler tick: admit queue heads onto free
+        lanes, then one decode round across all lanes. Returns True while
+        there is work left. Mutually exclusive with the background loop
+        (:meth:`start`); same abort-recovery contract as inline
+        :meth:`run`."""
+        if self._thread is not None:
+            raise RuntimeError(
+                "step() is an inline driver; stop() the background loop "
+                "first")
+        with self._sched_lock:
+            try:
+                return self._step_once()
+            except BaseException:
+                self._recover_locked()
+                raise
+
+    @torch.no_grad()
+    def _recover_locked(self) -> None:
+        """Restore the engine after a failed step: cancel every queued
+        and in-flight request, reset the caches and the allocator, and
+        re-prefill the registered prefixes. The JAX engine must rebuild
+        its cache because donation consumed it; this one writes in place
+        and keeps its tensors (a captured graph holds their addresses),
+        zeroing them and dropping the graphs so the next tick captures
+        anew. Caller holds ``_sched_lock``."""
+        # the queue snapshot must hold _cv: submit() appends under _cv only
+        with self._cv:
+            abandoned = list(self._queue)
+            self._queue.clear()
+        for lane in self._lane_state:
+            if lane.request is not None:
+                abandoned.append(lane.request)
+            lane.reset()
+        for req in abandoned:
+            req._finish(cancelled=True)
+            self._trace_finish(req, status="error")
+        for tick in self._ticks():
+            tick.reset()
+        if self.kv_mode in ("dense", "parity"):
+            for t in self._cache.values():
+                t.zero_()
+        if self.kv_mode in ("paged", "parity"):
+            # rebuild the allocator, then re-pin + re-prefill every
+            # registered prefix
+            self._tables[:] = 0
+            self._bpool = BlockPool(self.pool_blocks)
+            for t in self._pool.values():
+                t.zero_()
+            entries = []
+            for p in self._prefixes:
+                blocks: tuple = ()
+                if p.blocks:
+                    # cannot fail: a fresh pool has at least as much room
+                    # as when the prefix was first registered
+                    blocks = tuple(self._bpool.alloc(len(p.blocks)))
+                    self._fill_prefix_blocks(
+                        blocks, list(p.key)[:len(blocks) * self.kv_block])
+                entries.append(_Prefix(key=p.key, plen=p.plen,
+                                       stored=p.stored, blocks=blocks,
+                                       pinned=p.pinned, model=p.model))
+            self._prefixes = entries
+            self.residency_epoch += 1
+        if self.spec_k:
+            for t in self._d_cache.values():
+                t.zero_()
+        self._cur = np.zeros((self.lanes, 1), np.int64)
+        self._pos = np.zeros((self.lanes,), np.int64)
+
+    def start(self) -> "ContinuousBatchingEngine":
+        """Run the scheduler on a background thread (HTTP serving mode).
+        That thread then captures and replays the decode graphs."""
+        def loop():
+            while True:
+                with self._cv:
+                    while (not self._stopped and not self._queue
+                           and not self._active()):
+                        self._cv.wait()
+                    if self._stopped:
+                        return
+                try:
+                    with self._sched_lock:
+                        self._step_once()
+                except Exception:  # noqa: BLE001 — a dead loop must not
+                    # strand waiters: fail every request and stop accepting
+                    logging.getLogger("kubedl_tpu_torch.serving").exception(
+                        "batching scheduler failed; cancelling requests")
+                    with self._cv:
+                        self._stopped = True
+                    self._cancel_all()
+                    return
+
+        self._thread = threading.Thread(target=loop, name="kubedl-batching",
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop the background loop; queued and in-flight requests are
+        cancelled (their waiters unblock with a RuntimeError)."""
+        with self._cv:
+            self._stopped = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        self._cancel_all()
+
+    def _cancel_all(self) -> None:
+        with self._sched_lock:
+            abandoned = list(self._queue)
+            self._queue.clear()
+            for i, lane in enumerate(self._lane_state):
+                if lane.request is not None:
+                    abandoned.append(lane.request)
+                self._free_lane(i)
+            for req in abandoned:
+                req._finish(cancelled=True)
+                # the root span must still land: failed requests are the
+                # ones worth debugging
+                self._trace_finish(req, status="error")
+
+    def pool_stats(self) -> dict:
+        """Pool occupancy + scheduler counters for /metrics. Dense mode
+        reports only the mode (no pool exists). Takes the scheduler lock:
+        allocator state mutates under it on the scheduler thread."""
+        out = {"kv_mode": self.kv_mode, "peak_active": self.peak_active}
+        if self.kv_mode == "dense":
+            return out
+        with self._sched_lock:
+            bp = self._bpool
+            out.update({
+                "kv_block": self.kv_block,
+                "blocks_total": bp.total,
+                "blocks_free": bp.free_count,
+                "blocks_used": bp.used_count,
+                "blocks_shared": bp.shared_count,
+                "blocks_pinned": sum(len(p.blocks)
+                                     for p in self._prefixes),
+                "block_allocs": bp.allocs,
+                "preempted": self.preempted,
+                "handoffs": self.handoffs,
+                "prefill_tokens": self.prefill_tokens_total,
+            })
+        return out
+
+    # -- scheduler --------------------------------------------------------
+
+    def _trace_finish(self, req: Request, status: str = "ok") -> None:
+        """Record the request's decode span and its root span (the whole
+        submit→finish window). No-op for untraced requests."""
+        if not (self.tracer.enabled and req.trace_id and req._span_root):
+            return
+        now = self.tracer.clock()
+        if req._t_decode:
+            self.tracer.record(
+                "request.decode", req._t_decode, now,
+                trace_id=req.trace_id, parent_id=req._span_root,
+                component="serving",
+                attributes={"tokens": len(req.tokens)})
+        self.tracer.record(
+            "serving.request", req._t_submit, now,
+            trace_id=req.trace_id, span_id=req._span_root,
+            component="serving", status=status,
+            attributes={"tokens": len(req.tokens),
+                        "promptTokens": len(req.prompt),
+                        "preemptions": req._preempts,
+                        **({"error": req.error} if req.error else {})})
+        req._span_root = ""   # finalized: never re-record this root
+
+    def _active(self) -> bool:
+        return any(l.request is not None for l in self._lane_state)
+
+    # -- paged-pool bookkeeping (host side; caller holds _sched_lock) -----
+
+    def _blocks_for(self, n_tokens: int) -> int:
+        return -(-max(n_tokens, 1) // self.kv_block)
+
+    def _ensure_blocks(self, i: int, last_pos: int) -> bool:
+        """Grow lane i's block table to cover a write at ``last_pos``.
+        False when the pool is dry (caller preempts or waits)."""
+        lane = self._lane_state[i]
+        need = last_pos // self.kv_block + 1
+        have = len(lane.blocks)
+        if have >= need:
+            return True
+        got = self._bpool.alloc(need - have)
+        if got is None:
+            return False
+        self._tables[i, have:need] = got
+        lane.blocks.extend(got)
+        return True
+
+    def _free_lane(self, i: int) -> None:
+        """Detach lane i's request and return its pool blocks (shared
+        prefix blocks drop one refcount; private ones free)."""
+        lane = self._lane_state[i]
+        if lane.blocks:
+            self._bpool.decref(lane.blocks)
+            lane.blocks = []
+            self._tables[i, :] = 0
+        lane.request = None
+        lane.parked = False
+        lane.parked_at = 0.0
+
+    def _handoff(self, src: int, dst: int) -> None:
+        """Move a freshly-prefilled request from prefill lane ``src`` to
+        decode lane ``dst``: the block-table row, the cursor token, and
+        the position move; the KV itself never does — the table entries
+        reference the same shared-pool blocks. Caller holds
+        ``_sched_lock``."""
+        s, d = self._lane_state[src], self._lane_state[dst]
+        req = s.request
+        d.request, d.pos, d.remaining = req, s.pos, s.remaining
+        d.blocks, s.blocks = s.blocks, []
+        d.parked = False
+        self._tables[dst, :] = self._tables[src, :]
+        self._tables[src, :] = 0
+        self._cur[dst, 0] = self._cur[src, 0]
+        self._pos[dst] = self._pos[src]
+        s.request = None
+        s.pos = 0
+        s.remaining = 0
+        s.parked = False
+        self.handoffs += 1
+        if self.tracer.enabled and req.trace_id:
+            now = self.tracer.clock()
+            self.tracer.record(
+                "request.handoff", s.parked_at or now, now,
+                trace_id=req.trace_id, parent_id=req._span_root,
+                component="serving",
+                attributes={"fromLane": src, "toLane": dst,
+                            "blocks": len(d.blocks)})
+            # decode starts on the decode lane, not at the prefill lane's
+            # first-token emit
+            req._t_decode = now
+        s.parked_at = 0.0
+
+    def _try_handoffs(self) -> None:
+        """Hand each parked prefill lane's request to a free decode lane,
+        FIFO over lane index. A cancelled request parked mid-handoff is
+        freed here — its blocks decref exactly like a cancelled decode
+        lane's."""
+        for src in range(self.prefill_lanes):
+            lane = self._lane_state[src]
+            if not lane.parked:
+                continue
+            req = lane.request
+            if req.cancel_requested:
+                self._free_lane(src)
+                req._finish()
+                self._trace_finish(req)
+                continue
+            dst = next((j for j in range(self.prefill_lanes, self.lanes)
+                        if self._lane_state[j].request is None), None)
+            if dst is None:
+                return           # every decode lane busy: wait parked
+            self._handoff(src, dst)
+
+    def _preempt_for_blocks(self) -> bool:
+        """Pool ran dry mid-step: evict the lowest-progress active lane
+        back to the queue HEAD (resumed later by re-prefilling prompt +
+        generated-so-far). Returns False when nothing is evictable."""
+        cands = [(len(l.request.tokens), i)
+                 for i, l in enumerate(self._lane_state)
+                 if l.request is not None]
+        if not cands:
+            return False
+        _, victim = min(cands)
+        req = self._lane_state[victim].request
+        self._free_lane(victim)
+        self.preempted += 1
+        if self.tracer.enabled and req.trace_id:
+            now = self.tracer.clock()
+            if req._t_decode:
+                self.tracer.record(
+                    "request.decode", req._t_decode, now,
+                    trace_id=req.trace_id, parent_id=req._span_root,
+                    component="serving",
+                    attributes={"tokens": len(req.tokens),
+                                "preempted": True})
+                req._t_decode = 0.0
+            self.tracer.record(
+                "request.preempted", now, now, trace_id=req.trace_id,
+                parent_id=req._span_root, component="serving",
+                attributes={"tokens": len(req.tokens)})
+            req._t_queue = now
+            req._preempts += 1
+        with self._cv:
+            self._queue.appendleft(req)
+        return True
+
+    def _grow_active(self, extra: int) -> None:
+        """Ensure every active lane's table covers a write at
+        ``pos + extra``, preempting lowest-progress lanes while the pool
+        is dry. Parked lanes are skipped: they write nothing until their
+        handoff lands."""
+        for i, lane in enumerate(self._lane_state):
+            while lane.request is not None and not lane.parked and \
+                    not self._ensure_blocks(i, lane.pos + extra):
+                if not self._preempt_for_blocks():
+                    break
+
+    def _assert_parity(self, dense_logits, paged_logits, what: str,
+                       rows: Optional[list] = None) -> None:
+        """Parity mode's contract: on every ACTIVE lane the paged path's
+        logits pick the same tokens as the dense path's (and track them
+        numerically). Dead-lane rows are garbage in both layouts."""
+        act = rows if rows is not None else \
+            [i for i, l in enumerate(self._lane_state)
+             if l.request is not None]
+        if not act:
+            return
+        ld = _host(dense_logits)[act]
+        lp = _host(paged_logits)[act]
+        if not np.array_equal(ld.argmax(-1), lp.argmax(-1)) or \
+                not np.allclose(ld, lp, rtol=1e-4, atol=1e-5):
+            raise AssertionError(
+                f"KV parity violation in {what}: dense and paged logits "
+                f"diverge (max abs diff {np.abs(ld - lp).max():.3e})")
+
+    def _lane_sampling(self, req: Request):
+        """(temperature, top_k, top_p) for a request — per-request
+        overrides over the engine GenerateConfig."""
+        gen = self.gen
+        t = gen.temperature if req.temperature is None else req.temperature
+        k_ = gen.top_k if req.top_k is None else req.top_k
+        p_ = gen.top_p if req.top_p is None else req.top_p
+        return t, k_, p_
+
+    def _spec_round_k(self) -> int:
+        """Draft lookahead this round: spec_k clamped so every ACTIVE
+        lane's [k+1] verify chunk (and the draft backfill at pos+k) stays
+        inside the cache."""
+        space = min(self.max_len - 1 - l.pos
+                    for l in self._lane_state if l.request is not None)
+        return min(self.spec_k, space)
+
+    def _spec_verify(self, chunk, pos):
+        """The target's [lanes, k+1] pass at per-row positions (eager):
+        all-position logits on the device."""
+        dev = self.device
+        chunk_t = torch.as_tensor(chunk, device=dev)
+        pos_t = torch.as_tensor(pos, device=dev)
+        cfg, params = self.config, self.params
+        if self.kv_mode == "dense":
+            return self.family.forward_step(cfg, params, chunk_t,
+                                            self._cache, pos_t,
+                                            all_logits=True)[0]
+        tables = torch.as_tensor(self._tables, device=dev)
+        logits_p = self.family.forward_step_paged(
+            cfg, params, chunk_t, self._pool, tables, pos_t,
+            all_logits=True)[0]
+        if self.kv_mode == "parity":
+            logits = self.family.forward_step(cfg, params, chunk_t,
+                                              self._cache, pos_t,
+                                              all_logits=True)[0]
+            self._assert_parity(logits, logits_p, "spec_verify")
+            return logits
+        return logits_p
+
+    def _spec_round(self, k: int) -> None:
+        """One speculative round for EVERY lane: k draft proposals each
+        (k batched [lanes, 1] draft ticks), one [lanes, k+1] target
+        verify, per-lane acceptance — greedy prefix-match for greedy
+        lanes (output token-identical to the non-speculative engine), the
+        ``spec_accept`` rule for sampled lanes. Rejected slots stay
+        causally invisible until overwritten."""
+        gen = self.gen
+        lanes_n = self.lanes
+        active = np.asarray([l.request is not None
+                             for l in self._lane_state])
+        # dead lanes still compute but their writes must stay in range:
+        # park them at position 0 — those slots are fully rewritten by
+        # the next admission's prefill
+        pos = np.where(active, self._pos, 0).astype(np.int64)
+        cur = self._cur.copy()
+        sampled = [l.request is not None
+                   and self._lane_sampling(l.request)[0] > 0.0
+                   for l in self._lane_state]
+        drafts = np.zeros((lanes_n, k), np.int64)
+        dprobs = [[None] * k for _ in range(lanes_n)]
+        dcur = cur.copy()
+        for j in range(k):
+            dl = _host(self._d_decode(dcur, pos + j))
+            greedy_next = dl.argmax(-1)
+            for i, lane in enumerate(self._lane_state):
+                if sampled[i]:
+                    t, tk, tp = self._lane_sampling(lane.request)
+                    p = filtered_probs(dl[i], t, tk, tp)
+                    drafts[i, j] = int(
+                        lane.request._spec_rng.choice(len(p), p=p))
+                    dprobs[i][j] = p
+                else:
+                    drafts[i, j] = int(greedy_next[i])
+            dcur[:, 0] = drafts[:, j]
+        chunk = np.concatenate([cur, drafts], axis=1)
+        tl = _host(self._spec_verify(chunk, pos))      # [lanes, k+1, V]
+        # draft backfill: the k-th proposal's KV never entered the draft
+        # cache; one batched tick ingests it at pos+k for every lane —
+        # lanes that accepted less overwrite that slot before it is ever
+        # attendable
+        self._d_decode(drafts[:, k - 1:k], pos + k)
+        for i, lane in enumerate(self._lane_state):
+            req = lane.request
+            if req is None:
+                continue
+            if req.cancel_requested:
+                self._free_lane(i)
+                req._finish()
+                self._trace_finish(req)
+                continue
+            if sampled[i]:
+                t, tk, tp = self._lane_sampling(req)
+                tpro = [filtered_probs(tl[i, j], t, tk, tp)
+                        for j in range(k + 1)]
+                accepted, nxt = spec_accept(drafts[i], dprobs[i], tpro,
+                                            req._spec_rng)
+            else:
+                targets = tl[i].argmax(-1)          # [k+1]
+                accepted = 0
+                while accepted < k and \
+                        drafts[i, accepted] == targets[accepted]:
+                    accepted += 1
+                nxt = int(targets[accepted])
+            emitted = [int(x) for x in drafts[i, :accepted]] + [int(nxt)]
+            lp_rows = None
+            if req.want_logprobs:
+                # full-softmax log p of each emitted token under the verify
+                # logits of ITS slot
+                row = tl[i, :len(emitted)]
+                row = row - row.max(-1, keepdims=True)
+                lp_all = row - np.log(np.exp(row).sum(-1, keepdims=True))
+                lp_rows = [float(lp_all[j, emitted[j]])
+                           for j in range(len(emitted))]
+            finished = False
+            pushed = 0
+            for j, tok in enumerate(emitted):
+                req._push(tok, lp_rows[j] if lp_rows else None)
+                pushed += 1
+                lane.pos += 1
+                lane.remaining -= 1
+                if (lane.remaining <= 0 or hit_stop(req.tokens, gen)
+                        or lane.pos + 1 >= self.max_len):
+                    finished = True
+                    break
+            # acceptance accounting clamped to tokens actually EMITTED: a
+            # lane stopping mid-chunk counts only the drafts that reached
+            # the client; past the bonus token all k drafts count
+            acc_inc = min(pushed, accepted)
+            prop_inc = k if pushed > accepted else pushed
+            self.stats.proposed += prop_inc
+            self.stats.accepted += acc_inc
+            self.lane_stats[i].proposed += prop_inc
+            self.lane_stats[i].accepted += acc_inc
+            self._cur[i, 0] = req.tokens[-1]
+            self._pos[i] = lane.pos
+            if finished:
+                self._free_lane(i)
+                req._finish()
+                self._trace_finish(req)
+
+    def _prefill_dense(self, lane_idx: int, seq: list, start: int):
+        """Chunked dense-slab prefill of ``seq[start:]`` into one lane."""
+        row = {k: v[:, lane_idx:lane_idx + 1] for k, v in self._cache.items()}
+        return self._chunked_prefill(
+            self._prefill_step(self.family, self.config, self.params, row),
+            seq, start)
+
+    def _prefill_paged(self, lane_idx: int, seq: list, start: int):
+        """Chunked paged prefill of ``seq[start:]`` through lane
+        ``lane_idx``'s block table (grown by the caller)."""
+        tables = torch.as_tensor(self._tables[lane_idx:lane_idx + 1],
+                                 device=self.device)
+        return self._chunked_prefill(
+            self._prefill_step(self.family, self.config, self.params,
+                               self._pool, tables),
+            seq, start)
+
+    def _admit(self, lane_idx: int) -> bool:
+        """Admit the queue head onto free lane ``lane_idx``. Returns False
+        when admission must stop this tick: queue empty, or (paged modes)
+        the head needs more free blocks than the pool has — FCFS, the head
+        is never skipped. A head that can NEVER be admitted (pool too
+        small after prefix pins, nothing running to preempt) is failed
+        with a descriptive error instead of wedging the queue."""
+        gen = self.gen
+        with self._cv:
+            while self._queue and self._queue[0].cancel_requested:
+                # cancelled while queued: never pay the prefill
+                r = self._queue.popleft()
+                r._finish()
+                self._trace_finish(r)
+            if not self._queue:
+                return False
+            req = self._queue[0]
+            shared, start_p = [], 0
+            if self.kv_mode != "dense":
+                # admission watermark: the prompt's private blocks plus
+                # headroom must be free, or the head waits
+                seq = (req.prompt or [0]) + req.tokens
+                shared, start_p = self._match_prefix_blocks(
+                    seq, model=req.model)
+                need = self._blocks_for(len(seq)) - len(shared)
+                free = self._bpool.free_count
+                if not self._active():
+                    # nothing running: nothing will ever free blocks (only
+                    # prefix pins hold them) — the request either fits its
+                    # WHOLE generation now or never will
+                    total = self._blocks_for(min(
+                        len(seq) + req.max_new - len(req.tokens),
+                        self.max_len)) - len(shared)
+                    if total > free:
+                        self._queue.popleft()
+                        req.error = (
+                            f"request needs {total} free KV blocks but "
+                            f"only {free} are free (pool "
+                            f"{self.pool_blocks}, "
+                            f"{sum(len(p.blocks) for p in self._prefixes)}"
+                            " pinned by prefixes)")
+                        req._finish(cancelled=True)
+                        self._trace_finish(req, status="error")
+                        return True
+                elif free < need + self.headroom_blocks:
+                    return False
+            self._queue.popleft()
+        t_admit = (self.tracer.clock()
+                   if self.tracer.enabled and req.trace_id else 0.0)
+        # attach BEFORE the prefill work: a failure mid-prefill must leave
+        # the request visible to _recover_locked
+        lane = self._lane_state[lane_idx]
+        lane.request = req
+        # resume-aware: a preempted request re-prefills prompt PLUS the
+        # tokens it already streamed, then continues its budget
+        prior = len(req.tokens)
+        seq = (req.prompt or [0]) + req.tokens
+        plen = len(seq)
+        logits = None
+        prefill_from = 0      # first position actually prefilled (traces)
+        if self.kv_mode in ("dense", "parity"):
+            if self.kv_mode == "dense":
+                stored, start = self._match_prefix(seq, model=req.model)
+                prefill_from = start
+                if stored is not None:
+                    self._load_prefix(stored, lane_idx)
+            else:
+                # parity's dense shadow prefills from 0: prefix KV lives
+                # only in the pool there
+                start = 0
+            logits = self._prefill_dense(lane_idx, seq, start)
+        if self.kv_mode in ("paged", "parity"):
+            if shared:
+                self._bpool.incref(shared)
+                lane.blocks = list(shared)
+                self._tables[lane_idx, :len(shared)] = shared
+            # the admission gate reserved capacity under the same
+            # scheduler lock, so this cannot fail
+            self._ensure_blocks(lane_idx, plen - 1)
+            prefill_from = start_p
+            logits_p = self._prefill_paged(lane_idx, seq, start_p)
+            if self.kv_mode == "parity":
+                self._assert_parity(logits, logits_p, "prefill", rows=[0])
+            else:
+                logits = logits_p
+        self.prefill_tokens_step += plen - prefill_from
+        self.prefill_tokens_total += plen - prefill_from
+        t, k_, p_ = self._lane_sampling(req)
+        if t <= 0.0:
+            first = int(sample_logits(logits, self._rng, 0.0, 0)[0])
+        else:
+            dev = self.device
+            first = int(sample_logits_many(
+                logits, self._rng, torch.tensor([t], device=dev),
+                torch.tensor([k_], device=dev),
+                torch.tensor([p_], device=dev))[0])
+        req._push(first, float(token_logprobs(
+            logits, torch.tensor([first], device=self.device))[0])
+            if req.want_logprobs else None)
+        lane.pos = plen
+        lane.remaining = req.max_new - prior - 1
+        self._cur[lane_idx, 0] = first
+        self._pos[lane_idx] = plen
+        if self.tracer.enabled and req.trace_id:
+            now_t = self.tracer.clock()
+            self.tracer.record(
+                "request.queue", req._t_queue, t_admit,
+                trace_id=req.trace_id, parent_id=req._span_root,
+                component="serving",
+                attributes={"resumed": prior > 0, "lane": lane_idx})
+            self.tracer.record(
+                "request.prefill", t_admit, now_t,
+                trace_id=req.trace_id, parent_id=req._span_root,
+                component="serving",
+                attributes={"tokens": plen - prefill_from,
+                            "lane": lane_idx,
+                            "sharedBlocks": len(shared)})
+            req._t_decode = now_t
+        if lane.remaining <= 0 or hit_stop(req.tokens, gen):
+            self._free_lane(lane_idx)    # finished in prefill
+            req._finish()
+            self._trace_finish(req)
+        elif self.spec_k:
+            # the draft prefills the FULL sequence into ITS lane (prefix KV
+            # blocks are target-model state)
+            d_row = {k: v[:, lane_idx:lane_idx + 1]
+                     for k, v in self._d_cache.items()}
+            self._chunked_prefill(
+                self._prefill_step(self.dfam, self.dcfg, self.dparams,
+                                   d_row), seq, 0)
+            # per-request host rng drives the sampled accept rule; a
+            # RESUMED request keeps its rng
+            if req._spec_rng is None:
+                req._spec_rng = np.random.default_rng(
+                    self._seed + 1000003 * self._spec_admitted)
+                self._spec_admitted += 1
+        return True
+
+    @torch.no_grad()
+    def _step_once(self) -> bool:
+        """Fill free lanes, run one decode tick (or a speculative round
+        when a draft model is configured). Returns False once idle.
+
+        Disaggregated mode (``prefill_lanes`` > 0): handoffs land first,
+        admissions target prefill lanes only, and a just-prefilled request
+        parks for handoff — so a long prompt's chunked prefill never
+        occupies a decode lane."""
+        gen = self.gen
+        self.prefill_tokens_step = 0
+        stalled = False
+        if self.prefill_lanes:
+            self._try_handoffs()
+            for i in range(self.prefill_lanes):
+                lane = self._lane_state[i]
+                while self._queue and lane.request is None:
+                    if not self._admit(i):
+                        # FCFS: the head waits on pool capacity — every
+                        # other free lane would stall on it too
+                        stalled = True
+                        break
+                    if lane.request is not None:
+                        # prefilled, first token emitted: park for the
+                        # block-table handoff (an immediately-free decode
+                        # lane takes it now)
+                        lane.parked = True
+                        if self.tracer.enabled and lane.request.trace_id:
+                            lane.parked_at = self.tracer.clock()
+                        self._try_handoffs()
+                if stalled or not self._queue:
+                    break
+        else:
+            for i, lane in enumerate(self._lane_state):
+                while self._queue and lane.request is None:
+                    if not self._admit(i):
+                        stalled = True
+                        break
+                if stalled or not self._queue:
+                    break
+        self.peak_active = max(self.peak_active, sum(
+            1 for l in self._lane_state if l.request is not None))
+        if not self._active():
+            return bool(self._queue)
+        if self.prefill_lanes and not any(
+                l.request is not None and not l.parked
+                for l in self._lane_state):
+            # only parked work left: nothing may decode this tick (the
+            # parked KV must not move before its handoff)
+            return True
+        if self.spec_k:
+            k = self._spec_round_k()
+            if k >= 1:
+                if self.kv_mode != "dense":
+                    # the verify chunk writes pos..pos+k; grow (and
+                    # preempt if dry) BEFORE the device round
+                    self._grow_active(k)
+                    if not self._active():
+                        return bool(self._queue)
+                self._spec_round(k)
+                return True
+            # near the cache cap a verify chunk no longer fits: finish
+            # with plain single-token ticks
+        if self.kv_mode != "dense":
+            self._grow_active(0)
+            if not self._active():
+                return bool(self._queue)
+        # one decode tick for every lane (dead lanes compute garbage).
+        # Parked prefill lanes are masked to the garbage sink: their
+        # tables hold LIVE blocks awaiting handoff
+        parked_rows = ([i for i, l in enumerate(self._lane_state)
+                        if l.parked] if self.prefill_lanes else [])
+        pos_np = self._pos
+        tbl_np = self._tables if self.kv_mode != "dense" else None
+        if parked_rows:
+            pos_np = self._pos.copy()
+            pos_np[parked_rows] = 0
+            tbl_np = self._tables.copy()
+            tbl_np[parked_rows, :] = 0
+        if self.kv_mode == "dense":
+            logits = self._decode(self._cur, pos_np)
+        elif self.kv_mode == "paged":
+            logits = self._decode_p(self._cur, pos_np, tbl_np)
+        else:
+            logits = self._decode(self._cur, pos_np)
+            logits_p = self._decode_p(self._cur, pos_np, tbl_np)
+            self._assert_parity(logits, logits_p, "decode")
+        if self.spec_k:
+            # near-cap ticks keep the DRAFT cache in lockstep (it ingests
+            # the same token at the same position the target just did)
+            self._d_decode(self._cur, self._pos)
+
+        def lane_param(attr, default):
+            return [getattr(l.request, attr)
+                    if l.request is not None and
+                    getattr(l.request, attr) is not None else default
+                    for l in self._lane_state]
+
+        temps = lane_param("temperature", gen.temperature)
+        active_temps = [t for t, l in zip(temps, self._lane_state)
+                        if l.request is not None]
+        if all(t <= 0.0 for t in active_temps):
+            # all-greedy tick (the default deployment): one argmax
+            nxt_t = sample_logits(logits, self._rng, 0.0, 0)
+        else:
+            dev = self.device
+            nxt_t = sample_logits_many(
+                logits, self._rng, torch.tensor(temps, device=dev),
+                torch.tensor(lane_param("top_k", gen.top_k), device=dev),
+                torch.tensor(lane_param("top_p", gen.top_p), device=dev))
+        nxt = nxt_t.cpu().numpy()
+        lane_lps = None
+        if any(l.request is not None and l.request.want_logprobs
+               for l in self._lane_state):
+            lane_lps = token_logprobs(logits, nxt_t).cpu().numpy()
+        for i, lane in enumerate(self._lane_state):
+            req = lane.request
+            if req is None or lane.parked:
+                continue                 # parked: awaiting handoff
+            tok = int(nxt[i])
+            req._push(tok, float(lane_lps[i]) if req.want_logprobs else None)
+            lane.pos += 1
+            lane.remaining -= 1
+            self._cur[i, 0] = tok
+            self._pos[i] = lane.pos
+            if (req.cancel_requested or lane.remaining <= 0
+                    or hit_stop(req.tokens, gen)
+                    or lane.pos + 1 >= self.max_len):
+                self._free_lane(i)   # lane freed for the next arrival
+                req._finish()
+                self._trace_finish(req)
+        return True
+
+
+def _host(logits) -> np.ndarray:
+    """Device logits -> float32 numpy (one copy to the host)."""
+    return logits.float().cpu().numpy()

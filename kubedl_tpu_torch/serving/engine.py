@@ -58,8 +58,7 @@ def resolve_family(config):
         return llama
     raise NotImplementedError(
         f"{type(config).__name__} is not ported yet: only the llama family "
-        "serves from the port (MoE is ROADMAP queue A's "
-        "quantization/LoRA/MoE item)")
+        "serves from the port (the MoE family is ROADMAP A4)")
 
 
 def spec_accept(drafts, dprobs, tprobs, rng):
@@ -190,6 +189,14 @@ def _params_device(params: dict) -> torch.device:
     return params["embed"].device
 
 
+def params_to(params: dict, device) -> dict:
+    """The parameter dict (``layers`` a nested dict) with every tensor on
+    ``device``; tensors already there are not copied."""
+    return {k: ({n: t.to(device) for n, t in v.items()}
+                if isinstance(v, dict) else v.to(device))
+            for k, v in params.items()}
+
+
 def greedy_rollout(config, params, prompts, max_new: int):
     """Whole-generation greedy decode: prefill plus ``max_new - 1``
     single-token steps, argmax on the device, one copy to the host at the
@@ -240,10 +247,7 @@ class InferenceEngine:
         #: span recorder: per-generate prefill/decode spans; the shared
         #: disabled tracer by default
         self.tracer = tracer if tracer is not None else NOOP_TRACER
-        self.params = {
-            k: ({n: t.to(self.device) for n, t in v.items()}
-                if isinstance(v, dict) else v.to(self.device))
-            for k, v in params.items()}
+        self.params = params_to(params, self.device)
         self._family = resolve_family(config)
 
     def _step(self, cache, tokens, start_pos: int, valid):

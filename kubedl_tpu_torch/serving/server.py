@@ -1,23 +1,30 @@
 """Inference HTTP server: the predictor process, ported.
 
 Counterpart of ``kubedl_tpu/serving/server.py`` with every route, over
-the static ``InferenceEngine`` (the continuous-batching engine and its
-lanes, prefix cache and speculation arrive with the next slice):
+either engine: the continuous-batching ``ContinuousBatchingEngine`` (what
+``python -m kubedl_tpu_torch.serving`` runs: lanes, per-request sampling,
+token streaming, the prefix cache, speculative lanes) or the static
+``InferenceEngine``:
 
 * ``POST /v1/models/{name}:predict`` — body
   ``{"instances": [{"prompt_tokens": [...], "max_tokens": N}]}`` →
-  ``{"predictions": [{"tokens": [...]}]}``; instances in one request are
-  batched into a single generate call. With a tokenizer an instance may
-  say ``{"text": ...}`` or ``{"messages": [...]}`` instead, and every
+  ``{"predictions": [{"tokens": [...]}]}``; on the continuous engine each
+  instance rides its own lane with its own sampling overrides
+  (``temperature``/``top_k``/``top_p``), on the static one the instances
+  are batched into a single generate call. With a tokenizer an instance
+  may say ``{"text": ...}`` or ``{"messages": [...]}`` instead, and every
   prediction gains a decoded ``"text"``;
 * the same route with ``"stream": true`` (single instance) — Server-Sent
-  Events, one ``data: {"token": id}`` per generated token, then a final
-  ``data: {"done": true, "tokens": [...]}``. The static engine emits them
-  after the generation completes;
-* ``POST /v1/models/{name}:registerPrefix`` — refused with a 400: the
-  static engine has no prefix cache;
+  Events, one ``data: {"token": id}`` per generated token as its lane
+  decodes it, then a final ``data: {"done": true, "tokens": [...]}``. The
+  static engine emits them after the generation completes;
+* ``POST /v1/models/{name}:registerPrefix`` — body ``{"prefix_tokens":
+  [...], "pinned"?: bool}``: prefill a shared system prompt once
+  (continuous engine only; a 400 on the static one);
 * ``GET /v1/models/{name}`` — model status (readiness probe target);
-* ``GET /metrics`` — Prometheus exposition; ``GET /healthz`` — liveness;
+* ``GET /metrics`` — Prometheus exposition (with the paged KV pool's
+  gauges and per-lane draft acceptance on the continuous engine);
+  ``GET /healthz`` — liveness;
 * the OpenAI convention (with a tokenizer): ``POST /v1/completions``,
   ``POST /v1/chat/completions`` (buffered or streamed),
   ``POST /v1/embeddings`` (masked mean-pool of the final hidden states,
@@ -37,8 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..metrics.registry import Registry
-from .engine import InferenceEngine
+from ..metrics.registry import PagedKVMetrics, Registry
 
 
 @dataclass
@@ -48,17 +54,24 @@ class ServerConfig:
     port: int = 8501               # TFServing's REST port
     max_batch: int = 16
     max_new_tokens: int = 256
+    #: continuous-batching mode: bound on one request's wall time (and
+    #: on each streamed token's wait) so a stopped engine surfaces as a
+    #: JSON 500, not a hang
+    request_timeout_s: float = 600.0
+    #: cap on distinct registered prefixes: over it the least-recently-hit
+    #: unpinned prefix is evicted (each holds KV blocks on the device)
+    max_prefixes: int = 8
     #: optional text codec (``kubedl_tpu_torch.tokenizer``): enables "text"
     #: instances and decoded "text" in predictions/stream events
     tokenizer: Optional[object] = None
 
 
 class InferenceServer:
-    def __init__(self, engine: InferenceEngine,
-                 config: Optional[ServerConfig] = None):
+    def __init__(self, engine, config: Optional[ServerConfig] = None):
         self.engine = engine
         self.config = config or ServerConfig()
-        # one generate at a time: the card runs one step at a time anyway
+        # one static generate (or embeddings forward) at a time: the card
+        # runs one step at a time anyway
         self._gen_lock = threading.Lock()
         # itertools.count: next() is a single C call, safe under
         # ThreadingHTTPServer's concurrent handlers without a lock
@@ -81,6 +94,27 @@ class InferenceServer:
             "kubedl_serving_ttft_seconds",
             "Time to first streamed token",
             buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10))
+        self._m_kv = None
+        if hasattr(engine, "pool_stats"):
+            # continuous-batching predictors: paged KV pool occupancy,
+            # prefix-sharing ratio and preemption counter on the scrape
+            # page (dense mode still reports peak active lanes)
+            self._m_kv = PagedKVMetrics(self.metrics)
+        self._m_spec = self._m_spec_lane = None
+        if getattr(engine, "spec_k", 0):
+            # speculative lanes: draft quality on the scrape page, in
+            # aggregate and per lane
+            self._m_spec = (
+                self.metrics.gauge("kubedl_serving_spec_proposed_total",
+                                   "Draft tokens proposed"),
+                self.metrics.gauge("kubedl_serving_spec_accepted_total",
+                                   "Draft tokens accepted"),
+                self.metrics.gauge("kubedl_serving_spec_acceptance_rate",
+                                   "Lifetime draft acceptance rate"))
+            self._m_spec_lane = self.metrics.gauge(
+                "kubedl_serving_spec_lane_acceptance_rate",
+                "Draft acceptance rate per continuous-batching lane",
+                labels=("lane",))
         server = self
 
         class Handler(_Handler):
@@ -110,6 +144,19 @@ class InferenceServer:
         self._httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)
+
+    def refresh_engine_metrics(self) -> None:
+        """Pull the engine's pool and draft counters into the registry
+        (on every ``/metrics`` scrape)."""
+        if self._m_kv is not None:
+            self._m_kv.refresh(self.engine.pool_stats())
+        if self._m_spec is not None:
+            st = self.engine.stats
+            self._m_spec[0].set(st.proposed)
+            self._m_spec[1].set(st.accepted)
+            self._m_spec[2].set(st.acceptance_rate)
+            for i, ls in enumerate(self.engine.lane_stats):
+                self._m_spec_lane.set(ls.acceptance_rate, lane=str(i))
 
     # -- request handling --------------------------------------------------
 
@@ -162,6 +209,8 @@ class InferenceServer:
             caps.append(cap)
             want_lp.append(lp)
             samplings.append(sampling)
+        if hasattr(self.engine, "submit"):
+            return self._predict_lanes(prompts, caps, want_lp, samplings)
         # static engine: decode to the longest request in one lockstep
         # batch, trim per instance to its own cap. Its sampler is
         # engine-wide — per-instance overrides need the lane engine.
@@ -181,6 +230,38 @@ class InferenceServer:
                 pred["logprobs"] = lps[:cap]
             preds.append(pred)
         self._m_tokens.inc(sum(len(p["tokens"]) for p in preds))
+        return {"predictions": self._decorate_text(preds)}
+
+    def _predict_lanes(self, prompts, caps, want_lp, samplings) -> dict:
+        """Continuous-batching engine: each instance rides its own lane
+        (its background loop serializes device work — no lock), so a
+        short request is never held back to the longest one's length.
+        Every instance is validated before any is submitted: a bad late
+        instance must 400 without burning lanes on discarded output."""
+        for p, cap, s in zip(prompts, caps, samplings):
+            self.engine.validate(p, cap)
+            self.engine.validate_sampling(**s)
+        reqs = [self.engine.submit(p, cap, logprobs=lp, **s)
+                for p, cap, lp, s in zip(prompts, caps, want_lp, samplings)]
+        timeout = self.config.request_timeout_s
+        preds = []
+        try:
+            for r, lp in zip(reqs, want_lp):
+                pred = {"tokens": r.result(timeout=timeout)}
+                if lp:
+                    pred["logprobs"] = r.logprobs
+                preds.append(pred)
+        except BaseException:
+            # a timed-out (or aborted) batch must not keep burning lanes:
+            # cancel every request still decoding before surfacing it
+            for r in reqs:
+                if not r.done.is_set():
+                    r.cancel()
+            raise
+        finally:
+            # tokens already generated are real device work even when a
+            # later request times out
+            self._m_tokens.inc(sum(len(r.tokens) for r in reqs))
         return {"predictions": self._decorate_text(preds)}
 
     def _decorate_text(self, preds: list) -> list:
@@ -215,6 +296,43 @@ class InferenceServer:
         if len(instances) != 1:
             raise ValueError("stream mode takes exactly one instance")
         prompt, cap, want_lp, sampling = self._parse_instance(instances[0])
+
+        if hasattr(self.engine, "submit"):
+            self.engine.validate(prompt, cap)
+            self.engine.validate_sampling(**sampling)   # before the 200
+
+            def events():
+                t0 = time.perf_counter()
+                req = self.engine.submit(prompt, cap, logprobs=want_lp,
+                                         **sampling)
+                out, lps = [], []
+                try:
+                    # per-token bound: a stalled engine surfaces as an
+                    # error event, not a silently frozen stream
+                    for tok, lp in req.stream(
+                            timeout=self.config.request_timeout_s):
+                        if not out:
+                            self._m_ttft.observe(time.perf_counter() - t0)
+                        out.append(tok)
+                        # per token, not on completion: an aborted stream
+                        # still accounts for what it already served
+                        self._m_tokens.inc()
+                        ev = {"token": tok}
+                        if lp is not None:
+                            ev["logprob"] = lp
+                            lps.append(lp)
+                        yield ev
+                finally:
+                    # abandoned stream (client gone, stop string matched):
+                    # free the lane instead of decoding into the void
+                    if not req.done.is_set():
+                        req.cancel()
+                final = {"done": True, "tokens": out}
+                if want_lp:
+                    final["logprobs"] = lps
+                yield final
+            return (events() if self.config.tokenizer is None
+                    else self._with_text_events(events()))
 
         # static engine: no incremental lane output — generate fully,
         # then emit token events (correctness-compatible fallback)
@@ -525,14 +643,22 @@ class InferenceServer:
         return gen()
 
     def register_prefix(self, body: dict) -> dict:
-        """Stash a shared prompt prefix's KV block: a continuous-batching
-        engine's feature. The static engine has no shared cache to load,
-        so a well-formed request is refused as the JAX server refuses it
-        for such an engine."""
+        """Stash a shared prompt prefix's KV (continuous-batching engines
+        only — the static engine has no shared cache to load). The engine
+        enforces ``max_prefixes`` under its own lock: an idempotent
+        re-registration passes, over the cap the least-recently-hit
+        unpinned prefix is evicted, and ``pinned`` exempts this one."""
         toks = body.get("prefix_tokens")
         if not isinstance(toks, list) or not toks:
             raise ValueError("prefix_tokens is required")
-        raise ValueError("this engine does not support prefix caching")
+        if not hasattr(self.engine, "register_prefix"):
+            raise ValueError("this engine does not support prefix caching")
+        # a "model" other than the base one 400s: no adapters (ROADMAP A4)
+        self.engine.validate_model(str(body.get("model") or ""))
+        self.engine.register_prefix([int(t) for t in toks],
+                                    max_prefixes=self.config.max_prefixes,
+                                    pinned=bool(body.get("pinned")))
+        return {"registered": len(toks)}
 
     def status(self) -> dict:
         return {"model_version_status": [{
@@ -607,6 +733,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._respond(200, {"status": "ok"})
         elif self.path == "/metrics":
             from ..metrics.http import write_exposition
+            self.server_ref.refresh_engine_metrics()
             write_exposition(self, self.server_ref.metrics)
         elif self.path == "/v1/models":
             self._respond(200, self.server_ref.openai_models())

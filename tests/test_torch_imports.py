@@ -29,6 +29,14 @@ def test_the_training_slice_modules_are_checked():
             "kubedl_tpu_torch.train.__main__"} <= set(MODULES)
 
 
+def test_the_continuous_serving_slice_modules_are_checked():
+    """...and so are the continuous-batching engine and the predictor
+    entry point."""
+    assert {"kubedl_tpu_torch.serving.batching",
+            "kubedl_tpu_torch.serving.__main__",
+            "kubedl_tpu_torch.serving.speculative"} <= set(MODULES)
+
+
 def test_every_module_imports_with_jax_blocked():
     code = ("import sys\nsys.modules['jax'] = None\n"
             "import importlib\n"
@@ -55,7 +63,8 @@ def test_no_import_of_the_jax_package(path):
 def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):
     from kubedl_tpu_torch import resolve_device
     from kubedl_tpu_torch.models import io, llama
-    from kubedl_tpu_torch.serving import engine
+    from kubedl_tpu_torch.serving import __main__ as serve_main
+    from kubedl_tpu_torch.serving import batching, engine
     from kubedl_tpu_torch.train import Trainer
     from kubedl_tpu_torch.train import __main__ as train_main
 
@@ -77,6 +86,11 @@ def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):
         "load_model": lambda: io.load_model(str(tmp_path)),
         "params_from_numpy": lambda: io.params_from_numpy(cfg, {}),
         "InferenceEngine": lambda: engine.InferenceEngine(cfg, params),
+        "init_block_pool": lambda: llama.init_block_pool(cfg, 4, 8),
+        "ContinuousBatchingEngine": lambda: batching.ContinuousBatchingEngine(
+            cfg, params, lanes=1, max_len=16),
+        "serving.build_engine": lambda: serve_main.build_engine(
+            str(tmp_path), 1, "", 0, max_len=16),
         "Trainer.init_state": lambda: Trainer(lambda p, b: 0).init_state(
             params),
         "train.__main__.main": lambda: train_main.main(
@@ -85,6 +99,11 @@ def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    monkeypatch.setenv("KUBEDL_MODEL_PATH", str(tmp_path))
+    monkeypatch.delenv("KUBEDL_TOKENIZER", raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_main.main(["--batch-input", str(train_cfg),
+                         "--batch-output", str(tmp_path / "out.jsonl")])
     # asked for explicitly, the CPU runs
     eng = engine.InferenceEngine(cfg, params, device="cpu")
     assert len(eng.generate([[1, 2, 3]], 2)[0]) == 2
