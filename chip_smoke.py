@@ -39,6 +39,21 @@ failure raises and the script exits non-zero before its last line:
    kernels against the gradient through the chunked attention path;
 8. the kernels line (JSON), the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
+
+Between phases 3 and 4 run the predictor's engine (continuous batching,
+the predictor subprocess), then the slice of Gemma, quantization and
+LoRA: Llama-3-8B quantized to int8 and to int4 on the card (16 requests
+on the graph route, the tick at 1/4/8 lanes against a bound on the
+quantized bytes), adapter pages (3 adapters, 2 resident), Gemma-2B at
+full width and depth in the engine (16 requests, ``/v1/embeddings`` on
+K1's ``simt`` route, the tick) and through ``python -m
+kubedl_tpu_torch.serving`` (then its batch mode with
+``KUBEDL_SERVING_QUANTIZE=int8``). The kernel checks and timings add
+Gemma-2B's attention shapes (8/1 heads of width 256, ``simt``), and after
+phase 7 ``python -m kubedl_tpu_torch.train`` trains ``gemma.gemma_2b``
+(full size, b=2, s=2048, 3 steps, every K1-K3 launch on ``simt``) and
+the slice's Llama configuration with ``"lora"`` (rank 16, 4 steps: the
+base stays bit for bit, the optimizer state is adapter-sized).
 """
 
 from __future__ import annotations
@@ -251,14 +266,21 @@ CASES = {
 }
 #: the training shape at b=1, checked beside the edge cases
 TRAIN_B1 = {**TRAIN, "b": 1}
+#: Gemma-2B's attention (8 q heads, 1 kv head of width 256: the ``simt``
+#: route) at its embeddings shape (2 inputs, the longer 512 tokens) and
+#: its training shape (b=2, s=2048); checked after the cases above
+GEMMA_EMBED = {**MAIN, "nh": 8, "nkv": 1, "hd": 256}
+GEMMA_TRAIN = {**TRAIN, "b": 2, "nh": 8, "nkv": 1, "hd": 256}
+GEMMA_CASES = {"gemma_embed": GEMMA_EMBED,
+               "gemma_train_b1": {**GEMMA_TRAIN, "b": 1}}
 
 
 def phase_kernel_check(torch):
     from kubedl_tpu_torch.ops import attention as attn
 
     errs = {}
-    for i, (name, case) in enumerate({**CASES,
-                                      "train_b1": TRAIN_B1}.items()):
+    for i, (name, case) in enumerate({**CASES, "train_b1": TRAIN_B1,
+                                      **GEMMA_CASES}.items()):
         q, k, v, seg = _inputs(torch, case, seed=100 + i)
         route = attn.flash_fwd_route(q.dtype, case["hd"])
         before = attn.flash_forward.launches_by_route[route]
@@ -281,19 +303,12 @@ def phase_kernel_check(torch):
                                  f"version on case {name}")
         errs[name] = err
 
-    q, k, v, seg = _inputs(torch, MAIN, seed=100)
+    row = _fwd_timing(torch, MAIN, seed=100)
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = (
+        row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bound_by"))
+    q, k, v, _ = _inputs(torch, MAIN, seed=100)
     causal = MAIN["causal"]
-    kernel_ms = _time_ms(torch, lambda: attn.flash_forward(q, k, v, causal))
-    plain_ms = _time_ms(torch,
-                        lambda: attn.flash_forward_plain(q, k, v, causal),
-                        reps=20)
-    # yardstick only: PyTorch's fused attention on the same inputs (the
-    # port never calls it)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _time_ms(
-        torch, lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True))
-    bound_ms, bound_by = _flash_bound(torch, MAIN, seg)
     earlier_ms = _earlier_fwd_ms(
         torch, attn, lambda: attn.flash_forward(q, k, v, causal))
     # the host's share: back-to-back calls, not synchronised, so the card
@@ -310,7 +325,8 @@ def phase_kernel_check(torch):
         f"earlier design (flash_fwd.cu) {earlier_ms:.4f} ms; host path "
         f"{host_ms:.4f} ms per call back to back")
     return {"max_abs_err": errs["main"], "train_max_abs_err":
-            errs["train_b1"], "ms": kernel_ms,
+            errs["train_b1"], "gemma_max_abs_err": {
+                k: errs[k] for k in GEMMA_CASES}, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "earlier_design_ms": earlier_ms,
             "host_ms": host_ms}
@@ -640,15 +656,18 @@ def _tick_ms(torch, eng, route, reps=20) -> float:
 
 
 def _tick_bound_ms(cfg, params, lanes, live) -> tuple:
-    """(ms, weight GB): every weight read once except the embedding
-    table, of which only the lanes' rows are read; the K/V of the ``live``
-    cached tokens read and the lanes' new K/V written, at the HBM rate.
-    The tick's 2 x params x lanes operations take ~1% of that at the bf16
+    """(ms, weight GB): every weight read once in its stored form (int8
+    bytes and scales, packed int4 nibbles and group scales, bf16), except
+    an untied embedding table, of which only the lanes' rows are read (a
+    tied one is the LM head, read whole); the K/V of the ``live`` cached
+    tokens read and the lanes' new K/V written, at the HBM rate. The
+    tick's 2 x params x lanes operations take ~1% of that at the bf16
     peak, so bytes bound it."""
-    w = sum(t.numel() * t.element_size()
-            for k, v in params.items() if k != "embed"
-            for t in (v.values() if isinstance(v, dict) else [v]))
-    w += lanes * cfg.d_model * params["embed"].element_size()
+    from kubedl_tpu_torch.ops.quant import tree_nbytes
+    w = tree_nbytes(params)
+    if not cfg.tie_embeddings:
+        emb = params["embed"]
+        w -= tree_nbytes(emb) - lanes * cfg.d_model * emb.element_size()
     kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2 * (live + lanes)
     return 1e3 * (w + kv) / HBM_BYTES_PER_S, w / 1e9
 
@@ -833,45 +852,404 @@ def phase_continuous(torch, cfg, params) -> dict:
     gc.collect()
 
     # (e) the graph tick against the eager tick, at 1, 4 and 8 lanes
-    out["ticks"] = {}
+    out["ticks"] = _tick_table(torch, engine, cfg, params, reqs[1][0],
+                               "[cont] (e)")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[cont] {out['peak_gib']:.2f} GiB peak device memory in the phase "
+        f"(16.06 GB of weights)")
+    out["reqs"], out["served"] = reqs, served
+    return out
+
+
+def _tick_table(torch, engine, cfg, params, prompt, tag) -> dict:
+    """The decode tick at 1, 4 and 8 lanes, every lane ``prompt[:500]``
+    plus one token of its own, each lane count on a fresh
+    ``engine(lanes=...)``: graph, eager, graph again, against
+    ``_tick_bound_ms``; at 8 lanes the graph's logits against the eager
+    tick's on one state, and the launches per tick."""
+    rows = {}
     for lanes in (1, 4, 8):
         eng = engine(lanes=lanes)
         for i in range(lanes):
-            eng.submit(reqs[1][0][:500] + [i + 3], 256)
+            eng.submit(prompt[:500] + [i + 3], 256)
         eng.step()                      # prefill every lane + one tick
         live = lanes * 502               # every lane's K/V after the tick
         graph_ms = _tick_ms(torch, eng, None)
         eager_ms = _tick_ms(torch, eng, "eager")
         graph_ms2 = _tick_ms(torch, eng, None)
-        bound_ms, w_gb = _tick_bound_ms(cfg, params, lanes, live)
+        bound_ms, w_gb = _tick_bound_ms(cfg, eng.params, lanes, live)
         row = {"graph_ms": [graph_ms, graph_ms2], "eager_ms": eager_ms,
-               "bound_ms": bound_ms, "live_tokens": live}
+               "bound_ms": bound_ms, "live_tokens": live,
+               "weight_gb": w_gb}
         if lanes == 8:
             g = eng.decode_tick().float().cpu()
             e = eng.decode_tick("eager").float().cpu()
             row["max_abs_diff"] = float((g - e).abs().max())
             if not torch.equal(g.argmax(-1), e.argmax(-1)):
-                raise AssertionError("the graph tick's greedy tokens differ "
-                                     "from the eager tick's")
+                raise AssertionError(f"{tag}: the graph tick's greedy tokens "
+                                     f"differ from the eager tick's")
             row["launches_graph"] = _tick_launches(torch, eng, None)
             row["launches_eager"] = _tick_launches(torch, eng, "eager")
-        _graph_only(eng, f"(e) {lanes} lanes")
-        out["ticks"][lanes] = row
-        log(f"[cont] (e) {lanes} lane(s), {live} live tokens: decode tick "
+        _graph_only(eng, f"{tag} {lanes} lanes")
+        rows[lanes] = row
+        log(f"{tag} {lanes} lane(s), {live} live tokens: decode tick "
             f"graph {graph_ms:.3f} / {graph_ms2:.3f} ms, eager "
             f"{eager_ms:.3f} ms, bound {bound_ms:.3f} ms (bytes: "
             f"{w_gb:.2f} GB of weights read once + the live K/V at 3.35 "
-            f"TB/s; all 16.06 GB of weights would take 4.79 ms)")
+            f"TB/s)")
         del eng
         gc.collect()
-    t8 = out["ticks"][8]
-    log(f"[cont] (e) 8 lanes, same state: graph vs eager logits max abs "
+    t8 = rows[8]
+    log(f"{tag} 8 lanes, same state: graph vs eager logits max abs "
         f"diff {t8['max_abs_diff']:.3e}, same greedy tokens; per tick "
         f"(host launch calls, device kernels, device busy ms): graph "
         f"{t8['launches_graph']}, eager {t8['launches_eager']}")
+    return rows
+
+
+def _agree(got, want) -> tuple:
+    """(identical requests, tokens before each request's first
+    divergence) of ``got`` against ``want``."""
+    same = sum(a == b for a, b in zip(got, want))
+    prefix = 0
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            if x != y:
+                break
+            prefix += 1
+    return same, prefix
+
+
+def phase_quantized(torch, cfg, params, cont) -> dict:
+    """The predictor's engine on Llama-3-8B quantized from the serving
+    phase's bf16 weights, int8 then int4 (``quantize=``): the 16 requests
+    of the continuous phase on the graph route, held to the quantized
+    model's own teacher-forced reference; the tokens that agree with the
+    bf16 run (a reading); the weights' bytes against bf16's; the tick at
+    1, 4 and 8 lanes against a bound on the quantized bytes; graph
+    against eager logits at 8 lanes."""
+    from kubedl_tpu_torch.ops import quant
+    from kubedl_tpu_torch.serving import ContinuousBatchingEngine
+
+    reqs, served = cont["reqs"], cont["served"]
+    bf16_bytes = quant.tree_nbytes(params)
+    out = {}
+    for mode, wrapper in (("int8", quant.QTensor), ("int4", quant.Q4Tensor)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_alloc = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng = ContinuousBatchingEngine(cfg, params, lanes=CONT_LANES,
+                                       max_len=CONT_MAX_LEN, quantize=mode,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        q_s = time.perf_counter() - t0
+        qparams = eng.params
+        leaves = [qparams["lm_head"]] + [qparams["layers"][k] for k in (
+            "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
+        if not all(isinstance(w, wrapper) and w.device.type == "cuda"
+                   for w in leaves):
+            raise AssertionError(f"the {mode} engine does not hold "
+                                 f"{wrapper.__name__} leaves on the card")
+        nbytes = quant.tree_nbytes(qparams)
+        t0 = time.perf_counter()
+        got, lps = _run(eng, reqs)
+        wall = time.perf_counter() - t0
+        ticks_run = _graph_only(eng, f"({mode})")
+        peak = torch.cuda.max_memory_allocated()
+        del eng
+        gc.collect()
+        same, prefix = _agree(got, served)
+        row = {"quantize_s": q_s, "bytes": nbytes, "bf16_bytes": bf16_bytes,
+               "run_s": wall, "identical_to_bf16": same,
+               "tokens_agreeing_with_bf16": prefix,
+               "peak_gib": peak / 2**30,
+               "peak_over_base_gib": (peak - base_alloc) / 2**30}
+        log(f"[quant] {mode}: quantized on the card in {q_s:.1f} s; weights "
+            f"{nbytes / 1e9:.3f} GB against bf16's {bf16_bytes / 1e9:.3f} "
+            f"GB ({nbytes / bf16_bytes:.4f}); peak device memory "
+            f"{row['peak_gib']:.2f} GiB ({row['peak_over_base_gib']:.2f} "
+            f"GiB above the bf16 weights already held); 16 requests in "
+            f"{wall:.3f} s ({sum(map(len, got)) / wall:.1f} tokens/s, the "
+            f"decode graph's capture included), ticks by route {ticks_run}")
+        log(f"[quant] {mode} against the bf16 run (a reading, not a gate): "
+            f"{same}/16 requests identical, {prefix} of "
+            f"{sum(map(len, served))} tokens before each request's first "
+            f"divergence")
+        row["hold"] = _hold(torch, cfg, qparams, reqs, got,
+                            f"({mode}) quantized continuous", lps=lps)
+
+        def engine(lanes, qp=qparams):
+            return ContinuousBatchingEngine(cfg, qp, lanes=lanes,
+                                            max_len=CONT_MAX_LEN,
+                                            device="cuda")
+        row["ticks"] = _tick_table(torch, engine, cfg, qparams, reqs[1][0],
+                                   f"[quant] {mode}")
+        out[mode] = row
+        del qparams, leaves, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_adapters(torch, cfg, params, cont) -> dict:
+    """Adapter pages in the predictor's engine: a catalog of 3 adapters
+    of 2 pool pages each, at most 2 resident, and 12 of the continuous
+    phase's requests spread over the base model and the adapters. The
+    tokens must equal the base model's run (a), adapters fault in and
+    evict, every tick replays the graph, and every page but the resident
+    adapters' pins is back in the pool at the end."""
+    from kubedl_tpu_torch.serving import ContinuousBatchingEngine
+    from kubedl_tpu_torch.serving.adapters import AdapterCatalog, AdapterSpec
+
+    cat = AdapterCatalog()
+    for m in ("m-a", "m-b", "m-c"):
+        cat.register(AdapterSpec(model=m, pages=2, rank=16))
+    eng = ContinuousBatchingEngine(cfg, params, lanes=CONT_LANES,
+                                   max_len=CONT_MAX_LEN, adapters=cat,
+                                   max_adapters=2, device="cuda")
+    reqs = cont["reqs"][:12]
+    models = ["", "m-a", "m-b", "m-c"] * 3
+    t0 = time.perf_counter()
+    rs = [eng.submit(p, n, logprobs=True, model=m)
+          for (p, n), m in zip(reqs, models)]
+    eng.run([])
+    wall = time.perf_counter() - t0
+    got = [r.result() for r in rs]
+    lps = [list(r.logprobs) for r in rs]
+    ticks = _graph_only(eng, "(adapters)")
+    st = eng.adapter_status()
+    refs = eng._bpool.refcounts()
+    log(f"[adapt] 12 requests over the base model and 3 adapters (2 pages "
+        f"each, at most 2 resident) in {wall:.3f} s: faults {st['faults']}, "
+        f"evictions {st['evictions']}, loads {st['loads']}, resident "
+        f"{st['resident']} ({st['pages']} pages, peak {st['peak_pages']}); "
+        f"pool {eng._bpool.free_count}/{eng.pool_blocks} blocks free; "
+        f"ticks by route {ticks}")
+    if sum(st["faults"].values()) < 3 or st["evictions"] < 1:
+        raise AssertionError(f"the adapters never faulted and evicted: {st}")
+    if st["active"] or eng._bpool.free_count != eng.pool_blocks - \
+            st["pages"] or any(r != 1 for r in refs.values()):
+        raise AssertionError(f"pages not back in the pool: {st}, "
+                             f"{eng._bpool.free_count} free, refcounts "
+                             f"{refs}")
+    r = _hold(torch, cfg, params, reqs, got, "(adapters) base + 3 adapters",
+              want=cont["served"][:12], want_label="the base model's (a)",
+              exact=True, lps=lps)
+    return {"status": st, "run_s": wall, "identical": r["identical"],
+            "ticks": ticks}
+
+
+def phase_gemma(torch) -> tuple:
+    """Gemma-2B at full width and depth (random bf16 weights from seed 0)
+    in the predictor's engine behind ``InferenceServer``: 16 greedy
+    requests on 8 paged lanes held to the teacher-forced reference with
+    their log-probabilities; ``/v1/embeddings`` of 2 inputs (512 and 305
+    tokens), whose every layer must launch K1 once on the ``simt`` route
+    (head dim 256); the tick at 1, 4 and 8 lanes. Returns (config,
+    params, readings)."""
+    import numpy as np
+
+    from kubedl_tpu_torch.models import gemma, llama
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          InferenceServer, ServerConfig)
+    from kubedl_tpu_torch.tokenizer import ByteTokenizer, encode_prompt
+
+    cfg = gemma.gemma_2b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    log(f"[gemma] model: d_model {cfg.d_model}, {cfg.n_layers} layers, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} of width {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied head, GeGLU, "
+        f"{cfg.num_params / 1e9:.3f} B params bf16, random from seed 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    _, reqs = _cont_requests(cfg)
+    out = {}
+
+    def engine(lanes=CONT_LANES):
+        return ContinuousBatchingEngine(cfg, params, lanes=lanes,
+                                        max_len=CONT_MAX_LEN, device="cuda")
+
+    eng = engine().start()
+    srv = InferenceServer(eng, ServerConfig(
+        model_name="gemma-2b", host="127.0.0.1", port=0, max_batch=16,
+        max_new_tokens=128, tokenizer=ByteTokenizer())).start()
+    texts = ["kubedl " * 73, "a TPU kernel ported by hand to Hopper " * 8]
+    texts[0] = texts[0][:511]          # + BOS = 512 tokens
+    try:
+        _post(srv.url, "/v1/models/gemma-2b:predict", {
+            "instances": [{"prompt_tokens": [1, 2, 3], "max_tokens": 2}]})
+        t0 = time.perf_counter()
+        got = json.loads(_post(srv.url, "/v1/models/gemma-2b:predict", {
+            "instances": [{"prompt_tokens": p, "max_tokens": n,
+                           "logprobs": True} for p, n in reqs]}))
+        wall = time.perf_counter() - t0
+        served = [p["tokens"] for p in got["predictions"]]
+        lps = [p["logprobs"] for p in got["predictions"]]
+        out["tokens_per_s"] = sum(map(len, served)) / wall
+        log(f"[gemma] 16 requests (prompts {min(CONT_LENS)}-"
+            f"{max(CONT_LENS)} tokens) on 8 paged lanes through :predict in "
+            f"{wall:.3f} s: {sum(map(len, served))} tokens, "
+            f"{out['tokens_per_s']:.1f} tokens/s")
+        ttft = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.submit(reqs[1][0], 1).result(timeout=120)
+            ttft.append(1e3 * (time.perf_counter() - t0))
+        out["ttft_ms"] = ttft
+        log(f"[gemma] TTFT of a 512-token prompt: "
+            f"{[round(x, 3) for x in ttft]} ms")
+        # /v1/embeddings: the counts go to 0 just before and are read after
+        attn.flash_forward.launches = 0
+        attn.flash_forward.launches_by_route = {"sm90": 0, "simt": 0}
+        t0 = time.perf_counter()
+        emb = json.loads(_post(srv.url, "/v1/embeddings", {"input": texts}))
+        out["embeddings_s"] = time.perf_counter() - t0
+        out["embeddings_launches"] = attn.flash_forward.launches
+        by_route = dict(attn.flash_forward.launches_by_route)
+    finally:
+        srv.stop()
+        eng.stop()
+    out["ticks_run"] = _graph_only(eng, "(gemma)")
+    del eng
+    gc.collect()
+    vecs = np.asarray([d["embedding"] for d in emb["data"]])
+    norms = np.linalg.norm(vecs, axis=-1)
+    if vecs.shape != (2, cfg.d_model) or not np.isfinite(vecs).all() \
+            or np.abs(norms - 1).max() > 1e-3:
+        raise AssertionError(f"bad Gemma embeddings: shape {vecs.shape}, "
+                             f"norms {norms}")
+    if out["embeddings_launches"] != cfg.n_layers or \
+            by_route != {"sm90": 0, "simt": cfg.n_layers}:
+        raise AssertionError(f"Gemma embeddings launched flash_forward "
+                             f"{out['embeddings_launches']} times, by route "
+                             f"{by_route}; want {cfg.n_layers}, all simt "
+                             f"(head dim 256)")
+    tok = ByteTokenizer()
+    ids = [encode_prompt(tok, t) for t in texts]
+    toks = np.zeros((2, max(map(len, ids))), np.int64)
+    for i, r in enumerate(ids):
+        toks[i, :len(r)] = r
+    chunked = unittest.mock.patch.object(
+        llama, "multi_head_attention",
+        lambda *a, **k: attn.multi_head_attention(*a, impl="chunked", **k))
+    with chunked, torch.inference_mode():
+        x = llama.forward_hidden(cfg, params,
+                                 torch.as_tensor(toks, device="cuda"))
+    ref = []
+    for i, r in enumerate(ids):
+        pooled = x[i, :len(r)].float().mean(0)
+        ref.append((pooled / pooled.norm()).cpu().numpy())
+    cos = [float(np.dot(a, b)) for a, b in zip(vecs, ref)]
+    if min(cos) < 0.99:
+        raise AssertionError(f"Gemma embeddings disagree with the chunked "
+                             f"attention path: cosine {cos}")
+    log(f"[gemma] /v1/embeddings 2 inputs ({emb['usage']['prompt_tokens']} "
+        f"tokens) in {out['embeddings_s']:.3f} s: {cfg.n_layers} "
+        f"flash_forward launches, by route {by_route}; against the chunked "
+        f"path: cosine {[round(c, 6) for c in cos]}")
+    out["hold"] = _hold(torch, cfg, params, reqs, served,
+                        "(gemma) continuous", lps=lps)
+    out["ticks"] = _tick_table(torch, engine, cfg, params, reqs[1][0],
+                               "[gemma]")
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[cont] {out['peak_gib']:.2f} GiB peak device memory in the phase "
-        f"(16.06 GB of weights)")
+    log(f"[gemma] {out['peak_gib']:.2f} GiB peak device memory in the phase")
+    return cfg, params, out
+
+
+def phase_gemma_predictor(torch, cfg, params) -> dict:
+    """``python -m kubedl_tpu_torch.serving`` over a full-size Gemma-2B
+    ``save_model`` artifact (float32 ``params.npz``): ready, ``:predict``
+    held to the in-process engine, SIGTERM → 0; then the batch mode on the
+    same artifact with ``KUBEDL_SERVING_QUANTIZE=int8``, held to the int8
+    model's teacher-forced reference."""
+    import os
+    import shutil
+    import signal
+
+    import numpy as np
+
+    from kubedl_tpu_torch.models import io
+    from kubedl_tpu_torch.ops.quant import quantize_params
+    from kubedl_tpu_torch.serving import ContinuousBatchingEngine
+
+    path = BUILD_OUT / "gemma_model"
+    t0 = time.perf_counter()
+    io.save_model(cfg, params, str(path))
+    size = (path / "params.npz").stat().st_size
+    log(f"[gpred] artifact: {size / 1e9:.2f} GB params.npz written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(11)
+    reqs = [(rng.integers(3, cfg.vocab_size, n).tolist(), 12)
+            for n in (40, 130, 300)]
+    ref = ContinuousBatchingEngine(cfg, params, lanes=4,
+                                   max_len=CONT_MAX_LEN, device="cuda")
+    want = ref.run(reqs)
+    del ref
+    gc.collect()
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root),
+           "KUBEDL_MODEL_PATH": str(path), "KUBEDL_MODEL_NAME": "gemma",
+           "KUBEDL_SERVING_LANES": "4",
+           "KUBEDL_SERVING_MAX_LEN": str(CONT_MAX_LEN),
+           "KUBEDL_TOKENIZER": "off", "KUBEDL_SERVING_PORT": str(port)}
+    env.pop("KUBEDL_KV_MODE", None)
+    env.pop("KUBEDL_SERVING_QUANTIZE", None)
+    log_path = BUILD_OUT / "gemma_predictor.log"
+    cmd = [sys.executable, "-m", "kubedl_tpu_torch.serving"]
+    out = {}
+    with open(log_path, "w") as logf:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, env=env, cwd=root, stdout=logf,
+                                stderr=subprocess.STDOUT)
+        try:
+            _wait_ready(url, proc, log_path, timeout=900)
+            out["ready_s"] = time.perf_counter() - t0
+            got = json.loads(_post(url, "/v1/models/gemma:predict", {
+                "instances": [{"prompt_tokens": p, "max_tokens": n}
+                              for p, n in reqs]}))
+            served = [p["tokens"] for p in got["predictions"]]
+            log(f"[gpred] ready in {out['ready_s']:.1f} s (load, graph "
+                f"capture, bind); :predict of 3 requests")
+            proc.send_signal(signal.SIGTERM)
+            out["sigterm_rc"] = proc.wait(timeout=120)
+            if out["sigterm_rc"] != 0:
+                raise AssertionError(f"the Gemma predictor exited "
+                                     f"{out['sigterm_rc']} on SIGTERM")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        _hold(torch, cfg, params, reqs, served, "(gpred) predictor",
+              want=want, want_label="the in-process engine")
+        inp, res = BUILD_OUT / "gemma_in.jsonl", BUILD_OUT / "gemma_out.jsonl"
+        inp.write_text("\n".join(json.dumps({"prompt": p, "max_tokens": n})
+                                 for p, n in reqs))
+        t0 = time.perf_counter()
+        rc = subprocess.run(cmd + ["--batch-input", str(inp),
+                                   "--batch-output", str(res)],
+                            env={**env, "KUBEDL_SERVING_QUANTIZE": "int8"},
+                            cwd=root, stdout=logf, stderr=subprocess.STDOUT,
+                            timeout=900).returncode
+    out["batch_int8_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"int8 batch mode exited {rc}: "
+                             f"{log_path.read_text()[-3000:]}")
+    rows = [json.loads(ln) for ln in res.read_text().splitlines()]
+    log(f"[gpred] batch mode, KUBEDL_SERVING_QUANTIZE=int8: {len(rows)} rows "
+        f"in {out['batch_int8_s']:.1f} s, exit 0")
+    shutil.rmtree(path)                  # ~10 GB of float32 weights
+    qparams = quantize_params(params, mode="int8")
+    _hold(torch, cfg, qparams, reqs, [r["tokens"] for r in rows],
+          "(gpred) int8 batch mode")
+    same, prefix = _agree([r["tokens"] for r in rows], want)
+    log(f"[gpred] int8 against bf16 (a reading): {same}/3 requests "
+        f"identical, {prefix} of 36 tokens before the first divergence")
     return out
 
 
@@ -1040,7 +1418,7 @@ def phase_bwd_check(torch):
     the training shape at b=1. Returns {kernel: max abs error} there."""
     from kubedl_tpu_torch.ops import attention as attn
 
-    cases = {**CASES, "train_b1": TRAIN_B1}
+    cases = {**CASES, "train_b1": TRAIN_B1, **GEMMA_CASES}
     errs = {}
     for i, (name, case) in enumerate(cases.items()):
         q, k, v, seg = _inputs(torch, case, seed=200 + i)
@@ -1072,22 +1450,63 @@ def phase_bwd_check(torch):
         log(f"[bwd] {name} ({route}): " + ", ".join(parts) + " ok")
     return {"flash_dq": errs[("train_b1", "dq")],
             "flash_dkv": max(errs[("train_b1", "dk")],
-                             errs[("train_b1", "dv")])}
+                             errs[("train_b1", "dv")]),
+            "gemma": {"flash_dq": errs[("gemma_train_b1", "dq")],
+                      "flash_dkv": max(errs[("gemma_train_b1", "dk")],
+                                       errs[("gemma_train_b1", "dv")])}}
 
 
-def phase_timing(torch):
-    """K1, K2 and K3 at the training shape, each beside its plain
-    version, SDPA (forward for K1, backward for K2 and K3 together: the
-    one library call that computes dq/dk/dv) and its bound; and Δ, the
-    PyTorch op the backward runs before K2 and K3."""
+def _shape(case) -> str:
+    dt = {"bfloat16": "bf16", "float16": "f16", "float32": "f32"}
+    return (f"b={case['b']} s={case['sq']} nh={case['nh']} nkv="
+            f"{case['nkv']} hd={case['hd']} {dt[case['dtype']]}"
+            f"{' causal' if case['causal'] else ''}")
+
+
+def _fwd_timing(torch, case, seed) -> dict:
+    """K1 at ``case`` on its route, beside its plain version, SDPA (a
+    yardstick only: the port never calls it) and its bound."""
     from kubedl_tpu_torch.ops import attention as attn
 
-    case = TRAIN
-    q, k, v, _ = _inputs(torch, case, seed=400)
+    q, k, v, seg = _inputs(torch, case, seed=seed)
+    causal = case["causal"]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = {"kernel_route": attn.flash_fwd_route(q.dtype, case["hd"]),
+           "ms": _time_ms(torch, lambda: attn.flash_forward(q, k, v,
+                                                            causal)),
+           "plain_ms": _time_ms(torch, lambda: attn.flash_forward_plain(
+               q, k, v, causal), reps=20),
+           "library_ms": _time_ms(torch, lambda: sdpa(
+               qt, kt, vt, is_causal=causal, enable_gqa=True))}
+    row["bound_ms"], row["bound_by"] = _flash_bound(torch, case, seg)
+    return row
+
+
+def phase_gemma_embed_timing(torch) -> dict:
+    """K1 at Gemma-2B's embeddings shape (``simt`` route)."""
+    row = _fwd_timing(torch, GEMMA_EMBED, seed=450)
+    log(f"[time] flash_forward at {_shape(GEMMA_EMBED)} "
+        f"({row['kernel_route']}): kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def phase_timing(torch, case=TRAIN, seed=400):
+    """K1, K2 and K3 at a training shape, each beside its plain
+    version, SDPA (forward for K1, backward for K2 and K3 together: the
+    one library call that computes dq/dk/dv) and its bound (K1 on the
+    ``sm90`` route also beside its earlier design); and Δ, the PyTorch op
+    the backward runs before K2 and K3."""
+    from kubedl_tpu_torch.ops import attention as attn
+
+    q, k, v, _ = _inputs(torch, case, seed=seed)
     do = torch.randn(q.shape, device="cuda",
                      generator=torch.Generator(device="cuda")
-                     .manual_seed(401)).to(q.dtype)
+                     .manual_seed(seed + 1)).to(q.dtype)
     causal = case["causal"]
+    route = attn.flash_fwd_route(q.dtype, case["hd"])
     o, lse = attn.flash_forward(q, k, v, causal)
     delta = attn.flash_delta(o, do)
     args = (q, k, v, do, lse, delta, causal)
@@ -1120,17 +1539,19 @@ def phase_timing(torch):
         plain_ms = _time_ms(torch, plain, reps=5, warmup=1)
         bound_ms, bound_by = _flash_bound(torch, case, None, name)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-        if name == "flash_forward":
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          kernel_route=route)
+        earlier = name == "flash_forward" and route == "sm90"
+        if earlier:
             rows[name]["earlier_design_ms"] = _earlier_fwd_ms(
                 torch, attn, kernel, reps=20, warmup=2)
-        log(f"[time] {name} at b=4 s=2048 nh=32 nkv=8 hd=128 bf16 causal: "
+        log(f"[time] {name} at {_shape(case)} ({route}): "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
             f"{'backward ' if name != 'flash_forward' else ''}"
             f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
             + (f", earlier design (flash_fwd.cu) "
                f"{rows[name]['earlier_design_ms']:.4f} ms"
-               if name == "flash_forward" else ""))
+               if earlier else ""))
     rows["flash_dq"]["delta_ms"] = _time_ms(
         torch, lambda: attn.flash_delta(o, do), reps=20, warmup=2)
     log(f"[time] flash_delta (PyTorch) at the same shape: "
@@ -1138,22 +1559,27 @@ def phase_timing(torch):
     return rows
 
 
-def _train_config() -> tuple:
-    """(config path, token path, config dict) of the training phase: the
-    slice's Llama-3-8B run on one batch of 4 x 2049 tokens from seed 0,
-    written as a token file so every step sees the same rows."""
+def _train_config(name="train", model="llama.llama3_8b", vocab=128256,
+                  overrides=None, batch=4, steps=TRAIN_STEPS,
+                  **extra) -> tuple:
+    """(config path, token path, config dict) of a training run on one
+    batch of ``batch`` x 2049 tokens from seed 0, written as a token file
+    so every step sees the same rows. The defaults are the slice's
+    Llama-3-8B run, 8 layers deep."""
     import numpy as np
 
     BUILD_OUT.mkdir(parents=True, exist_ok=True)
-    tokens = BUILD_OUT / "train_tokens.bin"
-    np.random.default_rng(0).integers(0, 128256, 4 * 2049,
+    tokens = BUILD_OUT / f"{name}_tokens.bin"
+    np.random.default_rng(0).integers(0, vocab, batch * 2049,
                                       dtype=np.int32).tofile(tokens)
-    cfg = {"model": "llama.llama3_8b", "model_overrides": {"n_layers": 8},
+    cfg = {"model": model,
+           "model_overrides": ({"n_layers": 8} if overrides is None
+                               else overrides),
            "mode": "pretrain", "data": {"kind": "tokens",
                                         "path": str(tokens)},
-           "batch": 4, "seq": 2048, "steps": TRAIN_STEPS, "seed": 0,
-           "optimizer": {"warmup_steps": 1}, "log_every": 1}
-    path = BUILD_OUT / "train.json"
+           "batch": batch, "seq": 2048, "steps": steps, "seed": 0,
+           "optimizer": {"warmup_steps": 1}, "log_every": 1, **extra}
+    path = BUILD_OUT / f"{name}.json"
     path.write_text(json.dumps(cfg))
     return str(path), str(tokens), cfg
 
@@ -1165,27 +1591,30 @@ def model_flops_per_token(cfg, seq: int) -> float:
             + 12.0 * cfg.n_layers * cfg.hd * cfg.n_heads * (seq / 2))
 
 
-def phase_training(torch):
-    """``python -m kubedl_tpu_torch.train``'s main, in-process. Returns
-    (launches by kernel, config path, token path)."""
+def _train_run(torch, tag, cfg_path, cfg, route, mfu=True) -> dict:
+    """``python -m kubedl_tpu_torch.train``'s main, in-process, on the
+    config at ``cfg_path``: the loss finite and falling over the repeated
+    batch, and every K1-K3 launch of the run on ``route`` (K1 2*L per step
+    with remat, K2/K3 L). The kernels' counts go to 0 just before the
+    run and are read just after. Returns the readings."""
     from kubedl_tpu_torch.ops import attention as attn
     from kubedl_tpu_torch.train import __main__ as train_main
 
-    cfg_path, tokens, cfg = _train_config()
     config, _ = train_main.resolve_model(cfg, device="cuda")
-    n_layers = config.n_layers
+    n_layers, steps = config.n_layers, cfg["steps"]
     marks = []
     torch.cuda.reset_peak_memory_stats()
-    log(f"[train] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
-        f"before training; model {config.num_params / 1e9:.3f} B params, "
-        f"{n_layers} layers, d_model {config.d_model}, heads "
-        f"{config.n_heads}/{config.n_kv_heads}, d_ff {config.d_ff}, vocab "
-        f"{config.vocab_size}, remat {config.remat}, loss_chunk "
-        f"{config.loss_chunk}")
+    log(f"[{tag}] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"before training; {cfg['model']}: {config.num_params / 1e9:.3f} B "
+        f"params, {n_layers} layers, d_model {config.d_model}, heads "
+        f"{config.n_heads}/{config.n_kv_heads} of width {config.hd}, d_ff "
+        f"{config.d_ff}, vocab {config.vocab_size}, remat {config.remat}, "
+        f"loss_chunk {config.loss_chunk}; batch {cfg['batch']} x "
+        f"{cfg['seq']}, {steps} steps"
+        + (f", lora {cfg['lora']}" if cfg.get("lora") else ""))
     kernels = (attn.flash_forward, attn.flash_dq, attn.flash_dkv)
     for fn in kernels:
         fn.launches = 0
-    for fn in kernels:
         fn.launches_by_route = {"sm90": 0, "simt": 0}
     t0 = time.perf_counter()
     rc = train_main.main(["--config", cfg_path],
@@ -1195,40 +1624,121 @@ def phase_training(torch):
     by_route = {fn.__name__: dict(fn.launches_by_route) for fn in kernels}
     peak = torch.cuda.max_memory_allocated()
     losses = [m[2] for m in marks]
-    if rc != 0 or len(marks) != TRAIN_STEPS:
-        raise AssertionError(f"training returned {rc} after {len(marks)} "
-                             f"steps")
+    if rc != 0 or len(marks) != steps:
+        raise AssertionError(f"{tag}: training returned {rc} after "
+                             f"{len(marks)} steps")
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
-        raise AssertionError(f"training loss not finite and falling: "
+        raise AssertionError(f"{tag}: training loss not finite and falling: "
                              f"{losses}")
-    want = {"flash_forward": 2 * n_layers * TRAIN_STEPS,
-            "flash_dq": n_layers * TRAIN_STEPS,
-            "flash_dkv": n_layers * TRAIN_STEPS}
+    want = {"flash_forward": 2 * n_layers * steps,
+            "flash_dq": n_layers * steps, "flash_dkv": n_layers * steps}
     if launches != want:
-        raise AssertionError(f"training launched {launches}, want {want} "
-                             f"(K1 2*L per step with remat, K2/K3 L)")
+        raise AssertionError(f"{tag}: training launched {launches}, want "
+                             f"{want} (K1 2*L per step with remat, K2/K3 L)")
+    other = "simt" if route == "sm90" else "sm90"
     for name, routes in by_route.items():
-        if routes != {"sm90": want[name], "simt": 0}:
-            raise AssertionError(f"training launched {name} on routes "
-                                 f"{routes}: every launch should take sm90")
+        if routes != {route: want[name], other: 0}:
+            raise AssertionError(f"{tag}: training launched {name} on "
+                                 f"routes {routes}: every launch should "
+                                 f"take {route}")
     steady = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
     step_s = sum(steady) / len(steady)
-    tokens_per_step = cfg["batch"] * cfg["seq"]
-    tok_s = tokens_per_step / step_s
-    mfu = (model_flops_per_token(config, cfg["seq"]) * tok_s
-           / PEAK_FLOPS_PER_S["bfloat16"])
-    log(f"[train] losses {[round(x, 4) for x in losses]}")
-    log(f"[train] first step {marks[0][0] - t0:.3f} s (model init, data "
-        f"and first launches included); steps 2-{TRAIN_STEPS}: "
-        f"{step_s:.4f} s per step, {tok_s:.1f} tokens/s, MFU "
-        f"{mfu:.4f} against 989 TFLOP/s bf16 "
-        f"({model_flops_per_token(config, cfg['seq']):.4e} FLOP/token)")
-    log(f"[train] per-step times {[round(x, 4) for x in steady]} s")
-    log(f"[train] {peak / 2**30:.2f} GiB peak device memory; launches "
-        f"{launches} over {TRAIN_STEPS} steps = "
-        f"{ {k: n // TRAIN_STEPS for k, n in launches.items()} } per step; "
+    tok_s = cfg["batch"] * cfg["seq"] / step_s
+    out = {"launches": launches, "by_route": by_route, "losses": losses,
+           "step_s": step_s, "tokens_per_s": tok_s,
+           "peak_gib": peak / 2**30, "first_step_s": marks[0][0] - t0}
+    line = ""
+    if mfu:
+        out["mfu"] = (model_flops_per_token(config, cfg["seq"]) * tok_s
+                      / PEAK_FLOPS_PER_S["bfloat16"])
+        line = (f", MFU {out['mfu']:.4f} against 989 TFLOP/s bf16 "
+                f"({model_flops_per_token(config, cfg['seq']):.4e} "
+                f"FLOP/token)")
+    log(f"[{tag}] losses {[round(x, 4) for x in losses]}")
+    log(f"[{tag}] first step {out['first_step_s']:.3f} s (model init, data "
+        f"and first launches included); steps 2-{steps}: {step_s:.4f} s "
+        f"per step, {tok_s:.1f} tokens/s{line}")
+    log(f"[{tag}] per-step times {[round(x, 4) for x in steady]} s")
+    log(f"[{tag}] {out['peak_gib']:.2f} GiB peak device memory; launches "
+        f"{launches} over {steps} steps = "
+        f"{ {k: n // steps for k, n in launches.items()} } per step; "
         f"routes {by_route}")
-    return launches, cfg, tokens
+    return out
+
+
+def phase_training(torch):
+    """The slice's training run (Llama-3-8B width, 8 layers, b=4 s=2048).
+    Returns (readings, config dict, token path)."""
+    cfg_path, tokens, cfg = _train_config()
+    return _train_run(torch, "train", cfg_path, cfg, "sm90"), cfg, tokens
+
+
+def phase_gemma_training(torch) -> dict:
+    """``python -m kubedl_tpu_torch.train`` on ``gemma.gemma_2b`` at full
+    width and depth, b=2 s=2048, 3 steps: head dim 256 sends every K1-K3
+    launch to the ``simt`` route."""
+    cfg_path, _, cfg = _train_config("gemma_train", model="gemma.gemma_2b",
+                                     vocab=256128, overrides={}, batch=2,
+                                     steps=3)
+    return _train_run(torch, "gtrain", cfg_path, cfg, "simt")
+
+
+LORA_RANK = 16
+
+
+def phase_lora_training(torch) -> dict:
+    """The slice's training configuration with ``"lora"`` (rank 16, the
+    attention projections), 4 steps at learning rate 1e-3: the loss falls,
+    the base weights stay bit for bit the seeded ones, and the optimizer's
+    moments are each the adapters' size. The base and the trainer state
+    are read by wrapping ``merge_params`` and ``Trainer.init_state``."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.ops import lora, quant
+    from kubedl_tpu_torch.train import __main__ as train_main
+    from kubedl_tpu_torch.train import trainer
+
+    cfg_path, _, cfg = _train_config(
+        "lora_train", steps=4, lora={"rank": LORA_RANK},
+        optimizer={"warmup_steps": 1, "learning_rate": 1e-3})
+    seen = {}
+    merge, init_state = lora.merge_params, trainer.Trainer.init_state
+
+    def record_merge(base, adapters, alpha=16.0):
+        seen.setdefault("base", base)
+        return merge(base, adapters, alpha=alpha)
+
+    def record_state(self, params):
+        seen["state"] = init_state(self, params)
+        return seen["state"]
+
+    with unittest.mock.patch.object(lora, "merge_params", record_merge), \
+            unittest.mock.patch.object(trainer.Trainer, "init_state",
+                                       record_state):
+        out = _train_run(torch, "lora", cfg_path, cfg, "sm90", mfu=False)
+    state, base = seen.pop("state"), seen.pop("base")
+    adapter_bytes = quant.tree_nbytes(state.params)
+    mu, nu = (quant.tree_nbytes(state.opt_state.mu),
+              quant.tree_nbytes(state.opt_state.nu))
+    config, _ = train_main.resolve_model(cfg, device="cuda")
+    seeded = llama.init_params(
+        config, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    from kubedl_tpu_torch.train.trainer import tree_leaves
+    moved = [k for (k, a), (_, b) in zip(tree_leaves(base),
+                                         tree_leaves(seeded))
+             if not torch.equal(a, b)]
+    out.update(adapter_bytes=adapter_bytes, mu_bytes=mu, nu_bytes=nu,
+               base_bytes=quant.tree_nbytes(base), base_moved=moved)
+    log(f"[lora] adapters {adapter_bytes / 1e6:.2f} MB "
+        f"({adapter_bytes // 4 / 1e6:.2f} M float32 params) against the "
+        f"base's {out['base_bytes'] / 1e9:.3f} GB; optimizer moments mu "
+        f"{mu / 1e6:.2f} MB, nu {nu / 1e6:.2f} MB; base leaves that moved: "
+        f"{moved or 'none'}; peak {out['peak_gib']:.2f} GiB against the full "
+        f"run's")
+    if mu != adapter_bytes or nu != adapter_bytes:
+        raise AssertionError("the optimizer state is not adapter-sized")
+    if moved:
+        raise AssertionError(f"LoRA training changed base leaves {moved}")
+    return out
 
 
 def phase_grad_check(torch, cfg, tokens):
@@ -1314,17 +1824,37 @@ def main() -> int:
     serving_launches, params = timed("serving", phase_serving, torch, cfg8b)
     log(f"[serve] {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak "
         "device memory")
-    timed("continuous", phase_continuous, torch, cfg8b, params)
+    cont = timed("continuous", phase_continuous, torch, cfg8b, params)
     timed("predictor", phase_predictor, torch, cfg8b, params)
-    del params
+    timed("quantized", phase_quantized, torch, cfg8b, params, cont)
+    timed("adapters", phase_adapters, torch, cfg8b, params, cont)
+    del params, cont
     gc.collect()                 # the 16 GB serving model goes first
+    torch.cuda.empty_cache()
+    gcfg, gparams, gemma = timed("gemma", phase_gemma, torch)
+    timed("gemma_predictor", phase_gemma_predictor, torch, gcfg, gparams)
+    del gparams
+    gc.collect()
     torch.cuda.empty_cache()
     bwd_err = timed("bwd_check", phase_bwd_check, torch)
     times = timed("timing", phase_timing, torch)
-    train_launches, cfg, tokens = timed("training", phase_training, torch)
+    gtimes = timed("gemma_timing", phase_timing, torch, GEMMA_TRAIN, 500)
+    gtimes["embed"] = timed("gemma_embed_timing", phase_gemma_embed_timing,
+                            torch)
+    train, cfg, tokens = timed("training", phase_training, torch)
     gc.collect()
     torch.cuda.empty_cache()
     timed("grad_check", phase_grad_check, torch, cfg, tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gtrain = timed("gemma_training", phase_gemma_training, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora_run = timed("lora_training", phase_lora_training, torch)
+    log(f"[lora] peak device memory {lora_run['peak_gib']:.2f} GiB with "
+        f"rank-{LORA_RANK} adapters against {train['peak_gib']:.2f} GiB for "
+        f"the full run of the same configuration; step "
+        f"{lora_run['step_s']:.4f} s against {train['step_s']:.4f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1332,36 +1862,65 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_all:.1f} s; by phase "
         f"{ {k: round(v, 1) for k, v in seconds.items()} }")
     src = "kubedl_tpu_torch/csrc/"
-    shape = "b=4 s=2048 nh=32 nkv=8 hd=128 bf16 causal"
+    shape = _shape(TRAIN)
+    launches = {name: {"training": train["launches"][name],
+                       "gemma_training": gtrain["launches"][name],
+                       "lora_training": lora_run["launches"][name]}
+                for name in ("flash_forward", "flash_dq", "flash_dkv")}
+    launches["flash_forward"].update(
+        serving=serving_launches,
+        gemma_embeddings=gemma["embeddings_launches"])
+
+    def gemma_row(name, err):
+        """The kernel at Gemma-2B's shapes (``simt`` route): its training
+        shape and, for K1, its embeddings shape."""
+        row = {"shape": _shape(GEMMA_TRAIN), "max_abs_err": err,
+               "launches": {"gemma_training": gtrain["launches"][name]},
+               **gtimes[name]}
+        if name == "flash_forward":
+            row["launches"]["gemma_embeddings"] = \
+                gemma["embeddings_launches"]
+            row["embeddings"] = {"shape": _shape(GEMMA_EMBED),
+                                 "max_abs_err": fwd["gemma_max_abs_err"][
+                                     "gemma_embed"], **gtimes["embed"]}
+        return row
+
     rows = [
         {"name": "flash_forward", "route": "cuda",
          "source": src + "flash_fwd_sm90.cu",
          "replaces": "kubedl_tpu/ops/attention.py:259:_flash_kernel",
-         "launches": serving_launches + train_launches["flash_forward"],
-         "launches_by_path": {
-             "serving": serving_launches,
-             "training": train_launches["flash_forward"]},
+         "launches": sum(launches["flash_forward"].values()),
+         "launches_by_path": launches["flash_forward"],
          "max_abs_err": fwd["train_max_abs_err"], **times["flash_forward"],
          "shape": shape, "library": "sdpa forward",
          "serving": {k: fwd[k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms", "earlier_design_ms",
                                          "host_ms")},
+         "gemma": gemma_row("flash_forward",
+                            fwd["gemma_max_abs_err"]["gemma_train_b1"]),
+         "simt_source": src + "flash_fwd.cu",
          "kernel_route": "sm90", "design": DESIGN["flash_forward"]},
         {"name": "flash_dq", "route": "cuda",
          "source": src + "flash_bwd_sm90.cu",
          "replaces": "kubedl_tpu/ops/attention.py:449:_flash_dq_kernel",
-         "launches": train_launches["flash_dq"],
+         "launches": sum(launches["flash_dq"].values()),
+         "launches_by_path": launches["flash_dq"],
          "max_abs_err": bwd_err["flash_dq"], **times["flash_dq"],
          "shape": shape, "library": "sdpa backward (dq, dk and dv)",
+         "gemma": gemma_row("flash_dq", bwd_err["gemma"]["flash_dq"]),
+         "simt_source": src + "flash_bwd.cu",
          "kernel_route": "sm90",
          "design": DESIGN["flash_dq"]},
         {"name": "flash_dkv", "route": "cuda",
          "source": src + "flash_bwd_sm90.cu",
          "replaces": "kubedl_tpu/ops/attention.py:512:_flash_dkv_kernel",
-         "launches": train_launches["flash_dkv"],
+         "launches": sum(launches["flash_dkv"].values()),
+         "launches_by_path": launches["flash_dkv"],
          "max_abs_err": bwd_err["flash_dkv"], **times["flash_dkv"],
          "shape": shape, "library": "sdpa backward (dq, dk and dv)",
+         "gemma": gemma_row("flash_dkv", bwd_err["gemma"]["flash_dkv"]),
+         "simt_source": src + "flash_bwd.cu",
          "kernel_route": "sm90",
          "design": DESIGN["flash_dkv"]},
     ]

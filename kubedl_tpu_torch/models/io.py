@@ -8,8 +8,9 @@ An artifact directory holds
   (``embed``, ``layers/wq`` ...), bfloat16 stored as float32.
 
 So an artifact the JAX package wrote serves unchanged from the port, and
-the port's ``save_model`` writes one the JAX package loads. Only the
-llama family is ported so far.
+the port's ``save_model`` writes one the JAX package loads. The llama
+family is ported, Gemma's configs (tied embeddings: no ``lm_head``
+leaf) included; MoE is not yet.
 """
 
 from __future__ import annotations
@@ -119,9 +120,9 @@ def load_model(path: str, device=None) -> Tuple[llama.LlamaConfig, dict]:
     family = doc.get("family", "llama")
     if family != "llama":
         raise NotImplementedError(
-            f"model family {family!r} is not ported yet: only llama "
-            "serves from the port (MoE is ROADMAP queue A's "
-            "quantization/LoRA/MoE item)")
+            f"model family {family!r} is not ported yet: only the llama "
+            "family (Llama, Mistral, Qwen2, Gemma) loads in the port "
+            "(MoE is ROADMAP A4c)")
     fields = {f.name for f in dataclasses.fields(llama.LlamaConfig)}
     raw = {k: v for k, v in doc["config"].items() if k in fields}
     raw["dtype"] = raw.get("dtype", "bfloat16")

@@ -32,6 +32,7 @@ from .._device import resolve_device
 from ..ops.attention import multi_head_attention
 from ..ops.loss import chunked_softmax_xent
 from ..ops.quant import mm as _mm
+from ..ops.quant import to_dense
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -238,7 +239,9 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
 
 
 def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked ``layers`` dict (views)."""
+    """Layer ``i``'s slice of the stacked ``layers`` dict (views). Wrapped
+    leaves (``QTensor``, ``Q4Tensor``, ``LoraTensor``) slice field by
+    field and keep their metadata, so every matmul site takes them."""
     return {k: v[i] for k, v in params["layers"].items()}
 
 
@@ -294,10 +297,13 @@ def _act(config: LlamaConfig):
 
 
 def _lm_head(config: LlamaConfig, params: dict):
-    """[d, vocab] projection; Gemma ties it to the embedding table."""
+    """[d, vocab] projection; Gemma ties it to the embedding table. May be
+    a ``QTensor``/``Q4Tensor`` under quantized serving (consumers go
+    through ``quant.mm`` / ``quant.to_dense``)."""
     if config.tie_embeddings:
         return params["embed"].T.to(config.dtype)
-    return params["lm_head"].to(config.dtype)
+    w = params["lm_head"]
+    return w.to(config.dtype) if torch.is_tensor(w) else w
 
 
 def _softcap(config: LlamaConfig, logits):
@@ -700,7 +706,7 @@ def lm_loss(config: LlamaConfig, x, params: dict, targets, mask=None):
     LM-head product and softmax run in sequence chunks
     (``ops.loss.chunked_softmax_xent``), so the [b, s, vocab] logits are
     never materialized."""
-    head = _lm_head(config, params)
+    head = to_dense(_lm_head(config, params), config.dtype)
     if config.loss_chunk > 0:
         return chunked_softmax_xent(x, head, targets, mask=mask,
                                     chunk=config.loss_chunk,

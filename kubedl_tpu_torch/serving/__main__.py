@@ -6,7 +6,9 @@ environment contract:
 * ``KUBEDL_MODEL_PATH``   — ``models/io.py`` artifact directory
 * ``KUBEDL_MODEL_NAME``   — REST route name (default: dir basename)
 * ``KUBEDL_SERVING_LANES``    — continuous-batching lane count (4)
-* ``KUBEDL_SERVING_QUANTIZE`` — refused unless empty (ROADMAP A4)
+* ``KUBEDL_SERVING_QUANTIZE`` — "int8", "int4", or "": weight-only
+  quantization; the artifact loads on the host and each weight reaches
+  the card already quantized
 * ``KUBEDL_SERVING_SPEC_K``   — >0 enables speculative lanes with the
   draft model at ``KUBEDL_SERVING_DRAFT_PATH``: every lane drafts k tokens
   per round and ONE [lanes, k+1] target pass verifies them
@@ -53,11 +55,10 @@ def build_engine(model_path: str, lanes: int, quantize: str, spec_k: int,
     started ``ContinuousBatchingEngine`` on ``device`` (the card unless
     the caller names the CPU). ``kv_block`` / ``pool_blocks`` (0 = engine
     defaults) size the paged KV pool; the layout itself is
-    ``$KUBEDL_KV_MODE`` (paged by default)."""
-    if quantize:
-        raise NotImplementedError(
-            f"KUBEDL_SERVING_QUANTIZE={quantize!r}: weight quantization "
-            "is not ported yet: ROADMAP A4")
+    ``$KUBEDL_KV_MODE`` (paged by default). With ``quantize`` ("int8" or
+    "int4") the weights load on the host and the engine quantizes them
+    onto the device one matrix at a time, so the float weights never
+    occupy the card."""
     if tp > 1:
         raise NotImplementedError(
             f"KUBEDL_SERVING_TP={tp}: tensor-parallel serving is not "
@@ -68,7 +69,8 @@ def build_engine(model_path: str, lanes: int, quantize: str, spec_k: int,
     from .engine import GenerateConfig
 
     dev = resolve_device(device)
-    config, params = load_model(model_path, device=dev)
+    config, params = load_model(model_path,
+                                device="cpu" if quantize else dev)
     if eos_id >= config.vocab_size or tokenizer_vocab > config.vocab_size:
         # a mismatched tokenizer would encode ids past the embedding table
         # and serve garbage with a 200 — refuse at startup
@@ -89,8 +91,8 @@ def build_engine(model_path: str, lanes: int, quantize: str, spec_k: int,
         kw.update(draft_config=dcfg, draft_params=dparams, spec_k=spec_k)
     return ContinuousBatchingEngine(
         config, params, lanes=lanes, max_len=max_len,
-        gen=GenerateConfig(max_len=max_len, eos_id=eos_id), device=dev,
-        **kw).start()
+        gen=GenerateConfig(max_len=max_len, eos_id=eos_id),
+        quantize=quantize or None, device=dev, **kw).start()
 
 
 def run_batch(engine, tokenizer, in_path: str, out_path: str,
@@ -208,8 +210,9 @@ def main(argv=None, device=None) -> int:
         port=int(env.get("KUBEDL_SERVING_PORT", "8501") or 8501),
         tokenizer=tokenizer,
     )).start()
-    log.info("serving %s on %s (lanes=%d kv=%s device=%s tokenizer=%s)",
-             model_path, server.url, lanes, engine.kv_mode, engine.device,
+    log.info("serving %s on %s (lanes=%d quantize=%s kv=%s device=%s "
+             "tokenizer=%s)", model_path, server.url, lanes,
+             quantize or "off", engine.kv_mode, engine.device,
              tok_spec if tokenizer is not None else "off")
 
     done = threading.Event()

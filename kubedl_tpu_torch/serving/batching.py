@@ -37,8 +37,17 @@ tables' values, never a shape. Sampling stays outside the graph, and so
 do the prefill buckets and the speculative verify pass (eager). On the
 CPU the tick runs eagerly; :func:`decode_tick_route` names the route.
 
-Not ported yet, each refused by name: weight quantization and adapters
-(ROADMAP A4), a tensor-parallel ``mesh`` (A5).
+**Weight quantization** (``quantize`` / ``quantize_draft``: "int8" or
+"int4") quantizes the target's or the draft's weights as they move to
+the device; the leaves stay quantized there and the tick's graph captures
+their dequantize. **Multi-model adapters** (``adapters=`` an
+``AdapterCatalog``, ``max_adapters``): requests carry a ``model=`` id and
+the adapter's weight pages allocate from the same refcounted pool as KV
+blocks (``serving/adapters.py``); residency is host accounting, so greedy
+tokens under an adapter equal the base model's, as in the JAX engine.
+
+Not ported yet, and refused by name: a tensor-parallel ``mesh`` (ROADMAP
+A5).
 """
 
 from __future__ import annotations
@@ -56,7 +65,7 @@ import torch
 from .._device import resolve_device
 from ..trace import NOOP_TRACER
 from .engine import (GenerateConfig, SpecStats, filtered_probs, hit_stop,
-                     params_to, resolve_family, sample_logits,
+                     maybe_quantize, resolve_family, sample_logits,
                      sample_logits_many, spec_accept, token_logprobs)
 
 
@@ -192,7 +201,9 @@ class Request:
     tokens: list = field(default_factory=list)
     logprobs: list = field(default_factory=list)
     want_logprobs: bool = False
-    #: adapter id ("" = the base model; the only one this port serves)
+    #: adapter id this request decodes under ("" = the base model).
+    #: Admission gates on the adapter being resident (a cold one faults
+    #: its weight pages in through the pool first)
     model: str = ""
     #: per-request sampling overrides; None = the engine's GenerateConfig
     temperature: Optional[float] = None
@@ -290,6 +301,11 @@ class _Lane:
     #: block-table handoff; masked out of decode ticks
     parked: bool = False
     parked_at: float = 0.0     # tracer clock at park (handoff span)
+    #: multi-model serving: the adapter this lane decodes under and the
+    #: weight pages it increfed at admission (released exactly once via
+    #: _free_lane; a handoff MOVES them with the block-table row)
+    adapter: str = ""
+    adapter_blocks: list = field(default_factory=list)
 
     def reset(self) -> None:
         self.request = None
@@ -298,6 +314,8 @@ class _Lane:
         self.blocks = []
         self.parked = False
         self.parked_at = 0.0
+        self.adapter = ""
+        self.adapter_blocks = []
 
 
 def decode_tick_route(device) -> str:
@@ -383,23 +401,6 @@ class DecodeTick:
         self._graph = self._static = self._logits = None
 
 
-def _refuse_unported(quantize, quantize_draft, mesh, adapters,
-                     max_adapters) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: tensor-parallel serving is not ported yet: ROADMAP A5")
-    for name, value in (("quantize", quantize),
-                        ("quantize_draft", quantize_draft)):
-        if value:
-            raise NotImplementedError(
-                f"{name}={value!r}: weight quantization is not ported "
-                "yet: ROADMAP A4")
-    if adapters is not None or max_adapters is not None:
-        raise NotImplementedError(
-            "adapters/max_adapters: multi-model LoRA pages are not ported "
-            "yet: ROADMAP A4")
-
-
 class ContinuousBatchingEngine:
     """Slot-scheduled generation over one shared cache, on ``device``
     (``None``: the card; ``"cpu"`` only when asked).
@@ -420,8 +421,14 @@ class ContinuousBatchingEngine:
                  headroom_blocks: int = 1, tracer=None,
                  prefill_lanes: int = 0, adapters=None,
                  max_adapters: Optional[int] = None, device=None):
-        _refuse_unported(quantize, quantize_draft, mesh, adapters,
-                         max_adapters)
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: tensor-parallel serving is not ported yet: ROADMAP A5")
+        if max_adapters is not None and adapters is None:
+            # the JAX engine ignores the cap without a catalog; a cap that
+            # would silently do nothing is refused here
+            raise ValueError("max_adapters caps resident adapters: it needs "
+                             "an adapter catalog (adapters=)")
         self.family = family = resolve_family(config)
         self.device = dev = resolve_device(device)
         self.config = config
@@ -475,7 +482,14 @@ class ContinuousBatchingEngine:
         self.preempted = 0
         #: peak simultaneously-active lanes
         self.peak_active = 0
-        self.params = params_to(params, dev)
+        if adapters is not None and self.kv_mode == "dense":
+            raise ValueError(
+                "multi-model adapters require a paged KV layout (adapter "
+                "weight pages live in the block pool; a dense slab has no "
+                "pool to page them from)")
+        #: the weights on the device: quantized there leaf by leaf under
+        #: ``quantize`` ("int8"/"int4"), never densified afterwards
+        self.params = maybe_quantize(params, quantize, dev)
 
         # -- speculative decoding per lane: the draft proposes spec_k
         # tokens for EVERY lane, the target verifies all lanes' chunks in
@@ -487,7 +501,7 @@ class ContinuousBatchingEngine:
                     "target and draft must share a vocabulary")
             self.dcfg = draft_config
             self.dfam = resolve_family(draft_config)
-            self.dparams = params_to(draft_params, dev)
+            self.dparams = maybe_quantize(draft_params, quantize_draft, dev)
             #: aggregate + per-lane acceptance accounting (/metrics)
             self.stats = SpecStats()
             self.lane_stats = [SpecStats() for _ in range(lanes)]
@@ -526,9 +540,22 @@ class ContinuousBatchingEngine:
                 lambda cur, pos, tables: family.forward_step_paged(
                     config, self.params, cur, self._pool, tables, pos)[0],
                 lanes, self._bpl, dev)
+        #: multi-model serving: an AdapterCatalog turns this engine into a
+        #: multiplexer — requests carry a ``model=`` id and the adapter's
+        #: weight pages allocate from the SAME refcounted pool as KV
+        #: blocks. ``max_adapters`` caps the resident count (the
+        #: ``max_prefixes`` analog)
+        self._adapters = None
+        if adapters is not None:
+            from .adapters import AdapterResidency
+            self._adapters = AdapterResidency(adapters, self._bpool,
+                                              max_resident=max_adapters)
         #: monotonic residency generation: bumped whenever the prefix set
-        #: changes, so a router can cache residency snapshots
+        #: or the resident-adapter set changes, so a router can cache
+        #: residency snapshots
         self.residency_epoch = 0
+        #: adapter weight pages cold-faulted in the current tick
+        self.adapter_fault_pages_step = 0
         self._lane_state = [_Lane() for _ in range(lanes)]
         self._cur = np.zeros((lanes, 1), np.int64)
         self._pos = np.zeros((lanes,), np.int64)
@@ -848,16 +875,56 @@ class ContinuousBatchingEngine:
                                                   record_hit=False)
         return len(shared)
 
+    def has_prefix(self, tokens: Sequence[int], model: str = "") -> bool:
+        """Whether exactly this (model, prefix) is registered."""
+        key = tuple(tokens)
+        model = model or ""
+        with self._sched_lock:
+            return any(p.key == key and p.model == model
+                       for p in self._prefixes)
+
     def residency_snapshot(self) -> tuple:
         """One consistent ``(epoch, prefixes, resident_adapters,
         kv_block)`` view, where ``prefixes`` is the longest-first
-        ``(model, key, n_blocks)`` list the match walks. This port serves
-        no adapters, so the resident set is empty."""
+        ``(model, key, n_blocks)`` list the match walks."""
         with self._sched_lock:
             return (self.residency_epoch,
                     tuple((p.model, p.key, len(p.blocks))
                           for p in self._prefixes),
-                    frozenset(), self.kv_block)
+                    (frozenset(self._adapters.resident_models())
+                     if self._adapters is not None else frozenset()),
+                    self.kv_block)
+
+    # -- multi-model adapters ---------------------------------------------
+
+    @property
+    def multi_model(self) -> bool:
+        return self._adapters is not None
+
+    def load_adapter(self, model: str, pinned: bool = False) -> None:
+        """Pin an adapter's weight pages resident ahead of traffic (the
+        ``register_prefix`` analog for weights). At ``max_adapters`` the
+        least-recently-hit unpinned adapter is evicted; an all-pinned
+        catalog raises."""
+        if self._adapters is None:
+            raise ValueError("engine has no adapter catalog (pass "
+                             "adapters= to enable multi-model serving)")
+        with self._sched_lock:
+            self._adapters.load(model, pinned=pinned)
+            self.residency_epoch += 1
+
+    def adapter_resident(self, model: str) -> bool:
+        if self._adapters is None:
+            return False
+        with self._sched_lock:
+            return self._adapters.is_resident(model)
+
+    def adapter_status(self) -> dict:
+        """Resident set + fault/eviction counters."""
+        if self._adapters is None:
+            return {}
+        with self._sched_lock:
+            return self._adapters.status()
 
     @property
     def queue_depth(self) -> int:
@@ -874,7 +941,16 @@ class ContinuousBatchingEngine:
             parked = sum(1 for l in self._lane_state if l.parked)
             free = (self._bpool.free_count if self.kv_mode != "dense"
                     else None)
-        return {
+            adapters = None
+            if self._adapters is not None:
+                adapters = {
+                    "resident_adapters": len(
+                        self._adapters.resident_models()),
+                    "adapter_pages": self._adapters.resident_pages(),
+                    "adapter_faults": dict(self._adapters.faults),
+                    "adapter_evictions": self._adapters.evictions,
+                }
+        out = {
             "queue_depth": self.queue_depth,
             "active_lanes": active,
             "parked_lanes": parked,
@@ -884,6 +960,11 @@ class ContinuousBatchingEngine:
             "handoffs": self.handoffs,
             "preempted": self.preempted,
         }
+        if adapters is not None:
+            # keys appear only on multi-model engines: single-model health
+            # dicts stay as they were
+            out.update(adapters)
+        return out
 
     def validate(self, prompt: Sequence[int], max_new: int) -> None:
         """Raise ValueError if the request can never fit the cache —
@@ -903,7 +984,9 @@ class ContinuousBatchingEngine:
         """Enqueue one generation; returns a Request whose ``result()``
         blocks until finished. Thread-safe. ``temperature``/``top_k``/
         ``top_p`` override the engine's GenerateConfig for THIS request
-        only (each lane samples with its own request's params)."""
+        only (each lane samples with its own request's params). ``model``
+        picks the adapter to decode under ("" / the catalog's base name =
+        the base model), validated here in the caller's thread."""
         self.validate(prompt, max_new)
         sampling = self.validate_sampling(temperature=temperature,
                                           top_k=top_k, top_p=top_p)
@@ -925,13 +1008,20 @@ class ContinuousBatchingEngine:
         return req
 
     def validate_model(self, model: Optional[str]) -> str:
-        """Normalize a request's adapter id in the caller's thread:
-        returns "" for the base model, the only one this engine serves."""
+        """Normalize + bounds-check a request's adapter id in the CALLER's
+        thread (an unknown model 400s one request instead of reaching the
+        scheduler loop). Returns "" for the base model."""
         if not model:
             return ""
-        raise ValueError(
-            f"model {model!r} requested but this engine serves only its "
-            "base model (no adapter catalog configured)")
+        if self._adapters is None:
+            raise ValueError(
+                f"model {model!r} requested but this engine serves only "
+                "its base model (no adapter catalog configured)")
+        model = self._adapters.catalog.normalize(model)
+        if model and model not in self._adapters.catalog:
+            raise ValueError(f"unknown model {model!r}: not in the "
+                             "adapter catalog")
+        return model
 
     def validate_sampling(self, temperature=None, top_k=None,
                           top_p=None) -> dict:
@@ -1058,6 +1148,11 @@ class ContinuousBatchingEngine:
                                        stored=p.stored, blocks=blocks,
                                        pinned=p.pinned, model=p.model))
             self._prefixes = entries
+            if self._adapters is not None:
+                # adapter pins lived in the old allocator too; re-pin them
+                # into the fresh one (every lane incref died with its lane
+                # above, so active counts restart)
+                self._adapters.rebuild(self._bpool)
             self.residency_epoch += 1
         if self.spec_k:
             for t in self._d_cache.values():
@@ -1140,6 +1235,14 @@ class ContinuousBatchingEngine:
                 "handoffs": self.handoffs,
                 "prefill_tokens": self.prefill_tokens_total,
             })
+            if self._adapters is not None:
+                # multi-model only: single-model scrapes stay as they were
+                out.update({
+                    "adapter_pages": self._adapters.resident_pages(),
+                    "adapter_peak_pages": self._adapters.peak_pages,
+                    "adapter_faults": self._adapters.faults_total(),
+                    "adapter_evictions": self._adapters.evictions,
+                })
         return out
 
     # -- scheduler --------------------------------------------------------
@@ -1163,6 +1266,7 @@ class ContinuousBatchingEngine:
             attributes={"tokens": len(req.tokens),
                         "promptTokens": len(req.prompt),
                         "preemptions": req._preempts,
+                        **({"model": req.model} if req.model else {}),
                         **({"error": req.error} if req.error else {})})
         req._span_root = ""   # finalized: never re-record this root
 
@@ -1191,12 +1295,19 @@ class ContinuousBatchingEngine:
 
     def _free_lane(self, i: int) -> None:
         """Detach lane i's request and return its pool blocks (shared
-        prefix blocks drop one refcount; private ones free)."""
+        prefix blocks drop one refcount; private ones free). The lane's
+        adapter weight-page share releases here too, and only here, so
+        every finish/cancel/preempt path decrefs the adapter exactly
+        once."""
         lane = self._lane_state[i]
         if lane.blocks:
             self._bpool.decref(lane.blocks)
             lane.blocks = []
             self._tables[i, :] = 0
+        if lane.adapter_blocks:
+            self._adapters.release(lane.adapter, lane.adapter_blocks)
+            lane.adapter_blocks = []
+        lane.adapter = ""
         lane.request = None
         lane.parked = False
         lane.parked_at = 0.0
@@ -1211,6 +1322,10 @@ class ContinuousBatchingEngine:
         req = s.request
         d.request, d.pos, d.remaining = req, s.pos, s.remaining
         d.blocks, s.blocks = s.blocks, []
+        # the adapter refcount MOVES with the block-table row: the decode
+        # lane inherits the prefill lane's weight-page share
+        d.adapter, s.adapter = s.adapter, ""
+        d.adapter_blocks, s.adapter_blocks = s.adapter_blocks, []
         d.parked = False
         self._tables[dst, :] = self._tables[src, :]
         self._tables[src, :] = 0
@@ -1494,6 +1609,35 @@ class ContinuousBatchingEngine:
             req = self._queue[0]
             shared, start_p = [], 0
             if self.kv_mode != "dense":
+                if req.model and self._adapters is not None:
+                    # the adapter must be resident BEFORE the request's
+                    # first tick: a cold one faults its weight pages in
+                    # through the pool here (counted per model), ahead of
+                    # the KV watermark so the check below sees them taken
+                    v0 = self._adapters.version
+                    pages, faulted = self._adapters.ensure(req.model)
+                    if self._adapters.version != v0:
+                        # a fault-in or evictions on the way: the resident
+                        # set moved
+                        self.residency_epoch += 1
+                    if faulted:
+                        self.adapter_fault_pages_step += len(pages)
+                    if pages is None:
+                        if not self._active():
+                            # nothing running will ever free pages: the
+                            # adapter can never fit
+                            self._queue.popleft()
+                            spec = self._adapters.catalog.spec(req.model)
+                            req.error = (
+                                f"adapter {req.model} needs {spec.pages} "
+                                f"weight pages but only "
+                                f"{self._bpool.free_count} blocks are free "
+                                f"and no unpinned adapter is evictable "
+                                f"(pool {self.pool_blocks})")
+                            req._finish(cancelled=True)
+                            self._trace_finish(req, status="error")
+                            return True
+                        return False
                 # admission watermark: the prompt's private blocks plus
                 # headroom must be free, or the head waits
                 seq = (req.prompt or [0]) + req.tokens
@@ -1528,6 +1672,12 @@ class ContinuousBatchingEngine:
         # the request visible to _recover_locked
         lane = self._lane_state[lane_idx]
         lane.request = req
+        if req.model and self._adapters is not None:
+            # bind the lane to the (now resident) adapter: incref its
+            # weight pages for the life of the lane. The residency gate
+            # ran under the same _sched_lock hold, so nothing evicted it
+            lane.adapter = req.model
+            lane.adapter_blocks = self._adapters.attach(req.model)
         # resume-aware: a preempted request re-prefills prompt PLUS the
         # tokens it already streamed, then continues its budget
         prior = len(req.tokens)
@@ -1624,6 +1774,7 @@ class ContinuousBatchingEngine:
         occupies a decode lane."""
         gen = self.gen
         self.prefill_tokens_step = 0
+        self.adapter_fault_pages_step = 0
         stalled = False
         if self.prefill_lanes:
             self._try_handoffs()

@@ -7,10 +7,12 @@
 * prefill runs the prompt through the same cache-aware forward
   (``models.llama.forward_step``), decode feeds one token back per step;
 * greedy or temperature/top-k/top-p sampling with a ``torch.Generator``,
-  per-request stop handling on the host.
+  per-request stop handling on the host;
+* weight-only int8/int4 quantization (``quantize=``, :func:`maybe_quantize`)
+  applied as the weights move to the device, leaf by leaf.
 
-Tensor-parallel serving (the JAX engine's ``mesh``) and weight
-quantization arrive with later slices and raise until then.
+Tensor-parallel serving (the JAX engine's ``mesh``) arrives with a later
+slice and raises until then (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ def resolve_family(config):
         return llama
     raise NotImplementedError(
         f"{type(config).__name__} is not ported yet: only the llama family "
-        "serves from the port (the MoE family is ROADMAP A4)")
+        "serves from the port (the MoE family is ROADMAP A4c)")
 
 
 def spec_accept(drafts, dprobs, tprobs, rng):
@@ -190,11 +192,26 @@ def _params_device(params: dict) -> torch.device:
 
 
 def params_to(params: dict, device) -> dict:
-    """The parameter dict (``layers`` a nested dict) with every tensor on
-    ``device``; tensors already there are not copied."""
+    """The parameter dict (``layers`` a nested dict) with every tensor (or
+    wrapped quantized leaf) on ``device``; those already there are not
+    copied."""
     return {k: ({n: t.to(device) for n, t in v.items()}
                 if isinstance(v, dict) else v.to(device))
             for k, v in params.items()}
+
+
+def maybe_quantize(params: dict, quantize, device=None) -> dict:
+    """Apply a serving quantization mode ('int8', 'int4', or None) to a
+    param tree, landing it on ``device`` (default: where it lies). The
+    quantized leaves move there one matrix at a time, so a tree held on
+    the host never reaches the card in its float form; an unknown mode
+    raises before anything moves."""
+    if quantize in ("int8", "int4"):
+        from ..ops.quant import quantize_params
+        return quantize_params(params, mode=quantize, device=device)
+    if quantize:
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    return params if device is None else params_to(params, device)
 
 
 def greedy_rollout(config, params, prompts, max_new: int):
@@ -226,7 +243,7 @@ def greedy_rollout(config, params, prompts, max_new: int):
 class InferenceEngine:
     """One loaded model and its prefill/decode steps on ``device``
     (``None``: the card; ``"cpu"`` only when asked). Parameters are moved
-    to the device once."""
+    to the device once, quantized on the way with ``quantize``."""
 
     def __init__(self, config: llama.LlamaConfig, params: dict,
                  gen: Optional[GenerateConfig] = None,
@@ -235,19 +252,15 @@ class InferenceEngine:
         from ..trace import NOOP_TRACER
         if mesh is not None:
             raise NotImplementedError(
-                "tensor-parallel serving is not ported yet: ROADMAP queue "
-                "A, context and pipeline parallelism")
-        if quantize:
-            raise NotImplementedError(
-                f"quantize={quantize!r} is not ported yet: ROADMAP queue "
-                "A's quantization/LoRA/MoE item")
+                "tensor-parallel serving is not ported yet: ROADMAP A5, "
+                "context and pipeline parallelism")
         self.device = resolve_device(device)
         self.config = config
         self.gen = gen or GenerateConfig()
         #: span recorder: per-generate prefill/decode spans; the shared
         #: disabled tracer by default
         self.tracer = tracer if tracer is not None else NOOP_TRACER
-        self.params = params_to(params, self.device)
+        self.params = maybe_quantize(params, quantize, self.device)
         self._family = resolve_family(config)
 
     def _step(self, cache, tokens, start_pos: int, valid):

@@ -19,8 +19,9 @@ token streaming, the prefix cache, speculative lanes) or the static
   decodes it, then a final ``data: {"done": true, "tokens": [...]}``. The
   static engine emits them after the generation completes;
 * ``POST /v1/models/{name}:registerPrefix`` — body ``{"prefix_tokens":
-  [...], "pinned"?: bool}``: prefill a shared system prompt once
-  (continuous engine only; a 400 on the static one);
+  [...], "pinned"?: bool, "model"?: adapter}``: prefill a shared system
+  prompt once, scoped to one adapter of the engine's catalog with
+  ``model`` (continuous engine only; a 400 on the static one);
 * ``GET /v1/models/{name}`` — model status (readiness probe target);
 * ``GET /metrics`` — Prometheus exposition (with the paged KV pool's
   gauges and per-lane draft acceptance on the continuous engine);
@@ -647,18 +648,33 @@ class InferenceServer:
         only — the static engine has no shared cache to load). The engine
         enforces ``max_prefixes`` under its own lock: an idempotent
         re-registration passes, over the cap the least-recently-hit
-        unpinned prefix is evicted, and ``pinned`` exempts this one."""
+        unpinned prefix is evicted, and ``pinned`` exempts this one.
+        ``model`` scopes the prefix to one adapter of the engine's catalog
+        (two models' identical token prefixes never alias each other's KV
+        blocks); omitted, the prefix belongs to the base model and the
+        answer carries no ``model`` key."""
         toks = body.get("prefix_tokens")
         if not isinstance(toks, list) or not toks:
             raise ValueError("prefix_tokens is required")
         if not hasattr(self.engine, "register_prefix"):
             raise ValueError("this engine does not support prefix caching")
-        # a "model" other than the base one 400s: no adapters (ROADMAP A4)
-        self.engine.validate_model(str(body.get("model") or ""))
+        kw = {}
+        model = str(body.get("model") or "")
+        if model:
+            if not getattr(self.engine, "multi_model", False):
+                raise ValueError(
+                    f"model {model!r} requested but this engine serves "
+                    "only its base model (no adapter catalog configured)")
+            model = self.engine.validate_model(model)
+            if model:
+                kw["model"] = model
         self.engine.register_prefix([int(t) for t in toks],
                                     max_prefixes=self.config.max_prefixes,
-                                    pinned=bool(body.get("pinned")))
-        return {"registered": len(toks)}
+                                    pinned=bool(body.get("pinned")), **kw)
+        out = {"registered": len(toks)}
+        if model:
+            out["model"] = model
+        return out
 
     def status(self) -> dict:
         return {"model_version_status": [{

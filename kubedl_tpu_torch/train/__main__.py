@@ -12,20 +12,27 @@ export) with no train.py of its own. Config is JSON, ``--config
      "export_path": "/models/out"}
 
 ``model`` is ``llama.<preset>`` (``llama3_8b``, ``llama2_7b``,
-``mistral_7b``, ``qwen2_7b``, ``tiny``) or ``{"model_path": dir}`` to
-fine-tune a saved artifact; ``model_overrides`` replaces any config
-field, and ``loss_chunk`` defaults to 512 (the chunked LM-head loss)
-unless overridden. ``mode`` is ``pretrain`` (next-token loss; data
-``synthetic``, a ``tokens`` memmap file, ``text`` packed into
-segment-isolated batches, or a weighted ``mixture``) or ``sft``
+``mistral_7b``, ``qwen2_7b``, ``tiny``), ``gemma.<preset>``
+(``gemma_2b``, ``gemma_7b``, ``gemma2_2b``, ``tiny``) or
+``{"model_path": dir}`` to fine-tune a saved artifact; ``model_overrides``
+replaces any config field, and ``loss_chunk`` defaults to 512 (the
+chunked LM-head loss) unless overridden. ``mode`` is ``pretrain``
+(next-token loss; data ``synthetic``, a ``tokens`` memmap file,
+``text`` packed into segment-isolated batches, or a weighted
+``mixture``) or ``sft``
 (``sft_jsonl`` rows ``{"prompt": ..., "response": ...}``, loss on the
 response only). The trained weights are written by
 ``models.io.save_model`` to ``export_path`` (or ``$KUBEDL_MODEL_PATH``),
 in the format the JAX package's ``load_model`` reads.
 
+``"lora": {"rank": 16, "alpha": 16.0, "targets": ["wq", "wk", "wv",
+"wo"]}`` trains adapters only: the base weights are closed over and never
+handed to the optimizer, so its state is adapter-sized, and the export
+folds the trained adapters into dense weights (``ops.lora.merge_to_dense``).
+
 Not ported yet, and refused by name: checkpoints, in-training eval and
-the ``evaluate``/``dpo``/``grpo`` modes (ROADMAP A6), LoRA, HF export and
-the gemma/MoE families (A4), mesh axes above 1 (A5), and a multi-process
+the ``evaluate``/``dpo``/``grpo`` modes (ROADMAP A6), the MoE family
+(A4c), HF export (A4d), mesh axes above 1 (A5), and a multi-process
 rendezvous (A8).
 """
 
@@ -40,8 +47,11 @@ import sys
 
 log = logging.getLogger("kubedl.train")
 
-#: llama-family presets the resolver accepts (zero-argument constructors)
-PRESETS = ("llama3_8b", "llama2_7b", "mistral_7b", "qwen2_7b", "tiny")
+#: presets the resolver accepts per family (zero-argument constructors of
+#: ``models.<family>``)
+PRESETS = {"llama": ("llama3_8b", "llama2_7b", "mistral_7b", "qwen2_7b",
+                     "tiny"),
+           "gemma": ("gemma_2b", "gemma_7b", "gemma2_2b", "tiny")}
 
 
 def load_config(argv=None) -> dict:
@@ -62,22 +72,25 @@ def resolve_model(cfg: dict, device=None):
     """``model`` -> (config, params-or-None). Params come back non-None
     only for ``model_path`` artifacts (fine-tuning), loaded on
     ``device``."""
-    from ..models import io, llama
+    import importlib
+
+    from ..models import io
 
     model = cfg.get("model", "llama.tiny")
     if isinstance(model, dict):
         config, params = io.load_model(model["model_path"], device=device)
     else:
         fam, _, preset = model.partition(".")
-        if fam in ("gemma", "moe"):
+        if fam == "moe":
             raise NotImplementedError(
-                f"model family {fam!r} is not ported yet: ROADMAP A4 "
-                "(quantization, LoRA, MoE and the other model families)")
-        if fam != "llama" or preset not in PRESETS:
+                "model family 'moe' is not ported yet: ROADMAP A4c (the "
+                "MoE family)")
+        if preset not in PRESETS.get(fam, ()):
             raise ValueError(
-                f"model must be 'llama.<preset>' with a preset of "
-                f"{PRESETS}, or {{'model_path': dir}}; got {model!r}")
-        config, params = getattr(llama, preset)(), None
+                f"model must be 'family.preset' with a preset of {PRESETS}, "
+                f"or {{'model_path': dir}}; got {model!r}")
+        mod = importlib.import_module(f"..models.{fam}", __package__)
+        config, params = getattr(mod, preset)(), None
     if cfg.get("model_overrides"):
         config = dataclasses.replace(config, **cfg["model_overrides"])
     if config.loss_chunk == 0 \
@@ -240,8 +253,7 @@ def _refuse_unported(cfg: dict, env) -> None:
         raise ValueError(f"unknown mode {mode!r}")
     for key, item, what in (
             ("checkpoint", "A6", "checkpointing"),
-            ("lora", "A4", "LoRA adapter training"),
-            ("export_hf_path", "A4", "HuggingFace export")):
+            ("export_hf_path", "A4d", "HuggingFace export")):
         if cfg.get(key):
             raise NotImplementedError(
                 f"{key!r}: {what} is not ported yet: ROADMAP {item}")
@@ -287,6 +299,7 @@ def main(argv=None, device=None, on_step=None) -> int:
              cfg.get("model"), config.num_params / 1e6, mesh.shape, mode,
              dev)
     if params is None:
+        # every family shares the llama core's parameter tree
         params = llama.init_params(
             config,
             torch.Generator(device=dev).manual_seed(int(cfg.get("seed", 0))),
@@ -302,9 +315,38 @@ def main(argv=None, device=None, on_step=None) -> int:
 
     batches = (sft_stream(cfg, config, mesh, batch, seq) if mode == "sft"
                else data_stream(cfg, config, mesh, batch, seq))
-    trainer = Trainer(loss_fn, TrainConfig(**cfg.get("optimizer", {})),
-                      device=dev)
-    state = trainer.init_state(params)
+    opt = TrainConfig(**cfg.get("optimizer", {}))
+    lora_cfg = cfg.get("lora")
+    merge = None
+    if lora_cfg:
+        # adapter-only fine-tuning: the base is closed over (its tensors
+        # never require gradients and never reach the optimizer), so the
+        # optimizer state is adapter-sized
+        from ..ops import lora
+        rank = int(lora_cfg.get("rank", 8))
+        alpha = float(lora_cfg.get("alpha", 16.0))
+        targets = tuple(lora_cfg.get("targets") or lora.DEFAULT_TARGETS)
+        base = params
+        adapters = lora.init_adapters(
+            base, rank=rank, targets=targets,
+            generator=torch.Generator(device=dev).manual_seed(
+                int(cfg.get("seed", 0)) + 1))
+        trainer = Trainer(
+            lambda ad, b: loss_fn(lora.merge_params(base, ad, alpha=alpha),
+                                  b), opt, device=dev)
+        state = trainer.init_state(adapters)
+        log.info("lora: rank=%d alpha=%.1f targets=%s (%.2fM trainable)",
+                 rank, alpha, ",".join(sorted(targets)),
+                 sum(t.numel() for ab in state.params.values()
+                     for t in ab.values()) / 1e6)
+
+        def merge(adapters):
+            # fold the trained adapters into dense weights: the exported
+            # artifact serves with no adapter overhead
+            return lora.merge_to_dense(base, adapters, alpha=alpha)
+    else:
+        trainer = Trainer(loss_fn, opt, device=dev)
+        state = trainer.init_state(params)
     del params
     state = trainer.fit(state, batches, num_steps=steps,
                         log_every=int(cfg.get("log_every", 10)),
@@ -312,7 +354,8 @@ def main(argv=None, device=None, on_step=None) -> int:
 
     export = cfg.get("export_path") or os.environ.get("KUBEDL_MODEL_PATH")
     if export:
-        io.save_model(config, state.params, export)
+        io.save_model(config, merge(state.params) if merge else state.params,
+                      export)
         log.info("exported model to %s", export)
     return 0
 

@@ -4,7 +4,7 @@ the CPU, on one JAX-made artifact (``save_model`` → the port's
 KV layout, prefix hits, preemption under a tiny pool, prefill-lane
 handoffs, cancel, recovery after a failed step, and the host-side pieces
 (``BlockPool``, ``fit_block``, ``resolve_kv_mode``) with the refusals of
-what is not ported yet."""
+what is not ported yet and of misused options."""
 
 import dataclasses
 import threading
@@ -429,19 +429,26 @@ def test_paged_forward_step_matches_the_dense_cache(models):
                                cache["k"][:, 0, 10].numpy(), atol=1e-6)
 
 
+#: what each option refuses: the mesh is not ported (ROADMAP A5);
+#: quantization and adapters are, and refuse only a misuse, by name
 REFUSED = {
-    "quantize": (dict(quantize="int8"), "ROADMAP A4"),
-    "quantize_draft": (dict(quantize_draft="int8"), "ROADMAP A4"),
-    "mesh": (dict(mesh=object()), "ROADMAP A5"),
-    "adapters": (dict(adapters=object()), "ROADMAP A4"),
-    "max_adapters": (dict(max_adapters=2), "ROADMAP A4"),
+    "quantize": (dict(quantize="int3"), ValueError, "int3"),
+    "quantize_draft": (dict(quantize_draft="fp8", spec_k=2,
+                            draft_config=True), ValueError, "fp8"),
+    "mesh": (dict(mesh=object()), NotImplementedError, "ROADMAP A5"),
+    "adapters": (dict(adapters=object(), kv_mode="dense"), ValueError,
+                 "adapters require a paged KV layout"),
+    "max_adapters": (dict(max_adapters=2), ValueError,
+                     "max_adapters caps resident adapters"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_options_are_refused_by_name(models, name):
-    kw, item = REFUSED[name]
-    with pytest.raises(NotImplementedError, match=item) as err:
+    kw, exc, match = REFUSED[name]
+    if kw.get("draft_config"):
+        kw = dict(kw, draft_config=models[2], draft_params=models[3])
+    with pytest.raises(exc, match=match) as err:
         _torch(models, lanes=1, max_len=64, **kw)
     assert name.split("_")[0] in str(err.value)
 
@@ -449,7 +456,7 @@ def test_unported_options_are_refused_by_name(models, name):
 def test_moe_and_standalone_speculative_engine_are_refused():
     from kubedl_tpu.models import moe as jmoe
     from kubedl_tpu_torch.serving.speculative import SpeculativeEngine
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A4c"):
         tbatching.ContinuousBatchingEngine(jmoe.tiny(), {}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         SpeculativeEngine()

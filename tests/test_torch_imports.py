@@ -37,6 +37,14 @@ def test_the_continuous_serving_slice_modules_are_checked():
             "kubedl_tpu_torch.serving.speculative"} <= set(MODULES)
 
 
+def test_the_gemma_quantization_and_lora_slice_modules_are_checked():
+    """...and so are the Gemma family, weight quantization, LoRA and the
+    adapter catalog (the port's own copy of the framework-free module)."""
+    assert {"kubedl_tpu_torch.models.gemma", "kubedl_tpu_torch.ops.quant",
+            "kubedl_tpu_torch.ops.lora",
+            "kubedl_tpu_torch.serving.adapters"} <= set(MODULES)
+
+
 def test_every_module_imports_with_jax_blocked():
     code = ("import sys\nsys.modules['jax'] = None\n"
             "import importlib\n"

@@ -78,6 +78,39 @@ def test_batch_mode_writes_the_jax_rows(artifacts, tmp_path, monkeypatch):
         tmain.main(["--batch-input", str(inp)], device="cpu")
 
 
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_quantized_batch_mode_writes_the_jax_rows(artifacts, tmp_path,
+                                                  monkeypatch, mode):
+    """``KUBEDL_SERVING_QUANTIZE``: both entry points quantize the same
+    artifact and write the same rows; the port's engine holds quantized
+    leaves loaded from the host."""
+    root, _, _ = artifacts
+    rows = [{"prompt": [3 + i, 1, 4] * (1 + i % 2), "max_tokens": 4 + i}
+            for i in range(4)]
+    inp = tmp_path / "in.jsonl"
+    inp.write_text("\n".join(json.dumps(r) for r in rows))
+    monkeypatch.setenv("KUBEDL_MODEL_PATH", str(root / "target"))
+    monkeypatch.setenv("KUBEDL_SERVING_LANES", "2")
+    monkeypatch.setenv("KUBEDL_SERVING_MAX_LEN", "64")
+    monkeypatch.setenv("KUBEDL_SERVING_QUANTIZE", mode)
+    monkeypatch.delenv("KUBEDL_TOKENIZER", raising=False)
+    monkeypatch.delenv("KUBEDL_KV_MODE", raising=False)
+    out_j, out_t = tmp_path / "jax.jsonl", tmp_path / "torch.jsonl"
+    assert jmain.main(["--batch-input", str(inp),
+                       "--batch-output", str(out_j)]) == 0
+    assert tmain.main(["--batch-input", str(inp),
+                       "--batch-output", str(out_t)], device="cpu") == 0
+    assert out_t.read_text() == out_j.read_text()
+    from kubedl_tpu_torch.ops import quant
+    eng = tmain.build_engine(str(root / "target"), 2, mode, 0, max_len=64,
+                             device="cpu")
+    try:
+        assert isinstance(eng.params["layers"]["w_up"],
+                          quant.QTensor if mode == "int8" else quant.Q4Tensor)
+    finally:
+        eng.stop()
+
+
 def test_server_over_the_continuous_engine(artifacts):
     root, cfg, params = artifacts
     eng = tmain.build_engine(str(root / "target"), lanes=2, quantize="",
@@ -163,8 +196,9 @@ def test_startup_refusals(artifacts, monkeypatch):
     monkeypatch.setenv("KUBEDL_TOKENIZER", "byte")
     with pytest.raises(ValueError, match="does not fit"):
         tmain.main([], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tmain.build_engine(path, 2, "int8", 0, device="cpu")
+    # quantization is ported: an unknown mode is what it refuses
+    with pytest.raises(ValueError, match="unknown quantize mode"):
+        tmain.build_engine(path, 2, "int3", 0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         tmain.build_engine(path, 2, "", 0, tp=2, device="cpu")
     monkeypatch.delenv("KUBEDL_MODEL_PATH")
