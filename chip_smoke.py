@@ -13,8 +13,8 @@ failure raises and the script exits non-zero before its last line:
    version on the card, on the serving path's shape, the edge cases and
    the training shape at b=1, each case on the route ``flash_fwd_route``
    gives it (``sm90``: the tensor-core kernel of ``flash_fwd_sm90.cu``
-   for bf16/f16 at hd 64 and 128; ``simt``: ``flash_fwd.cu`` for the
-   rest), timed beside its plain version, SDPA, its bound and the
+   for bf16/f16 at hd 64, 128 and 256; ``simt``: ``flash_fwd.cu`` for
+   the rest), timed beside its plain version, SDPA, its bound and the
    earlier design (``flash_fwd.cu`` on the same bf16 inputs);
 3. serving — Llama-3-8B at full width (random bf16 weights from a seed)
    behind ``InferenceServer`` over ``InferenceEngine``: ``:predict``
@@ -22,10 +22,11 @@ failure raises and the script exits non-zero before its last line:
    ``/v1/completions`` and ``/v1/embeddings``, whose every layer must
    launch the flash kernel once, every launch on the ``sm90`` route;
 4. backward kernel check — the dQ and dK/dV kernels against their plain
-   versions on the forward's 13 cases and the training shape at b=1, each
-   case on the route ``flash_bwd_route`` gives it (``sm90``: the
-   tensor-core kernels of ``flash_bwd_sm90.cu`` for bf16/f16 at hd 64 and
-   128; ``simt``: ``flash_bwd.cu`` for the rest);
+   versions on the forward's cases and the training shape at b=1, each
+   kernel on the route its own function gives (``flash_dq_route``,
+   ``flash_dkv_route``; ``sm90``: the tensor-core kernels of
+   ``flash_bwd_sm90.cu`` for bf16/f16 at hd 64 and 128, dK/dV also at
+   256; ``simt``: ``flash_bwd.cu`` for the rest);
 5. timing at the training shape (b=4, s=2048, Llama-3-8B's heads, bf16,
    causal) — each of the three kernels beside its plain version, SDPA's
    forward or backward and its bound (the forward also beside its
@@ -46,14 +47,19 @@ LoRA: Llama-3-8B quantized to int8 and to int4 on the card (16 requests
 on the graph route, the tick at 1/4/8 lanes against a bound on the
 quantized bytes), adapter pages (3 adapters, 2 resident), Gemma-2B at
 full width and depth in the engine (16 requests, ``/v1/embeddings`` on
-K1's ``simt`` route, the tick) and through ``python -m
+K1's ``sm90`` route, the tick) and through ``python -m
 kubedl_tpu_torch.serving`` (then its batch mode with
 ``KUBEDL_SERVING_QUANTIZE=int8``). The kernel checks and timings add
-Gemma-2B's attention shapes (8/1 heads of width 256, ``simt``), and after
-phase 7 ``python -m kubedl_tpu_torch.train`` trains ``gemma.gemma_2b``
-(full size, b=2, s=2048, 3 steps, every K1-K3 launch on ``simt``) and
-the slice's Llama configuration with ``"lora"`` (rank 16, 4 steps: the
-base stays bit for bit, the optimizer state is adapter-sized).
+Gemma-2B's attention shapes and the edge cases at head dim 256 (K1 and
+K3 on ``sm90``, K2 on ``simt``; K1 and K3 also beside their earlier
+``simt`` designs, K3 at 1, 2, 4 and 8 splits of the GQA group and
+checked to repeat bit for bit), and after phase 7 ``python -m
+kubedl_tpu_torch.train`` trains ``gemma.gemma_2b`` (full size, b=2,
+s=2048, 3 steps, K1/K3 on ``sm90`` and K2 on ``simt``), every gradient
+of a 2-layer Gemma-2B at full width is checked against the chunked path,
+and the slice's Llama configuration trains with ``"lora"`` (rank 16, 4
+steps: the base stays bit for bit, the optimizer state is
+adapter-sized).
 """
 
 from __future__ import annotations
@@ -78,25 +84,27 @@ PEAK_FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 MAIN = dict(b=2, sq=512, sk=512, nh=32, nkv=8, hd=128, dtype="bfloat16",
             causal=True)
 #: out within one bf16 ulp at unit scale (the kernel and the plain version
-#: sum in different orders before rounding); f32 to its last digits; lse
-#: is f32 on both sides
-ATOL = {"bfloat16": 1e-2, "float32": 2e-5, "lse": 1e-3}
+#: sum in different orders before rounding), f16 likewise at its 8x finer
+#: ulp; f32 to its last digits; lse is f32 on both sides
+ATOL = {"bfloat16": 1e-2, "float16": 2e-3, "float32": 2e-5, "lse": 1e-3}
 
 #: the training path's attention shape: Llama-3-8B's heads at the
 #: training slice's batch 4 x seq 2048
 TRAIN = dict(b=4, sq=2048, sk=2048, nh=32, nkv=8, hd=128, dtype="bfloat16",
              causal=True)
 #: dq/dk/dv sum up to reps * s terms of growing size: bf16 results within
-#: 4 bf16 ulps (2**-7 each) at the scale of the largest value, f32 within
-#: 1e-5 of that scale
-BWD_TOL = {"bfloat16": 4 * 2.0 ** -7, "float32": 1e-5}
+#: 4 bf16 ulps (2**-7 each) at the scale of the largest value, f16 within
+#: 4 of its ulps (2**-10), f32 within 1e-5 of that scale
+BWD_TOL = {"bfloat16": 4 * 2.0 ** -7, "float16": 4 * 2.0 ** -10,
+           "float32": 1e-5}
 #: causal dq/dk/dv are large at the first rows and keys and small in the
 #: bulk, so the bound above sits near a typical value. The norm-wise
 #: relative error ||got - want|| / ||want|| cannot hide in the bulk: the
 #: kernel and the plain version both sum in float32 and round once, so
 #: bf16 results differ by at most one rounding (2**-8 relative) wherever
 #: they differ, and f32 ones by reordered sums; the bound is twice that
-BWD_NORM_TOL = {"bfloat16": 2 * 2.0 ** -8, "float32": 1e-5}
+BWD_NORM_TOL = {"bfloat16": 2 * 2.0 ** -8, "float16": 2 * 2.0 ** -11,
+                "float32": 1e-5}
 #: operations per kept (row, key) pair: K1 q.k and p.v; K2 adds dO.v and
 #: ds.k; K3 q.k, dO.v, p^T.dO and ds^T.q
 OPS_PER_PAIR = {"flash_forward": 4, "flash_dq": 6, "flash_dkv": 8}
@@ -122,6 +130,23 @@ DESIGN = {
                  "rows) over the GQA group's heads, heaviest first; S^T and "
                  "dP^T from smem, dV += P^T.dO and dK += dS^T.Q from "
                  "registers"}
+#: the hd-256 instances (Gemma)
+DESIGN_HD256 = {
+    "flash_forward": "the hd-128 design with 64-key K/V tiles in a 2-stage "
+                     "ring (192 KB of smem with the 128-row Q tile), 240 "
+                     "registers per consumer thread (O is 128 of them), "
+                     "O += P.V as one m64n256k16 per 16 keys",
+    "flash_dq": "simt (flash_bwd.cu): f32 CUDA-core products",
+    "flash_dkv": "block per (b*nkv, split of the GQA group, 64 k rows), "
+                 "K/V resident, TMA ring of (Q, dO, lse, delta) tiles of 64 "
+                 "q rows (2 stages, 194 KB of smem); warpgroup 0 sums dV += "
+                 "P^T.dO, warpgroup 1 dK += dS^T.Q (m64n256k16 from "
+                 "registers), each computing S^T itself; splits > 1 write "
+                 "f32 sums that a hand-written pass adds in split order"}
+#: the hd-128 K1/K3 times at the Llama training shape recorded in
+#: PERF.md's kernel table before the hd-256 designs (H100 80GB HBM3,
+#: 700 W), printed beside this run's: the hd-128 code did not change
+HD128_EARLIER_MS = {"flash_forward": 0.3228, "flash_dkv": 0.7677}
 #: norm-wise relative gap of a parameter's gradient between the kernel
 #: path and the chunked path: both round attention outputs and dq/dk/dv
 #: to bf16 (unit roundoff 2**-9), at other places, through 8 layers; the
@@ -187,15 +212,23 @@ def _time_ms(torch, fn, reps: int = 50, warmup: int = 5) -> float:
     return ms[len(ms) // 2]
 
 
-def _earlier_fwd_ms(torch, attn, fn, **kw) -> float:
-    """``_time_ms`` of ``fn`` with every forward launch sent to the
-    ``simt`` route: the earlier design of K1 (``flash_fwd.cu``) on inputs
-    the ``sm90`` route takes, timed as the new design is."""
-    with unittest.mock.patch.object(attn, "flash_fwd_route",
+#: the kernels timed beside their earlier design, and the route function
+#: that picks it
+EARLIER_ROUTE = {"flash_forward": "flash_fwd_route",
+                 "flash_dkv": "flash_dkv_route"}
+
+
+def _earlier_ms(torch, attn, kernel, fn, **kw) -> float:
+    """``_time_ms`` of ``fn`` with every launch of ``kernel`` (K1 or K3)
+    sent to the ``simt`` route: its earlier design (``flash_fwd.cu``,
+    ``flash_bwd.cu``) on inputs the ``sm90`` route takes, timed as the
+    new design is."""
+    wrapper = getattr(attn, kernel)
+    with unittest.mock.patch.object(attn, EARLIER_ROUTE[kernel],
                                     lambda dtype, hd: "simt"):
-        before = attn.flash_forward.launches_by_route["simt"]
+        before = wrapper.launches_by_route["simt"]
         ms = _time_ms(torch, fn, **kw)
-        if attn.flash_forward.launches_by_route["simt"] == before:
+        if wrapper.launches_by_route["simt"] == before:
             raise AssertionError("the earlier design was not launched")
     return ms
 
@@ -266,13 +299,29 @@ CASES = {
 }
 #: the training shape at b=1, checked beside the edge cases
 TRAIN_B1 = {**TRAIN, "b": 1}
-#: Gemma-2B's attention (8 q heads, 1 kv head of width 256: the ``simt``
-#: route) at its embeddings shape (2 inputs, the longer 512 tokens) and
-#: its training shape (b=2, s=2048); checked after the cases above
+#: Gemma-2B's attention (8 q heads, 1 kv head of width 256: K1 and K3 on
+#: the ``sm90`` route, K2 on ``simt``) at its embeddings shape (2 inputs,
+#: the longer 512 tokens), its training shape (b=2, s=2048: K3 splits the
+#: GQA group in 4 on 132 SMs) and that shape at b=1 (8 splits of one
+#: head); checked after the cases above
 GEMMA_EMBED = {**MAIN, "nh": 8, "nkv": 1, "hd": 256}
 GEMMA_TRAIN = {**TRAIN, "b": 2, "nh": 8, "nkv": 1, "hd": 256}
-GEMMA_CASES = {"gemma_embed": GEMMA_EMBED,
+GEMMA_CASES = {"gemma_embed": GEMMA_EMBED, "gemma_train": GEMMA_TRAIN,
                "gemma_train_b1": {**GEMMA_TRAIN, "b": 1}}
+#: edge cases at head dim 256 around Gemma-2B's embeddings shape: ragged
+#: and unequal lengths, window, segments, both offsets (fully masked rows
+#: included), Gemma-7B's MHA (16/16 heads), f16, non-causal
+HD256_CASES = {
+    "hd256_ragged_300": {**GEMMA_EMBED, "sq": 300, "sk": 300},
+    "hd256_sq_gt_sk": {**GEMMA_EMBED, "sq": 512, "sk": 256},
+    "hd256_window_128": {**GEMMA_EMBED, "window": 128},
+    "hd256_segments": {**GEMMA_EMBED, "segments": True},
+    "hd256_offsets": {**GEMMA_EMBED, "offsets": (256, 0)},
+    "hd256_offsets_masked_rows": {**GEMMA_EMBED, "offsets": (0, 256)},
+    "hd256_mha": {**GEMMA_EMBED, "nh": 16, "nkv": 16},
+    "hd256_float16": {**GEMMA_EMBED, "dtype": "float16"},
+    "hd256_non_causal": {**GEMMA_EMBED, "causal": False},
+}
 
 
 def phase_kernel_check(torch):
@@ -280,9 +329,13 @@ def phase_kernel_check(torch):
 
     errs = {}
     for i, (name, case) in enumerate({**CASES, "train_b1": TRAIN_B1,
-                                      **GEMMA_CASES}.items()):
+                                      **GEMMA_CASES, **HD256_CASES}.items()):
         q, k, v, seg = _inputs(torch, case, seed=100 + i)
         route = attn.flash_fwd_route(q.dtype, case["hd"])
+        if case["hd"] == 256 and case["dtype"] != "float32" \
+                and route != "sm90":
+            raise AssertionError(f"flash_forward case {name}: route {route}, "
+                                 f"want sm90 at head dim 256")
         before = attn.flash_forward.launches_by_route[route]
         out, lse = attn.flash_forward(q, k, v, case["causal"], **_kw(case, seg))
         ref, ref_lse = attn.flash_forward_plain(q, k, v, case["causal"],
@@ -304,13 +357,11 @@ def phase_kernel_check(torch):
         errs[name] = err
 
     row = _fwd_timing(torch, MAIN, seed=100)
-    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = (
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by, earlier_ms = (
         row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                         "bound_by"))
+                         "bound_by", "earlier_design_ms"))
     q, k, v, _ = _inputs(torch, MAIN, seed=100)
     causal = MAIN["causal"]
-    earlier_ms = _earlier_fwd_ms(
-        torch, attn, lambda: attn.flash_forward(q, k, v, causal))
     # the host's share: back-to-back calls, not synchronised, so the card
     # (faster here) waits on the wrapper's checks and the launch
     torch.cuda.synchronize()
@@ -1045,7 +1096,7 @@ def phase_gemma(torch) -> tuple:
     in the predictor's engine behind ``InferenceServer``: 16 greedy
     requests on 8 paged lanes held to the teacher-forced reference with
     their log-probabilities; ``/v1/embeddings`` of 2 inputs (512 and 305
-    tokens), whose every layer must launch K1 once on the ``simt`` route
+    tokens), whose every layer must launch K1 once on the ``sm90`` route
     (head dim 256); the tick at 1, 4 and 8 lanes. Returns (config,
     params, readings)."""
     import numpy as np
@@ -1123,10 +1174,10 @@ def phase_gemma(torch) -> tuple:
         raise AssertionError(f"bad Gemma embeddings: shape {vecs.shape}, "
                              f"norms {norms}")
     if out["embeddings_launches"] != cfg.n_layers or \
-            by_route != {"sm90": 0, "simt": cfg.n_layers}:
+            by_route != {"sm90": cfg.n_layers, "simt": 0}:
         raise AssertionError(f"Gemma embeddings launched flash_forward "
                              f"{out['embeddings_launches']} times, by route "
-                             f"{by_route}; want {cfg.n_layers}, all simt "
+                             f"{by_route}; want {cfg.n_layers}, all sm90 "
                              f"(head dim 256)")
     tok = ByteTokenizer()
     ids = [encode_prompt(tok, t) for t in texts]
@@ -1413,24 +1464,69 @@ def _bwd_err(torch, got, want, dtype) -> dict:
     return err
 
 
+def _want_dkv_splits(case, sms: int) -> int:
+    """The split count K3 must take at head dim 256, stated apart from the
+    wrapper's rule: the fewest of 1, 2, 4, ... dividing the GQA group that
+    give each of the ``sms`` SMs a block of 64 k rows."""
+    reps = case["nh"] // case["nkv"]
+    blocks = case["b"] * case["nkv"] * -(-case["sk"] // 64)
+    n = 1
+    while n < reps and blocks * n < sms:
+        n *= 2
+    return n
+
+
 def phase_bwd_check(torch):
-    """K2 and K3 against their plain versions on the forward's cases and
-    the training shape at b=1. Returns {kernel: max abs error} there."""
+    """K2 and K3 against their plain versions on the forward's cases, the
+    training shape at b=1 and Gemma-2B's shapes (its training shape at b=2
+    as the training runs it), each on its own route (at head dim 256 K3 on
+    ``sm90``, K2 on ``simt``; K3 must take the split count
+    :func:`_want_dkv_splits` gives). Returns {kernel: max abs error} at the
+    training shapes, and the split count at Gemma-2B's."""
     from kubedl_tpu_torch.ops import attention as attn
 
-    cases = {**CASES, "train_b1": TRAIN_B1, **GEMMA_CASES}
-    errs = {}
+    cases = {**CASES, "train_b1": TRAIN_B1, **GEMMA_CASES, **HD256_CASES}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    picked = []
+
+    def spy(*a):
+        picked.append(real_splits(*a))
+        return picked[-1]
+    real_splits = attn.dkv_splits
+    errs, splits = {}, {}
     for i, (name, case) in enumerate(cases.items()):
         q, k, v, seg = _inputs(torch, case, seed=200 + i)
         do = torch.randn(q.shape, device="cuda",
                          generator=torch.Generator(device="cuda")
                          .manual_seed(300 + i)).to(q.dtype)
         causal, kw = case["causal"], _kw(case, seg)
-        route = attn.flash_bwd_route(q.dtype, case["hd"])
+        routes = {"dq": attn.flash_dq_route(q.dtype, case["hd"]),
+                  "dkv": attn.flash_dkv_route(q.dtype, case["hd"])}
+        if case["hd"] == 256 and case["dtype"] != "float32" \
+                and routes != {"dq": "simt", "dkv": "sm90"}:
+            raise AssertionError(f"backward case {name}: routes {routes}, "
+                                 f"want dq simt and dkv sm90 at head dim "
+                                 f"256")
         o, lse = attn.flash_forward(q, k, v, causal, **kw)
         delta = attn.flash_delta(o, do)
+        before = {fn: dict(getattr(attn, f"flash_{fn}").launches_by_route)
+                  for fn in routes}
         dq = attn.flash_dq(q, k, v, do, lse, delta, causal, **kw)
-        dk, dv = attn.flash_dkv(q, k, v, do, lse, delta, causal, **kw)
+        picked.clear()
+        with unittest.mock.patch.object(attn, "dkv_splits", spy):
+            dk, dv = attn.flash_dkv(q, k, v, do, lse, delta, causal, **kw)
+        if routes["dkv"] == "sm90" and case["hd"] == 256:
+            splits[name] = picked[0] if picked else None
+            if splits[name] != _want_dkv_splits(case, sms):
+                raise AssertionError(
+                    f"flash_dkv case {name}: {splits[name]} splits of the "
+                    f"GQA group, want {_want_dkv_splits(case, sms)} on "
+                    f"{sms} SMs")
+        for fn, route in routes.items():
+            if getattr(attn, f"flash_{fn}").launches_by_route[route] \
+                    != before[fn][route] + 1:
+                raise AssertionError(f"flash_{fn} did not launch on route "
+                                     f"{route} for case {name}")
         ref_dq = attn.flash_dq_plain(q, k, v, do, lse, delta, causal, **kw)
         ref_dk, ref_dv = attn.flash_dkv_plain(q, k, v, do, lse, delta,
                                               causal, **kw)
@@ -1447,13 +1543,16 @@ def phase_bwd_check(torch):
                                      f"plain version on case {name}: "
                                      f"{label} {e}")
             errs[(name, label)] = e["max"]
-        log(f"[bwd] {name} ({route}): " + ", ".join(parts) + " ok")
+        log(f"[bwd] {name} (dq {routes['dq']}, dkv {routes['dkv']}"
+            + (f", {splits[name]} splits" if name in splits else "") + "): "
+            + ", ".join(parts) + " ok")
     return {"flash_dq": errs[("train_b1", "dq")],
             "flash_dkv": max(errs[("train_b1", "dk")],
                              errs[("train_b1", "dv")]),
-            "gemma": {"flash_dq": errs[("gemma_train_b1", "dq")],
-                      "flash_dkv": max(errs[("gemma_train_b1", "dk")],
-                                       errs[("gemma_train_b1", "dv")])}}
+            "gemma": {"flash_dq": errs[("gemma_train", "dq")],
+                      "flash_dkv": max(errs[("gemma_train", "dk")],
+                                       errs[("gemma_train", "dv")]),
+                      "dkv_splits": splits["gemma_train"]}}
 
 
 def _shape(case) -> str:
@@ -1465,48 +1564,61 @@ def _shape(case) -> str:
 
 def _fwd_timing(torch, case, seed) -> dict:
     """K1 at ``case`` on its route, beside its plain version, SDPA (a
-    yardstick only: the port never calls it) and its bound."""
+    yardstick only: the port never calls it), its bound and, on the
+    ``sm90`` route, its earlier design on the same inputs."""
     from kubedl_tpu_torch.ops import attention as attn
 
     q, k, v, seg = _inputs(torch, case, seed=seed)
     causal = case["causal"]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def kernel():
+        return attn.flash_forward(q, k, v, causal)
+
     row = {"kernel_route": attn.flash_fwd_route(q.dtype, case["hd"]),
-           "ms": _time_ms(torch, lambda: attn.flash_forward(q, k, v,
-                                                            causal)),
+           "ms": _time_ms(torch, kernel),
            "plain_ms": _time_ms(torch, lambda: attn.flash_forward_plain(
                q, k, v, causal), reps=20),
            "library_ms": _time_ms(torch, lambda: sdpa(
                qt, kt, vt, is_causal=causal, enable_gqa=True))}
+    if row["kernel_route"] == "sm90":
+        row["earlier_design_ms"] = _earlier_ms(torch, attn, "flash_forward",
+                                               kernel)
     row["bound_ms"], row["bound_by"] = _flash_bound(torch, case, seg)
     return row
 
 
 def phase_gemma_embed_timing(torch) -> dict:
-    """K1 at Gemma-2B's embeddings shape (``simt`` route)."""
+    """K1 at Gemma-2B's embeddings shape (``sm90`` route), beside its
+    earlier design."""
     row = _fwd_timing(torch, GEMMA_EMBED, seed=450)
     log(f"[time] flash_forward at {_shape(GEMMA_EMBED)} "
         f"({row['kernel_route']}): kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), earlier design "
+        f"(flash_fwd.cu) {row['earlier_design_ms']:.4f} ms")
     return row
 
 
 def phase_timing(torch, case=TRAIN, seed=400):
-    """K1, K2 and K3 at a training shape, each beside its plain
-    version, SDPA (forward for K1, backward for K2 and K3 together: the
-    one library call that computes dq/dk/dv) and its bound (K1 on the
-    ``sm90`` route also beside its earlier design); and Δ, the PyTorch op
-    the backward runs before K2 and K3."""
+    """K1, K2 and K3 at a training shape, each on its own route beside its
+    plain version, SDPA (forward for K1, backward for K2 and K3 together:
+    the one library call that computes dq/dk/dv) and its bound (K1 and K3
+    on the ``sm90`` route also beside their earlier design); and Δ, the
+    PyTorch op the backward runs before K2 and K3. At head dim 256 K3 is
+    also timed at 1, 2, 4 and 8 splits of the GQA group, and two calls
+    must give the same bits."""
     from kubedl_tpu_torch.ops import attention as attn
 
     q, k, v, _ = _inputs(torch, case, seed=seed)
     do = torch.randn(q.shape, device="cuda",
                      generator=torch.Generator(device="cuda")
                      .manual_seed(seed + 1)).to(q.dtype)
-    causal = case["causal"]
-    route = attn.flash_fwd_route(q.dtype, case["hd"])
+    causal, hd = case["causal"], case["hd"]
+    routes = {"flash_forward": attn.flash_fwd_route(q.dtype, hd),
+              "flash_dq": attn.flash_dq_route(q.dtype, hd),
+              "flash_dkv": attn.flash_dkv_route(q.dtype, hd)}
     o, lse = attn.flash_forward(q, k, v, causal)
     delta = attn.flash_delta(o, do)
     args = (q, k, v, do, lse, delta, causal)
@@ -1535,28 +1647,66 @@ def phase_timing(torch, case=TRAIN, seed=400):
     }
     rows = {}
     for name, (kernel, plain, library_ms) in timed.items():
+        route = routes[name]
         ms = _time_ms(torch, kernel, reps=20, warmup=2)
         plain_ms = _time_ms(torch, plain, reps=5, warmup=1)
         bound_ms, bound_by = _flash_bound(torch, case, None, name)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           kernel_route=route)
-        earlier = name == "flash_forward" and route == "sm90"
+        earlier = name in EARLIER_ROUTE and route == "sm90"
         if earlier:
-            rows[name]["earlier_design_ms"] = _earlier_fwd_ms(
-                torch, attn, kernel, reps=20, warmup=2)
+            rows[name]["earlier_design_ms"] = _earlier_ms(
+                torch, attn, name, kernel, reps=20, warmup=2)
         log(f"[time] {name} at {_shape(case)} ({route}): "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
             f"{'backward ' if name != 'flash_forward' else ''}"
             f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
-            + (f", earlier design (flash_fwd.cu) "
+            + (f", earlier design (simt) "
                f"{rows[name]['earlier_design_ms']:.4f} ms"
                if earlier else ""))
+    if hd == 256 and routes["flash_dkv"] == "sm90":
+        rows["flash_dkv"].update(_dkv_splits_readings(torch, attn, case,
+                                                      timed["flash_dkv"][0]))
+    elif hd == 128:
+        log("[time] hd-128 kernels against their earlier readings in "
+            "PERF.md (H100 80GB HBM3, 700 W): " + ", ".join(
+                f"{n} {rows[n]['ms']:.4f} ms (earlier {ms:.4f} ms, "
+                f"{rows[n]['ms'] / ms - 1:+.1%})"
+                for n, ms in HD128_EARLIER_MS.items()))
     rows["flash_dq"]["delta_ms"] = _time_ms(
         torch, lambda: attn.flash_delta(o, do), reps=20, warmup=2)
     log(f"[time] flash_delta (PyTorch) at the same shape: "
         f"{rows['flash_dq']['delta_ms']:.4f} ms")
     return rows
+
+
+def _dkv_splits_readings(torch, attn, case, kernel) -> dict:
+    """K3 at ``case`` (head dim 256): the split count the wrapper picks,
+    the time at 1, 2, 4 and 8 splits of the GQA group (those dividing
+    it), and two calls at the picked count compared bit for bit."""
+    reps = case["nh"] // case["nkv"]
+    splits = attn.dkv_splits(case["b"], case["nkv"], case["sk"], reps,
+                             case["hd"], torch.cuda.get_device_properties(
+                                 0).multi_processor_count)
+    by_splits = {}
+    for n in (1, 2, 4, 8):
+        if reps % n:
+            continue
+        with unittest.mock.patch.object(attn, "dkv_splits",
+                                        lambda *a, n=n: n):
+            by_splits[n] = _time_ms(torch, kernel, reps=20, warmup=2)
+    first, second = kernel(), kernel()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"[time] flash_dkv at {_shape(case)}: {splits} splits of the "
+        f"{reps}-head group picked; by splits "
+        f"{ {n: round(ms, 4) for n, ms in by_splits.items()} } ms; two "
+        f"calls bit for bit: {same}")
+    if not same:
+        raise AssertionError("flash_dkv gave other bits on a second call")
+    return {"splits": splits, "ms_by_splits": by_splits,
+            "repeats_bit_for_bit": same}
 
 
 def _train_config(name="train", model="llama.llama3_8b", vocab=128256,
@@ -1591,12 +1741,18 @@ def model_flops_per_token(cfg, seq: int) -> float:
             + 12.0 * cfg.n_layers * cfg.hd * cfg.n_heads * (seq / 2))
 
 
-def _train_run(torch, tag, cfg_path, cfg, route, mfu=True) -> dict:
+#: every kernel on the tensor cores (Llama, hd 128)
+ALL_SM90 = {"flash_forward": "sm90", "flash_dq": "sm90", "flash_dkv": "sm90"}
+#: Gemma (hd 256): K1 and K3 on the tensor cores, K2 on the CUDA cores
+GEMMA_ROUTES = {**ALL_SM90, "flash_dq": "simt"}
+
+
+def _train_run(torch, tag, cfg_path, cfg, routes, mfu=True) -> dict:
     """``python -m kubedl_tpu_torch.train``'s main, in-process, on the
     config at ``cfg_path``: the loss finite and falling over the repeated
-    batch, and every K1-K3 launch of the run on ``route`` (K1 2*L per step
-    with remat, K2/K3 L). The kernels' counts go to 0 just before the
-    run and are read just after. Returns the readings."""
+    batch, and every launch of each of K1-K3 on its route in ``routes``
+    (K1 2*L per step with remat, K2/K3 L). The kernels' counts go to 0
+    just before the run and are read just after. Returns the readings."""
     from kubedl_tpu_torch.ops import attention as attn
     from kubedl_tpu_torch.train import __main__ as train_main
 
@@ -1635,11 +1791,12 @@ def _train_run(torch, tag, cfg_path, cfg, route, mfu=True) -> dict:
     if launches != want:
         raise AssertionError(f"{tag}: training launched {launches}, want "
                              f"{want} (K1 2*L per step with remat, K2/K3 L)")
-    other = "simt" if route == "sm90" else "sm90"
-    for name, routes in by_route.items():
-        if routes != {route: want[name], other: 0}:
+    for name, got in by_route.items():
+        route = routes[name]
+        other = "simt" if route == "sm90" else "sm90"
+        if got != {route: want[name], other: 0}:
             raise AssertionError(f"{tag}: training launched {name} on "
-                                 f"routes {routes}: every launch should "
+                                 f"routes {got}: every launch should "
                                  f"take {route}")
     steady = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
     step_s = sum(steady) / len(steady)
@@ -1670,17 +1827,17 @@ def phase_training(torch):
     """The slice's training run (Llama-3-8B width, 8 layers, b=4 s=2048).
     Returns (readings, config dict, token path)."""
     cfg_path, tokens, cfg = _train_config()
-    return _train_run(torch, "train", cfg_path, cfg, "sm90"), cfg, tokens
+    return _train_run(torch, "train", cfg_path, cfg, ALL_SM90), cfg, tokens
 
 
 def phase_gemma_training(torch) -> dict:
     """``python -m kubedl_tpu_torch.train`` on ``gemma.gemma_2b`` at full
-    width and depth, b=2 s=2048, 3 steps: head dim 256 sends every K1-K3
-    launch to the ``simt`` route."""
+    width and depth, b=2 s=2048, 3 steps: at head dim 256 every K1 and K3
+    launch takes the ``sm90`` route and every K2 launch ``simt``."""
     cfg_path, _, cfg = _train_config("gemma_train", model="gemma.gemma_2b",
                                      vocab=256128, overrides={}, batch=2,
                                      steps=3)
-    return _train_run(torch, "gtrain", cfg_path, cfg, "simt")
+    return _train_run(torch, "gtrain", cfg_path, cfg, GEMMA_ROUTES)
 
 
 LORA_RANK = 16
@@ -1714,7 +1871,7 @@ def phase_lora_training(torch) -> dict:
     with unittest.mock.patch.object(lora, "merge_params", record_merge), \
             unittest.mock.patch.object(trainer.Trainer, "init_state",
                                        record_state):
-        out = _train_run(torch, "lora", cfg_path, cfg, "sm90", mfu=False)
+        out = _train_run(torch, "lora", cfg_path, cfg, ALL_SM90, mfu=False)
     state, base = seen.pop("state"), seen.pop("base")
     adapter_bytes = quant.tree_nbytes(state.params)
     mu, nu = (quant.tree_nbytes(state.opt_state.mu),
@@ -1741,10 +1898,10 @@ def phase_lora_training(torch) -> dict:
     return out
 
 
-def phase_grad_check(torch, cfg, tokens):
+def phase_grad_check(torch, cfg, tokens, routes=ALL_SM90, tag="grad"):
     """One step's gradient of every parameter leaf at b=1, through the
-    kernels and through the chunked attention path, on the same weights
-    and tokens."""
+    kernels (each launch on its route in ``routes``) and through the
+    chunked attention path, on the same weights and tokens."""
     from unittest import mock
 
     import numpy as np
@@ -1773,23 +1930,43 @@ def phase_grad_check(torch, cfg, tokens):
         return loss.item(), out
 
     before = attn.flash_dq.launches
+    kernels = {name: getattr(attn, name) for name in routes}
+    by_route = {name: dict(fn.launches_by_route)
+                for name, fn in kernels.items()}
     loss_k, g_k = grads("kernel")
     if attn.flash_dq.launches != before + config.n_layers:
         raise AssertionError("the kernel path did not launch the dQ kernel "
                              "once per layer")
+    for name, fn in kernels.items():
+        moved = {r: n - by_route[name][r]
+                 for r, n in fn.launches_by_route.items()}
+        if moved[routes[name]] == 0 or sum(moved.values()) \
+                != moved[routes[name]]:
+            raise AssertionError(f"{tag}: {name} launched by route {moved}; "
+                                 f"want {routes[name]} only")
     loss_c, g_c = grads("chunked")
     rel = {}
     for (name, _), a, b in zip(leaves, g_k, g_c):
         rel[name] = float((a.float() - b.float()).norm()
                           / b.float().norm().clamp_min(1e-30))
     worst = max(rel, key=rel.get)
-    log(f"[grad] b=1 s={cfg['seq']}: loss kernel {loss_k:.6f}, chunked "
+    log(f"[{tag}] {cfg['model']}, {config.n_layers} layers, b=1 "
+        f"s={cfg['seq']}: loss kernel {loss_k:.6f}, chunked "
         f"{loss_c:.6f}; relative gradient gap per leaf "
         f"{ {k: float(f'{x:.3e}') for k, x in rel.items()} }")
-    log(f"[grad] worst {worst} {rel[worst]:.4e} (bound {GRAD_REL_BOUND})")
+    log(f"[{tag}] worst {worst} {rel[worst]:.4e} (bound {GRAD_REL_BOUND})")
     if not rel[worst] <= GRAD_REL_BOUND:
         raise AssertionError(f"gradient of {worst} through the kernels is "
                              f"{rel[worst]:.3e} from the chunked path's")
+
+
+def phase_gemma_grad_check(torch):
+    """``phase_grad_check`` on Gemma-2B at full width, 2 layers deep, b=1
+    s=2048: K1 and K3 on ``sm90``, K2 on ``simt``."""
+    _, tokens, cfg = _train_config("gemma_grad", model="gemma.gemma_2b",
+                                   vocab=256128, overrides={"n_layers": 2},
+                                   batch=1, steps=1)
+    phase_grad_check(torch, cfg, tokens, GEMMA_ROUTES, tag="ggrad")
 
 
 def main() -> int:
@@ -1847,6 +2024,9 @@ def main() -> int:
     timed("grad_check", phase_grad_check, torch, cfg, tokens)
     gc.collect()
     torch.cuda.empty_cache()
+    timed("gemma_grad_check", phase_gemma_grad_check, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     gtrain = timed("gemma_training", phase_gemma_training, torch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1861,7 +2041,14 @@ def main() -> int:
         timeout=60, check=True).stdout.strip()
     log(f"[done] {time.perf_counter() - t_all:.1f} s; by phase "
         f"{ {k: round(v, 1) for k, v in seconds.items()} }")
-    src = "kubedl_tpu_torch/csrc/"
+    from kubedl_tpu_torch.ops import attention as attn
+
+    def source(name, route):
+        """The source of kernel ``name`` on ``route``, from the tables the
+        wrappers build from."""
+        table = (attn._FWD_SOURCES if name == "flash_forward"
+                 else attn._BWD_SOURCES)
+        return f"kubedl_tpu_torch/csrc/{table[route][0]}.cu"
     shape = _shape(TRAIN)
     launches = {name: {"training": train["launches"][name],
                        "gemma_training": gtrain["launches"][name],
@@ -1871,11 +2058,18 @@ def main() -> int:
         serving=serving_launches,
         gemma_embeddings=gemma["embeddings_launches"])
 
-    def gemma_row(name, err):
-        """The kernel at Gemma-2B's shapes (``simt`` route): its training
-        shape and, for K1, its embeddings shape."""
-        row = {"shape": _shape(GEMMA_TRAIN), "max_abs_err": err,
-               "launches": {"gemma_training": gtrain["launches"][name]},
+    def gemma_row(name, err, **extra):
+        """The kernel at Gemma-2B's shapes (head dim 256: K1 and K3 on
+        ``sm90``, K2 on ``simt``): its training shape and, for K1, its
+        embeddings shape."""
+        route = gtimes[name]["kernel_route"]
+        row = {"shape": _shape(GEMMA_TRAIN), "max_abs_err": err, **extra,
+               "kernel_route": route,
+               "source": source(name, route),
+               "design": DESIGN_HD256[name],
+               "launches": {"gemma_training": gtrain["launches"][name],
+                            "gemma_training_by_route": gtrain["by_route"][
+                                name]},
                **gtimes[name]}
         if name == "flash_forward":
             row["launches"]["gemma_embeddings"] = \
@@ -1887,7 +2081,7 @@ def main() -> int:
 
     rows = [
         {"name": "flash_forward", "route": "cuda",
-         "source": src + "flash_fwd_sm90.cu",
+         "source": source("flash_forward", "sm90"),
          "replaces": "kubedl_tpu/ops/attention.py:259:_flash_kernel",
          "launches": sum(launches["flash_forward"].values()),
          "launches_by_path": launches["flash_forward"],
@@ -1898,29 +2092,30 @@ def main() -> int:
                                          "library_ms", "earlier_design_ms",
                                          "host_ms")},
          "gemma": gemma_row("flash_forward",
-                            fwd["gemma_max_abs_err"]["gemma_train_b1"]),
-         "simt_source": src + "flash_fwd.cu",
+                            fwd["gemma_max_abs_err"]["gemma_train"]),
+         "simt_source": source("flash_forward", "simt"),
          "kernel_route": "sm90", "design": DESIGN["flash_forward"]},
         {"name": "flash_dq", "route": "cuda",
-         "source": src + "flash_bwd_sm90.cu",
+         "source": source("flash_dq", "sm90"),
          "replaces": "kubedl_tpu/ops/attention.py:449:_flash_dq_kernel",
          "launches": sum(launches["flash_dq"].values()),
          "launches_by_path": launches["flash_dq"],
          "max_abs_err": bwd_err["flash_dq"], **times["flash_dq"],
          "shape": shape, "library": "sdpa backward (dq, dk and dv)",
          "gemma": gemma_row("flash_dq", bwd_err["gemma"]["flash_dq"]),
-         "simt_source": src + "flash_bwd.cu",
+         "simt_source": source("flash_dq", "simt"),
          "kernel_route": "sm90",
          "design": DESIGN["flash_dq"]},
         {"name": "flash_dkv", "route": "cuda",
-         "source": src + "flash_bwd_sm90.cu",
+         "source": source("flash_dkv", "sm90"),
          "replaces": "kubedl_tpu/ops/attention.py:512:_flash_dkv_kernel",
          "launches": sum(launches["flash_dkv"].values()),
          "launches_by_path": launches["flash_dkv"],
          "max_abs_err": bwd_err["flash_dkv"], **times["flash_dkv"],
          "shape": shape, "library": "sdpa backward (dq, dk and dv)",
-         "gemma": gemma_row("flash_dkv", bwd_err["gemma"]["flash_dkv"]),
-         "simt_source": src + "flash_bwd.cu",
+         "gemma": gemma_row("flash_dkv", bwd_err["gemma"]["flash_dkv"],
+                            checked_splits=bwd_err["gemma"]["dkv_splits"]),
+         "simt_source": source("flash_dkv", "simt"),
          "kernel_route": "sm90",
          "design": DESIGN["flash_dkv"]},
     ]

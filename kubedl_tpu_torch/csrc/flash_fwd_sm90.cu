@@ -1,5 +1,5 @@
 // FlashAttention forward on Hopper's tensor cores (sm_90a): K1 for bf16 and
-// f16 at head dims 64 and 128.
+// f16 at head dims 64, 128 and 256.
 //
 // Replaces the TPU kernel kubedl_tpu/ops/attention.py:_flash_kernel
 // (launched by _flash_forward through pl.pallas_call) on the serving and
@@ -44,7 +44,8 @@
 //     edges, ragged tails, segments): there a row may see only a few keys
 //     and its output keeps the size of a V row (a bf16 ulp of 2^-6 past
 //     2), so the rest of P, rounded again, goes through a second product,
-//     which keeps P.V to ~2^-17 of P;
+//     which keeps P.V to ~2^-17 of P (at hd 256 a third product takes the
+//     rest of that: ~2^-26, see Tiles);
 //   * the O rescale and the final division stay in f32 registers; each
 //     warpgroup stages its O rows in its own Q rows (dead after its last
 //     S) and writes them with a TMA store, lse from registers.
@@ -53,10 +54,34 @@
 // exactly, and a row whose max is still that value writes -1e30 +
 // log(sum), as the reference's -1e30 + log(n) rounds; the others write
 // m2 * ln 2 + log(sum). The backward's fully masked rows depend on it.
-// The tile sizes and stages are the fastest of the variants timed on an
-// H100 (PERF.md): 64-key tiles, 2 stages, one warpgroup per block (2
-// blocks per SM) and the next S issued with this P.V were slower at the
-// training shape.
+// The tile sizes and stages at hd 64/128 are the fastest of the variants
+// timed on an H100 (PERF.md): 64-key tiles, 2 stages, one warpgroup per
+// block (2 blocks per SM) and the next S issued with this P.V were slower
+// at the training shape.
+//
+// Head dim 256 (Gemma) runs the same template with its own tiles
+// (Tiles<256>), because the hd-128 ones fit neither shared memory nor
+// registers there:
+//   * shared memory: the 128-row Q tile is 128 * 256 * 2 B = 64 KB and a
+//     K or V tile of BK keys BK * 512 B. At BK = 128 and 3 stages that is
+//     64 + 3 * (64 + 64) = 448 KB against the 227 KB a block may have; at
+//     BK = 64 and 2 stages it is 64 + 2 * (32 + 32) = 192 KB (193 KB with
+//     the barriers and the 1 KB alignment slack);
+//   * registers: a consumer thread holds its share of the warpgroup's 64 x
+//     256 f32 O, 128 registers, beside S and P of one tile: at BK = 64
+//     that is 32 f32 (S, then P in place) and 16 packed P, 176 in all
+//     before the row statistics and addresses, where BK = 128 would need
+//     224. setmaxnreg gives the consumers 240 and the producer warpgroup
+//     24 (24 * 128 + 240 * 256 = 168 * 384);
+//   * O += P.V is one m64n256k16 product per 16 keys, V read MN-major
+//     across its four 64-column boxes;
+//   * an edge tile's P.V takes two rest products, not one: with ~2^-17 of
+//     P a row that sees 3 keys of its segment came out one bf16 ulp from
+//     the correctly rounded value (-2.09375 for -2.1015658; the plain
+//     version's -2.109375) on an H100; ~2^-26 is below f32's rounding.
+// At Gemma-2B's training shape (b = 2, s = 2048, 8/1 heads) the grid
+// deals 256 tiles over the 132 SMs; at its embeddings shape (s = 512)
+// only 64 tiles exist, so 68 SMs stay idle.
 
 #include <math_constants.h>
 
@@ -69,8 +94,18 @@ using namespace flash;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int NWG = 2;          // consumer warpgroups per block, 1 block/SM
 constexpr int BQ = 64 * NWG;    // q rows per tile
-constexpr int BK = 128;         // keys per K/V tile
-constexpr int ST = 3;           // K/V tiles in flight
+
+// the K/V ring per head dim: BK keys per tile, ST tiles in flight, the
+// registers setmaxnreg gives each consumer (REG_C) and producer (REG_P)
+// thread, which together are the block's launch allocation (REG_P * 128 +
+// REG_C * 256 = 168 * 384), and REST, the products that carry the part of
+// P its first rounding missed on an edge tile
+template <int HD> struct Tiles {
+  static constexpr int BK = 128, ST = 3, REG_C = 232, REG_P = 40, REST = 1;
+};
+template <> struct Tiles<256> {
+  static constexpr int BK = 64, ST = 2, REG_C = 240, REG_P = 24, REST = 2;
+};
 
 struct Params {
   CUtensorMap tm_q, tm_k, tm_v, tm_o;   // tm_o: out [b, sq, nh, hd]
@@ -83,6 +118,7 @@ struct Params {
 };
 
 template <int HD> struct FwdSmem {
+  static constexpr int BK = Tiles<HD>::BK, ST = Tiles<HD>::ST;
   static constexpr int Q = BQ * HD * 2, KV = BK * HD * 2;
   static constexpr int QS = 0, KS = Q, VS = KS + ST * KV;
   static constexpr int BAR = VS + ST * KV;
@@ -90,7 +126,7 @@ template <int HD> struct FwdSmem {
 };
 
 // S = Q . K^T for one warpgroup's 64 rows and one BK-key tile
-template <bool F16, int HD>
+template <bool F16, int HD, int BK>
 __device__ __forceinline__ void issue_s(float (&s)[BK / 2], uint32_t q_u,
                                         uint32_t k_u) {
   #pragma unroll
@@ -99,12 +135,13 @@ __device__ __forceinline__ void issue_s(float (&s)[BK / 2], uint32_t q_u,
                                         16, 1024);
     const uint64_t b = sm90::desc_sw128(k_u + (k / 4) * BK * 128 + (k % 4) * 32,
                                         16, 1024);
-    sm90::wgmma_ss_n128<F16>(s, a, b, k);
+    if constexpr (BK == 128) sm90::wgmma_ss_n128<F16>(s, a, b, k);
+    else sm90::wgmma_ss_n64<F16>(s, a, b, k);
   }
 }
 
 // O += P . V over one tile's BK keys, P from registers, V MN-major
-template <bool F16, int HD>
+template <bool F16, int HD, int BK>
 __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
                                          const uint32_t (&pa)[BK / 4],
                                          uint32_t v_u) {
@@ -119,6 +156,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
 // running max m2 (log2 units) and per-lane sum l are updated, and alpha
 // is the O rescale per row. An edge tile (one that needs a mask) is
 // masked first.
+template <int BK>
 __device__ __forceinline__ void softmax_tile(
     const Params& p, bool edge, float (&s)[BK / 2], float (&m2)[2],
     float (&l)[2], float (&alpha)[2], int seg_base, const int (&seg_q)[2],
@@ -171,7 +209,7 @@ __device__ __forceinline__ void softmax_tile(
 }
 
 // P rounded to the operand type, as the A operand of P . V
-template <bool F16>
+template <bool F16, int BK>
 __device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
                                        uint32_t (&pa)[BK / 4]) {
   #pragma unroll
@@ -180,6 +218,7 @@ __device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
 
 // the tiles [a, b) of the block's range [lower, lower + n_iter) that the
 // rows [qw0, qw0 + 64) can see (causal without offsets); none past sq
+template <int BK>
 __device__ __forceinline__ int2 wg_tiles(const Params& p, int qw0, int lower,
                                          int n_iter) {
   int a = 0, b = n_iter;
@@ -214,7 +253,7 @@ template <bool F16, int HD>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 flash_fwd_kernel(const __grid_constant__ Params p) {
   using L = FwdSmem<HD>;
-  constexpr int NB = HD / 64;
+  constexpr int NB = HD / 64, BK = L::BK, ST = L::ST;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
@@ -266,7 +305,8 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
   // it controls (ptxas serializes wgmma on paths it thinks divergent)
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == NWG) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(Tiles<HD>::REG_P));
     // lane 0 of the producer warpgroup's first warp streams K/V, lane 0 of
     // its second warp loads each tile's Q once the previous tile's O has
     // left the Q rows, so the K/V stream runs on across tiles
@@ -301,7 +341,8 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(Tiles<HD>::REG_C));
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int r0 = 16 * warp + lane / 4;     // my q rows: r0 and r0 + 8
     const int cq = 2 * (lane % 4);           // my columns: 8j + cq + {0, 1}
@@ -345,7 +386,7 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
       sm90::fence_regs(s);
       __syncwarp();
       sm90::wgmma_fence();
-      issue_s<F16, HD>(s, q_u, k_smem(it));
+      issue_s<F16, HD, BK>(s, q_u, k_smem(it));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(s);
@@ -358,32 +399,45 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
       sm90::fence_regs(pa);
       __syncwarp();
       sm90::wgmma_fence();
-      issue_pv<F16, HD>(o, pa, v_smem(it));
+      issue_pv<F16, HD, BK>(o, pa, v_smem(it));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
       sm90::fence_regs(pa);
       release(empty_v, it);
     };
-    // on an edge tile, O += (P - pa).V with the rest rounded again, waited
-    // for: with pa.V it keeps P.V to ~2^-17 of P
+    // on an edge tile, O += (P - pa).V in REST more products, each on the
+    // part of P the terms before it missed, rounded again, waited for:
+    // with pa.V one keeps P.V to ~2^-17 of P, two to ~2^-26 (P - pa and
+    // each later difference are exact in f32)
     auto pv_rest = [&](int it) {
-      uint32_t lo[BK / 4];
+      constexpr int REST = Tiles<HD>::REST;
+      uint32_t lo[REST][BK / 4];
       #pragma unroll
       for (int j = 0; j < BK / 4; ++j) {
         const float2 hi = sm90::unpack2<F16>(pa[j]);
-        lo[j] = sm90::pack2<F16>(s[2 * j] - hi.x, s[2 * j + 1] - hi.y);
+        float r0 = s[2 * j] - hi.x, r1 = s[2 * j + 1] - hi.y;
+        #pragma unroll
+        for (int t = 0; t < REST; ++t) {
+          lo[t][j] = sm90::pack2<F16>(r0, r1);
+          const float2 got = sm90::unpack2<F16>(lo[t][j]);
+          r0 -= got.x;
+          r1 -= got.y;
+        }
       }
       wait_v(it);
       sm90::fence_regs(o);
-      sm90::fence_regs(lo);
+      #pragma unroll
+      for (int t = 0; t < REST; ++t) sm90::fence_regs(lo[t]);
       __syncwarp();
       sm90::wgmma_fence();
-      issue_pv<F16, HD>(o, lo, v_smem(it));
+      #pragma unroll
+      for (int t = 0; t < REST; ++t) issue_pv<F16, HD, BK>(o, lo[t], v_smem(it));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
-      sm90::fence_regs(lo);
+      #pragma unroll
+      for (int t = 0; t < REST; ++t) sm90::fence_regs(lo[t]);
     };
 
     for (int k = 0; tile_of(k) < n_tiles; ++k) {
@@ -393,7 +447,7 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
       const int qw0 = tl.q0 + 64 * wg;       // this warpgroup's first q row
       // the tiles [a, b) this warpgroup's rows can see; it only releases
       // the others
-      const int2 ab = wg_tiles(p, qw0, lower, n_iter);
+      const int2 ab = wg_tiles<BK>(p, qw0, lower, n_iter);
       const int a = ab.x, b = ab.y;
       int seg_q[2] = {0, 0};
       if (p.seg != nullptr)
@@ -413,9 +467,9 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
         // rest of P too (pv_rest)
         const int k0 = (lower + it) * BK;
         const bool edge = !tile_unmasked(p, qw0, 64, k0, BK);
-        softmax_tile(p, edge, s, m2, l, alpha, seg_base, seg_q, qw0, r0, cq,
+        softmax_tile<BK>(p, edge, s, m2, l, alpha, seg_base, seg_q, qw0, r0, cq,
                      k0, scale_l2, neg_l2);
-        pack_p<F16>(s, pa);
+        pack_p<F16, BK>(s, pa);
         #pragma unroll
         for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
         if (edge) pv_rest(it);
@@ -483,9 +537,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (!sm90::map_bshd(&p.tm_q, a.q, f16, a.b, a.sq, a.nh, a.hd, a.q_sb,
                       a.q_ss, a.q_sh, BQ)
       || !sm90::map_bshd(&p.tm_k, a.k, f16, a.b, a.sk, a.nkv, a.hd, a.k_sb,
-                         a.k_ss, a.k_sh, BK)
+                         a.k_ss, a.k_sh, L::BK)
       || !sm90::map_bshd(&p.tm_v, a.v, f16, a.b, a.sk, a.nkv, a.hd, a.v_sb,
-                         a.v_ss, a.v_sh, BK)
+                         a.v_ss, a.v_sh, L::BK)
       || !sm90::map_bshd(&p.tm_o, a.out, f16, a.b, a.sq, a.nh, a.hd,
                          a.sq * o_ss, o_ss, a.hd, 64))
     return cudaErrorInvalidValue;
@@ -516,8 +570,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // Same arguments as flash_fwd.cu's kubedl_flash_fwd. dtype: 1 bfloat16,
-// 2 float16; head dim 64 or 128; q/k/v 16-byte aligned with strides of 8
-// elements (TMA). Returns a cudaError_t (0 = ok).
+// 2 float16; head dim 64, 128 or 256; q/k/v 16-byte aligned with strides
+// of 8 elements (TMA). Returns a cudaError_t (0 = ok).
 int kubedl_flash_fwd90(const void* q, const void* k, const void* v, void* o,
                        void* lse, const void* seg, int dtype, int b, int sq,
                        int sk, int nh, int nkv, int hd, int64_t q_sb,
@@ -531,8 +585,8 @@ int kubedl_flash_fwd90(const void* q, const void* k, const void* v, void* o,
        & 15) == 0
       && ((q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss | v_sh) & 7)
              == 0;
-  if ((dtype != 1 && dtype != 2) || (hd != 64 && hd != 128) || nkv < 1
-      || nh % nkv != 0 || !aligned)
+  if ((dtype != 1 && dtype != 2) || (hd != 64 && hd != 128 && hd != 256)
+      || nkv < 1 || nh % nkv != 0 || !aligned)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, seg, o, lse, dtype, b, sq, sk, nh, nkv, hd, q_sb,
                q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, window,
@@ -540,9 +594,13 @@ int kubedl_flash_fwd90(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1)
-    err = hd == 64 ? launch<false, 64>(a, s) : launch<false, 128>(a, s);
+    err = hd == 64    ? launch<false, 64>(a, s)
+          : hd == 128 ? launch<false, 128>(a, s)
+                      : launch<false, 256>(a, s);
   else
-    err = hd == 64 ? launch<true, 64>(a, s) : launch<true, 128>(a, s);
+    err = hd == 64    ? launch<true, 64>(a, s)
+          : hd == 128 ? launch<true, 128>(a, s)
+                      : launch<true, 256>(a, s);
   return static_cast<int>(err);
 }
 

@@ -155,6 +155,10 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo,
                       KUBEDL_D8(d, 24)
 #define KUBEDL_D64(d) KUBEDL_D32(d), KUBEDL_D8(d, 32), KUBEDL_D8(d, 40),     \
                       KUBEDL_D8(d, 48), KUBEDL_D8(d, 56)
+#define KUBEDL_D32_AT(d, i) KUBEDL_D8(d, i), KUBEDL_D8(d, i + 8),             \
+                            KUBEDL_D8(d, i + 16), KUBEDL_D8(d, i + 24)
+#define KUBEDL_D128(d) KUBEDL_D64(d), KUBEDL_D32_AT(d, 64),                  \
+                       KUBEDL_D32_AT(d, 96)
 #define KUBEDL_R32                                                         \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
@@ -163,6 +167,13 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo,
   KUBEDL_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "   \
   "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
   "%57, %58, %59, %60, %61, %62, %63"
+#define KUBEDL_R128                                                        \
+  KUBEDL_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, "   \
+  "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, " \
+  "%89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, "    \
+  "%102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, "      \
+  "%113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "     \
+  "%124, %125, %126, %127"
 
 // d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, both K-major in shared memory
 #define KUBEDL_WGMMA_SS64(TY)                                              \
@@ -191,7 +202,8 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
 }
 
 // d[64 x N] (+)= A[64 x 16] . B[16 x N]: A from registers (the fragment
-// of a 64 x 16 slice of an accumulator), B MN-major in shared memory
+// of a 64 x 16 slice of an accumulator), B MN-major in shared memory; N
+// 256 spans four 64-column boxes, LBO apart
 #define KUBEDL_WGMMA_RS64(TY)                                              \
   asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"              \
                " wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY    \
@@ -208,17 +220,29 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
                : KUBEDL_D64(d)                                             \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),       \
                  "r"(acc))
+#define KUBEDL_WGMMA_RS256(TY)                                             \
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"             \
+               " wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY   \
+               " {" KUBEDL_R128 "}, {%128, %129, %130, %131}, %132, p, "  \
+               "1, 1, 1;\n}\n"                                             \
+               : KUBEDL_D128(d)                                            \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),       \
+                 "r"(acc))
 template <bool F16, int N>
 __device__ __forceinline__ void wgmma_rs_tn(float (&d)[N / 2],
                                             const uint32_t* a, uint64_t b,
                                             int acc) {
-  static_assert(N == 64 || N == 128, "wgmma_rs_tn: N is 64 or 128");
+  static_assert(N == 64 || N == 128 || N == 256,
+                "wgmma_rs_tn: N is 64, 128 or 256");
   if constexpr (N == 64) {
     if constexpr (F16) KUBEDL_WGMMA_RS64("f16");
     else KUBEDL_WGMMA_RS64("bf16");
-  } else {
+  } else if constexpr (N == 128) {
     if constexpr (F16) KUBEDL_WGMMA_RS128("f16");
     else KUBEDL_WGMMA_RS128("bf16");
+  } else {
+    if constexpr (F16) KUBEDL_WGMMA_RS256("f16");
+    else KUBEDL_WGMMA_RS256("bf16");
   }
 }
 

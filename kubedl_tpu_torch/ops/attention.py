@@ -7,12 +7,13 @@ Counterpart of ``kubedl_tpu/ops/attention.py``, same layouts (q
   whose forward is :func:`flash_forward` (the TPU ``_flash_kernel``) and
   whose backward is :func:`flash_backward`: the dQ kernel (the TPU
   ``_flash_dq_kernel``) and the dK/dV kernel (the TPU
-  ``_flash_dkv_kernel``). Each runs on one of two routes
-  (:func:`flash_fwd_route`, :func:`flash_bwd_route`, one rule): ``sm90``,
-  the tensor-core sources ``csrc/flash_fwd_sm90.cu`` and
-  ``csrc/flash_bwd_sm90.cu``, for bf16/f16 at head dims 64 and 128;
-  ``simt``, ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, for the rest.
-  CUDA tensors only.
+  ``_flash_dkv_kernel``). Each runs on one of two routes, picked per
+  kernel (:func:`flash_fwd_route`, :func:`flash_dq_route`,
+  :func:`flash_dkv_route`): ``sm90``, the tensor-core sources
+  ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu``, for bf16/f16
+  at head dims 64 and 128, and 256 for the forward and dK/dV; ``simt``,
+  ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, for the rest. CUDA
+  tensors only.
 * ``plain`` — the same Function on CPU tensors, where every wrapper runs
   its kernel's plain version: the CI path for the kernels' arithmetic
   (the counterpart of ``impl="pallas_interpret"``).
@@ -285,22 +286,20 @@ def _raise_on(lib, err: int, name: str) -> None:
                            f"({lib.kubedl_cuda_error_string(err).decode()})")
 
 
-def _tensor_core_route(dtype, hd: int) -> str:
-    """The one rule of both flash routes: ``"sm90"`` (wgmma tensor-core
-    products, TMA loads) for bf16 and f16 at head dims 64 and 128, which
-    covers the serving and training paths and every Llama-family config;
-    ``"simt"`` (f32 CUDA-core products) for float32 and every other head
-    dim."""
-    if dtype in (torch.bfloat16, torch.float16) and hd in (64, 128):
+def _route(dtype, hd: int, head_dims) -> str:
+    """``"sm90"`` (wgmma tensor-core products, TMA loads) for bf16 and f16
+    at the kernel's ``head_dims``; ``"simt"`` (f32 CUDA-core products) for
+    float32 and every other head dim."""
+    if dtype in (torch.bfloat16, torch.float16) and hd in head_dims:
         return "sm90"
     return "simt"
 
 
 def flash_fwd_route(dtype, hd: int) -> str:
-    """Which source a forward launch takes: ``"sm90"``
-    (``csrc/flash_fwd_sm90.cu``) or ``"simt"`` (``csrc/flash_fwd.cu``), by
-    :func:`_tensor_core_route`'s rule."""
-    return _tensor_core_route(dtype, hd)
+    """Which source a forward (K1) launch takes: ``"sm90"``
+    (``csrc/flash_fwd_sm90.cu``) for bf16/f16 at head dims 64, 128 and 256
+    (Llama's and Gemma's), else ``"simt"`` (``csrc/flash_fwd.cu``)."""
+    return _route(dtype, hd, (64, 128, 256))
 
 
 #: route -> (forward kernel source under csrc/, its C entry point)
@@ -467,11 +466,45 @@ def flash_backward_plain(q, k, v, o, lse, do, causal, segment_ids=None,
     return dq, dk, dv
 
 
-def flash_bwd_route(dtype, hd: int) -> str:
-    """Which source a backward launch takes: ``"sm90"``
-    (``csrc/flash_bwd_sm90.cu``) or ``"simt"`` (``csrc/flash_bwd.cu``), by
-    :func:`_tensor_core_route`'s rule, the forward's."""
-    return _tensor_core_route(dtype, hd)
+def flash_dq_route(dtype, hd: int) -> str:
+    """Which source a dQ (K2) launch takes: ``"sm90"``
+    (``csrc/flash_bwd_sm90.cu``) for bf16/f16 at head dims 64 and 128,
+    else ``"simt"`` (``csrc/flash_bwd.cu``)."""
+    return _route(dtype, hd, (64, 128))
+
+
+def flash_dkv_route(dtype, hd: int) -> str:
+    """Which source a dK/dV (K3) launch takes: ``"sm90"``
+    (``csrc/flash_bwd_sm90.cu``) for bf16/f16 at head dims 64, 128 and
+    256, else ``"simt"`` (``csrc/flash_bwd.cu``)."""
+    return _route(dtype, hd, (64, 128, 256))
+
+
+#: k rows per block of the sm90 dK/dV kernel at head dim 256
+_DKV256_BLOCK_K = 64
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dkv_splits(b: int, nkv: int, sk: int, reps: int, hd: int,
+               sms: int) -> int:
+    """How many blocks of the ``sm90`` dK/dV kernel share one GQA group of
+    ``reps`` query heads: at head dim 256 the fewest (a power of two
+    dividing ``reps``) that give every one of the card's ``sms`` SMs a
+    block, from one block per (b·nkv, 64-row k tile); 1 elsewhere. Each
+    split past the first costs a float32 dK/dV of the whole tensor in
+    workspace and a reduction pass. The splits are added in a fixed order,
+    so at one count two calls give the same bits."""
+    if hd != 256:
+        return 1
+    blocks = b * nkv * -(-sk // _DKV256_BLOCK_K)
+    splits = 1
+    while blocks * splits < sms and reps % (2 * splits) == 0:
+        splits *= 2
+    return splits
 
 
 #: route -> (kernel source under csrc/, prefix of its C entry points)
@@ -487,10 +520,12 @@ def _bwd_lib(route: str) -> ctypes.CDLL:
     name, prefix = _BWD_SOURCES[route]
     lib = library(name)
     i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-    tail = [i32] * 7 + [i64] * 12 + [i32] * 5 + [ctypes.c_float, ptr]
+    shapes = [i32] * 7 + [i64] * 12 + [i32] * 5 + [ctypes.c_float]
     for fn, n_ptr in (("dq", 8), ("dkv", 9)):
+        # the sm90 dK/dV entry also takes a workspace and the split count
+        split = int(route == "sm90" and fn == "dkv")
         f = getattr(lib, prefix + fn)
-        f.argtypes = [ptr] * n_ptr + tail
+        f.argtypes = [ptr] * (n_ptr + split) + shapes + [i32] * split + [ptr]
         f.restype = i32
     lib.kubedl_cuda_error_string.argtypes = [i32]
     lib.kubedl_cuda_error_string.restype = ctypes.c_char_p
@@ -512,14 +547,26 @@ def _check_tma(name: str, *ts) -> None:
 
 def _bwd_kernel(name: str, q, k, v, do, lse, delta, seg, outs, causal,
                 offsets, window, fn) -> None:
-    """Launch ``fn`` ("dq" or "dkv") on its route, raise on a failed
-    launch, and count it."""
-    route = flash_bwd_route(q.dtype, q.shape[-1])
+    """Launch ``fn`` ("dq" or "dkv") on its own route, raise on a failed
+    launch, and count it. The ``sm90`` dK/dV launch takes a workspace for
+    :func:`dkv_splits` > 1 and the split count."""
+    route_of = flash_dq_route if fn == "dq" else flash_dkv_route
+    route = route_of(q.dtype, q.shape[-1])
+    tail = ()
     if route == "sm90":
         _check_tma(name, q, k, v, do)
+        if fn == "dkv":
+            b, sk, nkv, hd = k.shape
+            splits = dkv_splits(b, nkv, sk, q.shape[2] // nkv, hd,
+                                _sm_count(q.device.index))
+            ws = None if splits == 1 else torch.empty(
+                (splits, 2, b, sk, nkv, hd), dtype=torch.float32,
+                device=q.device)
+            outs, tail = (*outs, ws), (splits,)
     lib = _bwd_lib(route)
     err = _bwd_launch(getattr(lib, _BWD_SOURCES[route][1] + fn), q, k, v,
-                      do, lse, delta, seg, outs, causal, offsets, window)
+                      do, lse, delta, seg, outs, causal, offsets, window,
+                      *tail)
     _raise_on(lib, err, name)
     wrapper = flash_dq if fn == "dq" else flash_dkv
     wrapper.launches += 1
@@ -545,23 +592,24 @@ def _bwd_args(name, q, k, v, do, lse, delta, segment_ids, window):
 
 
 def _bwd_launch(fn, q, k, v, do, lse, delta, seg, outs, causal, offsets,
-                window):
+                window, *tail):
     b, sq, nh, hd = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     q_off, k_off = _offsets(offsets)
     return fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), 0 if seg is None else seg.data_ptr(),
-        *[t.data_ptr() for t in outs], _DTYPE_CODES[q.dtype], b, sq, sk, nh,
-        nkv, hd, *_strides(q, k, v, do), int(bool(causal)), int(window),
-        int(offsets is not None), q_off, k_off, 1.0 / math.sqrt(hd),
+        *[0 if t is None else t.data_ptr() for t in outs],
+        _DTYPE_CODES[q.dtype], b, sq, sk, nh, nkv, hd, *_strides(q, k, v, do),
+        int(bool(causal)), int(window), int(offsets is not None), q_off,
+        k_off, 1.0 / math.sqrt(hd), *tail,
         torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_dq(q, k, v, do, lse, delta, causal, segment_ids=None,
              offsets=None, window=0):
     """dQ kernel, same contract as :func:`flash_dq_plain`. On CUDA tensors
-    it launches the dQ kernel of :func:`flash_bwd_route`'s source (counted
+    it launches the dQ kernel of :func:`flash_dq_route`'s source (counted
     in ``flash_dq.launches`` and ``flash_dq.launches_by_route``); on CPU
     tensors it runs the plain version."""
     if not q.is_cuda:
@@ -584,10 +632,10 @@ def flash_dq(q, k, v, do, lse, delta, causal, segment_ids=None,
 def flash_dkv(q, k, v, do, lse, delta, causal, segment_ids=None,
               offsets=None, window=0):
     """dK/dV kernel, same contract as :func:`flash_dkv_plain`. On CUDA
-    tensors it launches the dK/dV kernel of :func:`flash_bwd_route`'s
+    tensors it launches the dK/dV kernel of :func:`flash_dkv_route`'s
     source (counted in ``flash_dkv.launches`` and
-    ``flash_dkv.launches_by_route``); on CPU tensors it runs the plain
-    version."""
+    ``flash_dkv.launches_by_route``; a split launch and its reduction pass
+    count once); on CPU tensors it runs the plain version."""
     if not q.is_cuda:
         return flash_dkv_plain(q, k, v, do, lse, delta, causal,
                                segment_ids=segment_ids, offsets=offsets,
@@ -608,7 +656,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal, segment_ids=None,
 
 
 #: kernel launches since the counts were last set to 0, in all and by
-#: :func:`flash_bwd_route`
+#: :func:`flash_dq_route` and :func:`flash_dkv_route`
 flash_dq.launches = 0
 flash_dkv.launches = 0
 flash_dq.launches_by_route = {"sm90": 0, "simt": 0}

@@ -47,6 +47,12 @@ FLASH_CASES = {
     "offsets": dict(causal=True, offsets=(128, 0)),
     "offsets_masked_rows": dict(causal=True, offsets=(0, 128)),
     "sq_gt_sk": dict(causal=True, sq=256, sk=128),
+    # Gemma's head dim 256: Gemma-2B's MQA (4 query heads on 1 kv head),
+    # Gemma-7B's MHA, and rows that see no key at that width
+    "hd256_mqa": dict(causal=True, nh=4, nkv=1, hd=256),
+    "hd256_mha": dict(causal=True, nh=2, nkv=2, hd=256),
+    "hd256_offsets_masked_rows": dict(causal=True, nh=4, nkv=1, hd=256,
+                                      offsets=(0, 128)),
 }
 
 

@@ -73,6 +73,14 @@ CASES = {
     "offsets_masked_rows": dict(causal=True, offsets=(0, 128)),
     "bf16": dict(causal=True, nh=4, nkv=2, dtype="bfloat16"),
     "bf16_window": dict(causal=True, window=64, dtype="bfloat16"),
+    # Gemma's head dim 256: Gemma-2B's MQA (4 query heads on 1 kv head),
+    # Gemma-7B's MHA, and rows that see no key at that width
+    "hd256_mqa": dict(causal=True, nh=4, nkv=1, hd=256),
+    "hd256_mha": dict(causal=True, nh=2, nkv=2, hd=256),
+    "hd256_offsets_masked_rows": dict(causal=True, nh=4, nkv=1, hd=256,
+                                      offsets=(0, 128)),
+    "hd256_mqa_bf16": dict(causal=True, nh=4, nkv=1, hd=256,
+                           dtype="bfloat16"),
 }
 
 
@@ -147,6 +155,8 @@ FN_CASES = {
     "window": dict(nh=4, nkv=2, window=64),
     "segments": dict(segments=True),
     "non_causal": dict(causal=False),
+    "hd256_mqa": dict(nh=4, nkv=1, hd=256),
+    "hd256_mha": dict(hd=256),
 }
 
 
@@ -160,7 +170,7 @@ def test_autograd_function_matches_jax_custom_vjp(case):
     causal = kw.pop("causal", True)
     window = kw.pop("window", 0)
     segments = kw.pop("segments", False)
-    q, k, v, g = _inputs(13, sq=128, hd=128, **kw)
+    q, k, v, g = _inputs(13, **{"sq": 128, "hd": 128, **kw})
     seg = _segments(1, 128) if segments else None
 
     def jfn(q_, k_, v_):

@@ -1,7 +1,7 @@
 """The port's flash-attention forward kernels on the card, against their
 plain PyTorch version. Both routes are held: the tensor-core kernel
-(``flash_fwd_sm90.cu``, bf16/f16 at head dims 64 and 128) and the general
-one (``flash_fwd.cu``). A CUDA kernel has no CPU mode, so without a card
+(``flash_fwd_sm90.cu``, bf16/f16 at head dims 64, 128 and 256) and the
+general one (``flash_fwd.cu``). A CUDA kernel has no CPU mode, so without a card
 these tests skip. On the card (no JAX there, hence no conftest; ``-x``,
 since a fault poisons the CUDA context for every later test):
 
@@ -112,6 +112,23 @@ SM90_CASES = {
     "offsets_k": dict(sq=320, sk=320, offsets=(0, 64)),
     "mha": dict(sq=300, sk=300, nkv=8),
     "heads_transposed": dict(sq=300, sk=300, transposed=True),
+    # Gemma's head dim 256 (64-key K/V tiles, 2 stages): the tile edges,
+    # ragged and unequal lengths, window, segments, both offsets, MQA
+    # (Gemma-2B's 1 kv head) and MHA (Gemma-7B's), f16
+    **{f"hd256_s{n}": dict(hd=256, sq=n, sk=n)
+       for n in (1, 63, 64, 65, 128, 129, 257)},
+    "hd256_sq512_sk256": dict(hd=256, sq=512, sk=256),
+    "hd256_sq96_sk160": dict(hd=256, sq=96, sk=160),
+    "hd256_non_causal": dict(hd=256, sq=300, sk=200, causal=False),
+    "hd256_window_40": dict(hd=256, sq=384, sk=384, window=40),
+    "hd256_window_128": dict(hd=256, sq=384, sk=384, window=128),
+    "hd256_segments": dict(hd=256, sq=300, sk=300, segments=True),
+    "hd256_offsets_q": dict(hd=256, sq=320, sk=320, offsets=(256, 0)),
+    "hd256_offsets_k": dict(hd=256, sq=320, sk=320, offsets=(0, 64)),
+    "hd256_mqa": dict(hd=256, sq=300, sk=300, nkv=1),
+    "hd256_mha": dict(hd=256, sq=300, sk=300, nkv=8),
+    "hd256_float16": dict(hd=256, sq=300, sk=300, dtype=torch.float16),
+    "hd256_heads_transposed": dict(hd=256, sq=300, sk=300, transposed=True),
 }
 
 

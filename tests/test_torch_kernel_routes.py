@@ -1,6 +1,7 @@
-"""Which source a forward or backward launch takes, what the tensor-core
-route refuses, and the kernel build cache, all on the CPU: no ``nvcc`` and
-no card are needed to decide a route, check an operand or name a build."""
+"""Which source each flash kernel's launch takes, how many blocks share a
+GQA group in the tensor-core dK/dV kernel, what the tensor-core route
+refuses, and the kernel build cache, all on the CPU: no ``nvcc`` and no
+card are needed to decide a route, check an operand or name a build."""
 
 import shutil
 
@@ -10,35 +11,76 @@ import torch
 from kubedl_tpu_torch.ops import _build
 from kubedl_tpu_torch.ops import attention as attn
 
+#: (dtype, head dim) and the route of K1 (forward), K2 (dq) and K3 (dkv)
 ROUTES = [
-    (torch.bfloat16, 64, "sm90"),
-    (torch.bfloat16, 128, "sm90"),
-    (torch.float16, 64, "sm90"),
-    (torch.float16, 128, "sm90"),
-    (torch.float32, 64, "simt"),
-    (torch.float32, 128, "simt"),
-    (torch.bfloat16, 80, "simt"),
-    (torch.bfloat16, 256, "simt"),
-    (torch.float16, 256, "simt"),
-    (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 64, {"forward": "sm90", "dq": "sm90", "dkv": "sm90"}),
+    (torch.bfloat16, 128, {"forward": "sm90", "dq": "sm90", "dkv": "sm90"}),
+    (torch.float16, 64, {"forward": "sm90", "dq": "sm90", "dkv": "sm90"}),
+    (torch.float16, 128, {"forward": "sm90", "dq": "sm90", "dkv": "sm90"}),
+    (torch.float32, 64, {"forward": "simt", "dq": "simt", "dkv": "simt"}),
+    (torch.float32, 128, {"forward": "simt", "dq": "simt", "dkv": "simt"}),
+    (torch.bfloat16, 80, {"forward": "simt", "dq": "simt", "dkv": "simt"}),
+    (torch.bfloat16, 256, {"forward": "sm90", "dq": "simt", "dkv": "sm90"}),
+    (torch.float16, 256, {"forward": "sm90", "dq": "simt", "dkv": "sm90"}),
+    (torch.bfloat16, 32, {"forward": "simt", "dq": "simt", "dkv": "simt"}),
+    (torch.float32, 256, {"forward": "simt", "dq": "simt", "dkv": "simt"}),
+    (torch.float16, 80, {"forward": "simt", "dq": "simt", "dkv": "simt"}),
+    (torch.float16, 32, {"forward": "simt", "dq": "simt", "dkv": "simt"}),
 ]
+ROUTE_IDS = [f"{str(d).split('.')[-1]}-hd{h}" for d, h, _ in ROUTES]
+
+#: one route function per kernel
+ROUTE_FNS = {"forward": attn.flash_fwd_route, "dq": attn.flash_dq_route,
+             "dkv": attn.flash_dkv_route}
+#: each kernel's sources: route -> (source under csrc/, C entry point)
+SOURCES = {
+    "forward": attn._FWD_SOURCES,
+    **{fn: {route: (name, prefix + fn)
+            for route, (name, prefix) in attn._BWD_SOURCES.items()}
+       for fn in ("dq", "dkv")}}
 
 
-#: the two route functions, which share one rule
-ROUTE_FNS = {"forward": attn.flash_fwd_route,
-             "backward": attn.flash_bwd_route}
-
-
-@pytest.mark.parametrize("direction", sorted(ROUTE_FNS))
-@pytest.mark.parametrize("dtype,hd,route", ROUTES,
-                         ids=[f"{str(d).split('.')[-1]}-hd{h}"
-                              for d, h, _ in ROUTES])
-def test_kernel_route(direction, dtype, hd, route):
+@pytest.mark.parametrize("kernel", sorted(ROUTE_FNS))
+@pytest.mark.parametrize("dtype,hd,routes", ROUTES, ids=ROUTE_IDS)
+def test_kernel_route(kernel, dtype, hd, routes):
     """bf16/f16 at head dims 64 and 128 (the serving and training paths,
-    every Llama-family config) take the tensor-core kernels, forward and
-    backward; float32 and every other head dim keep the general
-    kernels."""
-    assert ROUTE_FNS[direction](dtype, hd) == route
+    every Llama-family config) take the tensor-core kernels; at 256
+    (Gemma) the forward and dK/dV do too, dQ keeps the general kernel;
+    float32 and every other head dim keep the general kernels."""
+    assert ROUTE_FNS[kernel](dtype, hd) == routes[kernel]
+
+
+@pytest.mark.parametrize("kernel", sorted(ROUTE_FNS))
+@pytest.mark.parametrize("dtype,hd,routes", ROUTES, ids=ROUTE_IDS)
+def test_every_kernel_route_names_a_source_with_its_entry_point(
+        kernel, dtype, hd, routes):
+    name, entry = SOURCES[kernel][ROUTE_FNS[kernel](dtype, hd)]
+    assert f"int {entry}(" in (_build.CSRC / f"{name}.cu").read_text()
+
+
+#: (b, nkv, sk, reps, hd, SMs) -> blocks of the sm90 dK/dV kernel that
+#: share one GQA group
+SPLITS = {
+    # Gemma-2B training: 64 blocks of one group of 8 heads on 132 SMs
+    "gemma_2b_train": ((2, 1, 2048, 8, 256, 132), 4),
+    "gemma_2b_train_b1": ((1, 1, 2048, 8, 256, 132), 8),
+    "gemma_2b_s512": ((2, 1, 512, 8, 256, 132), 8),
+    # Gemma-7B (MHA): one head per group, nothing to split
+    "gemma_7b_mha": ((2, 16, 2048, 1, 256, 132), 1),
+    # reps 4 caps the count though the SMs would take more
+    "reps_4_cap": ((1, 1, 256, 4, 256, 132), 4),
+    "enough_blocks": ((4, 8, 2048, 4, 256, 132), 1),
+    # the hd-64/128 kernel never splits
+    "llama_hd128": ((1, 1, 256, 8, 128, 132), 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLITS))
+def test_dkv_splits(case):
+    args, want = SPLITS[case]
+    splits = attn.dkv_splits(*args)
+    assert splits == want
+    assert args[3] % splits == 0
 
 
 def test_every_route_names_a_source_with_both_entry_points():
