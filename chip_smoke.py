@@ -25,12 +25,12 @@ failure raises and the script exits non-zero before its last line:
    versions on the forward's cases and the training shape at b=1, each
    kernel on the route its own function gives (``flash_dq_route``,
    ``flash_dkv_route``; ``sm90``: the tensor-core kernels of
-   ``flash_bwd_sm90.cu`` for bf16/f16 at hd 64 and 128, dK/dV also at
-   256; ``simt``: ``flash_bwd.cu`` for the rest);
+   ``flash_bwd_sm90.cu`` for bf16/f16 at hd 64, 128 and 256; ``simt``:
+   ``flash_bwd.cu`` for the rest);
 5. timing at the training shape (b=4, s=2048, Llama-3-8B's heads, bf16,
    causal) — each of the three kernels beside its plain version, SDPA's
-   forward or backward and its bound (the forward also beside its
-   earlier design), and Δ (``flash_delta``);
+   forward or backward, its bound and its earlier design (``simt``), and
+   Δ (``flash_delta``);
 6. training — ``python -m kubedl_tpu_torch.train``'s ``main`` in-process
    on Llama-3-8B at full width, 8 layers deep, batch 4 x 2048, 6 steps
    on one repeated batch: seconds per step, tokens/s, MFU, peak memory,
@@ -50,13 +50,13 @@ full width and depth in the engine (16 requests, ``/v1/embeddings`` on
 K1's ``sm90`` route, the tick) and through ``python -m
 kubedl_tpu_torch.serving`` (then its batch mode with
 ``KUBEDL_SERVING_QUANTIZE=int8``). The kernel checks and timings add
-Gemma-2B's attention shapes and the edge cases at head dim 256 (K1 and
-K3 on ``sm90``, K2 on ``simt``; K1 and K3 also beside their earlier
-``simt`` designs, K3 at 1, 2, 4 and 8 splits of the GQA group and
-checked to repeat bit for bit), and after phase 7 ``python -m
-kubedl_tpu_torch.train`` trains ``gemma.gemma_2b`` (full size, b=2,
-s=2048, 3 steps, K1/K3 on ``sm90`` and K2 on ``simt``), every gradient
-of a 2-layer Gemma-2B at full width is checked against the chunked path,
+Gemma-2B's attention shapes and the edge cases at head dim 256 (K1, K2
+and K3 on ``sm90``, each also beside its earlier ``simt`` design; K3 at
+1, 2, 4 and 8 splits of the GQA group; K2 and K3 checked to repeat bit
+for bit), and after phase 7 ``python -m kubedl_tpu_torch.train`` trains
+``gemma.gemma_2b`` (full size, b=2, s=2048, 3 steps, every K1, K2 and K3
+launch on ``sm90``), every gradient of a 2-layer Gemma-2B at full width
+is checked against the chunked path,
 and the slice's Llama configuration trains with ``"lora"`` (rank 16, 4
 steps: the base stays bit for bit, the optimizer state is
 adapter-sized).
@@ -136,17 +136,25 @@ DESIGN_HD256 = {
                      "ring (192 KB of smem with the 128-row Q tile), 240 "
                      "registers per consumer thread (O is 128 of them), "
                      "O += P.V as one m64n256k16 per 16 keys",
-    "flash_dq": "simt (flash_bwd.cu): f32 CUDA-core products",
+    "flash_dq": "block per (b*nh, 64 q rows), Q/dO resident, TMA ring of "
+                "64-key K/V tiles (2 stages, 226 KB of smem with the f32 "
+                "swap); both consumer warpgroups own all 64 rows: "
+                "warpgroup 0 computes S = Q.K^T, warpgroup 1 dP = dO.V^T "
+                "(m64n64 from smem), the two swap them through smem, each "
+                "forms dS and sums its 128 columns of dQ += dS.K "
+                "(m64n128k16 from registers)",
     "flash_dkv": "block per (b*nkv, split of the GQA group, 64 k rows), "
                  "K/V resident, TMA ring of (Q, dO, lse, delta) tiles of 64 "
                  "q rows (2 stages, 194 KB of smem); warpgroup 0 sums dV += "
                  "P^T.dO, warpgroup 1 dK += dS^T.Q (m64n256k16 from "
                  "registers), each computing S^T itself; splits > 1 write "
                  "f32 sums that a hand-written pass adds in split order"}
-#: the hd-128 K1/K3 times at the Llama training shape recorded in
-#: PERF.md's kernel table before the hd-256 designs (H100 80GB HBM3,
-#: 700 W), printed beside this run's: the hd-128 code did not change
-HD128_EARLIER_MS = {"flash_forward": 0.3228, "flash_dkv": 0.7677}
+#: the hd-128 K1/K2/K3 times at the Llama training shape recorded in
+#: PERF.md's kernel table by the slice before the hd-256 dQ kernel (H100
+#: 80GB HBM3, 700 W), printed beside this run's: the hd-128 code did not
+#: change
+HD128_EARLIER_MS = {"flash_forward": 0.3223, "flash_dq": 0.6114,
+                    "flash_dkv": 0.7546}
 #: norm-wise relative gap of a parameter's gradient between the kernel
 #: path and the chunked path: both round attention outputs and dq/dk/dv
 #: to bf16 (unit roundoff 2**-9), at other places, through 8 layers; the
@@ -215,12 +223,13 @@ def _time_ms(torch, fn, reps: int = 50, warmup: int = 5) -> float:
 #: the kernels timed beside their earlier design, and the route function
 #: that picks it
 EARLIER_ROUTE = {"flash_forward": "flash_fwd_route",
+                 "flash_dq": "flash_dq_route",
                  "flash_dkv": "flash_dkv_route"}
 
 
 def _earlier_ms(torch, attn, kernel, fn, **kw) -> float:
-    """``_time_ms`` of ``fn`` with every launch of ``kernel`` (K1 or K3)
-    sent to the ``simt`` route: its earlier design (``flash_fwd.cu``,
+    """``_time_ms`` of ``fn`` with every launch of ``kernel`` (K1, K2 or
+    K3) sent to the ``simt`` route: its earlier design (``flash_fwd.cu``,
     ``flash_bwd.cu``) on inputs the ``sm90`` route takes, timed as the
     new design is."""
     wrapper = getattr(attn, kernel)
@@ -299,8 +308,8 @@ CASES = {
 }
 #: the training shape at b=1, checked beside the edge cases
 TRAIN_B1 = {**TRAIN, "b": 1}
-#: Gemma-2B's attention (8 q heads, 1 kv head of width 256: K1 and K3 on
-#: the ``sm90`` route, K2 on ``simt``) at its embeddings shape (2 inputs,
+#: Gemma-2B's attention (8 q heads, 1 kv head of width 256: K1, K2 and K3
+#: on the ``sm90`` route) at its embeddings shape (2 inputs,
 #: the longer 512 tokens), its training shape (b=2, s=2048: K3 splits the
 #: GQA group in 4 on 132 SMs) and that shape at b=1 (8 splits of one
 #: head); checked after the cases above
@@ -1479,8 +1488,8 @@ def _want_dkv_splits(case, sms: int) -> int:
 def phase_bwd_check(torch):
     """K2 and K3 against their plain versions on the forward's cases, the
     training shape at b=1 and Gemma-2B's shapes (its training shape at b=2
-    as the training runs it), each on its own route (at head dim 256 K3 on
-    ``sm90``, K2 on ``simt``; K3 must take the split count
+    as the training runs it), each on its own route (at head dim 256 both
+    on ``sm90`` in half precision; K3 must take the split count
     :func:`_want_dkv_splits` gives). Returns {kernel: max abs error} at the
     training shapes, and the split count at Gemma-2B's."""
     from kubedl_tpu_torch.ops import attention as attn
@@ -1503,10 +1512,9 @@ def phase_bwd_check(torch):
         routes = {"dq": attn.flash_dq_route(q.dtype, case["hd"]),
                   "dkv": attn.flash_dkv_route(q.dtype, case["hd"])}
         if case["hd"] == 256 and case["dtype"] != "float32" \
-                and routes != {"dq": "simt", "dkv": "sm90"}:
+                and routes != {"dq": "sm90", "dkv": "sm90"}:
             raise AssertionError(f"backward case {name}: routes {routes}, "
-                                 f"want dq simt and dkv sm90 at head dim "
-                                 f"256")
+                                 f"want dq and dkv on sm90 at head dim 256")
         o, lse = attn.flash_forward(q, k, v, causal, **kw)
         delta = attn.flash_delta(o, do)
         before = {fn: dict(getattr(attn, f"flash_{fn}").launches_by_route)
@@ -1604,11 +1612,11 @@ def phase_gemma_embed_timing(torch) -> dict:
 def phase_timing(torch, case=TRAIN, seed=400):
     """K1, K2 and K3 at a training shape, each on its own route beside its
     plain version, SDPA (forward for K1, backward for K2 and K3 together:
-    the one library call that computes dq/dk/dv) and its bound (K1 and K3
-    on the ``sm90`` route also beside their earlier design); and Δ, the
+    the one library call that computes dq/dk/dv) and its bound (each on
+    the ``sm90`` route also beside its earlier design); and Δ, the
     PyTorch op the backward runs before K2 and K3. At head dim 256 K3 is
-    also timed at 1, 2, 4 and 8 splits of the GQA group, and two calls
-    must give the same bits."""
+    also timed at 1, 2, 4 and 8 splits of the GQA group, and two calls of
+    K2 and of K3 must give the same bits."""
     from kubedl_tpu_torch.ops import attention as attn
 
     q, k, v, _ = _inputs(torch, case, seed=seed)
@@ -1668,7 +1676,16 @@ def phase_timing(torch, case=TRAIN, seed=400):
     if hd == 256 and routes["flash_dkv"] == "sm90":
         rows["flash_dkv"].update(_dkv_splits_readings(torch, attn, case,
                                                       timed["flash_dkv"][0]))
-    elif hd == 128:
+    if hd == 256 and routes["flash_dq"] == "sm90":
+        first, second = timed["flash_dq"][0](), timed["flash_dq"][0]()
+        torch.cuda.synchronize()
+        same = torch.equal(first, second)
+        log(f"[time] flash_dq at {_shape(case)}: two calls bit for bit: "
+            f"{same}")
+        if not same:
+            raise AssertionError("flash_dq gave other bits on a second call")
+        rows["flash_dq"]["repeats_bit_for_bit"] = same
+    if hd == 128:
         log("[time] hd-128 kernels against their earlier readings in "
             "PERF.md (H100 80GB HBM3, 700 W): " + ", ".join(
                 f"{n} {rows[n]['ms']:.4f} ms (earlier {ms:.4f} ms, "
@@ -1741,10 +1758,8 @@ def model_flops_per_token(cfg, seq: int) -> float:
             + 12.0 * cfg.n_layers * cfg.hd * cfg.n_heads * (seq / 2))
 
 
-#: every kernel on the tensor cores (Llama, hd 128)
+#: every kernel on the tensor cores (Llama at hd 128, Gemma at hd 256)
 ALL_SM90 = {"flash_forward": "sm90", "flash_dq": "sm90", "flash_dkv": "sm90"}
-#: Gemma (hd 256): K1 and K3 on the tensor cores, K2 on the CUDA cores
-GEMMA_ROUTES = {**ALL_SM90, "flash_dq": "simt"}
 
 
 def _train_run(torch, tag, cfg_path, cfg, routes, mfu=True) -> dict:
@@ -1832,12 +1847,12 @@ def phase_training(torch):
 
 def phase_gemma_training(torch) -> dict:
     """``python -m kubedl_tpu_torch.train`` on ``gemma.gemma_2b`` at full
-    width and depth, b=2 s=2048, 3 steps: at head dim 256 every K1 and K3
-    launch takes the ``sm90`` route and every K2 launch ``simt``."""
+    width and depth, b=2 s=2048, 3 steps: at head dim 256 every K1, K2
+    and K3 launch takes the ``sm90`` route."""
     cfg_path, _, cfg = _train_config("gemma_train", model="gemma.gemma_2b",
                                      vocab=256128, overrides={}, batch=2,
                                      steps=3)
-    return _train_run(torch, "gtrain", cfg_path, cfg, GEMMA_ROUTES)
+    return _train_run(torch, "gtrain", cfg_path, cfg, ALL_SM90)
 
 
 LORA_RANK = 16
@@ -1962,11 +1977,11 @@ def phase_grad_check(torch, cfg, tokens, routes=ALL_SM90, tag="grad"):
 
 def phase_gemma_grad_check(torch):
     """``phase_grad_check`` on Gemma-2B at full width, 2 layers deep, b=1
-    s=2048: K1 and K3 on ``sm90``, K2 on ``simt``."""
+    s=2048: K1, K2 and K3 on ``sm90``."""
     _, tokens, cfg = _train_config("gemma_grad", model="gemma.gemma_2b",
                                    vocab=256128, overrides={"n_layers": 2},
                                    batch=1, steps=1)
-    phase_grad_check(torch, cfg, tokens, GEMMA_ROUTES, tag="ggrad")
+    phase_grad_check(torch, cfg, tokens, ALL_SM90, tag="ggrad")
 
 
 def main() -> int:
@@ -2059,9 +2074,8 @@ def main() -> int:
         gemma_embeddings=gemma["embeddings_launches"])
 
     def gemma_row(name, err, **extra):
-        """The kernel at Gemma-2B's shapes (head dim 256: K1 and K3 on
-        ``sm90``, K2 on ``simt``): its training shape and, for K1, its
-        embeddings shape."""
+        """The kernel at Gemma-2B's shapes (head dim 256, ``sm90``): its
+        training shape and, for K1, its embeddings shape."""
         route = gtimes[name]["kernel_route"]
         row = {"shape": _shape(GEMMA_TRAIN), "max_abs_err": err, **extra,
                "kernel_route": route,

@@ -1,6 +1,5 @@
 // FlashAttention-2 backward on Hopper's tensor cores (sm_90a): dQ (K2) and
-// dK/dV (K3) for bf16 and f16 at head dims 64 and 128, and K3 at head dim
-// 256 (Gemma).
+// dK/dV (K3) for bf16 and f16 at head dims 64, 128 and 256 (Gemma).
 //
 // Replaces the TPU kernels kubedl_tpu/ops/attention.py:_flash_dq_kernel and
 // _flash_dkv_kernel (launched by _flash_backward through pl.pallas_call) on
@@ -71,6 +70,36 @@
 //     atomics: two calls give the same bits.
 // Bound at that shape: 8 * 256 operations per kept pair, 0.0695 ms at 989
 // TFLOP/s; the duplicated S^T adds a quarter.
+//
+// K2 at head dim 256 (flash_dq256_kernel) cannot keep the hd-128 layout
+// either, where each warpgroup holds the whole dQ row of its 64 q rows:
+//   * registers: that dQ is 128 f32 registers a thread at hd 256, beside S
+//     and dP (32 each) and the packed dS (16): ~208 before addresses;
+//   * shared memory: Q and dO at 128 rows are 2 x 64 KB, and two stages
+//     of 64-key K and V tiles 2 x 64 KB, 256 KB against the 227 KB a
+//     block may have.
+// So the block takes 64 q rows, and both consumer warpgroups own all of
+// them. Per K/V tile warpgroup 0 computes S = Q.K^T and warpgroup 1 dP =
+// dO.V^T (each m64n64k16 from shared memory over k = 256). They swap the
+// two f32 tiles through shared memory: both hold the wgmma fragment
+// layout, so thread t reads what thread t of the other wrote, and two
+// named barriers order the writes and reads. Each then forms P and dS in
+// registers, and warpgroup w sums dQ[:, 128w : 128w + 128] += dS.K, one
+// m64n128k16 per 16 keys with K's descriptor moved by two 64-column
+// boxes. No product is done twice: three 64 x 64 x 256 products per tile,
+// 1.5 per warpgroup.
+//   * registers: the dQ half (64), S or dP and the other's tile (32
+//     each), dS packed (16): ~144 before addresses, of the 240 setmaxnreg
+//     gives (the producer warpgroup keeps 24);
+//   * shared memory: Q and dO 2 x 32 KB, two stages of K and V 2 x 64 KB,
+//     the swap 2 x 16 KB, lse and delta 512 B: 225 KB, 230,952 bytes
+//     with the barriers and the 1 KB alignment, under the 232,448 a block
+//     may have;
+//   * grid: b*nh x sq/64, 512 blocks at Gemma-2B's training shape
+//     (b = 2, nh = 8, s = 2048) on 132 SMs, heaviest q tiles first.
+// Bound at that shape: 6 * 256 operations per kept pair, 0.0521 ms at 989
+// TFLOP/s. Each 64-row tile reads its K/V tiles (64 KB per 64 keys) from
+// L2 twice as often per q row as the hd-128 kernel does.
 
 #include "flash_common.cuh"
 
@@ -123,12 +152,15 @@ template <int HD> struct DkvSmem {
   static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
 };
 
+// K2's: Q and dO resident, STAGES of K and V, at head dim 256 the two f32
+// tiles the warpgroups swap (XS: S, then dP), then lse/delta rows
 template <int HD> struct DqSmem {
-  static constexpr int BQ = 128, BK = 64;
+  static constexpr int BQ = HD == 256 ? 64 : 128, BK = 64;
   static constexpr int Q = BQ * HD * 2, KV = BK * HD * 2;
+  static constexpr int X = HD == 256 ? BQ * BK * 4 : 0;
   static constexpr int QS = 0, OS = Q, KS = 2 * Q, VS = KS + STAGES * KV;
-  static constexpr int LSE = VS + STAGES * KV, DLT = LSE + BQ * 4;
-  static constexpr int BAR = DLT + BQ * 4;
+  static constexpr int XS = VS + STAGES * KV, LSE = XS + 2 * X;
+  static constexpr int DLT = LSE + BQ * 4, BAR = DLT + BQ * 4;
   static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
 };
 
@@ -149,13 +181,14 @@ __device__ __forceinline__ void dkv_q_tiles(const Params& p, int k0,
   *span = max(0, up - lo);
 }
 
-// the barriers at kv_full: K/V loaded once, then each stage's full/empty
-__device__ __forceinline__ void dkv_init_barriers(uint64_t* kv_full) {
+// the barriers at bar: the resident tiles (K3's K/V, K2's Q/dO) loaded
+// once, then each stage's full/empty
+__device__ __forceinline__ void init_barriers(uint64_t* bar) {
   if (threadIdx.x == 0) {
-    sm90::mbar_init(kv_full, 1);
+    sm90::mbar_init(bar, 1);
     for (int s = 0; s < STAGES; ++s) {
-      sm90::mbar_init(kv_full + 1 + s, 1);
-      sm90::mbar_init(kv_full + 1 + STAGES + s, 8);   // one per consumer warp
+      sm90::mbar_init(bar + 1 + s, 1);
+      sm90::mbar_init(bar + 1 + STAGES + s, 8);   // one per consumer warp
     }
     sm90::mbar_fence_init();
   }
@@ -278,7 +311,7 @@ flash_dkv_kernel(const __grid_constant__ Params p) {
   int lower, span;
   dkv_q_tiles<BQ, BK>(p, k0, &lower, &span);
   const int n_iter = reps * span;
-  dkv_init_barriers(kv_full);
+  init_barriers(kv_full);
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
@@ -418,7 +451,7 @@ flash_dkv256_kernel(const __grid_constant__ Params p) {
   int lower, span;
   dkv_q_tiles<BQ, BK>(p, k0, &lower, &span);
   const int n_iter = hps * span;
-  dkv_init_barriers(kv_full);
+  init_barriers(kv_full);
 
   // the warpgroup index read from lane 0: uniform to the compiler, which
   // then keeps the wgmma pipeline in the branch on it
@@ -556,16 +589,123 @@ __global__ void dkv_reduce_kernel(const float* ws, void* dk, void* dv,
                                               sm90::pack2<F16>(sum.z, sum.w));
 }
 
-// K2: one block per (b*nh, 128-row q tile), heaviest q tiles first. Q, dO,
-// lse and delta stay resident; the producer streams the K/V tiles inside
-// the causal and window bounds (every tile with global offsets). Each
+// K2's shared pieces: both kernels take one block per (b*nh, q tile),
+// heaviest q tiles first, and stream the K/V tiles [lower, lower + n_iter)
+// inside the causal and window bounds (every tile with global offsets).
+template <int BQ, int BK>
+__device__ __forceinline__ int dq_q_tile(const Params& p, int* lower,
+                                         int* n_iter) {
+  const int qt = p.causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y)
+                          : static_cast<int>(blockIdx.y);
+  const int num_kb = (p.sk + BK - 1) / BK;
+  int lo = 0, up = num_kb;
+  if (p.causal && !p.has_off) {
+    up = min(num_kb, ((qt + 1) * BQ + BK - 1) / BK);
+    if (p.window > 0) {
+      const int first_col = qt * BQ - (p.window - 1);
+      lo = first_col > 0 ? first_col / BK : 0;
+    }
+  }
+  *lower = lo;
+  *n_iter = max(0, up - lo);
+  return qt;
+}
+
+// the producer warp: the q tile's lse and delta rows, Q and dO once, then
+// every streamed K/V tile into the stage ring
+template <class L, int HD>
+__device__ __forceinline__ void dq_produce(const Params& p, uint8_t* sm,
+                                           int bi, int h, int kvh, int q0,
+                                           int lower, int n_iter, int lane) {
+  constexpr int BK = L::BK, BQ = L::BQ, NB = HD / 64;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+  copy_rows(p, bi * p.nh + h, q0, BQ, reinterpret_cast<float*>(sm + L::LSE),
+            reinterpret_cast<float*>(sm + L::DLT), lane);
+  if (lane != 0) return;
+  sm90::mbar_expect_tx(q_full, 2 * L::Q);
+  for (int nb = 0; nb < NB; ++nb) {
+    sm90::tma_load_4d(sm + L::QS + nb * BQ * 128, &p.tm_q, q_full, nb * 64,
+                      q0, h, bi);
+    sm90::tma_load_4d(sm + L::OS + nb * BQ * 128, &p.tm_o, q_full, nb * 64,
+                      q0, h, bi);
+  }
+  for (int it = 0; it < n_iter; ++it) {
+    const int st = it % STAGES;
+    sm90::mbar_wait(empty + st, ((it / STAGES) & 1) ^ 1);
+    const int k0 = (lower + it) * BK;
+    sm90::mbar_expect_tx(full + st, 2 * L::KV);
+    for (int nb = 0; nb < NB; ++nb) {
+      sm90::tma_load_4d(sm + L::KS + st * L::KV + nb * BK * 128, &p.tm_k,
+                        full + st, nb * 64, k0, kvh, bi);
+      sm90::tma_load_4d(sm + L::VS + st * L::KV + nb * BK * 128, &p.tm_v,
+                        full + st, nb * 64, k0, kvh, bi);
+    }
+  }
+}
+
+// a consumer thread's lse (log2 units), delta and segment id of its two q
+// rows qr0 and qr0 + 8 (r the first's index in the tile)
+template <class L>
+__device__ __forceinline__ void dq_rows(const Params& p, const uint8_t* sm,
+                                        int bi, int qr0, int r, float (&l2)[2],
+                                        float (&dlt)[2], int (&seg_q)[2]) {
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l2[i] = reinterpret_cast<const float*>(sm + L::LSE)[r + 8 * i];
+    dlt[i] = reinterpret_cast<const float*>(sm + L::DLT)[r + 8 * i];
+    seg_q[i] = p.seg != nullptr && qr0 + 8 * i < p.sq
+        ? p.seg[bi * p.sq + qr0 + 8 * i] : 0;
+  }
+}
+
+// P of one (q row, key) element from its S score, as p_elem with rows and
+// columns swapped: the row's segment is held, the key's read; keys past
+// sk get p = 0 (rows past sq have dO = 0 and delta = 0, so dS = 0)
+__device__ __forceinline__ float dq_p_elem(const Params& p, bool plain,
+                                           float s, float l2, int qr, int kc,
+                                           int seg_q, int bi, float scale_l2,
+                                           float neg_l2) {
+  if (plain) return sm90::exp2_approx(fmaf(s, scale_l2, -l2));
+  bool keep = keep_pair(p, qr, kc);
+  if (p.seg != nullptr)
+    keep = keep && seg_q == p.seg[bi * p.sk + min(kc, p.sk - 1)];
+  const float x = keep ? fmaf(s, scale_l2, -l2) : neg_l2 - l2;
+  return kc < p.sk ? sm90::exp2_approx(x) : 0.f;
+}
+
+// a consumer thread's share of dQ's columns [c0, c0 + N) (rows qr0 and
+// qr0 + 8, columns c0 + 8j + cq + {0, 1}) times the scale, in the operand
+// type
+template <bool F16, int N>
+__device__ __forceinline__ void dq_store(const Params& p,
+                                         const float (&acc)[N / 2], int bi,
+                                         int h, int qr0, int c0, int cq,
+                                         int hd) {
+  using T = typename Elem<F16>::T;
+  T* dqp = static_cast<T*>(p.dq);
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = qr0 + 8 * i;
+    if (qr >= p.sq) continue;
+    const int64_t at =
+        ((static_cast<int64_t>(bi) * p.sq + qr) * p.nh + h) * hd + c0 + cq;
+    #pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dqp + at + 8 * j) = sm90::pack2<F16>(
+          acc[4 * j + 2 * i] * p.scale, acc[4 * j + 2 * i + 1] * p.scale);
+  }
+}
+
+// K2 at head dims 64 and 128: one block per (b*nh, 128-row q tile). Q, dO,
+// lse and delta stay resident; the producer streams the K/V tiles. Each
 // consumer warpgroup owns 64 q rows.
 template <bool F16, int HD>
 __global__ void __launch_bounds__(NT, 1)
 flash_dq_kernel(const __grid_constant__ Params p) {
   using L = DqSmem<HD>;
-  using T = typename Elem<F16>::T;
-  constexpr int BK = L::BK, BQ = L::BQ, NB = HD / 64;
+  constexpr int BK = L::BK, BQ = L::BQ;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
@@ -574,60 +714,16 @@ flash_dq_kernel(const __grid_constant__ Params p) {
 
   const int bh = blockIdx.x;
   const int bi = bh / p.nh, h = bh % p.nh, kvh = h / (p.nh / p.nkv);
-  const int num_qt = gridDim.y;
-  const int qt = p.causal ? num_qt - 1 - static_cast<int>(blockIdx.y)
-                          : static_cast<int>(blockIdx.y);
-  const int q0 = qt * BQ;
-  const int num_kb = (p.sk + BK - 1) / BK;
-  int lower = 0, upper = num_kb;
-  if (p.causal && !p.has_off) {
-    upper = min(num_kb, ((qt + 1) * BQ + BK - 1) / BK);
-    if (p.window > 0) {
-      const int first_col = qt * BQ - (p.window - 1);
-      lower = first_col > 0 ? first_col / BK : 0;
-    }
-  }
-  const int n_iter = max(0, upper - lower);
-
-  if (threadIdx.x == 0) {
-    sm90::mbar_init(q_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
-      sm90::mbar_init(full + s, 1);
-      sm90::mbar_init(empty + s, 8);
-    }
-    sm90::mbar_fence_init();
-  }
-  __syncthreads();
+  int lower, n_iter;
+  const int q0 = dq_q_tile<BQ, BK>(p, &lower, &n_iter) * BQ;
+  init_barriers(q_full);
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x / 32 == 8) {             // the producer warp
-      const int lane = threadIdx.x % 32;
-      copy_rows(p, bh, q0, BQ, reinterpret_cast<float*>(sm + L::LSE),
-                reinterpret_cast<float*>(sm + L::DLT), lane);
-      if (lane == 0) {
-        sm90::mbar_expect_tx(q_full, 2 * L::Q);
-        for (int nb = 0; nb < NB; ++nb) {
-          sm90::tma_load_4d(sm + L::QS + nb * BQ * 128, &p.tm_q, q_full,
-                            nb * 64, q0, h, bi);
-          sm90::tma_load_4d(sm + L::OS + nb * BQ * 128, &p.tm_o, q_full,
-                            nb * 64, q0, h, bi);
-        }
-        for (int it = 0; it < n_iter; ++it) {
-          const int st = it % STAGES;
-          sm90::mbar_wait(empty + st, ((it / STAGES) & 1) ^ 1);
-          const int k0 = (lower + it) * BK;
-          sm90::mbar_expect_tx(full + st, 2 * L::KV);
-          for (int nb = 0; nb < NB; ++nb) {
-            sm90::tma_load_4d(sm + L::KS + st * L::KV + nb * BK * 128, &p.tm_k,
-                              full + st, nb * 64, k0, kvh, bi);
-            sm90::tma_load_4d(sm + L::VS + st * L::KV + nb * BK * 128, &p.tm_v,
-                              full + st, nb * 64, k0, kvh, bi);
-          }
-        }
-      }
-    }
+    if (threadIdx.x / 32 == 8)               // the producer warp
+      dq_produce<L, HD>(p, sm, bi, h, kvh, q0, lower, n_iter,
+                        threadIdx.x % 32);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
@@ -644,14 +740,8 @@ flash_dq_kernel(const __grid_constant__ Params p) {
     sm90::mbar_wait(q_full, 0);
     // lse and delta run along the rows: two rows per thread
     float l2[2], dlt[2];
-    int seg_q[2] = {0, 0};
-    #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = 64 * wg + r0 + 8 * i;
-      l2[i] = reinterpret_cast<const float*>(sm + L::LSE)[r];
-      dlt[i] = reinterpret_cast<const float*>(sm + L::DLT)[r];
-      if (p.seg != nullptr && q0 + r < p.sq) seg_q[i] = p.seg[bi * p.sq + q0 + r];
-    }
+    int seg_q[2];
+    dq_rows<L>(p, sm, bi, qw0 + r0, 64 * wg + r0, l2, dlt, seg_q);
 
     for (int it = 0; it < n_iter; ++it) {
       const int st = it % STAGES;
@@ -689,18 +779,9 @@ flash_dq_kernel(const __grid_constant__ Params p) {
       #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int row = (i >> 1) & 1;
-        if (plain) {
-          s[i] = sm90::exp2_approx(fmaf(s[i], scale_l2, -l2[row]));
-        } else {
-          // branch-free, as in K3; keys past sk get p = 0
-          const int kc = k0 + 8 * (i / 4) + cq + (i & 1);
-          const int qr = qw0 + r0 + 8 * row;
-          bool keep = keep_pair(p, qr, kc);
-          if (p.seg != nullptr)
-            keep = keep && seg_q[row] == p.seg[bi * p.sk + min(kc, p.sk - 1)];
-          const float x = keep ? fmaf(s[i], scale_l2, -l2[row]) : neg_l2 - l2[row];
-          s[i] = kc < p.sk ? sm90::exp2_approx(x) : 0.f;
-        }
+        s[i] = dq_p_elem(p, plain, s[i], l2[row], qw0 + r0 + 8 * row,
+                         k0 + 8 * (i / 4) + cq + (i & 1), seg_q[row], bi,
+                         scale_l2, neg_l2);
       }
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dp);
@@ -729,17 +810,145 @@ flash_dq_kernel(const __grid_constant__ Params p) {
       if (lane == 0) sm90::mbar_arrive(empty + st);
     }
 
-    T* dqp = static_cast<T*>(p.dq);
+    dq_store<F16, HD>(p, dq, bi, h, qw0 + r0, 0, cq, HD);
+  }
+}
+
+// K2 at head dim 256 (the design in the header): one block per (b*nh,
+// 64-row q tile); both consumer warpgroups own all 64 rows, warpgroup 0
+// computes S and warpgroup 1 dP, and warpgroup w sums dQ's columns
+// [128w, 128w + 128).
+template <bool F16>
+__global__ void __launch_bounds__(NT, 1)
+flash_dq256_kernel(const __grid_constant__ Params p) {
+  constexpr int HD = 256;
+  using L = DqSmem<HD>;
+  constexpr int BK = L::BK, BQ = L::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.x;
+  const int bi = bh / p.nh, h = bh % p.nh, kvh = h / (p.nh / p.nkv);
+  int lower, n_iter;
+  const int q0 = dq_q_tile<BQ, BK>(p, &lower, &n_iter) * BQ;
+  init_barriers(q_full);
+
+  // the warpgroup index read from lane 0: uniform to the compiler, which
+  // then keeps the wgmma pipeline in the branch on it
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x / 32 == 8)               // the producer warp
+      dq_produce<L, HD>(p, sm, bi, h, kvh, q0, lower, n_iter,
+                        threadIdx.x % 32);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int r0 = 16 * warp + lane / 4;     // my q rows: r0 and r0 + 8
+    const int cq = 2 * (lane % 4);
+    const float scale_l2 = p.scale * LOG2E;
+    const float neg_l2 = __fmul_rn(NEG_INF, LOG2E);   // see copy_rows
+    // the A operand: Q (warpgroup 0, for S) or dO (warpgroup 1, for dP)
+    const uint32_t a_u = sm90::smem_u32(sm + (wg == 0 ? L::QS : L::OS));
+    // the swap: float4 j of thread t at [j * 128 + t] of its tile, so a
+    // warp's stores and loads are 512 contiguous bytes
+    float4* mine = reinterpret_cast<float4*>(sm + L::XS + wg * L::X) + tid;
+    const float4* theirs =
+        reinterpret_cast<const float4*>(sm + L::XS + (1 - wg) * L::X) + tid;
+    float dq[64];                            // dQ[:, 128 wg : 128 wg + 128]
     #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qr = qw0 + r0 + 8 * i;
-      if (qr >= p.sq) continue;
-      const int64_t at = ((static_cast<int64_t>(bi) * p.sq + qr) * p.nh + h) * HD;
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    sm90::mbar_wait(q_full, 0);
+    float l2[2], dlt[2];
+    int seg_q[2];
+    dq_rows<L>(p, sm, bi, q0 + r0, r0, l2, dlt, seg_q);
+
+    for (int it = 0; it < n_iter; ++it) {
+      const int st = it % STAGES;
+      sm90::mbar_wait(full + st, (it / STAGES) & 1);
+      const int k0 = (lower + it) * BK;
+      const uint32_t k_u = sm90::smem_u32(sm + L::KS + st * L::KV);
+      const uint32_t b_u =
+          wg == 0 ? k_u : sm90::smem_u32(sm + L::VS + st * L::KV);
+
+      // S = Q . K^T (warpgroup 0) or dP = dO . V^T, [64 q rows x 64 keys]
+      float x[32];
+      __syncwarp();
+      sm90::wgmma_fence();
       #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-        *reinterpret_cast<uint32_t*>(dqp + at + 8 * j + cq) = sm90::pack2<F16>(
-            dq[4 * j + 2 * i] * p.scale, dq[4 * j + 2 * i + 1] * p.scale);
+      for (int k = 0; k < HD / 16; ++k) {
+        const uint32_t off_a = (k / 4) * BQ * 128 + (k % 4) * 32;
+        const uint32_t off_b = (k / 4) * BK * 128 + (k % 4) * 32;
+        sm90::wgmma_ss_n64<F16>(x, sm90::desc_sw128(a_u + off_a, 16, 1024),
+                                sm90::desc_sw128(b_u + off_b, 16, 1024), k);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(x);
+
+      // the swap: barrier 2 waits until the other warpgroup has read the
+      // last tile's values, barrier 1 until it has written this tile's
+      if (it > 0) sm90::bar_sync(2, 256);
+      #pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mine[j * 128] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2],
+                                    x[4 * j + 3]);
+      sm90::bar_sync(1, 256);
+      float y[32];
+      #pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 t = theirs[j * 128];
+        y[4 * j] = t.x; y[4 * j + 1] = t.y; y[4 * j + 2] = t.z;
+        y[4 * j + 3] = t.w;
+      }
+
+      // P and dS = P (dP - delta) in registers, the same in both
+      // warpgroups; lse and delta run along the rows
+      const bool plain = tile_unmasked(p, q0, BQ, k0, BK);
+      uint32_t da[16];
+      #pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int row = j & 1;
+        float ds[2];
+        #pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * j + e;
+          const float sv = wg == 0 ? x[i] : y[i];
+          const float dpv = wg == 0 ? y[i] : x[i];
+          const float pv = dq_p_elem(p, plain, sv, l2[row],
+                                     q0 + r0 + 8 * row,
+                                     k0 + 8 * (j / 2) + cq + e, seg_q[row],
+                                     bi, scale_l2, neg_l2);
+          ds[e] = pv * (dpv - dlt[row]);
+        }
+        da[j] = sm90::pack2<F16>(ds[0], ds[1]);
+      }
+
+      // dQ[:, 128 wg : 128 wg + 128] += dS . K over the tile's 64 keys:
+      // K read MN-major from its boxes 2 wg and 2 wg + 1
+      __syncwarp();
+      sm90::wgmma_fence();
+      sm90::fence_regs(dq);
+      sm90::fence_regs(da);
+      #pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs_tn<F16, 128>(
+            dq, da + 4 * kk,
+            sm90::desc_sw128(k_u + wg * 2 * BK * 128 + kk * 2048, BK * 128,
+                             1024),
+            1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dq);
+      sm90::fence_regs(da);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(empty + st);
     }
+
+    dq_store<F16, 128>(p, dq, bi, h, q0 + r0, 128 * wg, cq, HD);
   }
 }
 
@@ -801,6 +1010,22 @@ cudaError_t launch_dkv256(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// K2 at hd 256
+template <bool F16>
+cudaError_t launch_dq256(const Args& a, cudaStream_t stream) {
+  using L = DqSmem<256>;
+  static_assert(L::BYTES <= 227 * 1024, "the tiles do not fit the SM");
+  Params p;
+  if (!make_params(a, L::BQ, L::BK, &p)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dq256_kernel<F16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.b * a.nh, (a.sq + L::BQ - 1) / L::BQ);
+  flash_dq256_kernel<F16><<<grid, NT, L::BYTES, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <bool F16, int HD>
 cudaError_t launch(const Args& a, bool dkv, cudaStream_t stream) {
   Params p;
@@ -827,27 +1052,29 @@ cudaError_t launch(const Args& a, bool dkv, cudaStream_t stream) {
 }
 
 int run(const Args& a, bool dkv, void* stream) {
-  // the route takes half precision at head dims 64 and 128, K3 also at
-  // 256, where it alone splits the GQA group (splits dividing it, with a
-  // workspace); TMA wants 16-byte aligned bases and strides
+  // the route takes half precision at head dims 64, 128 and 256, where
+  // K3 alone splits the GQA group (splits dividing it, with a workspace);
+  // TMA wants 16-byte aligned bases and strides
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k)
         | reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout))
        & 15) == 0
       && ((a.q_sb | a.q_ss | a.q_sh | a.k_sb | a.k_ss | a.k_sh | a.v_sb | a.v_ss
            | a.v_sh | a.o_sb | a.o_ss | a.o_sh) & 7) == 0;
-  const bool hd256 = dkv && a.hd == 256;
+  const bool hd256 = a.hd == 256;
   if ((a.dtype != 1 && a.dtype != 2) || (a.hd != 64 && a.hd != 128 && !hd256)
       || a.nkv < 1 || a.nh % a.nkv != 0 || !aligned)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.splits != 1
-      && !(hd256 && a.splits > 1 && (a.nh / a.nkv) % a.splits == 0
+      && !(dkv && hd256 && a.splits > 1 && (a.nh / a.nkv) % a.splits == 0
            && a.ws != nullptr && (reinterpret_cast<uintptr_t>(a.ws) & 15) == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (hd256)
+  if (hd256 && dkv)
     err = a.dtype == 1 ? launch_dkv256<false>(a, s) : launch_dkv256<true>(a, s);
+  else if (hd256)
+    err = a.dtype == 1 ? launch_dq256<false>(a, s) : launch_dq256<true>(a, s);
   else if (a.dtype == 1)
     err = a.hd == 64 ? launch<false, 64>(a, dkv, s) : launch<false, 128>(a, dkv, s);
   else
@@ -859,8 +1086,8 @@ int run(const Args& a, bool dkv, void* stream) {
 
 extern "C" {
 
-// dQ: the same arguments as flash_bwd.cu's. dtype: 1 bfloat16, 2 float16.
-// Returns a cudaError_t (0 = ok).
+// dQ: the same arguments as flash_bwd.cu's, at head dims 64, 128 and 256.
+// dtype: 1 bfloat16, 2 float16. Returns a cudaError_t (0 = ok).
 int kubedl_flash_bwd90_dq(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse, const void* delta,
                           const void* seg, void* dq, int dtype, int b, int sq,

@@ -234,11 +234,6 @@ __device__ __forceinline__ int2 wg_tiles(const Params& p, int qw0, int lower,
   return make_int2(a, b);
 }
 
-// a named barrier over n threads (id 0 is __syncthreads')
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
 // A persistent grid: each block takes (b*nh, BQ-row q) tiles in turn, so
 // one tile's epilogue and the next one's Q load overlap the K/V stream,
 // which runs on across tiles. The tiles are ordered heaviest
@@ -501,7 +496,7 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
                               : m2[r] * LN2 + logf(safe);
       }
       sm90::fence_proxy_async();
-      bar_sync(1 + wg, 128);
+      sm90::bar_sync(1 + wg, 128);
       if (tid == 0) {
         for (int nb = 0; nb < NB; ++nb)
           sm90::tma_store_4d(&p.tm_o, q_rows + nb * BQ * 128, nb * 64, qw0,

@@ -61,6 +61,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// a named barrier over n threads (id 0 is __syncthreads'): it also orders
+// their shared-memory writes before it against their reads after it
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
 // --------------------------------------------------------------------- TMA
 
 // a box of a rank-4 tensor map into shared memory; completion counts

@@ -11,9 +11,8 @@ Counterpart of ``kubedl_tpu/ops/attention.py``, same layouts (q
   kernel (:func:`flash_fwd_route`, :func:`flash_dq_route`,
   :func:`flash_dkv_route`): ``sm90``, the tensor-core sources
   ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu``, for bf16/f16
-  at head dims 64 and 128, and 256 for the forward and dK/dV; ``simt``,
-  ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, for the rest. CUDA
-  tensors only.
+  at head dims 64, 128 and 256; ``simt``, ``csrc/flash_fwd.cu`` and
+  ``csrc/flash_bwd.cu``, for the rest. CUDA tensors only.
 * ``plain`` — the same Function on CPU tensors, where every wrapper runs
   its kernel's plain version: the CI path for the kernels' arithmetic
   (the counterpart of ``impl="pallas_interpret"``).
@@ -468,9 +467,10 @@ def flash_backward_plain(q, k, v, o, lse, do, causal, segment_ids=None,
 
 def flash_dq_route(dtype, hd: int) -> str:
     """Which source a dQ (K2) launch takes: ``"sm90"``
-    (``csrc/flash_bwd_sm90.cu``) for bf16/f16 at head dims 64 and 128,
-    else ``"simt"`` (``csrc/flash_bwd.cu``)."""
-    return _route(dtype, hd, (64, 128))
+    (``csrc/flash_bwd_sm90.cu``) for bf16/f16 at head dims 64, 128 and
+    256 (at 256 its own kernel: 64-row q tiles, the two warpgroups
+    splitting dQ's columns), else ``"simt"`` (``csrc/flash_bwd.cu``)."""
+    return _route(dtype, hd, (64, 128, 256))
 
 
 def flash_dkv_route(dtype, hd: int) -> str:

@@ -74,13 +74,17 @@ CASES = {
     "bf16": dict(causal=True, nh=4, nkv=2, dtype="bfloat16"),
     "bf16_window": dict(causal=True, window=64, dtype="bfloat16"),
     # Gemma's head dim 256: Gemma-2B's MQA (4 query heads on 1 kv head),
-    # Gemma-7B's MHA, and rows that see no key at that width
+    # Gemma-7B's MHA, rows that see no key at that width, and the window
+    # and segment masks every backward kernel takes there
     "hd256_mqa": dict(causal=True, nh=4, nkv=1, hd=256),
     "hd256_mha": dict(causal=True, nh=2, nkv=2, hd=256),
     "hd256_offsets_masked_rows": dict(causal=True, nh=4, nkv=1, hd=256,
                                       offsets=(0, 128)),
     "hd256_mqa_bf16": dict(causal=True, nh=4, nkv=1, hd=256,
                            dtype="bfloat16"),
+    "hd256_window": dict(causal=True, nh=4, nkv=1, hd=256, window=96),
+    "hd256_segments": dict(causal=True, nh=2, nkv=1, hd=256,
+                           segments=True),
 }
 
 

@@ -1,8 +1,8 @@
 """The port's flash-attention backward kernels on the card, against their
 plain PyTorch versions, and the gradient of a llama attention block
 through them. Both routes are held: the tensor-core kernels
-(``flash_bwd_sm90.cu``, bf16/f16 at head dims 64 and 128, and dK/dV at
-256) and the general ones (``flash_bwd.cu``). A CUDA kernel has no CPU mode, so without a card these
+(``flash_bwd_sm90.cu``, bf16/f16 at head dims 64, 128 and 256) and the
+general ones (``flash_bwd.cu``). A CUDA kernel has no CPU mode, so without a card these
 tests skip. On the card (no JAX there, hence no conftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_flash_bwd_cuda.py
@@ -113,9 +113,10 @@ def test_backward_kernels_match_plain(card, case):
 
 
 #: tensor-core-route cases at the tile edges (K2: 128 q rows x 64 keys,
-#: K3: 128 keys x 64 q rows, at hd 256 64 keys x 64 q rows), on Llama-3-8B's
-#: GQA ratio of 4 and at hd 256 also Gemma-2B's MQA and Gemma-7B's MHA;
-#: ``splits`` fixes how many blocks share a GQA group in K3 at hd 256
+#: K3: 128 keys x 64 q rows, at hd 256 both 64 x 64), on Llama-3-8B's
+#: GQA ratio of 4 and at hd 256 also Gemma-2B's MQA and Gemma-7B's MHA,
+#: and Gemma-2B's training shape at b=1 and b=2; ``splits`` fixes how
+#: many blocks share a GQA group in K3 at hd 256
 SM90_CASES = {
     "ragged_130": dict(sq=130, sk=130),
     "ragged_300": dict(sq=300, sk=300),
@@ -141,6 +142,7 @@ SM90_CASES = {
     "hd256_one_split": dict(hd=256, sq=300, sk=300, nkv=1, splits=1),
     "hd256_two_splits": dict(hd=256, sq=300, sk=300, nkv=1, splits=2),
     "gemma_2b_train_b1": dict(b=1, sq=2048, sk=2048, nh=8, nkv=1, hd=256),
+    "gemma_2b_train": dict(b=2, sq=2048, sk=2048, nh=8, nkv=1, hd=256),
 }
 
 
@@ -150,9 +152,8 @@ def test_tensor_core_route_at_tile_edges(card, case, monkeypatch):
           **SM90_CASES[case]}
     b, sq, sk, nh, nkv, hd = (kw[n] for n in ("b", "sq", "sk", "nh", "nkv",
                                                "hd"))
-    # K3 takes the tensor cores at every head dim here, K2 not at 256
-    dq_route = "simt" if hd == 256 else "sm90"
-    assert attn.flash_dq_route(kw["dtype"], hd) == dq_route
+    # both kernels take the tensor cores at every head dim here
+    assert attn.flash_dq_route(kw["dtype"], hd) == "sm90"
     assert attn.flash_dkv_route(kw["dtype"], hd) == "sm90"
     if "splits" in kw:
         monkeypatch.setattr(attn, "dkv_splits", lambda *a: kw["splits"])
@@ -176,8 +177,7 @@ def test_tensor_core_route_at_tile_edges(card, case, monkeypatch):
               dict(attn.flash_dkv.launches_by_route))
     got = attn.flash_backward(q, k, v, o, lse, do, True, **opts)
     torch.cuda.synchronize()
-    assert attn.flash_dq.launches_by_route[dq_route] \
-        == before[0][dq_route] + 1
+    assert attn.flash_dq.launches_by_route["sm90"] == before[0]["sm90"] + 1
     assert attn.flash_dkv.launches_by_route["sm90"] == before[1]["sm90"] + 1
     want = attn.flash_backward_plain(q, k, v, o, lse, do, True, **opts)
     for name, t, w in zip(("dq", "dk", "dv"), got, want):
@@ -189,11 +189,12 @@ def test_tensor_core_route_at_tile_edges(card, case, monkeypatch):
         assert rel <= NORM_REL[w.dtype], f"{case}: {name} norm-wise {rel}"
 
 
-def test_dkv_repeats_bit_for_bit_at_gemma_2b_shape(card):
-    """K3 at Gemma-2B's training shape splits the GQA group of 8 heads
-    over several blocks and adds their sums in a fixed order, with no
-    atomics: two calls on the same inputs give the same bits, on the
-    sm90 route."""
+@pytest.mark.parametrize("kernel", ["flash_dq", "flash_dkv"])
+def test_dkv_repeats_bit_for_bit_at_gemma_2b_shape(card, kernel):
+    """K2 and K3 at Gemma-2B's training shape sum in a fixed order with
+    no atomics (K3 also splits the GQA group of 8 heads over several
+    blocks and adds their sums in split order): two calls on the same
+    inputs give the same bits, on the sm90 route."""
     b, s, nh, nkv, hd = 2, 2048, 8, 1, 256
     assert attn.dkv_splits(b, nkv, s, nh // nkv, hd, torch.cuda
                            .get_device_properties(card)
@@ -207,12 +208,15 @@ def test_dkv_repeats_bit_for_bit_at_gemma_2b_shape(card):
                    randn(b, s, nkv, hd), randn(b, s, nh, hd))
     o, lse = attn.flash_forward(q, k, v, True)
     delta = attn.flash_delta(o, do)
-    before = dict(attn.flash_dkv.launches_by_route)
-    first = attn.flash_dkv(q, k, v, do, lse, delta, True)
-    second = attn.flash_dkv(q, k, v, do, lse, delta, True)
+    wrapper = getattr(attn, kernel)
+    before = dict(wrapper.launches_by_route)
+    first = wrapper(q, k, v, do, lse, delta, True)
+    second = wrapper(q, k, v, do, lse, delta, True)
     torch.cuda.synchronize()
-    assert attn.flash_dkv.launches_by_route == {
+    assert wrapper.launches_by_route == {
         "sm90": before["sm90"] + 2, "simt": before["simt"]}
+    if kernel == "flash_dq":
+        first, second = (first,), (second,)
     for a, b_ in zip(first, second):
         assert torch.equal(a, b_)
         assert bool(torch.isfinite(a.float()).all())

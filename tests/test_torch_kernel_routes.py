@@ -20,8 +20,8 @@ ROUTES = [
     (torch.float32, 64, {"forward": "simt", "dq": "simt", "dkv": "simt"}),
     (torch.float32, 128, {"forward": "simt", "dq": "simt", "dkv": "simt"}),
     (torch.bfloat16, 80, {"forward": "simt", "dq": "simt", "dkv": "simt"}),
-    (torch.bfloat16, 256, {"forward": "sm90", "dq": "simt", "dkv": "sm90"}),
-    (torch.float16, 256, {"forward": "sm90", "dq": "simt", "dkv": "sm90"}),
+    (torch.bfloat16, 256, {"forward": "sm90", "dq": "sm90", "dkv": "sm90"}),
+    (torch.float16, 256, {"forward": "sm90", "dq": "sm90", "dkv": "sm90"}),
     (torch.bfloat16, 32, {"forward": "simt", "dq": "simt", "dkv": "simt"}),
     (torch.float32, 256, {"forward": "simt", "dq": "simt", "dkv": "simt"}),
     (torch.float16, 80, {"forward": "simt", "dq": "simt", "dkv": "simt"}),
@@ -44,9 +44,8 @@ SOURCES = {
 @pytest.mark.parametrize("dtype,hd,routes", ROUTES, ids=ROUTE_IDS)
 def test_kernel_route(kernel, dtype, hd, routes):
     """bf16/f16 at head dims 64 and 128 (the serving and training paths,
-    every Llama-family config) take the tensor-core kernels; at 256
-    (Gemma) the forward and dK/dV do too, dQ keeps the general kernel;
-    float32 and every other head dim keep the general kernels."""
+    every Llama-family config) and 256 (Gemma) take the tensor-core
+    kernels; float32 and every other head dim keep the general kernels."""
     assert ROUTE_FNS[kernel](dtype, hd) == routes[kernel]
 
 
