@@ -1,1 +1,2 @@
-"""Model families of the port (llama so far) and their artifact I/O."""
+"""Model families of the port (llama, with Gemma's knobs; moe) and their
+artifact I/O."""

@@ -8,9 +8,10 @@ An artifact directory holds
   (``embed``, ``layers/wq`` ...), bfloat16 stored as float32.
 
 So an artifact the JAX package wrote serves unchanged from the port, and
-the port's ``save_model`` writes one the JAX package loads. The llama
-family is ported, Gemma's configs (tied embeddings: no ``lm_head``
-leaf) included; MoE is not yet.
+the port's ``save_model`` writes one the JAX package loads. Both of the
+JAX package's families load: ``llama`` (Llama, Mistral, Qwen2 and
+Gemma, whose tied embeddings leave no ``lm_head`` leaf) and ``moe``
+(Mixtral; stacked experts, a float32 router).
 """
 
 from __future__ import annotations
@@ -25,12 +26,34 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from . import llama
+from . import llama, moe
 
-#: leaves kept in float32 (norm scales, projection biases); everything
-#: else loads at the config dtype
+#: the family modules by their ``config.json`` name; each names its
+#: config class (``CONFIG``)
+FAMILIES = {"llama": llama, "moe": moe}
+
+#: leaves kept in float32 (norm scales, projection biases, the MoE
+#: router); everything else loads at the config dtype
 _F32_LEAVES = {"attn_norm", "mlp_norm", "final_norm",
-               "post_attn_norm", "post_ffw_norm", "bq", "bk", "bv"}
+               "post_attn_norm", "post_ffw_norm", "bq", "bk", "bv",
+               "w_router"}
+
+
+def family_name(config) -> str:
+    """The family whose config class is the nearest class of ``config``
+    (``MoEConfig`` subclasses ``LlamaConfig``)."""
+    names = {fam.CONFIG: name for name, fam in FAMILIES.items()}
+    for cls in type(config).__mro__:
+        if cls in names:
+            return names[cls]
+    raise TypeError(f"no model family for {type(config).__name__}")
+
+
+def family_of(config):
+    """The family module of a config: every family exposes the same
+    ``init_params`` / ``forward`` / ``forward_step`` / ``loss_fn`` ...
+    contract."""
+    return FAMILIES[family_name(config)]
 
 
 def _sha256(path: str) -> str:
@@ -45,7 +68,7 @@ def save_model(config: llama.LlamaConfig, params: dict, path: str) -> None:
     """Write config.json + params.npz under ``path`` (files land under
     their final names only when fully written)."""
     os.makedirs(path, exist_ok=True)
-    doc = {"family": "llama", "config": config.to_dict()}
+    doc = {"family": family_name(config), "config": config.to_dict()}
     flat = {}
     for name, leaf in params.items():
         items = leaf.items() if name == "layers" else [(None, leaf)]
@@ -75,7 +98,7 @@ def params_from_numpy(config: llama.LlamaConfig, tree: dict,
     ``device``: float32 for norms and biases, the config dtype for the
     rest. Keys and shapes are checked against the config."""
     dev = resolve_device(device)
-    shapes = llama.param_shapes(config)
+    shapes = family_of(config).param_shapes(config)
 
     def leaf(name, arr, shape):
         arr = np.asarray(arr)
@@ -111,26 +134,35 @@ def params_from_numpy(config: llama.LlamaConfig, tree: dict,
     return out
 
 
+def _doc(path: str) -> dict:
+    with open(os.path.join(path, "config.json")) as f:
+        return json.load(f)
+
+
+def read_config(path: str) -> llama.LlamaConfig:
+    """The config of a ``save_model`` directory, of its family's class,
+    without its weights."""
+    doc = _doc(path)
+    family = doc.get("family", "llama")
+    if family not in FAMILIES:
+        raise ValueError(f"unknown model family {family!r} in {path}; one "
+                         f"of {sorted(FAMILIES)}")
+    cls = FAMILIES[family].CONFIG
+    fields = {f.name for f in dataclasses.fields(cls)}
+    raw = {k: v for k, v in doc["config"].items() if k in fields}
+    raw["dtype"] = raw.get("dtype", "bfloat16")
+    return cls(**raw)
+
+
 def load_model(path: str, device=None) -> Tuple[llama.LlamaConfig, dict]:
     """(config, params on ``device``) from a ``save_model`` directory —
     the JAX package's or the port's. A ``params_sha256`` mismatch means a
     corrupt or partial copy and raises."""
-    with open(os.path.join(path, "config.json")) as f:
-        doc = json.load(f)
-    family = doc.get("family", "llama")
-    if family != "llama":
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet: only the llama "
-            "family (Llama, Mistral, Qwen2, Gemma) loads in the port "
-            "(MoE is ROADMAP A4c)")
-    fields = {f.name for f in dataclasses.fields(llama.LlamaConfig)}
-    raw = {k: v for k, v in doc["config"].items() if k in fields}
-    raw["dtype"] = raw.get("dtype", "bfloat16")
-    config = llama.LlamaConfig(**raw)
+    config = read_config(path)
     dev = resolve_device(device)
 
     npz = os.path.join(path, "params.npz")
-    want_sha = doc.get("params_sha256")
+    want_sha = _doc(path).get("params_sha256")
     if want_sha and _sha256(npz) != want_sha:
         raise ValueError(
             f"params.npz checksum mismatch in {path}: the artifact is "

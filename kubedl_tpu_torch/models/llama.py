@@ -132,6 +132,13 @@ class LlamaConfig:
 
 # -- canonical configs -------------------------------------------------------
 
+#: the family's config class (``models.io`` finds a config's family by it)
+CONFIG = LlamaConfig
+#: ``/v1/embeddings`` pads a batch to its longest input: padding sits after
+#: the real tokens and attention is causal, so it changes nothing
+EMBED_BUCKET = None
+
+
 def llama3_8b() -> LlamaConfig:
     return LlamaConfig(vocab_size=128256, d_model=4096, n_layers=32,
                        n_heads=32, n_kv_heads=8, d_ff=14336)
@@ -667,24 +674,31 @@ def forward_step(config: LlamaConfig, params: dict, tokens, cache: dict,
     return _softcap(c, logits)[:, 0], cache
 
 
-def paged_layer_body(tables):
+def paged_layer_body(tables, inner_body=None):
     """A per-layer decode body with ``_layer_step``'s signature whose KV
     reads and writes go through a block pool. ``tables`` [b,
     blocks_per_row] int64 maps each row's logical block to a physical
     pool block. Rows sharing blocks (copy-on-write prefixes) never write
     inside a shared block — the host scheduler guarantees it — and
-    duplicate sink entries only ever receive causally invisible data."""
+    duplicate sink entries only ever receive causally invisible data.
+
+    ``inner_body`` (default ``_layer_step``) is the per-layer body to
+    wrap, another family's (MoE's) included: it takes ``_layer_step``'s
+    arguments and the ``tables=`` keyword, which it hands to
+    :func:`attention_step`."""
+    inner = inner_body or _layer_step
 
     def body(c, x, lp, kp, vp, cos, sin, start_pos, valid=None, *rest):
-        return _layer_step(c, x, lp, kp, vp, cos, sin, start_pos, valid,
-                           *rest, tables=tables)
+        return inner(c, x, lp, kp, vp, cos, sin, start_pos, valid, *rest,
+                     tables=tables)
 
     return body
 
 
 def forward_step_paged(config: LlamaConfig, params: dict, tokens,
                        pool: dict, tables, start_pos, valid=None,
-                       last_pos=None, all_logits: bool = False):
+                       inner_body=None, last_pos=None,
+                       all_logits: bool = False):
     """:func:`forward_step` against a paged KV pool: same contract, but
     the cache operand is an :func:`init_block_pool` arena plus per-row
     block ``tables`` [b, blocks_per_row]. The dense view exists one layer
@@ -692,9 +706,10 @@ def forward_step_paged(config: LlamaConfig, params: dict, tokens,
     rather than ``rows * max_len``. With per-row positions every shape is
     fixed by (b, blocks_per_row), so growing, sharing or freeing blocks
     changes only the tables' values — a captured CUDA graph of the step
-    stays valid. ``valid`` masks against the view length."""
+    stays valid. ``valid`` masks against the view length. ``inner_body``
+    is the per-layer body :func:`paged_layer_body` wraps."""
     return forward_step(config, params, tokens, pool, start_pos, valid,
-                        layer_body=paged_layer_body(tables),
+                        layer_body=paged_layer_body(tables, inner_body),
                         last_pos=last_pos, all_logits=all_logits)
 
 

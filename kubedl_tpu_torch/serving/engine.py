@@ -26,6 +26,9 @@ import torch
 
 from .._device import resolve_device
 from ..models import llama
+#: the model family module of a config (every family exposes the same
+#: ``init_cache`` / ``forward_step`` / ``forward_step_paged`` contract)
+from ..models.io import family_of as resolve_family
 
 
 @dataclass(frozen=True)
@@ -51,16 +54,6 @@ def hit_stop(tokens: list, gen: GenerateConfig) -> bool:
         if seq and tokens[-len(seq):] == seq:
             return True
     return False
-
-
-def resolve_family(config):
-    """Model family module for a config. Only the llama family (Llama,
-    Mistral, Qwen2, Gemma on ``LlamaConfig``) is ported."""
-    if isinstance(config, llama.LlamaConfig):
-        return llama
-    raise NotImplementedError(
-        f"{type(config).__name__} is not ported yet: only the llama family "
-        "serves from the port (the MoE family is ROADMAP A4c)")
 
 
 def spec_accept(drafts, dprobs, tprobs, rng):

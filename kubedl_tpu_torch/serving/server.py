@@ -537,15 +537,20 @@ class InferenceServer:
                 f"{config.max_seq_len}")
         # the JAX server pads to 128-token and power-of-two-row buckets to
         # bound its compiles; nothing compiles here (the kernel takes any
-        # length), so the batch is padded only to its longest input
-        toks = np.zeros((len(ids), longest), np.int64)
+        # length), so the batch is padded to its longest input, or to the
+        # family's bucket where padding moves the vectors (EMBED_BUCKET)
+        pad_to, bucket = longest, family.EMBED_BUCKET
+        if bucket:
+            pad_to = min(-(-longest // bucket) * bucket, config.max_seq_len)
+        toks = np.zeros((len(ids), pad_to), np.int64)
         for i, r in enumerate(ids):
             toks[i, :len(r)] = r
         nreal = np.asarray([len(r) for r in ids], np.int64)
         with self._gen_lock, torch.inference_mode():
             dev = eng.device
-            x = family.forward_hidden(config, params,
-                                      torch.as_tensor(toks, device=dev))
+            out = family.forward_hidden(config, params,
+                                        torch.as_tensor(toks, device=dev))
+            x = out[0] if isinstance(out, tuple) else out   # MoE: (x, aux)
             mask = (torch.arange(x.shape[1], device=dev)[None, :]
                     < torch.as_tensor(nreal, device=dev)[:, None]).float()
             pooled = (x.float() * mask[..., None]).sum(dim=1) \

@@ -13,8 +13,10 @@ export) with no train.py of its own. Config is JSON, ``--config
 
 ``model`` is ``llama.<preset>`` (``llama3_8b``, ``llama2_7b``,
 ``mistral_7b``, ``qwen2_7b``, ``tiny``), ``gemma.<preset>``
-(``gemma_2b``, ``gemma_7b``, ``gemma2_2b``, ``tiny``) or
-``{"model_path": dir}`` to fine-tune a saved artifact; ``model_overrides``
+(``gemma_2b``, ``gemma_7b``, ``gemma2_2b``, ``tiny``), ``moe.<preset>``
+(``mixtral_8x7b``, ``tiny``: the loss adds the router's load-balancing
+term) or ``{"model_path": dir}`` to fine-tune a saved artifact;
+``model_overrides``
 replaces any config field, and ``loss_chunk`` defaults to 512 (the
 chunked LM-head loss) unless overridden. ``mode`` is ``pretrain``
 (next-token loss; data ``synthetic``, a ``tokens`` memmap file,
@@ -31,8 +33,9 @@ handed to the optimizer, so its state is adapter-sized, and the export
 folds the trained adapters into dense weights (``ops.lora.merge_to_dense``).
 
 Not ported yet, and refused by name: checkpoints, in-training eval and
-the ``evaluate``/``dpo``/``grpo`` modes (ROADMAP A6), the MoE family
-(A4c), HF export (A4d), mesh axes above 1 (A5), and a multi-process
+the ``evaluate``/``dpo``/``grpo`` modes (ROADMAP A6), HF export (A4d;
+an MoE model has no HF mapping and raises ``ValueError`` first, as in
+the JAX package), mesh axes above 1 (A5), and a multi-process
 rendezvous (A8).
 """
 
@@ -51,7 +54,8 @@ log = logging.getLogger("kubedl.train")
 #: ``models.<family>``)
 PRESETS = {"llama": ("llama3_8b", "llama2_7b", "mistral_7b", "qwen2_7b",
                      "tiny"),
-           "gemma": ("gemma_2b", "gemma_7b", "gemma2_2b", "tiny")}
+           "gemma": ("gemma_2b", "gemma_7b", "gemma2_2b", "tiny"),
+           "moe": ("mixtral_8x7b", "tiny")}
 
 
 def load_config(argv=None) -> dict:
@@ -81,10 +85,6 @@ def resolve_model(cfg: dict, device=None):
         config, params = io.load_model(model["model_path"], device=device)
     else:
         fam, _, preset = model.partition(".")
-        if fam == "moe":
-            raise NotImplementedError(
-                "model family 'moe' is not ported yet: ROADMAP A4c (the "
-                "MoE family)")
         if preset not in PRESETS.get(fam, ()):
             raise ValueError(
                 f"model must be 'family.preset' with a preset of {PRESETS}, "
@@ -241,9 +241,25 @@ def sft_stream(cfg: dict, config, mesh, batch: int, seq: int,
                             consumed=skip)
 
 
+def _family(cfg: dict) -> str:
+    """The family (``models.io.FAMILIES``) of the config's ``model``,
+    found without loading weights."""
+    from ..models import io
+    model = cfg.get("model", "llama.tiny")
+    config = (io.read_config(model["model_path"])
+              if isinstance(model, dict) else resolve_model(cfg)[0])
+    return io.family_name(config)
+
+
 def _refuse_unported(cfg: dict, env) -> None:
     """Config sections and environments of the JAX entrypoint whose
-    slice has not landed: each raises, naming its ROADMAP item."""
+    slice has not landed: each raises, naming its ROADMAP item. An
+    ``export_hf_path`` for an MoE model raises ``ValueError`` first, as
+    the JAX entrypoint's up-front check does: no HF format holds it."""
+    if cfg.get("export_hf_path") and _family(cfg) == "moe":
+        raise ValueError(
+            "export_hf_path: MoE configs have no HF mapping — drop "
+            "export_hf_path or use a llama-family model")
     mode = cfg.get("mode", "pretrain")
     if mode in ("evaluate", "dpo", "grpo"):
         raise NotImplementedError(
@@ -284,13 +300,14 @@ def main(argv=None, device=None, on_step=None) -> int:
     import torch
 
     from .._device import resolve_device
-    from ..models import io, llama
+    from ..models import io
     from ..parallel.mesh import MeshConfig, build_mesh
     from .trainer import TrainConfig, Trainer
 
     dev = resolve_device(device)
     mesh = build_mesh(MeshConfig(**cfg.get("mesh", {})), device=dev)
     config, params = resolve_model(cfg, device=dev)
+    family = io.family_of(config)
     mode = cfg.get("mode", "pretrain")
     batch = int(cfg.get("batch", 8))
     seq = int(cfg.get("seq", min(config.max_seq_len, 1024)))
@@ -299,8 +316,7 @@ def main(argv=None, device=None, on_step=None) -> int:
              cfg.get("model"), config.num_params / 1e6, mesh.shape, mode,
              dev)
     if params is None:
-        # every family shares the llama core's parameter tree
-        params = llama.init_params(
+        params = family.init_params(
             config,
             torch.Generator(device=dev).manual_seed(int(cfg.get("seed", 0))),
             device=dev)
@@ -308,7 +324,7 @@ def main(argv=None, device=None, on_step=None) -> int:
     def loss_fn(p, b):
         # packed text batches carry segment/position/mask planes;
         # token/synthetic batches don't: one closure serves both
-        return llama.loss_fn(config, p, b["tokens"], b["targets"],
+        return family.loss_fn(config, p, b["tokens"], b["targets"],
                              mask=b.get("mask"),
                              segment_ids=b.get("segment_ids"),
                              positions=b.get("positions"))

@@ -454,9 +454,14 @@ def test_unported_options_are_refused_by_name(models, name):
 
 
 def test_moe_and_standalone_speculative_engine_are_refused():
-    from kubedl_tpu.models import moe as jmoe
+    """The MoE family serves (``test_torch_moe_serving.py``), but not over
+    a mesh: its expert-parallel ``ep`` axis waits for the parallel slice,
+    with every other mesh axis. The standalone speculative engine waits
+    for its own item."""
+    from kubedl_tpu_torch.models import moe as tmoe
     from kubedl_tpu_torch.serving.speculative import SpeculativeEngine
-    with pytest.raises(NotImplementedError, match="ROADMAP A4c"):
-        tbatching.ContinuousBatchingEngine(jmoe.tiny(), {}, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        tbatching.ContinuousBatchingEngine(tmoe.tiny(), {}, mesh=object(),
+                                           device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         SpeculativeEngine()

@@ -5,10 +5,11 @@ conftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_decode_graph_cuda.py -x
 
-The engines below serve more requests than lanes, with a registered
-prefix, so between replays lanes grow their block tables, share prefix
-blocks, free them and take new requests: only the tables' values change,
-and the graph must keep giving the eager tick's tokens.
+The engines below (``llama.tiny``, and ``moe.tiny`` whose sparse layer
+body the graph captures too) serve more requests than lanes, with a
+registered prefix, so between replays lanes grow their block tables,
+share prefix blocks, free them and take new requests: only the tables'
+values change, and the graph must keep giving the eager tick's tokens.
 """
 
 import dataclasses
@@ -16,7 +17,7 @@ import dataclasses
 import pytest
 import torch
 
-from kubedl_tpu_torch.models import llama
+from kubedl_tpu_torch.models import llama, moe
 from kubedl_tpu_torch.serving.batching import (ContinuousBatchingEngine,
                                                decode_tick_route)
 
@@ -132,3 +133,27 @@ def test_decode_tick_graph_against_eager_on_one_state(model):
     with pytest.raises(ValueError):
         ContinuousBatchingEngine(*model, lanes=1, max_len=16,
                                  device="cpu").decode_tick("graph")
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged"])
+def test_moe_graph_tick_gives_the_eager_tokens(card, mode):
+    """The MoE layer body captured in the tick: the router's top-k, the
+    choice-major slot cumsum and the expert products replay with the
+    eager tick's tokens, and one state's logits agree."""
+    cfg = dataclasses.replace(moe.tiny(vocab=256), dtype="float32")
+    params = moe.init_params(cfg, torch.Generator(card).manual_seed(0),
+                             device=card)
+    reqs = _requests()
+    want = _engine((cfg, params), "eager", kv_mode=mode).run(reqs)
+    eng = _engine((cfg, params), "graph", kv_mode=mode)
+    assert eng.run(reqs) == want
+    ticks = eng.tick_launches
+    assert ticks["eager"] == 0 and ticks["graph"] > 0
+    for p, n in reqs[:3]:
+        eng.submit(p, n)
+    eng.step()
+    graph = eng.decode_tick().cpu()
+    eager = eng.decode_tick("eager").cpu()
+    active = [i for i, l in enumerate(eng._lane_state) if l.request]
+    torch.testing.assert_close(graph[active], eager[active], rtol=0,
+                               atol=1e-4)

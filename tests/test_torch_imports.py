@@ -45,6 +45,11 @@ def test_the_gemma_quantization_and_lora_slice_modules_are_checked():
             "kubedl_tpu_torch.serving.adapters"} <= set(MODULES)
 
 
+def test_the_moe_slice_modules_are_checked():
+    """...and so is the MoE family."""
+    assert "kubedl_tpu_torch.models.moe" in set(MODULES)
+
+
 def test_every_module_imports_with_jax_blocked():
     code = ("import sys\nsys.modules['jax'] = None\n"
             "import importlib\n"
@@ -115,3 +120,37 @@ def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):
     # asked for explicitly, the CPU runs
     eng = engine.InferenceEngine(cfg, params, device="cpu")
     assert len(eng.generate([[1, 2, 3]], 2)[0]) == 2
+
+
+def test_moe_entry_points_refuse_the_cpu_without_a_card(monkeypatch,
+                                                        tmp_path):
+    from kubedl_tpu_torch.models import io, moe
+    from kubedl_tpu_torch.serving import batching
+    from kubedl_tpu_torch.train import __main__ as train_main
+
+    cfg = moe.MoEConfig(vocab_size=64, d_model=32, n_layers=1, n_heads=2,
+                        n_kv_heads=1, d_ff=64, n_experts=4, dtype="float32")
+    params = moe.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    io.save_model(cfg, params, str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    train_cfg = tmp_path / "train.json"
+    train_cfg.write_text('{"model": "moe.tiny", "steps": 1}')
+    calls = {
+        "init_params": lambda: moe.init_params(
+            cfg, torch.Generator().manual_seed(0)),
+        "init_layer": lambda: moe.init_layer(
+            cfg, torch.Generator().manual_seed(0)),
+        "init_cache": lambda: moe.init_cache(cfg, 1, 8),
+        "init_block_pool": lambda: moe.init_block_pool(cfg, 4, 8),
+        "load_model": lambda: io.load_model(str(tmp_path)),
+        "ContinuousBatchingEngine": lambda: batching.ContinuousBatchingEngine(
+            cfg, params, lanes=1, max_len=16),
+        "train.__main__.main": lambda: train_main.main(
+            ["--config", str(train_cfg)]),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    got, _ = io.load_model(str(tmp_path), device="cpu")
+    assert got == cfg
