@@ -78,7 +78,28 @@ from the active params) and its gradient check (the chunked run routing
 on its own may differ from the kernel run only at router near-ties; the
 compared run replays the kernel run's expert choices). The kernel checks
 add Mixtral's training shape (b=2, s=2048), all three kernels on
-``sm90``.
+``sm90``, and after the MoE gradient check the three kernels are timed
+there.
+
+Then slice 10's phases, on google/gemma-2b's published config at full
+width, its depth cut to ``SLICE10_LAYERS`` (the card machine's disk takes
+45 GiB of writes a run): ``hf`` writes random bf16 weights as a
+HuggingFace directory (two shards and the index) and converts it with
+``python -m kubedl_tpu_torch.models.convert`` as a subprocess (the
+artifact's config and every leaf as drawn, greedy tokens equal, K1 in
+``/v1/embeddings``, ``--reverse`` back to float32 HF); ``lifecycle`` runs
+``python -m kubedl_tpu_torch.train``'s ``main`` on the artifact at b=2 x
+2048: two steps with a checkpoint and an eval, a fresh job that resumes
+at step 2 (its restored state equal to what was saved), four steps
+without a checkpoint (the resumed losses within 2e-3), ``mode:
+evaluate`` (perplexity and multiple-choice choices held to
+``llama.forward``'s logits) and ``mode: dpo`` (the first loss ln 2, then
+falling; its ``export_hf_path`` reloads to the final weights); ``resnet``
+trains ResNet-50 at b=128 bf16 (images/s), holds float32 logits on the
+card to the CPU's, and has the MLP memorize a batch. Every K1-K3 launch
+on those paths is on ``sm90``; the kernels line reports them by path.
+``--phases hf,lifecycle,resnet,moe_timing [--layers N]`` runs only those
+after the build.
 """
 
 from __future__ import annotations
@@ -2654,6 +2675,744 @@ def phase_moe_grad_check(torch):
     phase_grad_check(torch, cfg, tokens, ALL_SM90, tag="mgrad")
 
 
+
+# -- slice 10: HF checkpoints, the training lifecycle, ResNet and the MLP ----
+
+#: google/gemma-2b's published config.json fields, typed as the model
+#: card has them: the synthetic HF directory's config
+HF_GEMMA_2B = {
+    "architectures": ["GemmaForCausalLM"], "model_type": "gemma",
+    "vocab_size": 256000, "hidden_size": 2048, "intermediate_size": 16384,
+    "num_hidden_layers": 18, "num_attention_heads": 8,
+    "num_key_value_heads": 1, "head_dim": 256, "rms_norm_eps": 1e-06,
+    "rope_theta": 10000.0, "max_position_embeddings": 8192,
+    "hidden_act": "gelu", "attention_bias": False, "bos_token_id": 2,
+    "eos_token_id": 1, "pad_token_id": 0, "torch_dtype": "bfloat16"}
+#: HF's names of the llama-family layer weights (the published layout,
+#: stated here apart from the converter under test)
+HF_LAYER_NAMES = {"attn_norm": "input_layernorm.weight",
+                  "wq": "self_attn.q_proj.weight",
+                  "wk": "self_attn.k_proj.weight",
+                  "wv": "self_attn.v_proj.weight",
+                  "wo": "self_attn.o_proj.weight",
+                  "mlp_norm": "post_attention_layernorm.weight",
+                  "w_gate": "mlp.gate_proj.weight",
+                  "w_up": "mlp.up_proj.weight",
+                  "w_down": "mlp.down_proj.weight"}
+#: the slice-10 phases run google/gemma-2b's published config with its
+#: depth cut to this many layers (full width: the 256000-token embedding,
+#: d_model 2048, heads of width 256). At its 18 layers they would write
+#: ~85 GB to disk (the HF shards 5.0, the artifact 10.0, ``--reverse``
+#: 10.0, two 20.05 GB checkpoints, the DPO export 20.0), and the card
+#: machine takes at most 45 GiB of writes in a run, 22.8 GB of which the
+#: earlier phases' artifacts take. ``--phases hf --layers 18`` runs the
+#: conversion alone at full depth.
+SLICE10_LAYERS = 1
+#: every directory the slice-10 phases write (removed before the end)
+SLICE10_OUT = BUILD_OUT / "slice10"
+#: the new paths whose kernel launches the kernels line reports
+SLICE10_PATHS = ("hf_serve", "lifecycle_train", "lifecycle_resume",
+                 "lifecycle_eval", "evaluate", "dpo")
+#: ResNet-50's parameter count, JAX's ``resnet50()`` (pinned against the
+#: JAX package by ``tests/test_torch_resnet.py``)
+RESNET50_PARAMS = 25_557_032
+#: the lifecycle's resumed losses against the uninterrupted run's
+RESUME_ATOL = 2e-3
+
+
+def _reset_counts(attn) -> None:
+    for fn in (attn.flash_forward, attn.flash_dq, attn.flash_dkv):
+        fn.launches = 0
+        fn.launches_by_route = {"sm90": 0, "simt": 0}
+
+
+def _read_counts(attn, tag, want=None) -> dict:
+    """The three kernels' launches since :func:`_reset_counts`, every one
+    on ``sm90``; ``want`` pins the counts."""
+    got = {fn.__name__: fn.launches
+           for fn in (attn.flash_forward, attn.flash_dq, attn.flash_dkv)}
+    for fn in (attn.flash_forward, attn.flash_dq, attn.flash_dkv):
+        if fn.launches_by_route.get("simt", 0):
+            raise AssertionError(f"{tag}: {fn.__name__} took the simt route "
+                                 f"{fn.launches_by_route}")
+    if want is not None and got != want:
+        raise AssertionError(f"{tag}: launched {got}, want {want}")
+    return got
+
+
+def _gb_s(nbytes, seconds) -> str:
+    return f"{nbytes / 1e9:.3f} GB in {seconds:.2f} s, " \
+        f"{nbytes / 1e9 / max(seconds, 1e-9):.2f} GB/s"
+
+
+def _dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def _convert(args, tag) -> tuple:
+    """``python -m kubedl_tpu_torch.models.convert`` as a subprocess (its
+    default device: the card). Returns (seconds, its report line)."""
+    import os
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "kubedl_tpu_torch.models.convert", *args],
+        cwd=root, env={**os.environ, "PYTHONPATH": str(root)},
+        capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"{tag}: convert {args} exited "
+                             f"{res.returncode}: {res.stderr[-3000:]}")
+    return seconds, res.stdout.strip().splitlines()[-1]
+
+
+def phase_hf(torch, layers=None) -> tuple:
+    """Gemma-2B at full width through a HuggingFace directory, ``layers``
+    deep (default :data:`SLICE10_LAYERS`): random bf16 weights from seed
+    10 (norm scales drawn bf16-representable), written by the port's
+    safetensors writer in HF's key layout as two shards and
+    ``model.safetensors.index.json`` with google/gemma-2b's published
+    config (its depth cut); ``python -m kubedl_tpu_torch.models.convert``
+    on it as a subprocess. Gates: the artifact's config is ``gemma_2b()``
+    but for ``vocab_size``, ``rms_eps`` and the depth; every loaded leaf
+    equals the drawn one;
+    4 greedy requests on the converted model equal those on the drawn
+    weights token for token; ``/v1/embeddings`` launches K1 once a layer,
+    on ``sm90``; ``--reverse`` writes tensors equal to the input's widened
+    to float32. Returns (config, the converted params, artifact path,
+    readings)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from kubedl_tpu_torch.models import convert, gemma, io, llama
+    from kubedl_tpu_torch.models import safetensors_io as sio
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.serving import (GenerateConfig, InferenceEngine,
+                                          InferenceServer, ServerConfig)
+    from kubedl_tpu_torch.tokenizer import ByteTokenizer
+    from kubedl_tpu_torch.train.trainer import tree_leaves
+
+    shutil.rmtree(SLICE10_OUT, ignore_errors=True)
+    SLICE10_OUT.mkdir(parents=True)
+    src, art, back = (SLICE10_OUT / "hf_gemma_2b", SLICE10_OUT / "artifact",
+                      SLICE10_OUT / "hf_reverse")
+    out = {}
+    hf_config = dict(HF_GEMMA_2B,
+                     num_hidden_layers=layers or SLICE10_LAYERS)
+    cfg = convert.config_from_hf(hf_config)
+    want_cfg = dataclasses.replace(
+        gemma.gemma_2b(), vocab_size=hf_config["vocab_size"],
+        rms_eps=hf_config["rms_norm_eps"],
+        n_layers=hf_config["num_hidden_layers"])
+    if cfg != want_cfg:
+        raise AssertionError(f"[hf] config_from_hf gave {cfg}")
+    g = torch.Generator(device="cuda").manual_seed(10)
+    drawn = llama.init_params(cfg, g, device="cuda")
+    for k, (shape, f32) in llama.param_shapes(cfg)["layers"].items():
+        if f32:
+            drawn["layers"][k].copy_((0.1 * torch.randn(
+                drawn["layers"][k].shape, generator=g, device="cuda"))
+                .bfloat16().float())
+    drawn["final_norm"].copy_((0.1 * torch.randn(
+        cfg.d_model, generator=g, device="cuda")).bfloat16().float())
+
+    # the HF state dict on the host, bf16, [out, in]
+    t0 = time.perf_counter()
+    stacks = {k: (v.to(torch.bfloat16).mT if v.ndim == 3 else
+                  v.to(torch.bfloat16)).contiguous().cpu()
+              for k, v in drawn["layers"].items()}
+    sd = {"model.embed_tokens.weight": drawn["embed"].cpu(),
+          "model.norm.weight": drawn["final_norm"].bfloat16().cpu()}
+    for i in range(cfg.n_layers):
+        for k, name in HF_LAYER_NAMES.items():
+            sd[f"model.layers.{i}.{name}"] = stacks[k][i]
+    host_s = time.perf_counter() - t0
+    src.mkdir()
+    (src / "config.json").write_text(json.dumps(hf_config, indent=1))
+    half = (cfg.n_layers + 1) // 2
+    shards = {"model-00001-of-00002.safetensors": [
+        k for k in sd if k == "model.embed_tokens.weight"
+        or (k.startswith("model.layers.") and int(k.split(".")[2]) < half)]}
+    shards["model-00002-of-00002.safetensors"] = [
+        k for k in sd if k not in shards["model-00001-of-00002.safetensors"]]
+    t0 = time.perf_counter()
+    for name, keys in shards.items():
+        sio.save_file({k: sd[k] for k in keys}, str(src / name),
+                      metadata={"format": "pt"})
+    (src / "model.safetensors.index.json").write_text(json.dumps({
+        "metadata": {"total_size": sum(t.numel() * 2 for t in sd.values())},
+        "weight_map": {k: n for n, keys in shards.items() for k in keys}}))
+    out["hf_write_s"] = time.perf_counter() - t0
+    out["hf_bytes"] = _dir_bytes(src)
+    log(f"[hf] Gemma-2B width, {cfg.n_layers} of 18 layers: "
+        f"{cfg.num_params / 1e9:.3f} B params, bf16 from seed 10; the "
+        f"HF directory (2 shards + index, google/gemma-2b's config): "
+        f"{_gb_s(out['hf_bytes'], out['hf_write_s'])} (host copy "
+        f"{host_s:.2f} s before)")
+
+    out["convert_s"], line = _convert([str(src), str(art)], "[hf]")
+    out["artifact_bytes"] = _dir_bytes(art)
+    log(f"[hf] convert subprocess: {out['convert_s']:.2f} s wall, "
+        f"{out['hf_bytes'] / 1e9:.3f} GB in, {out['artifact_bytes'] / 1e9:.3f}"
+        f" GB out; it reports: {line}")
+    got_cfg = io.read_config(str(art))
+    if got_cfg != want_cfg:
+        raise AssertionError(f"[hf] the artifact's config {got_cfg} is not "
+                             f"{want_cfg}")
+    t0 = time.perf_counter()
+    _, params = io.load_model(str(art), device="cuda")
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    moved = [k for (k, a), (_, b) in zip(tree_leaves(params),
+                                         tree_leaves(drawn))
+             if a.dtype != b.dtype or not torch.equal(a, b)]
+    log(f"[hf] artifact loaded: {_gb_s(out['artifact_bytes'], out['load_s'])}"
+        f"; leaves unequal to the drawn weights: {moved or 'none'}")
+    if moved:
+        raise AssertionError(f"[hf] converted leaves {moved} differ")
+
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist()
+               for n in (31, 97, 256, 512)]
+    runs = {}
+    for label, p in (("drawn", drawn), ("converted", params)):
+        eng = InferenceEngine(cfg, p, GenerateConfig(max_len=1024),
+                              device="cuda")
+        runs[label] = eng.generate(prompts, 16)
+        del eng
+    if runs["drawn"] != runs["converted"]:
+        raise AssertionError("[hf] greedy tokens differ between the drawn "
+                             "and the converted weights")
+    log(f"[hf] 4 greedy requests (prompts 31-512 tokens, 16 new): converted "
+        f"== drawn token for token ({sum(map(len, runs['drawn']))} tokens)")
+    del drawn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    eng = InferenceEngine(cfg, params, GenerateConfig(max_len=1024),
+                          device="cuda")
+    srv = InferenceServer(eng, ServerConfig(
+        model_name="gemma-2b-hf", host="127.0.0.1", port=0,
+        tokenizer=ByteTokenizer())).start()
+    try:
+        _reset_counts(attn)
+        emb = json.loads(_post(srv.url, "/v1/embeddings", {
+            "input": ["converted from a HuggingFace directory " * 6,
+                      "kubedl " * 40]}))
+        out["launches"] = {"hf_serve": _read_counts(
+            attn, "[hf] /v1/embeddings",
+            want={"flash_forward": cfg.n_layers, "flash_dq": 0,
+                  "flash_dkv": 0})}
+    finally:
+        srv.stop()
+    del eng
+    vecs = np.asarray([d["embedding"] for d in emb["data"]])
+    if vecs.shape != (2, cfg.d_model) or not np.isfinite(vecs).all():
+        raise AssertionError(f"[hf] bad embeddings {vecs.shape}")
+    log(f"[hf] /v1/embeddings on the converted model: {cfg.n_layers} K1 "
+        f"launches, all sm90")
+
+    out["reverse_s"], line = _convert(["--reverse", str(art), str(back)],
+                                      "[hf]")
+    out["reverse_bytes"] = _dir_bytes(back)
+    t0 = time.perf_counter()
+    exported = sio.load_file(str(back / "model.safetensors"))
+    bad = sorted(set(exported) ^ set(sd))
+    bad += [k for k in sd if k in exported and not (
+        exported[k].dtype == torch.float32
+        and torch.equal(exported[k], sd[k].float()))]
+    out["reverse_check_s"] = time.perf_counter() - t0
+    hf_cfg = json.loads((back / "config.json").read_text())
+    log(f"[hf] --reverse subprocess: {out['reverse_s']:.2f} s wall, "
+        f"{out['reverse_bytes'] / 1e9:.3f} GB out; it reports: {line}; read "
+        f"back and compared in {out['reverse_check_s']:.2f} s; tensors "
+        f"unequal to the input widened to float32: {bad or 'none'}; "
+        f"model_type {hf_cfg['model_type']}")
+    if bad or hf_cfg["model_type"] != "gemma":
+        raise AssertionError(f"[hf] --reverse differs at {bad[:4]}")
+    del exported, sd, stacks
+    shutil.rmtree(src)
+    shutil.rmtree(back)
+    return cfg, params, art, out
+
+
+def _tokens_file(name, vocab, rows, seed) -> str:
+    import numpy as np
+    path = SLICE10_OUT / name
+    np.random.default_rng(seed).integers(0, vocab, rows * 2049,
+                                         dtype=np.int32).tofile(path)
+    return str(path)
+
+
+def _write_config(name, cfg) -> str:
+    path = SLICE10_OUT / f"{name}.json"
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+def _lifecycle_runs(torch, attn, train_main, ck, cfg, art, out) -> None:
+    """(a) two steps with a checkpoint at step 2 and an eval there, (b) a
+    fresh job on the same directory taking two more steps (it resumes at
+    step 2 and runs steps 3-4: ``steps`` counts the steps a run takes, as
+    in the JAX entry point), (c) four steps with no checkpoint."""
+    L = cfg.n_layers
+    base = {"model": {"model_path": str(art)}, "mode": "pretrain",
+            "data": {"kind": "tokens", "path": _tokens_file(
+                "lifecycle_tokens.bin", cfg.vocab_size, 8, 1)},
+            "batch": 2, "seq": 2048, "seed": 0, "log_every": 1,
+            "optimizer": {"warmup_steps": 1}}
+    ckpt = {"directory": str(SLICE10_OUT / "ckpt"), "save_interval_steps": 2,
+            "max_to_keep": 1}
+    saved, managers, checked = {}, [], {}
+    init, write = ck.CheckpointManager.__init__, ck.CheckpointManager._write
+    restore_or = ck.CheckpointManager.restore_or
+
+    def record_init(self, config):
+        init(self, config)
+        managers.append(self)
+
+    def record_write(self, step, host, data_state):
+        if not saved:                    # (a)'s save, kept for (b)'s check
+            saved[step] = (host, data_state)
+        return write(self, step, host, data_state)
+
+    def check_restore(self, state, init_fn):
+        got = restore_or(self, state, init_fn)
+        if not saved:                    # (a): nothing on disk yet
+            return got
+        host, data_state = saved[2]
+        cur = ck._state_dict(got, copy_to_host=False)
+        bad = [k for k, (a, b) in _pairs_of(cur, host)
+               if a.dtype != b.dtype or not torch.equal(a, b.to(a.device))]
+        checked.update(step=got.step, count=got.opt_state.count, bad=bad,
+                       cursor=self.latest_data_state() == data_state,
+                       leaves=len(_pairs_of(cur, host)))
+        return got
+
+    patches = [unittest.mock.patch.object(ck.CheckpointManager, "__init__",
+                                          record_init),
+               unittest.mock.patch.object(ck.CheckpointManager, "_write",
+                                          record_write),
+               unittest.mock.patch.object(ck.CheckpointManager, "restore_or",
+                                          check_restore)]
+    for p in patches:
+        p.start()
+    try:
+        marks, counts = [], {}
+
+        def step_a(step, loss):
+            marks.append((time.perf_counter(), step, loss))
+            if step == 2:
+                counts["train"] = _read_counts(attn, "[life] (a) training")
+
+        _reset_counts(attn)
+        t0 = time.perf_counter()
+        train_main.main(["--config", _write_config("life_a", {
+            **base, "steps": 2, "checkpoint": ckpt,
+            "eval": {"every": 2, "max_batches": 1, "data": {
+                "kind": "tokens", "path": _tokens_file(
+                    "lifecycle_eval.bin", cfg.vocab_size, 2, 2)}}})],
+            on_step=step_a)
+        out["a_s"] = time.perf_counter() - t0
+        total = _read_counts(attn, "[life] (a)")
+        out["launches"]["lifecycle_train"] = counts["train"]
+        out["launches"]["lifecycle_eval"] = {
+            k: total[k] - counts["train"][k] for k in total}
+        want_train = {"flash_forward": 4 * L, "flash_dq": 2 * L,
+                      "flash_dkv": 2 * L}
+        if counts["train"] != want_train or \
+                out["launches"]["lifecycle_eval"] != {
+                    "flash_forward": L, "flash_dq": 0, "flash_dkv": 0}:
+            raise AssertionError(f"[life] (a) launched {counts['train']} "
+                                 f"training, {total} in all")
+        save = dict(managers[-1].last_save)
+        out["checkpoint_bytes"] = save["bytes"]
+        out["save_copy_s"], out["save_write_s"] = save["copy_s"], \
+            save["write_s"]
+        out["checkpoint_disk_bytes"] = _dir_bytes(Path(ckpt["directory"]))
+        a_losses = [m[2] for m in marks]
+        log(f"[life] (a) 2 steps from the artifact, a checkpoint at step 2 "
+            f"and an eval there: {out['a_s']:.1f} s wall; losses "
+            f"{[round(x, 4) for x in a_losses]}; checkpoint "
+            f"{save['bytes'] / 1e9:.3f} GB (params bf16, mu f32, nu bf16; "
+            f"{out['checkpoint_disk_bytes'] / 1e9:.3f} GB on disk): host copy "
+            f"at the step boundary {_gb_s(save['bytes'], save['copy_s'])}, "
+            f"write {_gb_s(save['bytes'], save['write_s'])}; launches: "
+            f"training {counts['train']}, eval "
+            f"{out['launches']['lifecycle_eval']}, all sm90")
+
+        resumed = []
+        _reset_counts(attn)
+        t0 = time.perf_counter()
+        train_main.main(["--config", _write_config("life_b", {
+            **base, "steps": 2, "checkpoint": ckpt})],
+            on_step=lambda s, loss: resumed.append((s, loss)))
+        out["b_s"] = time.perf_counter() - t0
+        out["launches"]["lifecycle_resume"] = _read_counts(
+            attn, "[life] (b)", want=want_train)
+        restore = dict(managers[-1].last_restore)
+        out["restore_s"] = restore["seconds"]
+        log(f"[life] (b) a fresh job on the same directory: restored step "
+            f"{checked.get('step')} (count {checked.get('count')}), "
+            f"{_gb_s(restore['bytes'], restore['seconds'])}; "
+            f"{checked.get('leaves')} leaves (step, count, params, mu, nu) "
+            f"against what (a) saved, unequal: {checked.get('bad') or 'none'};"
+            f" data cursor equal: {checked.get('cursor')}; then steps "
+            f"{[s for s, _ in resumed]} in {out['b_s']:.1f} s wall")
+        if checked.get("step") != 2 or checked.get("count") != 2 or \
+                checked.get("bad") or not checked.get("cursor") or \
+                [s for s, _ in resumed] != [3, 4]:
+            raise AssertionError(f"[life] the resume is not (a)'s state: "
+                                 f"{checked}, steps {resumed}")
+    finally:
+        for p in patches:
+            p.stop()
+    import shutil
+    shutil.rmtree(ckpt["directory"])
+    saved.clear()
+
+    whole = []
+    _reset_counts(attn)
+    t0 = time.perf_counter()
+    train_main.main(["--config", _write_config("life_c", {
+        **base, "steps": 4})], on_step=lambda s, loss: whole.append(
+            (s, loss)))
+    out["c_s"] = time.perf_counter() - t0
+    gaps = [abs(a[1] - b[1]) for a, b in zip(resumed, whole[2:])]
+    out["resume_gap"] = max(gaps)
+    out["resume_bit_identical"] = [x for _, x in resumed] == \
+        [x for _, x in whole[2:]]
+    log(f"[life] (c) 4 steps, no checkpoint: losses "
+        f"{[round(x, 4) for _, x in whole]}; (b) at steps 3-4 "
+        f"{[round(x, 6) for _, x in resumed]} against (c) "
+        f"{[round(x, 6) for _, x in whole[2:]]}: largest gap "
+        f"{out['resume_gap']:.3e} (limit {RESUME_ATOL}), bit for bit: "
+        f"{out['resume_bit_identical']}; (c) {out['c_s']:.1f} s wall")
+    if out["resume_gap"] > RESUME_ATOL or \
+            not all(math.isfinite(x) for _, x in whole):
+        raise AssertionError(f"[life] resumed losses {resumed} against "
+                             f"{whole}")
+
+
+def _pairs_of(cur, host) -> list:
+    """Matched (path, (tensor, saved host tensor)) over two state dicts."""
+    from kubedl_tpu_torch.train.trainer import tree_leaves
+    a, b = dict(tree_leaves(cur)), dict(tree_leaves(host))
+    if set(a) != set(b):
+        raise AssertionError(f"state dicts differ in keys: "
+                             f"{sorted(set(a) ^ set(b))[:4]}")
+    return [(k, (a[k], b[k])) for k in sorted(a)]
+
+
+def _evaluate_runs(torch, attn, train_main, cfg, params, art, out) -> None:
+    """``mode: evaluate`` on the artifact over a byte-tokenized corpus
+    (perplexity) and 8 multiple-choice questions, each held to this
+    script's own float32 NLL from ``llama.forward``'s full logits."""
+    import numpy as np
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.parallel.mesh import build_mesh
+    from kubedl_tpu_torch.tokenizer import ByteTokenizer
+
+    corpus = SLICE10_OUT / "corpus.txt"
+    rng = np.random.default_rng(13)
+    words = ("kernel", "tensor", "core", "card", "port", "checkpoint",
+             "resume", "gradient", "the", "a", "of", "runs", "on", "held")
+    corpus.write_text("\n".join(" ".join(rng.choice(words, 60))
+                                for _ in range(80)))
+    ecfg = {"model": {"model_path": str(art)}, "mode": "evaluate",
+            "data": {"kind": "text", "path": str(corpus),
+                     "tokenizer": "byte"},
+            "batch": 2, "seq": 512, "steps": 2,
+            "results_path": str(SLICE10_OUT / "ppl.json")}
+    _reset_counts(attn)
+    t0 = time.perf_counter()
+    train_main.main(["--config", _write_config("eval_ppl", ecfg)])
+    out["evaluate_s"] = time.perf_counter() - t0
+    ppl = json.loads((SLICE10_OUT / "ppl.json").read_text())
+    launches = _read_counts(attn, "[eval] perplexity", want={
+        "flash_forward": 2 * cfg.n_layers, "flash_dq": 0, "flash_dkv": 0})
+    stream = train_main.data_stream(ecfg, cfg, build_mesh(device="cuda"),
+                                    2, 512)
+    total = count = 0.0
+    with torch.inference_mode():
+        for _ in range(2):
+            b = next(stream)
+            logits = llama.forward(cfg, params, b["tokens"])
+            nll = torch.logsumexp(logits, -1) - torch.gather(
+                logits, -1, b["targets"][..., None])[..., 0]
+            mask = b["mask"].float()
+            total += float((nll * mask).sum())
+            count += float(mask.sum())
+    want = math.exp(total / count)
+    rel = abs(ppl["perplexity"] - want) / want
+    log(f"[eval] perplexity over 2 x 512 packed byte tokens x 2 batches "
+        f"({ppl['tokens']} targets): {ppl['perplexity']:.4f}; from "
+        f"llama.forward's float32 logits {want:.4f}: relative gap {rel:.2e} "
+        f"(limit 1e-3); {out['evaluate_s']:.1f} s wall")
+    if rel > 1e-3 or int(count) != ppl["tokens"]:
+        raise AssertionError(f"[eval] perplexity {ppl} against {want}")
+
+    _reset_counts(attn)          # the reference above ran K1 too
+    tok = ByteTokenizer()
+    rows = [{"prompt": f"question {i}: which word follows "
+                       f"{' '.join(rng.choice(words, 6))}?",
+             "options": [f" {w}" for w in rng.choice(words, 4, False)],
+             "answer": int(i % 4)} for i in range(8)]
+    path = SLICE10_OUT / "questions.jsonl"
+    path.write_text("\n".join(json.dumps(r) for r in rows))
+    t0 = time.perf_counter()
+    train_main.main(["--config", _write_config("eval_mc", {
+        "model": {"model_path": str(art)}, "mode": "evaluate",
+        "data": {"kind": "eval_jsonl", "path": str(path),
+                 "tokenizer": "byte"},
+        "results_path": str(SLICE10_OUT / "mc.json")})])
+    out["evaluate_mc_s"] = time.perf_counter() - t0
+    mc = json.loads((SLICE10_OUT / "mc.json").read_text())
+    more = _read_counts(attn, "[eval] choices", want={
+        "flash_forward": 8 * cfg.n_layers, "flash_dq": 0, "flash_dkv": 0})
+    out["launches"]["evaluate"] = {k: launches[k] + more[k]
+                                   for k in launches}
+    want_choices, margins = [], []
+    with torch.inference_mode():
+        for r in rows:
+            prompt = tok.encode(r["prompt"], add_bos=True)
+            opts = [tok.encode(o) for o in r["options"]]
+            logps = []
+            for o in opts:
+                ids = torch.tensor([prompt + o], device="cuda")
+                logits = llama.forward(cfg, params, ids)[0]
+                lp = torch.log_softmax(logits, -1)
+                tgt = ids[0, len(prompt):]
+                logps.append(float(lp[len(prompt) - 1:-1].gather(
+                    -1, tgt[:, None]).sum()))
+            order = np.argsort(logps)[::-1]
+            want_choices.append(int(order[0]))
+            margins.append(logps[order[0]] - logps[order[1]])
+    log(f"[eval] 8 questions of 4 options: choices {mc['choices']}, from "
+        f"llama.forward's logits {want_choices} (smallest margin "
+        f"{min(margins):.4f} nats); {out['evaluate_mc_s']:.1f} s wall; "
+        f"launches {more}, all sm90")
+    if mc["choices"] != want_choices:
+        raise AssertionError(f"[eval] choices {mc['choices']} against "
+                             f"{want_choices} (margins {margins})")
+
+
+def _dpo_run(torch, attn, train_main, cfg, art, out) -> None:
+    """``mode: dpo`` on the artifact: 3 steps on 2 preference pairs, the
+    first loss ln 2, then falling; ``export_hf_path`` reloads to the
+    run's final parameters leaf for leaf."""
+    import shutil
+
+    import numpy as np
+
+    from kubedl_tpu_torch.models import convert
+    from kubedl_tpu_torch.train import trainer as trainer_mod
+    from kubedl_tpu_torch.train.trainer import tree_leaves
+
+    rng = np.random.default_rng(14)
+    pairs = []
+    for n in (40, 70):
+        prompt = [2] + rng.integers(3, cfg.vocab_size, n).tolist()
+        pairs.append({"chosen": prompt + rng.integers(
+            3, cfg.vocab_size, 30).tolist(), "rejected": prompt + rng.integers(
+            3, cfg.vocab_size, 20).tolist(), "prompt_len": len(prompt)})
+    path = SLICE10_OUT / "pairs.jsonl"
+    path.write_text("\n".join(json.dumps(p) for p in pairs))
+    hf_out, art_out = SLICE10_OUT / "dpo_hf", SLICE10_OUT / "dpo_artifact"
+    finals, losses = [], []
+    fit = trainer_mod.Trainer.fit
+
+    def record_fit(self, state, *a, **k):
+        finals.append(fit(self, state, *a, **k))
+        return finals[-1]
+
+    _reset_counts(attn)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(trainer_mod.Trainer, "fit", record_fit):
+        train_main.main(["--config", _write_config("dpo", {
+            "model": {"model_path": str(art)}, "mode": "dpo",
+            "data": {"kind": "dpo_jsonl", "path": str(path)}, "batch": 2,
+            "steps": 3, "log_every": 1, "dpo": {"beta": 0.1},
+            "optimizer": {"learning_rate": 1e-6, "warmup_steps": 0,
+                          "decay_steps": 10},
+            "export_path": str(art_out), "export_hf_path": str(hf_out)})],
+            on_step=lambda s, loss: losses.append(loss))
+    out["dpo_s"] = time.perf_counter() - t0
+    # per step: the reference forward (no autograd), then the policy's
+    # forward twice (remat) and its backward
+    out["launches"]["dpo"] = _read_counts(attn, "[dpo]", want={
+        "flash_forward": 3 * 3 * L, "flash_dq": 3 * L, "flash_dkv": 3 * L})
+    t0 = time.perf_counter()
+    hf_cfg, reloaded = convert.load_hf_checkpoint(str(hf_out), device="cuda")
+    torch.cuda.synchronize()
+    reload_s = time.perf_counter() - t0
+    final = finals[-1].params
+    bad = [k for (k, a), (_, b) in zip(tree_leaves(final),
+                                       tree_leaves(reloaded))
+           if a.dtype != b.dtype or not torch.equal(a.detach(), b)]
+    log(f"[dpo] 3 steps on 2 pairs: losses {[round(x, 6) for x in losses]} "
+        f"(ln 2 = {math.log(2):.6f}); {out['dpo_s']:.1f} s wall with the "
+        f"export ({_dir_bytes(art_out) / 1e9:.3f} GB artifact, "
+        f"{_dir_bytes(hf_out) / 1e9:.3f} GB HF); the HF export reloaded in "
+        f"{reload_s:.2f} s, leaves unequal to the final params: "
+        f"{bad or 'none'}; launches {out['launches']['dpo']}, all sm90")
+    if abs(losses[0] - math.log(2)) > 1e-3 or not losses[-1] < losses[0]:
+        raise AssertionError(f"[dpo] losses {losses}")
+    if bad or hf_cfg.vocab_size != cfg.vocab_size:
+        raise AssertionError(f"[dpo] the HF export differs at {bad[:4]}")
+    out["dpo_losses"] = losses
+    shutil.rmtree(hf_out)
+    shutil.rmtree(art_out)
+
+
+def phase_lifecycle(torch, cfg, params, art) -> dict:
+    """A fine-tuning job's life on the converted Gemma-2B artifact (full
+    width, :data:`SLICE10_LAYERS` deep) through ``python -m
+    kubedl_tpu_torch.train``'s ``main`` at b=2 x 2048: train with a
+    checkpoint and an eval, resume, evaluate, DPO with an HF export. Every
+    K1-K3 launch on ``sm90``."""
+    import shutil
+
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.train import __main__ as train_main
+    from kubedl_tpu_torch.train import checkpoint as ck
+
+    out = {"launches": {}}
+    torch.cuda.reset_peak_memory_stats()
+    _lifecycle_runs(torch, attn, train_main, ck, cfg, art, out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _evaluate_runs(torch, attn, train_main, cfg, params, art, out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _dpo_run(torch, attn, train_main, cfg, art, out)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[life] {out['peak_gib']:.2f} GiB peak device memory in the phase")
+    shutil.rmtree(SLICE10_OUT)
+    return out
+
+
+def phase_resnet(torch) -> dict:
+    """ResNet-50 (BASELINE config 2) at full size: its parameter count,
+    6 steps through ``Trainer`` at b=128 x 224 x 224 x 3 bf16 on one
+    repeated batch (images/s, peak memory, the loss falling), float32
+    logits at b=8 on the card against the CPU's on the same weights; and
+    the MNIST-shaped MLP memorizing one batch in 30 steps."""
+    import dataclasses
+
+    from kubedl_tpu_torch.models import mlp, resnet
+    from kubedl_tpu_torch.train.trainer import TrainConfig, Trainer, tree_map
+
+    cfg = resnet.resnet50()
+    n = resnet.num_params(cfg)
+    log(f"[resnet] ResNet-50: {n:,} params (JAX's resnet50(): "
+        f"{RESNET50_PARAMS:,})")
+    if n != RESNET50_PARAMS:
+        raise AssertionError(f"[resnet] {n} params")
+    out = {"params": n}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = resnet.init_params(cfg, g, device="cuda")
+    batch = {"images": torch.randn(128, 224, 224, 3, generator=g,
+                                   device="cuda").bfloat16(),
+             "labels": torch.randint(0, cfg.n_classes, (128,), generator=g,
+                                     device="cuda")}
+    trainer = Trainer(lambda p, b: resnet.loss_fn(cfg, p, b["images"],
+                                                  b["labels"]),
+                      TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                                  decay_steps=100), device="cuda")
+    state = trainer.init_state(params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks, losses = [time.perf_counter()], []
+    for _ in range(6):
+        state, loss = trainer.step(state, batch)
+        losses.append(float(loss))         # syncs
+        marks.append(time.perf_counter())
+    steady = [b - a for a, b in zip(marks[1:], marks[2:])]
+    out["step_s"] = sum(steady) / len(steady)
+    out["images_per_s"] = 128 / out["step_s"]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[resnet] b=128 x 224 x 224 x 3 bf16, 6 steps: losses "
+        f"{[round(x, 4) for x in losses]}; first step "
+        f"{marks[1] - marks[0]:.3f} s; steps 2-6 {out['step_s']:.4f} s per "
+        f"step, {out['images_per_s']:.1f} images/s; "
+        f"{out['peak_gib']:.2f} GiB peak device memory")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"[resnet] loss not finite and falling: "
+                             f"{losses}")
+    del state, trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cpu = resnet.init_params(cfg32, torch.Generator().manual_seed(1),
+                             device="cpu")
+    images = torch.randn(8, 224, 224, 3, generator=torch.Generator()
+                         .manual_seed(2))
+    with torch.inference_mode():
+        want = resnet.forward(cfg32, cpu, images)
+        got = resnet.forward(cfg32, tree_map(lambda t: t.cuda(), cpu),
+                             images.cuda()).cpu()
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f"[resnet] float32 logits at b=8 on the card against the CPU on the "
+        f"same weights: largest gap {rel:.3e} of the largest logit (limit "
+        f"1e-3)")
+    if not rel <= 1e-3:
+        raise AssertionError(f"[resnet] card and CPU logits differ: {rel}")
+    out["card_cpu_rel"] = rel
+
+    mcfg = mlp.MLPConfig()
+    gm = torch.Generator(device="cuda").manual_seed(3)
+    mb = {"x": torch.randn(64, 784, generator=gm, device="cuda"),
+          "y": torch.randint(0, 10, (64,), generator=gm, device="cuda")}
+    mt = Trainer(lambda p, b: mlp.loss_fn(mcfg, p, b["x"], b["y"]),
+                 TrainConfig(learning_rate=1e-2, warmup_steps=1,
+                             decay_steps=100), device="cuda")
+    mstate = mt.init_state(mlp.init_params(mcfg, gm, device="cuda"))
+    for _ in range(30):
+        mstate, mloss = mt.step(mstate, mb)
+    acc = float(mlp.accuracy(mcfg, mstate.params, mb["x"], mb["y"]))
+    log(f"[mlp] 784-512-256-10, one batch of 64 for 30 steps: loss "
+        f"{float(mloss):.4f}, accuracy {acc:.3f}")
+    if acc != 1.0:
+        raise AssertionError(f"[mlp] did not memorize the batch: {acc}")
+    out["mlp_accuracy"] = acc
+    return out
+
+
+def _probe(torch, argv, timed) -> int:
+    """``--phases hf,lifecycle,resnet,moe_timing [--layers N]``: the named
+    slice-10 phases alone after the build, Gemma-2B ``N`` layers deep
+    (a quick check of one part on the card; no kernels line and no last
+    line)."""
+    if len(argv) not in (2, 4) or argv[0] != "--phases" or (
+            len(argv) == 4 and argv[2] != "--layers"):
+        print("usage: chip_smoke.py [--phases hf,lifecycle,resnet,"
+              "moe_timing [--layers N]]", file=sys.stderr)
+        return 2
+    only = set(argv[1].split(","))
+    layers = int(argv[3]) if len(argv) == 4 else None
+    if "moe_timing" in only:
+        timed("moe_timing", phase_timing, torch, MOE_TRAIN, 600)
+    if only & {"hf", "lifecycle"}:
+        cfg, params, art, _ = timed("hf", phase_hf, torch, layers)
+        if "lifecycle" in only:
+            timed("lifecycle", phase_lifecycle, torch, cfg, params, art)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "resnet" in only:
+        timed("resnet", phase_resnet, torch)
+    import shutil
+    shutil.rmtree(SLICE10_OUT, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2680,6 +3439,8 @@ def main() -> int:
         return res
 
     timed("build", phase_build)
+    if len(sys.argv) > 1:
+        return _probe(torch, sys.argv[1:], timed)
     fwd = timed("kernel_check", phase_kernel_check, torch)
     from kubedl_tpu_torch.models import llama
     cfg8b = llama.llama3_8b()
@@ -2731,6 +3492,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     timed("moe_grad_check", phase_moe_grad_check, torch)
+    mtimes = timed("moe_timing", phase_timing, torch, MOE_TRAIN, 600)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hcfg, hparams, hart, hf = timed("hf", phase_hf, torch)
+    life = timed("lifecycle", phase_lifecycle, torch, hcfg, hparams, hart)
+    del hparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("resnet", phase_resnet, torch)
     log(f"[lora] peak device memory {lora_run['peak_gib']:.2f} GiB with "
         f"rank-{LORA_RANK} adapters against {train['peak_gib']:.2f} GiB for "
         f"the full run of the same configuration; step "
@@ -2759,6 +3529,10 @@ def main() -> int:
         serving=serving_launches,
         gemma_embeddings=gemma["embeddings_launches"],
         moe_embeddings=moe_out["embeddings_launches"])
+    new_paths = {**hf["launches"], **life["launches"]}
+    for name in launches:
+        launches[name].update({path: new_paths[path][name]
+                               for path in SLICE10_PATHS})
 
     def gemma_row(name, err, **extra):
         """The kernel at Gemma-2B's shapes (head dim 256, ``sm90``): its
@@ -2781,10 +3555,10 @@ def main() -> int:
         return row
 
     def moe_row(name, err):
-        """The kernel checked at Mixtral's training shape, as its step
-        launches it, and its launches there by route."""
+        """The kernel checked and timed at Mixtral's training shape, as its
+        step launches it, and its launches there by route."""
         return {"shape": _shape(MOE_TRAIN), "max_abs_err": err,
-                "kernel_route": "sm90",
+                **mtimes[name],
                 "launches": {"moe_training": mtrain["launches"][name],
                              "moe_training_by_route": mtrain["by_route"][
                                  name]}}

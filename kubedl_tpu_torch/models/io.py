@@ -20,6 +20,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -107,8 +108,11 @@ def params_from_numpy(config: llama.LlamaConfig, tree: dict,
                              f"wants {tuple(shape)}")
         dt = torch.float32 if name.split("/")[-1] in _F32_LEAVES \
             else config.dtype
-        return torch.from_numpy(np.array(arr, np.float32)).to(
-            device=dev, dtype=dt)
+        host = torch.from_numpy(np.asarray(arr, np.float32))
+        out = host.to(device=dev, dtype=dt)
+        # a leaf that needed no conversion would alias its host array
+        # (for a mapped artifact, the file's pages): own the bytes
+        return out.clone() if out.data_ptr() == host.data_ptr() else out
 
     layers = tree["layers"]
     if isinstance(layers, (list, tuple)) or all(
@@ -154,26 +158,83 @@ def read_config(path: str) -> llama.LlamaConfig:
     return cls(**raw)
 
 
+def _npz_arrays(path: str) -> dict:
+    """``{key: array}`` of an ``np.savez`` file. Each stored member is a
+    view of one private mapping of the file: no read pass into a copy and
+    no per-member CRC pass (the file's sha256 is the artifact's check).
+    A compressed member is read the ordinary way."""
+    import struct
+    import zipfile
+    from io import BytesIO
+
+    fmt = np.lib.format
+    mapped = np.memmap(path, dtype=np.uint8, mode="c")
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        for info in zf.infolist():
+            key = info.filename.removesuffix(".npy")
+            if info.compress_type != zipfile.ZIP_STORED:
+                with zf.open(info) as f:
+                    out[key] = fmt.read_array(f)
+                continue
+            # the member's data follows its local header (30 bytes, the
+            # name, the extra field)
+            off = info.header_offset
+            name_len, extra_len = struct.unpack(
+                "<HH", bytes(mapped[off + 26:off + 30]))
+            start = off + 30 + name_len + extra_len
+            head = BytesIO(bytes(mapped[start:start + min(info.file_size,
+                                                          1 << 16)]))
+            version = fmt.read_magic(head)
+            shape, fortran, dtype = (fmt.read_array_header_1_0(head)
+                                     if version == (1, 0) else
+                                     fmt.read_array_header_2_0(head))
+            data = start + head.tell()
+            arr = np.frombuffer(mapped, dtype=dtype,
+                                count=int(np.prod(shape, dtype=np.int64)),
+                                offset=data)
+            if data % dtype.itemsize:
+                arr = arr.copy()                 # keep every view aligned
+            out[key] = arr.reshape(shape, order="F" if fortran else "C")
+    return out
+
+
 def load_model(path: str, device=None) -> Tuple[llama.LlamaConfig, dict]:
     """(config, params on ``device``) from a ``save_model`` directory —
-    the JAX package's or the port's. A ``params_sha256`` mismatch means a
-    corrupt or partial copy and raises."""
+    the JAX package's or the port's. The arrays are mapped from the file
+    and copied to ``device`` leaf by leaf while a thread hashes the file:
+    a ``params_sha256`` mismatch means a corrupt or partial copy and
+    raises before anything is returned."""
     config = read_config(path)
     dev = resolve_device(device)
 
     npz = os.path.join(path, "params.npz")
     want_sha = _doc(path).get("params_sha256")
-    if want_sha and _sha256(npz) != want_sha:
-        raise ValueError(
-            f"params.npz checksum mismatch in {path}: the artifact is "
-            "corrupt or was partially copied")
+    got_sha: dict = {}
+    hasher = threading.Thread(target=lambda: got_sha.setdefault(
+        "sha", _sha256(npz)), name="artifact-sha256", daemon=True)
+    if want_sha:
+        hasher.start()
 
-    tree: dict = {}
-    with np.load(npz) as z:
-        for key in z.files:
+    def check(cause=None):
+        if want_sha:
+            hasher.join()
+            if got_sha.get("sha") != want_sha:
+                raise ValueError(
+                    f"params.npz checksum mismatch in {path}: the artifact "
+                    "is corrupt or was partially copied") from cause
+
+    try:
+        tree: dict = {}
+        for key, arr in _npz_arrays(npz).items():
             node = tree
             parts = key.split("/")
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
-            node[parts[-1]] = z[key]
-    return config, params_from_numpy(config, tree, device=dev)
+            node[parts[-1]] = arr
+        params = params_from_numpy(config, tree, device=dev)
+    except Exception as e:
+        check(e)              # a torn file reports as one
+        raise
+    check()
+    return config, params

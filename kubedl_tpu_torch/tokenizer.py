@@ -1,8 +1,9 @@
 """Tokenizers: text <-> token ids for serving and training.
 
 Copied from ``kubedl_tpu/tokenizer.py`` (the port imports nothing from the
-JAX package): the serving half of it, and ``text_documents`` for the
-training data path.
+JAX package): the serving half of it, ``text_documents`` for the
+training data path, and the asset copier that ships a HuggingFace
+checkpoint's tokenizer with a converted artifact.
 
 * ``ByteTokenizer`` — zero-dependency UTF-8 byte fallback (256 byte ids
   + pad/bos/eos).
@@ -79,6 +80,14 @@ class HFTokenizer:
         return self._tk.decode(list(ids), skip_special_tokens=True)
 
 
+#: files that make a directory loadable by AutoTokenizer: the set the
+#: asset copier ships with converted checkpoints and the predictor's
+#: auto-detection looks for
+TOKENIZER_ASSETS = ("tokenizer.json", "tokenizer_config.json",
+                    "special_tokens_map.json", "vocab.json", "merges.txt",
+                    "tokenizer.model", "spiece.model", "vocab.txt")
+
+
 def has_tokenizer_assets(path: str) -> bool:
     """True when ``path`` holds HuggingFace tokenizer files (the
     predictor auto-loads them so ModelVersion artifacts are
@@ -87,6 +96,21 @@ def has_tokenizer_assets(path: str) -> bool:
         os.path.exists(os.path.join(path, f)) for f in
         ("tokenizer.json", "tokenizer.model", "spiece.model",
          "vocab.json", "vocab.txt"))
+
+
+def copy_tokenizer_assets(src: str, dst: str) -> list:
+    """Copy tokenizer files from a HF checkpoint dir into a model
+    artifact dir (no-op for files that don't exist). Returns the copied
+    names: empty means the source shipped no tokenizer."""
+    import shutil
+    copied = []
+    for name in TOKENIZER_ASSETS:
+        s = os.path.join(src, name)
+        if os.path.exists(s):
+            os.makedirs(dst, exist_ok=True)
+            shutil.copy2(s, os.path.join(dst, name))
+            copied.append(name)
+    return copied
 
 
 def load_tokenizer(spec: str):

@@ -32,11 +32,25 @@ in the format the JAX package's ``load_model`` reads.
 handed to the optimizer, so its state is adapter-sized, and the export
 folds the trained adapters into dense weights (``ops.lora.merge_to_dense``).
 
-Not ported yet, and refused by name: checkpoints, in-training eval and
-the ``evaluate``/``dpo``/``grpo`` modes (ROADMAP A6), HF export (A4d;
-an MoE model has no HF mapping and raises ``ValueError`` first, as in
-the JAX package), mesh axes above 1 (A5), and a multi-process
-rendezvous (A8).
+``mode`` may also be ``evaluate`` (no training: corpus perplexity over
+``steps`` batches, or multiple-choice accuracy from ``eval_jsonl`` rows
+``{"prompt": ..., "options": [...], "answer": i?}``; results to INFO and
+``results_path``) or ``dpo`` (preference pairs from ``dpo_jsonl`` rows
+``{"chosen": [ids], "rejected": [ids], "prompt_len": n}``, the frozen
+initial weights as the reference, their log-probabilities precomputed
+once per batch). ``"checkpoint": {"directory": ..., "save_interval_steps":
+N, "max_to_keep": 3, "async_save": true}`` saves the train state and the
+data cursor (``train.checkpoint``); a job started again on the same
+directory resumes at the latest step, its stream fast-forwarded when the
+data fingerprint matches. ``"eval": {"every": N, "data": {...},
+"max_batches": M}`` scores a fixed held-out set during training.
+``export_hf_path`` writes a HuggingFace directory beside ``export_path``
+(LoRA folded first; an MoE model has no HF mapping and raises
+``ValueError`` up front, as in the JAX package).
+
+Not ported yet, and refused by name: ``mode: grpo`` (ROADMAP A7), mesh
+axes above 1 (A5), a multi-process rendezvous and the in-cluster elastic
+agent (A8).
 """
 
 from __future__ import annotations
@@ -241,6 +255,150 @@ def sft_stream(cfg: dict, config, mesh, batch: int, seq: int,
                             consumed=skip)
 
 
+def build_eval_fn(cfg: dict, config, mesh, batch: int, seq: int,
+                  params_of=None):
+    """(eval_every, eval_fn) for in-training validation: the ``eval``
+    section ``{"every": N, "data": {...}, "max_batches": M}`` draws a
+    fixed held-out set once (every eval point scores the same tokens, so
+    the curve is comparable); the Trainer calls the closure between
+    steps."""
+    import itertools
+    import math
+
+    ecfg = cfg.get("eval") or {}
+    every = int(ecfg.get("every", 0))
+    if not every:
+        return 0, None
+    if not ecfg.get("data"):
+        raise ValueError("eval.every needs eval.data (a held-out source)")
+    from . import evaluate as ev
+
+    n = int(ecfg.get("max_batches", 8))
+    stream = data_stream({**cfg, "data": ecfg["data"]}, config, mesh,
+                         batch, seq)
+    ev_batches = list(itertools.islice(stream, n))
+    row_nll = ev.make_row_nll_fn(config)
+
+    def eval_fn(state):
+        p = params_of(state) if params_of is not None else state.params
+        total = cnt = 0.0
+        for b in ev_batches:
+            total += float(row_nll(p, b).sum())
+            mask = b.get("mask")
+            cnt += (float(mask.float().sum()) if mask is not None
+                    else b["tokens"].shape[0] * b["tokens"].shape[1])
+        nll = total / max(cnt, 1.0)
+        return {"val_nll": nll, "val_ppl": math.exp(min(nll, 80.0))}
+
+    return every, eval_fn
+
+
+def dpo_batches(cfg: dict, config, params, mesh, batch: int,
+                skip: int = 0):
+    """Infinite DPO batch stream from a pairs JSONL, the reference
+    log-probabilities computed once per batch under the frozen initial
+    weights ``params``. ``skip`` fast-forwards the round-robin cursor by
+    index math, without computing the skipped batches' references."""
+    from . import dpo
+    from .data import CountingIterator, to_device
+
+    data = cfg.get("data", {})
+    if data.get("kind") != "dpo_jsonl":
+        raise ValueError("mode=dpo needs data.kind='dpo_jsonl'")
+    rows = []
+    with open(data["path"]) as f:
+        for line in f:
+            if line.strip():
+                rows.append(json.loads(line))
+    if len(rows) < batch:
+        raise ValueError(f"{len(rows)} pairs < batch {batch}")
+    ref_fn = dpo.reference_logps_fn(config, params)
+
+    def stream():
+        i = (skip * batch) % len(rows)
+        while True:
+            chunk = [rows[(i + j) % len(rows)] for j in range(batch)]
+            i = (i + batch) % len(rows)
+            b = to_device(dpo.preference_batch(
+                [r["chosen"] for r in chunk],
+                [r["rejected"] for r in chunk],
+                [r["prompt_len"] for r in chunk]), mesh.device)
+            b["ref_chosen_logps"], b["ref_rejected_logps"] = ref_fn(b)
+            yield b
+
+    return CountingIterator(stream(), consumed=skip)
+
+
+def _data_fingerprint(cfg: dict, mode: str, batch: int, seq: int) -> dict:
+    """Identity of the data stream a checkpoint cursor belongs to. A
+    restored cursor only fast-forwards when the stream it counted is the
+    stream about to be built: after a config change (another corpus,
+    batch, seq or mode) the offset is meaningless, so the stream
+    restarts at 0 with a warning instead of silently misaligning."""
+    return {"mode": mode, "batch": batch, "seq": seq,
+            "data": cfg.get("data", {"kind": "synthetic"})}
+
+
+def run_evaluate(cfg: dict, config, params, mesh) -> int:
+    """``mode=evaluate``: score a model without training: corpus
+    perplexity (data kinds ``synthetic``/``tokens``/``text``) or
+    multiple-choice accuracy (``eval_jsonl`` rows ``{"prompt": ...,
+    "options": [...], "answer": i?}``, text fields via
+    ``data.tokenizer``). Results log to INFO and, with ``results_path``,
+    land as one JSON file."""
+    from ..tokenizer import load_tokenizer
+    from . import evaluate as ev
+
+    data = cfg.get("data", {})
+    ecfg = cfg.get("eval", {})
+    tok = load_tokenizer(data.get("tokenizer", ""))
+    _check_tok_vocab(tok, config)
+
+    if data.get("kind") == "eval_jsonl":
+        def ids_of(v, *, bos: bool):
+            if isinstance(v, list):
+                return [int(t) for t in v]
+            if tok is None:
+                raise ValueError("text eval rows need data.tokenizer")
+            return tok.encode(v, add_bos=bos)
+
+        rows = []
+        with open(data["path"]) as f:
+            for line in f:
+                if line.strip():
+                    rows.append(json.loads(line))
+        if not rows:
+            raise ValueError(f"no rows in {data['path']}")
+        questions = [{"prompt": ids_of(r["prompt"], bos=True),
+                      "options": [ids_of(o, bos=False)
+                                  for o in r["options"]]} for r in rows]
+        ranked = ev.loglikelihood_ranks(
+            config, params, questions,
+            length_normalize=bool(ecfg.get("length_normalize", False)))
+        results = {"kind": "loglikelihood", "questions": len(ranked),
+                   "choices": [r["choice"] for r in ranked]}
+        answers = [r.get("answer") for r in rows]
+        if all(a is not None for a in answers):
+            correct = sum(int(c == a) for c, a in
+                          zip(results["choices"], answers))
+            results["accuracy"] = correct / len(answers)
+    else:
+        batch = int(cfg.get("batch", 8))
+        seq = int(cfg.get("seq", 256))
+        batches = data_stream(cfg, config, mesh, batch, seq)
+        results = ev.perplexity(config, params, batches,
+                                max_batches=int(cfg.get("steps", 16)))
+        results["kind"] = "perplexity"
+
+    log.info("evaluate results: %s", json.dumps(results))
+    out = cfg.get("results_path")
+    if out:
+        with open(out, "w") as f:
+            json.dump(results, f, indent=1)
+        log.info("results written to %s", out)
+    return 0
+
+
 def _family(cfg: dict) -> str:
     """The family (``models.io.FAMILIES``) of the config's ``model``,
     found without loading weights."""
@@ -261,21 +419,25 @@ def _refuse_unported(cfg: dict, env) -> None:
             "export_hf_path: MoE configs have no HF mapping — drop "
             "export_hf_path or use a llama-family model")
     mode = cfg.get("mode", "pretrain")
-    if mode in ("evaluate", "dpo", "grpo"):
+    if mode == "grpo":
         raise NotImplementedError(
-            f"mode {mode!r} is not ported yet: ROADMAP A6 (checkpoints "
-            "and training modes)")
-    if mode not in ("pretrain", "sft"):
+            "mode 'grpo' is not ported yet: ROADMAP A7 (its rollouts run "
+            "on the serving engine's submit path, with the RL learner)")
+    if mode not in ("pretrain", "sft", "evaluate", "dpo"):
         raise ValueError(f"unknown mode {mode!r}")
-    for key, item, what in (
-            ("checkpoint", "A6", "checkpointing"),
-            ("export_hf_path", "A4d", "HuggingFace export")):
-        if cfg.get(key):
-            raise NotImplementedError(
-                f"{key!r}: {what} is not ported yet: ROADMAP {item}")
-    if (cfg.get("eval") or {}).get("every"):
+    if cfg.get("lora") and mode not in ("pretrain", "sft"):
+        # adapter tuning only composes with the plain next-token losses
+        raise ValueError("lora applies to mode pretrain/sft (dpo and "
+                         "grpo tune full weights)")
+    if cfg.get("checkpoint") and env.get("KUBERNETES_SERVICE_HOST") and all(
+            env.get(f"KUBEDL_JOB_{k}") for k in ("KIND", "NAMESPACE",
+                                                 "NAME")):
+        # the JAX entrypoint would answer the operator's checkpoint
+        # requests here; an agent that silently is not there would leave
+        # the operator waiting for an acknowledgement that never comes
         raise NotImplementedError(
-            "'eval': in-training evaluation is not ported yet: ROADMAP A6")
+            "the in-cluster elastic checkpoint agent needs the API-server "
+            "client, which is not ported yet: ROADMAP A8")
     nproc = env.get("KUBEDL_NUM_PROCESSES", "")
     hosts = [h for h in env.get("TPU_WORKER_HOSTNAMES", "").split(",")
              if h.strip()]
@@ -321,19 +483,56 @@ def main(argv=None, device=None, on_step=None) -> int:
             torch.Generator(device=dev).manual_seed(int(cfg.get("seed", 0))),
             device=dev)
 
-    def loss_fn(p, b):
-        # packed text batches carry segment/position/mask planes;
-        # token/synthetic batches don't: one closure serves both
-        return family.loss_fn(config, p, b["tokens"], b["targets"],
-                             mask=b.get("mask"),
-                             segment_ids=b.get("segment_ids"),
-                             positions=b.get("positions"))
+    if mode == "evaluate":
+        return run_evaluate(cfg, config, params, mesh)
 
-    batches = (sft_stream(cfg, config, mesh, batch, seq) if mode == "sft"
-               else data_stream(cfg, config, mesh, batch, seq))
+    # the checkpoint manager opens BEFORE the data stream is built: the
+    # saved data cursor decides how far to fast-forward the stream, so a
+    # resumed run continues at the exact batch boundary
+    manager = None
+    resume_skip = 0
+    fingerprint = _data_fingerprint(cfg, mode, batch, seq)
+    if cfg.get("checkpoint"):
+        from .checkpoint import CheckpointConfig, CheckpointManager
+        manager = CheckpointManager(CheckpointConfig(**cfg["checkpoint"]))
+        cursor = manager.latest_data_state()
+        if cursor:
+            if cursor.get("fingerprint") == fingerprint:
+                resume_skip = int(cursor.get("consumed_batches", 0))
+                log.info("data cursor: resuming stream at batch %d",
+                         resume_skip)
+            else:
+                log.warning(
+                    "data cursor fingerprint mismatch (saved %s != "
+                    "current %s); stream restarts at batch 0",
+                    cursor.get("fingerprint"), fingerprint)
+
+    if mode == "dpo":
+        from . import dpo as dpo_mod
+        from .trainer import tree_map
+        loss_fn = dpo_mod.make_dpo_loss_fn(
+            config, dpo_mod.DPOConfig(**cfg.get("dpo", {})))
+        # the frozen reference is the INITIAL weights: a copy, since the
+        # trainer updates its parameters in place
+        ref_params = tree_map(lambda t: t.detach().clone(), params)
+        batches = dpo_batches(cfg, config, ref_params, mesh, batch,
+                              skip=resume_skip)
+    else:
+        def loss_fn(p, b):
+            # packed text batches carry segment/position/mask planes;
+            # token/synthetic batches don't: one closure serves both
+            return family.loss_fn(config, p, b["tokens"], b["targets"],
+                                  mask=b.get("mask"),
+                                  segment_ids=b.get("segment_ids"),
+                                  positions=b.get("positions"))
+
+        batches = (sft_stream(cfg, config, mesh, batch, seq,
+                              skip=resume_skip) if mode == "sft"
+                   else data_stream(cfg, config, mesh, batch, seq,
+                                    skip=resume_skip))
     opt = TrainConfig(**cfg.get("optimizer", {}))
     lora_cfg = cfg.get("lora")
-    merge = None
+    merge = params_of = None
     if lora_cfg:
         # adapter-only fine-tuning: the base is closed over (its tensors
         # never require gradients and never reach the optimizer), so the
@@ -360,19 +559,49 @@ def main(argv=None, device=None, on_step=None) -> int:
             # fold the trained adapters into dense weights: the exported
             # artifact serves with no adapter overhead
             return lora.merge_to_dense(base, adapters, alpha=alpha)
+
+        def params_of(st):
+            return lora.merge_params(base, st.params, alpha=alpha)
     else:
         trainer = Trainer(loss_fn, opt, device=dev)
         state = trainer.init_state(params)
     del params
+
+    if manager is not None:
+        state = manager.restore_or(state, lambda: state)
+        if manager.latest_step():
+            log.info("resumed from checkpoint step %s",
+                     manager.latest_step())
+
+    from .data import CountingIterator
+    data_state_fn = None
+    if manager is not None and isinstance(batches, CountingIterator):
+        def data_state_fn():
+            return {"consumed_batches": batches.consumed,
+                    "fingerprint": fingerprint}
+
+    ev_every, ev_fn = ((0, None) if mode == "dpo"
+                       else build_eval_fn(cfg, config, mesh, batch, seq,
+                                          params_of=params_of))
     state = trainer.fit(state, batches, num_steps=steps,
                         log_every=int(cfg.get("log_every", 10)),
-                        on_step=on_step)
+                        on_step=on_step, checkpoint_manager=manager,
+                        eval_every=ev_every, eval_fn=ev_fn,
+                        data_state_fn=data_state_fn)
 
     export = cfg.get("export_path") or os.environ.get("KUBEDL_MODEL_PATH")
+    hf_out = cfg.get("export_hf_path")
+    if hf_out and not export:
+        log.warning("export_hf_path is written beside export_path (or "
+                    "$KUBEDL_MODEL_PATH), and neither is set: no export")
     if export:
-        io.save_model(config, merge(state.params) if merge else state.params,
-                      export)
+        final = merge(state.params) if merge else state.params
+        io.save_model(config, final, export)
         log.info("exported model to %s", export)
+        if hf_out:
+            from ..models.convert import save_hf_checkpoint
+            save_hf_checkpoint(config, final, hf_out)
+            log.info("exported HF checkpoint to %s", hf_out)
     return 0
 
 

@@ -1,0 +1,112 @@
+"""Evaluation harness, perplexity and log-likelihood scoring: the
+counterpart of ``kubedl_tpu/train/evaluate.py``.
+
+* :func:`perplexity`: mean next-token NLL (and its exp) over a batch
+  stream. Runs the training loss path (chunked LM-head scan, family
+  dispatch incl. MoE), so eval numbers are comparable to training loss.
+* :func:`loglikelihood_ranks`: per-option summed log P(continuation |
+  prompt) for multiple-choice scoring (the lm-eval-harness
+  "loglikelihood" contract): each (prompt, option) pair renders with
+  continuation-only masking, scored by the chunked per-row scan, argmax
+  per question. Options pad to a shared 128-aligned length, as in the
+  JAX package.
+
+Scoring runs without autograd; on the card every layer's attention is
+the flash forward kernel.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+from typing import Iterable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..ops.loss import chunked_token_nll
+from .scoring import hidden_and_head, render_rows
+from .trainer import tree_leaves
+
+
+def make_row_nll_fn(config, mesh=None, chunk: int = 512):
+    """``(params, batch) -> per-row summed NLL [b]`` (float32) over
+    ``{tokens, targets[, mask]}``: the one step both evaluators share."""
+
+    @torch.no_grad()
+    def rows(params, batch):
+        x, head, _ = hidden_and_head(config, params, batch["tokens"], mesh)
+        return chunked_token_nll(x, head, batch["targets"],
+                                 mask=batch.get("mask"), chunk=chunk,
+                                 logit_softcap=config.logit_softcap)
+
+    return rows
+
+
+def perplexity(config, params, batches: Iterable[dict], mesh=None,
+               chunk: int = 512, max_batches: Optional[int] = None):
+    """Corpus perplexity over ``batches`` of ``{tokens, targets[, mask]}``
+    device tensors. Returns ``{nll, perplexity, tokens}`` (the token
+    count covers unmasked targets only)."""
+    row_nll = make_row_nll_fn(config, mesh, chunk)
+    total = 0.0
+    count = 0.0
+    if max_batches is not None:
+        # islice, not a loop-break: a break would pull (and copy) one
+        # extra batch just to discard it
+        batches = itertools.islice(batches, max_batches)
+    for batch in batches:
+        total += float(row_nll(params, batch).sum())
+        mask = batch.get("mask")
+        count += (float(mask.float().sum()) if mask is not None
+                  else batch["tokens"].shape[0] * batch["tokens"].shape[1])
+    if count == 0:
+        raise ValueError("no target tokens evaluated")
+    nll = total / count
+    return {"nll": nll, "perplexity": math.exp(min(nll, 80.0)),
+            "tokens": int(count)}
+
+
+def _render_options(prompt, options, pad_to: int, pad_id: int, device):
+    """Each option row renders through the shared completion layout."""
+    rows = [list(prompt) + list(opt) for opt in options]
+    b = render_rows(rows, [len(prompt)] * len(options), pad_id,
+                    pad_to=pad_to)
+    return {"tokens": torch.from_numpy(b["tokens"]).long().to(device),
+            "targets": torch.from_numpy(b["targets"]).long().to(device),
+            "mask": torch.from_numpy(b["mask"]).to(device)}
+
+
+def loglikelihood_ranks(config, params, questions: Sequence[dict],
+                        mesh=None, chunk: int = 512, pad_id: int = 0,
+                        length_normalize: bool = False):
+    """Score multiple-choice questions by continuation log-likelihood.
+
+    ``questions``: each ``{"prompt": [ids], "options": [[ids], ...]}``
+    (prompt and every option non-empty). Returns per question
+    ``{"logps": [...], "choice": argmax}``; ``length_normalize`` divides
+    each option's logp by its token count (lm-eval-harness "acc_norm")."""
+    if not questions:
+        return []
+    for q in questions:
+        if len(q["prompt"]) < 1:
+            raise ValueError("prompt must include at least one token")
+        if any(len(o) < 1 for o in q["options"]):
+            raise ValueError("options must be non-empty")
+    longest = max(len(q["prompt"]) + len(o)
+                  for q in questions for o in q["options"])
+    pad_to = -(-longest // 128) * 128
+    row_nll = make_row_nll_fn(config, mesh, chunk)
+    dev = tree_leaves(params)[0][1].device
+
+    out = []
+    for q in questions:
+        batch = _render_options(q["prompt"], q["options"], pad_to, pad_id,
+                                dev)
+        logps = -row_nll(params, batch).cpu().numpy().astype(np.float32)
+        if length_normalize:
+            logps = logps / np.array([len(o) for o in q["options"]],
+                                     np.float32)
+        out.append({"logps": [float(v) for v in logps],
+                    "choice": int(np.argmax(logps))})
+    return out

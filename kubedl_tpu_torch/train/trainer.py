@@ -14,8 +14,8 @@
   place, leaf by leaf, so no second copy of the parameters or of the
   float32 updates is ever alive.
 
-Sharded state (the JAX trainer's mesh) and checkpointing are ROADMAP A5
-and A6.
+Sharded state (the JAX trainer's mesh) is ROADMAP A5; checkpoints are
+``train/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -66,17 +66,30 @@ class TrainState:
     opt_state: AdamState
 
 
-def tree_leaves(tree: dict, prefix: str = "") -> list:
-    """``[(path, tensor)]`` of a nested dict in the JAX package's leaf
-    order (keys sorted at every level), paths ``/``-joined."""
+def tree_leaves(tree, prefix: str = "") -> list:
+    """``[(path, tensor)]`` of nested dicts and lists in the JAX package's
+    leaf order (dict keys sorted, lists in index order), paths
+    ``/``-joined (``stages/0/1/conv1``)."""
+    if isinstance(tree, dict):
+        items = [(k, tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return [(prefix[:-1], tree)]
     out = []
-    for key in sorted(tree):
-        path = f"{prefix}{key}"
-        if isinstance(tree[key], dict):
-            out += tree_leaves(tree[key], path + "/")
-        else:
-            out.append((path, tree[key]))
+    for key, sub in items:
+        out += tree_leaves(sub, f"{prefix}{key}/")
     return out
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of nested dicts and lists, keeping the
+    structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
 
 
 def warmup_cosine_schedule(init_value: float, peak_value: float,
@@ -202,12 +215,8 @@ class Trainer:
         dev = resolve_device(self.device)
         self.device = dev
 
-        def leafify(tree):
-            return {k: leafify(v) if isinstance(v, dict)
-                    else v.detach().to(dev).requires_grad_(True)
-                    for k, v in tree.items()}
-
-        params = leafify(params)
+        params = tree_map(
+            lambda v: v.detach().to(dev).requires_grad_(True), params)
         return TrainState(step=0, params=params,
                           opt_state=self.optimizer.init(params))
 
@@ -258,13 +267,20 @@ class Trainer:
         return loss / n, grads
 
     def fit(self, state: TrainState, batches, num_steps: int,
-            log_every: int = 10, on_step=None, tracer=None):
-        """Training loop. ``on_step(step, loss)`` runs after every step.
-        ``tracer`` (``kubedl_tpu_torch.trace.Tracer``, enabled) records
-        one ``train.step`` span per step with its tokens and replica,
-        attached to ``$KUBEDL_TRACEPARENT``'s trace when the operator
-        injected one. Checkpoints, the elastic agent and in-training
-        evaluation are ROADMAP A6."""
+            log_every: int = 10, on_step=None, checkpoint_manager=None,
+            elastic_agent=None, eval_every: int = 0, eval_fn=None,
+            data_state_fn=None, tracer=None):
+        """Training loop, in the JAX package's order after each step:
+        ``on_step(step, loss)``, the elastic agent's poll (an
+        operator-requested checkpoint is taken between steps), the
+        checkpoint manager's periodic save, the log line, then
+        ``eval_fn(state) -> dict`` every ``eval_every`` steps and after
+        the last one. At the end a forced save and a wait for it.
+        ``data_state_fn() -> dict`` supplies the data cursor stored with
+        every checkpoint. ``tracer`` (``kubedl_tpu_torch.trace.Tracer``,
+        enabled) records one ``train.step`` span per step with its tokens
+        and replica, and ``train.checkpoint`` spans, attached to
+        ``$KUBEDL_TRACEPARENT``'s trace when the operator injected one."""
         tr = tracer if tracer is not None and tracer.enabled else None
         trace_id = parent_id = None
         replica = ""
@@ -279,6 +295,16 @@ class Trainer:
             # the telemetry layer compares step-time skew across replicas
             replica = (os.environ.get("TPU_WORKER_ID")
                        or os.environ.get("HOSTNAME", ""))
+
+        def span(name, t0, **attrs):
+            if tr is not None:
+                tr.record(name, t0, time.time(), trace_id=trace_id,
+                          parent_id=parent_id, component="train",
+                          attributes=attrs)
+
+        def data_state():
+            return data_state_fn() if data_state_fn else None
+
         cfg = self.config
         t0 = time.time()
         tokens = 0
@@ -294,27 +320,44 @@ class Trainer:
                 batch = next(batches)
                 step_tokens = _batch_tokens(batch)
                 tokens += step_tokens
-                t_step = time.time() if tr is not None else 0.0
+                t_step = time.time()
                 state, loss = self.step(state, batch)
-                if tr is not None:
-                    tr.record("train.step", t_step, time.time(),
-                              trace_id=trace_id, parent_id=parent_id,
-                              component="train",
-                              attributes={"step": step0 + i + 1,
-                                          "tokens": step_tokens,
-                                          "replica": replica})
+                span("train.step", t_step, step=step0 + i + 1,
+                     tokens=step_tokens, replica=replica)
                 if prof is not None and i + 1 >= profile_at + cfg.profile_steps:
                     _stop_profile(prof, cfg.profile_dir, step0 + i + 1)
                     prof = None
                 if on_step is not None:
                     on_step(state.step, float(loss))
+                if elastic_agent is not None:
+                    elastic_agent.poll(state)
+                if checkpoint_manager is not None:
+                    t_ck = time.time()
+                    checkpoint_manager.save(state, step=step0 + i + 1,
+                                            periodic=True,
+                                            data_state=data_state())
+                    span("train.checkpoint", t_ck, step=step0 + i + 1,
+                         periodic=True)
                 if log_every and (i + 1) % log_every == 0:
                     dt = time.time() - t0
                     print(f"step {state.step} loss {float(loss):.4f} "
                           f"{tokens / dt:.0f} tok/s")
+                if eval_fn is not None and eval_every and \
+                        ((i + 1) % eval_every == 0 or i + 1 == num_steps):
+                    res = eval_fn(state)
+                    print(f"step {state.step} eval "
+                          + " ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                                     else f"{k} {v}"
+                                     for k, v in res.items()))
         finally:
             if prof is not None:
                 _stop_profile(prof, cfg.profile_dir, state.step)
+        if checkpoint_manager is not None:
+            t_ck = time.time()
+            checkpoint_manager.save(state, force=True,
+                                    data_state=data_state())
+            checkpoint_manager.wait_until_finished()
+            span("train.checkpoint", t_ck, step=state.step, periodic=False)
         return state
 
 

@@ -2,6 +2,7 @@
 the JAX package, and its entry points refuse to run on the CPU unless
 asked to."""
 
+import json
 import pathlib
 import re
 import subprocess
@@ -50,6 +51,18 @@ def test_the_moe_slice_modules_are_checked():
     assert "kubedl_tpu_torch.models.moe" in set(MODULES)
 
 
+def test_the_checkpoint_conversion_and_training_modes_slice_is_checked():
+    """...and so are HF conversion with the port's own safetensors I/O,
+    the MLP and ResNet families, checkpoints, evaluation, DPO and the
+    scoring helpers (the port's own copy of the framework-free module)."""
+    assert {"kubedl_tpu_torch.models.safetensors_io",
+            "kubedl_tpu_torch.models.convert", "kubedl_tpu_torch.models.mlp",
+            "kubedl_tpu_torch.models.resnet",
+            "kubedl_tpu_torch.train.checkpoint",
+            "kubedl_tpu_torch.train.evaluate", "kubedl_tpu_torch.train.dpo",
+            "kubedl_tpu_torch.train.scoring"} <= set(MODULES)
+
+
 def test_every_module_imports_with_jax_blocked():
     code = ("import sys\nsys.modules['jax'] = None\n"
             "import importlib\n"
@@ -75,7 +88,7 @@ def test_no_import_of_the_jax_package(path):
 
 def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):
     from kubedl_tpu_torch import resolve_device
-    from kubedl_tpu_torch.models import io, llama
+    from kubedl_tpu_torch.models import convert, io, llama, mlp, resnet
     from kubedl_tpu_torch.serving import __main__ as serve_main
     from kubedl_tpu_torch.serving import batching, engine
     from kubedl_tpu_torch.train import Trainer
@@ -108,7 +121,18 @@ def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):
             params),
         "train.__main__.main": lambda: train_main.main(
             ["--config", str(train_cfg)]),
+        "convert.main": lambda: convert.main(
+            ["--reverse", str(tmp_path), str(tmp_path / "hf")]),
+        "load_hf_checkpoint": lambda: convert.load_hf_checkpoint(
+            str(tmp_path / "hf_in")),
+        "resnet.init_params": lambda: resnet.init_params(
+            resnet.tiny(), torch.Generator().manual_seed(0)),
+        "mlp.init_params": lambda: mlp.init_params(
+            mlp.MLPConfig(), torch.Generator().manual_seed(0)),
     }
+    (tmp_path / "hf_in").mkdir()
+    (tmp_path / "hf_in" / "config.json").write_text(
+        json.dumps(convert.config_to_hf(cfg)))
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
