@@ -98,8 +98,21 @@ falling; its ``export_hf_path`` reloads to the final weights); ``resnet``
 trains ResNet-50 at b=128 bf16 (images/s), holds float32 logits on the
 card to the CPU's, and has the MLP memorize a batch. Every K1-K3 launch
 on those paths is on ``sm90``; the kernels line reports them by path.
-``--phases hf,lifecycle,resnet,moe_timing [--layers N]`` runs only those
-after the build.
+``--phases hf,lifecycle,resnet,moe_timing,dist [--layers N]`` runs only
+those after the build.
+
+Since slice 11, right after the Gemma-2B training run, ``dist`` runs the
+same training through the sharded path: the train entrypoint's ``main``
+in-process under the operator's rendezvous contract for one process
+(``KUBEDL_COORDINATOR_ADDRESS`` on a free localhost port), so ``main``
+opens a world-size-1 NCCL group, lays ``"mesh": {"fsdp": -1}`` over it
+and trains on DTensor state; its losses must equal the unsharded run's
+(bit for bit expected; a gap is printed and held to the bf16 rule), every
+K1-K3 launch is on ``sm90``, and its step time and peak memory print
+beside the unsharded run's. Then a sharded ``llama.tiny`` state is saved
+with ``torch.distributed.checkpoint`` under a new NCCL group and restored
+bit for bit. Every group is destroyed before the next phase; the card
+machine has one card, so no phase runs more than one rank.
 """
 
 from __future__ import annotations
@@ -664,9 +677,9 @@ def _gaps(torch, cfg, params, prompt, toks, lps=None) -> tuple:
     if family is moe and cfg.dtype != torch.float32:
         route = moe.route
 
-        def recording(config, p, capacity, token_mask=None):
+        def recording(config, p, capacity, token_mask=None, mesh=None):
             probs.append(p.detach())
-            return route(config, p, capacity, token_mask)
+            return route(config, p, capacity, token_mask, mesh=mesh)
         watch = unittest.mock.patch.object(moe, "route", recording)
     seq = torch.as_tensor([prompt + toks[:-1]], device="cuda")
     with watch, torch.no_grad():
@@ -1954,6 +1967,7 @@ def _train_run(torch, tag, cfg_path, cfg, routes, mfu=True) -> dict:
     tok_s = cfg["batch"] * cfg["seq"] / step_s
     out = {"launches": launches, "by_route": by_route, "losses": losses,
            "step_s": step_s, "tokens_per_s": tok_s,
+           "step_times": [round(x, 4) for x in steady],
            "peak_gib": peak / 2**30, "first_step_s": marks[0][0] - t0}
     line = ""
     if mfu:
@@ -1989,6 +2003,162 @@ def phase_gemma_training(torch) -> dict:
                                      vocab=256128, overrides={}, batch=2,
                                      steps=3)
     return _train_run(torch, "gtrain", cfg_path, cfg, ALL_SM90)
+
+
+#: the bf16 rule for a loss gap, in ulps at the loss's scale (the rule
+#: the port's CPU tests hold bf16 runs to)
+BF16_LOSS_ULPS = 4
+
+
+def _contract_env(port: int) -> dict:
+    """The operator's rendezvous contract for one process on this host."""
+    return {"KUBEDL_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+            "KUBEDL_NUM_PROCESSES": "1", "KUBEDL_PROCESS_ID": "0"}
+
+
+def _with_env(env: dict, fn, *args):
+    """``fn(*args)`` with ``env`` set, then the variables removed, so no
+    later phase sees a rendezvous contract."""
+    import os
+    os.environ.update(env)
+    try:
+        return fn(*args)
+    finally:
+        for key in env:
+            os.environ.pop(key, None)
+
+
+def phase_dist(torch, gtrain) -> dict:
+    """``python -m kubedl_tpu_torch.train``'s ``main`` in-process under
+    the rendezvous contract for one process: ``main`` opens a
+    world-size-1 NCCL group, lays ``"mesh": {"fsdp": -1}`` over it and
+    trains ``gemma.gemma_2b`` on the unsharded phase's config (full size,
+    b=2 x 2048) through the sharded trainer (DTensor state, per-layer
+    views, the global-norm all-reduce), one step more than that phase so
+    the steady step is read over 3 steps. The losses of the steps both
+    runs take must equal the unsharded run's (bit for bit is expected at
+    world size 1; a gap is printed and held to ``BF16_LOSS_ULPS`` bf16
+    ulps), every K1-K3 launch takes ``sm90``, and ``main`` destroys its
+    group. Then a
+    ``torch.distributed.checkpoint`` save and restore of a sharded
+    ``llama.tiny`` state under a new NCCL group (a few MB of disk).
+
+    What world size 1 checks: the DTensor state, its placement and DCP
+    under NCCL, and the sharded step's wrapping. Every mesh axis has
+    size 1, so ``loss_share`` is the local mean (no count is summed),
+    ``gather`` and ``tp_sum`` return their input and the norm's
+    all-reduce is skipped: no NCCL all-gather, reduce-scatter or
+    all-reduce runs here, and the equal losses hold by construction.
+    The collectives and the sharded losses are checked only over gloo
+    on the CPU (``tests/test_torch_sharded_*.py``)."""
+    import torch.distributed as dist
+
+    cfg_path, _, cfg = _train_config(
+        "gemma_dist", model="gemma.gemma_2b", vocab=256128, overrides={},
+        batch=2, steps=len(gtrain["losses"]) + 1, mesh={"fsdp": -1})
+    out = _with_env(_contract_env(_free_port()), _train_run, torch,
+                    "dist", cfg_path, cfg, ALL_SM90)
+    if dist.is_initialized():
+        raise AssertionError("dist: main left its process group open")
+    gaps = [abs(a - b) for a, b in zip(out["losses"], gtrain["losses"])]
+    shared = out["losses"][:len(gtrain["losses"])]
+    top = max(abs(x) for x in gtrain["losses"])
+    rule = BF16_LOSS_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+    out["loss_gap"] = max(gaps)
+    if out["loss_gap"] > rule:
+        raise AssertionError(f"dist: losses {shared} against the "
+                             f"unsharded {gtrain['losses']}: gap "
+                             f"{out['loss_gap']} > {rule}")
+    log(f"[dist] losses {shared} against the unsharded "
+        f"{gtrain['losses']}: "
+        + ("bit for bit" if out["loss_gap"] == 0 else
+           f"max gap {out['loss_gap']} (bf16 rule {rule})"))
+    log(f"[dist] step {out['step_s']:.4f} s ({out['tokens_per_s']:.1f} "
+        f"tokens/s, MFU {out['mfu']:.4f}) and {out['peak_gib']:.2f} GiB "
+        f"peak, against the unsharded {gtrain['step_s']:.4f} s "
+        f"({gtrain['tokens_per_s']:.1f} tokens/s) and "
+        f"{gtrain['peak_gib']:.2f} GiB: the sharded path's overhead at "
+        f"world size 1 is {out['step_s'] / gtrain['step_s'] - 1:+.2%} "
+        f"of the step (per step {out['step_times']} against "
+        f"{gtrain['step_times']} s)")
+    out["checkpoint"] = _with_env(_contract_env(_free_port()),
+                                  _dist_checkpoint, torch)
+    return out
+
+
+def _dist_checkpoint(torch) -> dict:
+    """A sharded ``llama.tiny`` state (bf16, on the card) trained 2 steps
+    under a world-size-1 NCCL group, saved asynchronously and restored
+    into a state from other weights: every leaf equal bit for bit, then
+    one more step with a finite loss. The group is destroyed after."""
+    import shutil
+
+    import torch.distributed as dist
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.parallel import mesh as tmesh
+    from kubedl_tpu_torch.parallel.sharding import full_tensor
+    from kubedl_tpu_torch.runtime import bootstrap
+    from kubedl_tpu_torch.train import checkpoint as ck
+    from kubedl_tpu_torch.train import data as tdata
+    from kubedl_tpu_torch.train import trainer as ttrainer
+
+    directory = BUILD_OUT / "dist_checkpoint"
+    shutil.rmtree(directory, ignore_errors=True)
+    bootstrap.initialize_distributed()
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"dist: backend {dist.get_backend()}")
+        mesh = tmesh.build_mesh(tmesh.MeshConfig(fsdp=-1))
+        cfg = llama.tiny(vocab=512, seq=256)
+        trainer = ttrainer.Trainer(
+            lambda p, b: llama.loss_fn(cfg, p, b["tokens"], b["targets"],
+                                       mesh=mesh),
+            ttrainer.TrainConfig(warmup_steps=1),
+            param_specs=llama.param_specs(cfg), mesh=mesh)
+
+        def fresh(seed):
+            return trainer.init_state(llama.init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(seed),
+                device="cuda"))
+        batches = tdata.prefetch_to_device(
+            tdata.synthetic_lm_batches(4, 256, cfg.vocab_size, seed=0),
+            mesh=mesh)
+        state = fresh(0)
+        for _ in range(2):
+            state, _ = trainer.step(state, next(batches))
+        mgr = ck.CheckpointManager(ck.CheckpointConfig(str(directory)))
+        t0 = time.perf_counter()
+        mgr.save(state, force=True, data_state={"consumed_batches": 2})
+        mgr.wait_until_finished()
+        save_s = time.perf_counter() - t0
+        restored = mgr.restore(fresh(1))
+
+        def leaves(st):
+            out = dict(ttrainer.tree_leaves(st.params))
+            out.update({f"mu/{k}": v for k, v in st.opt_state.mu.items()})
+            out.update({f"nu/{k}": v for k, v in st.opt_state.nu.items()})
+            return out
+        want, got = leaves(state), leaves(restored)
+        same = [k for k in want
+                if torch.equal(full_tensor(want[k]), full_tensor(got[k]))]
+        if len(same) != len(want) or restored.step != 2 \
+                or restored.opt_state.count != 2:
+            raise AssertionError(
+                f"dist: restored {len(same)} of {len(want)} leaves bit "
+                f"for bit, step {restored.step}")
+        _, loss = trainer.step(restored, next(batches))
+        if not math.isfinite(float(loss)):
+            raise AssertionError(f"dist: loss {loss} after the restore")
+        nbytes = mgr.last_save["bytes"]
+        log(f"[dist] checkpoint under NCCL: {len(want)} DTensor leaves, "
+            f"{nbytes / 2**20:.1f} MiB, saved in {save_s:.3f} s and "
+            f"restored bit for bit in {mgr.last_restore['seconds']:.3f} s; "
+            f"next loss {float(loss):.4f}")
+        return {"leaves": len(want), "bytes": nbytes, "save_s": save_s,
+                "restore_s": mgr.last_restore["seconds"]}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(directory, ignore_errors=True)
 
 
 LORA_RANK = 16
@@ -3386,17 +3556,25 @@ def phase_resnet(torch) -> dict:
 
 
 def _probe(torch, argv, timed) -> int:
-    """``--phases hf,lifecycle,resnet,moe_timing [--layers N]``: the named
-    slice-10 phases alone after the build, Gemma-2B ``N`` layers deep
-    (a quick check of one part on the card; no kernels line and no last
-    line)."""
+    """``--phases hf,lifecycle,resnet,moe_timing,dist [--layers N]``: the
+    named phases alone after the build, the slice-10 ones on Gemma-2B
+    ``N`` layers deep, ``dist`` after the unsharded Gemma-2B training it
+    compares with (a quick check of one part on the card; no kernels
+    line and no last line)."""
     if len(argv) not in (2, 4) or argv[0] != "--phases" or (
             len(argv) == 4 and argv[2] != "--layers"):
         print("usage: chip_smoke.py [--phases hf,lifecycle,resnet,"
-              "moe_timing [--layers N]]", file=sys.stderr)
+              "moe_timing,dist [--layers N]]", file=sys.stderr)
         return 2
     only = set(argv[1].split(","))
     layers = int(argv[3]) if len(argv) == 4 else None
+    if "dist" in only:
+        gtrain = timed("gemma_training", phase_gemma_training, torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed("dist", phase_dist, torch, gtrain)
+        gc.collect()
+        torch.cuda.empty_cache()
     if "moe_timing" in only:
         timed("moe_timing", phase_timing, torch, MOE_TRAIN, 600)
     if only & {"hf", "lifecycle"}:
@@ -3485,6 +3663,9 @@ def main() -> int:
     gtrain = timed("gemma_training", phase_gemma_training, torch)
     gc.collect()
     torch.cuda.empty_cache()
+    dist_run = timed("dist", phase_dist, torch, gtrain)
+    gc.collect()
+    torch.cuda.empty_cache()
     lora_run = timed("lora_training", phase_lora_training, torch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3522,6 +3703,7 @@ def main() -> int:
     shape = _shape(TRAIN)
     launches = {name: {"training": train["launches"][name],
                        "gemma_training": gtrain["launches"][name],
+                       "dist_training": dist_run["launches"][name],
                        "lora_training": lora_run["launches"][name],
                        "moe_training": mtrain["launches"][name]}
                 for name in ("flash_forward", "flash_dq", "flash_dkv")}
@@ -3544,6 +3726,9 @@ def main() -> int:
                "design": DESIGN_HD256[name],
                "launches": {"gemma_training": gtrain["launches"][name],
                             "gemma_training_by_route": gtrain["by_route"][
+                                name],
+                            "dist_training": dist_run["launches"][name],
+                            "dist_training_by_route": dist_run["by_route"][
                                 name]},
                **gtimes[name]}
         if name == "flash_forward":

@@ -14,8 +14,21 @@ hand-written flash kernels on the card (forward, and dQ/dK/dV when
 autograd records), the chunked path on the CPU. Training adds
 :func:`loss_fn`/:func:`lm_loss` (the chunked LM-head loss of
 ``ops/loss.py``) and per-layer recomputation (``config.remat``).
-Context parallelism (ring, ulysses) and tensor parallelism arrive with
-the parallel slice; a ``mesh`` argument raises until then.
+
+Under a sharded ``mesh`` (``parallel/mesh.py``) the params are
+``parallel.sharding.ShardedTensor`` views: each block gathers the weights
+it uses (``materialize``; ``fsdp`` gathers one layer at a time) and
+computes on its rows of the batch. Under ``tp`` attention runs the
+kernels on the rank's own heads (``wq``/``wk``/``wv`` column-parallel,
+``wo`` row-parallel, its partial outputs summed over ``tp``), and the MLP
+on its own ``d_ff`` columns the same way. When ``tp`` does not divide
+``n_kv_heads`` (Gemma's one KV head) the K/V weights are gathered whole,
+so every rank holds the KV heads its query heads read, as the JAX
+serving path replicates its cache. The embedding and the LM head are
+gathered whole over ``tp`` for the lookup and the loss, their storage
+and gradients staying sharded (a vocab-parallel loss would skip that
+gather: ROADMAP B11). Context parallelism (ring, ulysses) is ROADMAP A5b
+and raises.
 """
 
 from __future__ import annotations
@@ -30,9 +43,12 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.attention import multi_head_attention
-from ..ops.loss import chunked_softmax_xent
+from ..ops.loss import chunked_token_nll
 from ..ops.quant import mm as _mm
 from ..ops.quant import to_dense
+from ..parallel.collectives import is_sharded, loss_share, tp_sum
+from ..parallel.mesh import refuse_unported
+from ..parallel.sharding import materialize, spec
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -201,6 +217,41 @@ def param_shapes(config: LlamaConfig) -> dict:
     return {"layers": layer, **top}
 
 
+def param_specs(config: LlamaConfig) -> dict:
+    """Logical shardings per param (the leading layer axis is unsharded):
+    the JAX package's specs for the same config. The port stacks every
+    layer leaf on a leading ``[n_layers]`` axis whatever ``scan_layers``
+    says (``models/io.py`` stacks a per-layer artifact), so its specs
+    keep the ``"layers"`` entry where the JAX package, at
+    ``scan_layers=False``, lists one unstacked dict per layer."""
+    def ls(*axes) -> tuple:
+        return spec("layers", *axes)
+
+    layer = {
+        "attn_norm": ls("norm"),
+        "wq": ls("embed", "heads"),
+        **({"bq": ls("heads"), "bk": ls("kv_heads"), "bv": ls("kv_heads")}
+           if config.qkv_bias else {}),
+        **({"post_attn_norm": ls("norm"), "post_ffw_norm": ls("norm")}
+           if config.sandwich_norms else {}),
+        "wk": ls("embed", "kv_heads"),
+        "wv": ls("embed", "kv_heads"),
+        "wo": ls("heads", "embed"),
+        "mlp_norm": ls("norm"),
+        "w_gate": ls("embed", "mlp"),
+        "w_up": ls("embed", "mlp"),
+        "w_down": ls("mlp", "embed"),
+    }
+    specs = {
+        "embed": spec("vocab", "embed"),
+        "layers": layer,
+        "final_norm": spec("norm"),
+    }
+    if not config.tie_embeddings:
+        specs["lm_head"] = spec("embed", "vocab")
+    return specs
+
+
 def init_params(config: LlamaConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Random parameters with the JAX package's keys, shapes and fan-in
@@ -306,10 +357,12 @@ def _act(config: LlamaConfig):
 def _lm_head(config: LlamaConfig, params: dict):
     """[d, vocab] projection; Gemma ties it to the embedding table. May be
     a ``QTensor``/``Q4Tensor`` under quantized serving (consumers go
-    through ``quant.mm`` / ``quant.to_dense``)."""
+    through ``quant.mm`` / ``quant.to_dense``). A sharded head is
+    gathered whole."""
     if config.tie_embeddings:
-        return params["embed"].T.to(config.dtype)
-    w = params["lm_head"]
+        return materialize(params["embed"], gather_tp=True).T.to(
+            config.dtype)
+    w = materialize(params["lm_head"], gather_tp=True)
     return w.to(config.dtype) if torch.is_tensor(w) else w
 
 
@@ -321,7 +374,7 @@ def _softcap(config: LlamaConfig, logits):
 
 
 def _embed(config: LlamaConfig, params: dict, tokens):
-    x = params["embed"][tokens].to(config.dtype)
+    x = materialize(params["embed"], gather_tp=True)[tokens].to(config.dtype)
     if config.embed_scale:
         # a fill, not a host-to-device copy: legal inside a CUDA graph
         x = x * torch.full((), math.sqrt(config.d_model), dtype=config.dtype,
@@ -353,52 +406,103 @@ def apply_rope(x, cos, sin):
     return out.to(x.dtype)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-parallel execution (ring/ulysses context parallelism, "
-            "tensor parallelism) is not ported yet: ROADMAP queue A, "
-            "context and pipeline parallelism")
+def _check_mesh(mesh) -> None:
+    """The mesh axes the model reads (``cp`` for ring/ulysses attention,
+    ``ep`` for the experts, as in the JAX model) are not ported yet
+    (``parallel.mesh.refuse_unported``)."""
+    if mesh is None:
+        return
+    shape = getattr(mesh, "shape", None)
+    if not isinstance(shape, dict):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    refuse_unported(shape)
+
+
+def _tp(mesh) -> int:
+    return mesh.size("tp") if is_sharded(mesh) else 1
+
+
+def _views(lp: dict, names: tuple, gather_tp=()) -> dict:
+    """The weights of ``names`` in ``lp`` as the block computes with them
+    (``parallel.sharding.materialize``); ``gather_tp`` names those taken
+    whole over ``tp``."""
+    return {k: materialize(lp[k], k in gather_tp) for k in names if k in lp}
+
+
+def _kv_replicated(config: LlamaConfig, mesh) -> bool:
+    """Whether ``tp`` cannot split the KV heads, so K/V run whole."""
+    tp = _tp(mesh)
+    return tp > 1 and config.n_kv_heads % tp != 0
+
+
+def _local_kv(config: LlamaConfig, k, v, nq: int, mesh):
+    """Of whole K/V [b, s, n_kv_heads, hd], the KV heads the rank's ``nq``
+    query heads read: a slice when they are a run of whole GQA groups,
+    else one KV head per query head."""
+    group = config.n_heads // config.n_kv_heads
+    first = mesh.index("tp") * nq
+    idx = [(first + i) // group for i in range(nq)]
+    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    if nq % n == 0 and idx == [lo + i // (nq // n) for i in range(nq)]:
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+_ATTN_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
+                "post_attn_norm")
+_MLP_LEAVES = ("mlp_norm", "w_gate", "w_up", "w_down", "post_ffw_norm")
 
 
 def attention_block(config: LlamaConfig, x, lp, cos, sin, segment_ids,
                     mesh=None, window_on=None):
     """Pre-norm attention sublayer with residual (the non-context-parallel
     branch of the JAX block). ``window_on`` toggles the sliding window per
-    layer (Gemma-2's alternate pattern)."""
+    layer (Gemma-2's alternate pattern). Under ``tp`` the rank computes
+    its own heads and the output projection's partial sums are added over
+    ``tp``."""
     c = config
-    _no_mesh(mesh)
+    _check_mesh(mesh)
     if c.window_pattern == "alternate" and window_on is None:
         raise ValueError(
             "window_pattern='alternate' requires a per-layer window_on "
             "flag (thread window_flags(config) through the layer loop)")
+    kv_whole = _kv_replicated(c, mesh)
+    lp = _views(lp, _ATTN_LEAVES,
+                ("wk", "wv", "bk", "bv") if kv_whole else ())
     b, s, _ = x.shape
-    nh, nkv, hd = c.n_heads, c.n_kv_heads, c.hd
+    hd = c.hd
 
     h = rms_norm(x, lp["attn_norm"], c.rms_eps, c.norm_weight_offset)
-    q = _qkv(c, h, lp, "wq", "bq").reshape(b, s, nh, hd)
-    k = _qkv(c, h, lp, "wk", "bk").reshape(b, s, nkv, hd)
-    v = _qkv(c, h, lp, "wv", "bv").reshape(b, s, nkv, hd)
+    q = _qkv(c, h, lp, "wq", "bq").reshape(b, s, -1, hd)
+    k = _qkv(c, h, lp, "wk", "bk").reshape(b, s, -1, hd)
+    v = _qkv(c, h, lp, "wv", "bv").reshape(b, s, -1, hd)
+    if kv_whole:
+        k, v = _local_kv(c, k, v, q.shape[2], mesh)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = multi_head_attention(q, k, v, causal=True,
                                 segment_ids=segment_ids,
                                 window=c.sliding_window,
                                 window_on=window_on, **_attn_knobs(c))
-    delta = _mm(attn.reshape(b, s, nh * hd), lp["wo"])
+    delta = tp_sum(_mm(attn.reshape(b, s, -1), lp["wo"]), mesh)
     if c.sandwich_norms:
         delta = rms_norm(delta, lp["post_attn_norm"], c.rms_eps,
                          c.norm_weight_offset)
     return x + delta
 
 
-def _mlp(config: LlamaConfig, x, lp):
+def _mlp(config: LlamaConfig, x, lp, mesh=None):
     """Gated MLP (SwiGLU for Llama, GeGLU for Gemma) with residual;
-    Gemma-2 wraps it in sandwich norms."""
+    Gemma-2 wraps it in sandwich norms. Under ``tp`` the rank computes
+    its own ``d_ff`` columns and the down projection's partial sums are
+    added over ``tp``."""
     c = config
+    lp = _views(lp, _MLP_LEAVES)
     h = rms_norm(x, lp["mlp_norm"], c.rms_eps, c.norm_weight_offset)
     gated = _act(c)(_mm(h, lp["w_gate"]).float()).to(h.dtype)
-    y = _mm(gated * _mm(h, lp["w_up"]), lp["w_down"])
+    y = tp_sum(_mm(gated * _mm(h, lp["w_up"]), lp["w_down"]), mesh)
     if c.sandwich_norms:
         y = rms_norm(y, lp["post_ffw_norm"], c.rms_eps, c.norm_weight_offset)
     return x + y
@@ -408,7 +512,7 @@ def _layer_forward(config: LlamaConfig, x, lp, cos, sin, segment_ids,
                    mesh=None, window_on=None):
     x = attention_block(config, x, lp, cos, sin, segment_ids, mesh,
                         window_on)
-    return _mlp(config, x, lp)
+    return _mlp(config, x, lp, mesh)
 
 
 def forward_hidden(config: LlamaConfig, params: dict, tokens,
@@ -430,7 +534,7 @@ def forward_hidden(config: LlamaConfig, params: dict, tokens,
     and recomputes the rest; this recomputes the whole layer, trading
     matmul time for the simplest correct policy."""
     c = config
-    _no_mesh(mesh)
+    _check_mesh(mesh)
     s = tokens.shape[1]
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
@@ -449,12 +553,13 @@ def forward_hidden(config: LlamaConfig, params: dict, tokens,
             window_on = None if flags is None else flags[i]
             if training and c.remat:
                 x = checkpoint(
-                    _layer_forward, c, x, lp, cos, sin, segment_ids, None,
+                    _layer_forward, c, x, lp, cos, sin, segment_ids, mesh,
                     window_on, use_reentrant=False)
             else:
                 x = _layer_forward(c, x, lp, cos, sin, segment_ids,
-                                   window_on=window_on)
-    return rms_norm(x, params["final_norm"], c.rms_eps, c.norm_weight_offset)
+                                   mesh=mesh, window_on=window_on)
+    return rms_norm(x, materialize(params["final_norm"]), c.rms_eps,
+                    c.norm_weight_offset)
 
 
 def forward(config: LlamaConfig, params: dict, tokens, positions=None,
@@ -715,25 +820,27 @@ def forward_step_paged(config: LlamaConfig, params: dict, tokens,
 
 # -- training loss -----------------------------------------------------------
 
-def lm_loss(config: LlamaConfig, x, params: dict, targets, mask=None):
+def lm_loss(config: LlamaConfig, x, params: dict, targets, mask=None,
+            mesh=None):
     """Next-token cross-entropy from final hidden states, mean over
     unmasked targets (float32 scalar). With ``config.loss_chunk > 0`` the
     LM-head product and softmax run in sequence chunks
-    (``ops.loss.chunked_softmax_xent``), so the [b, s, vocab] logits are
-    never materialized."""
+    (``ops.loss.chunked_token_nll``), so the [b, s, vocab] logits are
+    never materialized. Under a sharded ``mesh`` it is this rank's share
+    of the global mean (``parallel.collectives.loss_share``)."""
     head = to_dense(_lm_head(config, params), config.dtype)
     if config.loss_chunk > 0:
-        return chunked_softmax_xent(x, head, targets, mask=mask,
-                                    chunk=config.loss_chunk,
-                                    logit_softcap=config.logit_softcap)
-    logits = _softcap(config, (x @ head).float())
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    nll = logz - gold
-    if mask is None:
-        return nll.mean()
-    mask = mask.float()
-    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        total = chunked_token_nll(x, head, targets, mask=mask,
+                                  chunk=config.loss_chunk,
+                                  logit_softcap=config.logit_softcap).sum()
+    else:
+        logits = _softcap(config, (x @ head).float())
+        nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+            logits, -1, targets[..., None].long())[..., 0]
+        total = (nll if mask is None else nll * mask.float()).sum()
+    count = (mask.float().sum() if mask is not None else torch.tensor(
+        float(targets.numel()), device=x.device))
+    return loss_share(total, count, mesh)
 
 
 def loss_fn(config: LlamaConfig, params: dict, tokens, targets, mask=None,
@@ -744,4 +851,4 @@ def loss_fn(config: LlamaConfig, params: dict, tokens, targets, mask=None,
     RoPE positions restart per document."""
     x = forward_hidden(config, params, tokens, positions=positions,
                        segment_ids=segment_ids, mesh=mesh)
-    return lm_loss(config, x, params, targets, mask=mask)
+    return lm_loss(config, x, params, targets, mask=mask, mesh=mesh)

@@ -39,6 +39,13 @@ def param_shapes(config: MLPConfig) -> dict:
                        for i, o in zip(d[:-1], d[1:])]}
 
 
+def param_specs(config: MLPConfig) -> dict:
+    """Replicated weights (the JAX package's specs)."""
+    from ..parallel.sharding import spec
+    n = len(config.hidden) + 1
+    return {"layers": [{"w": spec(None, None), "b": spec(None)}] * n}
+
+
 def init_params(config: MLPConfig, generator: torch.Generator,
                 device=None) -> dict:
     """normal / sqrt(fan_in) weights and zero biases, the JAX package's

@@ -19,8 +19,13 @@ style:
 
 The expert einsums are plain matrix products in both packages (no
 Pallas kernel); attention goes through the llama core and so through the
-flash kernels on the card. Expert parallelism (the ``ep`` mesh axis)
-arrives with the parallel slice; a ``mesh`` raises until then.
+flash kernels on the card. Under a sharded ``mesh`` the layers follow
+the llama core's rules (``fsdp`` gathers per layer; under ``tp`` each
+rank runs its own ``d_ff`` columns of every expert and the expert
+outputs are summed over ``tp`` before the combine), and the aux loss is
+this rank's share of the global batch's (its statistics summed over the
+data axes). Expert parallelism (the ``ep`` mesh axis) is ROADMAP A5b and
+raises.
 """
 
 from __future__ import annotations
@@ -33,8 +38,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from . import llama
-from .llama import LlamaConfig, _no_mesh, rms_norm
+from .llama import LlamaConfig, _check_mesh, rms_norm
 from ..ops.quant import to_dense
+from ..parallel.collectives import data_sum, loss_share, tp_sum
+from ..parallel.sharding import spec
 
 
 @dataclass(frozen=True)
@@ -114,6 +121,34 @@ def param_shapes(config: MoEConfig) -> dict:
     return {"layers": layer, **top}
 
 
+def param_specs(config: MoEConfig) -> dict:
+    """The JAX package's logical specs (stacked layers, as
+    ``llama.param_specs`` says)."""
+    def ls(*axes) -> tuple:
+        return spec("layers", *axes)
+
+    layer = {
+        "attn_norm": ls("norm"),
+        "wq": ls("embed", "heads"),
+        "wk": ls("embed", "kv_heads"),
+        "wv": ls("embed", "kv_heads"),
+        "wo": ls("heads", "embed"),
+        "mlp_norm": ls("norm"),
+        "w_router": ls("embed", None),
+        "w_gate": ls("experts", "embed", "mlp"),
+        "w_up": ls("experts", "embed", "mlp"),
+        "w_down": ls("experts", "mlp", "embed"),
+    }
+    specs = {
+        "embed": spec("vocab", "embed"),
+        "layers": layer,
+        "final_norm": spec("norm"),
+    }
+    if not config.tie_embeddings:
+        specs["lm_head"] = spec("embed", "vocab")
+    return specs
+
+
 def _fill(config: MoEConfig, out, name: str, generator) -> None:
     """One leaf drawn as the JAX package draws it: weights normal /
     sqrt(fan_in) (the contraction dim; ``d`` for the embedding table),
@@ -181,7 +216,8 @@ def _top_k(probs, k: int) -> tuple:
     return torch.cat(vals, -1), torch.cat(idxs, -1)
 
 
-def route(config: MoEConfig, probs, capacity: int, token_mask=None):
+def route(config: MoEConfig, probs, capacity: int, token_mask=None,
+          mesh=None):
     """Top-k routing with per-expert capacity.
 
     probs: [b, s, E] float32 router softmax. Returns (dispatch, combine,
@@ -191,7 +227,10 @@ def route(config: MoEConfig, probs, capacity: int, token_mask=None):
     outranks any second choice); tokens past an expert's capacity drop
     (their residual passes through). ``token_mask`` [b, s] keeps padding
     out of the queues and out of the aux statistics. aux is the Switch
-    load-balancing loss (E * Σ_e frac_e · prob_e).
+    load-balancing loss (E * Σ_e frac_e · prob_e); under a sharded
+    ``mesh``, this rank's share of the global batch's: the top-1 counts
+    and the token count summed over the data axes, its own probabilities
+    over the global count, over ``tp``'s size.
 
     Every op is a device op with shapes fixed by (b, s, E, C), so the
     decode tick's CUDA graph captures it."""
@@ -220,15 +259,14 @@ def route(config: MoEConfig, probs, capacity: int, token_mask=None):
 
     # Switch aux loss from the top-1 assignment (masked tokens excluded)
     top1 = oh[:, :, 0, :]                                    # [b, s, E]
-    if token_mask is None:
-        frac = top1.mean(dim=(0, 1))
-        mean_prob = probs.mean(dim=(0, 1))
-    else:
-        m = token_mask.float()[..., None]
-        n = torch.clamp_min(m.sum(), 1.0)
-        frac = (top1 * m).sum(dim=(0, 1)) / n
-        mean_prob = (probs * m).sum(dim=(0, 1)) / n
-    aux = E * torch.sum(frac * mean_prob)
+    m = (torch.ones((b, s, 1), device=dev) if token_mask is None
+         else token_mask.float()[..., None])
+    # the routed fraction is global; this rank's probabilities are its
+    # share of the global mean
+    frac = (data_sum((top1 * m).sum(dim=(0, 1)), mesh)
+            / torch.clamp_min(data_sum(m.sum(), mesh), 1.0))
+    aux = loss_share(E * torch.sum(frac * (probs * m).sum(dim=(0, 1))),
+                     m.sum(), mesh)
     return dispatch, combine, aux
 
 
@@ -239,15 +277,20 @@ def capacity_of(config: MoEConfig, s: int) -> int:
 
 
 def _moe_block(config: MoEConfig, x, lp, mesh=None, token_mask=None):
-    """Sparse-MLP sublayer with residual. Returns (x, aux_loss)."""
+    """Sparse-MLP sublayer with residual. Returns (x, aux_loss). Under
+    ``tp`` the rank runs its own ``d_ff`` columns of every expert; the
+    expert outputs are summed over ``tp`` before the combine."""
     c = config
-    _no_mesh(mesh)
+    _check_mesh(mesh)
+    lp = llama._views(lp, ("mlp_norm", "w_router", "w_gate", "w_up",
+                           "w_down"))
     s = x.shape[1]
     h = rms_norm(x, lp["mlp_norm"], c.rms_eps, c.norm_weight_offset)
 
     logits = h.float() @ lp["w_router"]                      # [b, s, E]
     probs = torch.softmax(logits, dim=-1)
-    dispatch, combine, aux = route(c, probs, capacity_of(c, s), token_mask)
+    dispatch, combine, aux = route(c, probs, capacity_of(c, s), token_mask,
+                                   mesh=mesh)
 
     # [b, s, E, C] x [b, s, d] -> [E, b, C, d]
     xe = torch.einsum("bsec,bsd->ebcd", dispatch.to(c.dtype), h)
@@ -259,7 +302,7 @@ def _moe_block(config: MoEConfig, x, lp, mesh=None, token_mask=None):
     gated = llama._act(c)(
         torch.einsum("ebcd,edf->ebcf", xe, w_gate).float()).to(xe.dtype)
     up = torch.einsum("ebcd,edf->ebcf", xe, w_up)
-    ye = torch.einsum("ebcf,efd->ebcd", gated * up, w_down)
+    ye = tp_sum(torch.einsum("ebcf,efd->ebcd", gated * up, w_down), mesh)
     out = torch.einsum("bsec,ebcd->bsd", combine.to(c.dtype), ye)
     return x + out, aux
 
@@ -280,7 +323,7 @@ def forward_hidden(config: MoEConfig, params: dict, tokens,
     are unbound once, and with ``config.remat`` each layer runs under
     ``torch.utils.checkpoint``."""
     c = config
-    _no_mesh(mesh)
+    _check_mesh(mesh)
     aux = []
 
     def layers(x, cos, sin):
@@ -294,16 +337,16 @@ def forward_hidden(config: MoEConfig, params: dict, tokens,
             window_on = None if flags is None else flags[i]
             if training and c.remat:
                 x, a = checkpoint(_layer_forward, c, x, lp, cos, sin,
-                                  segment_ids, None, window_on,
+                                  segment_ids, mesh, window_on,
                                   use_reentrant=False)
             else:
                 x, a = _layer_forward(c, x, lp, cos, sin, segment_ids,
-                                      window_on=window_on)
+                                      mesh=mesh, window_on=window_on)
             aux.append(a)
         return x
 
     x = llama.forward_hidden(c, params, tokens, positions, segment_ids,
-                             apply_layers=layers)
+                             mesh=mesh, apply_layers=layers)
     return x, torch.stack(aux).sum()
 
 
@@ -378,5 +421,5 @@ def loss_fn(config: MoEConfig, params: dict, tokens, targets, mask=None,
     load-balancing aux."""
     x, aux = forward_hidden(config, params, tokens, positions=positions,
                             segment_ids=segment_ids, mesh=mesh)
-    return (llama.lm_loss(config, x, params, targets, mask=mask)
+    return (llama.lm_loss(config, x, params, targets, mask=mask, mesh=mesh)
             + config.aux_loss_weight * aux)

@@ -128,6 +128,13 @@ def _map(tree, fn, path=""):
     return fn(path[:-1], tree)
 
 
+def param_specs(config: ResNetConfig) -> dict:
+    """Replicated weights (data-parallel vision training), congruent with
+    the parameter tree: the JAX package's specs."""
+    from ..parallel.sharding import spec
+    return _map(param_shapes(config), lambda _, s: spec())
+
+
 def num_params(config: ResNetConfig) -> int:
     total = []
     _map(param_shapes(config), lambda _, s: total.append(math.prod(s)))

@@ -13,8 +13,8 @@ matrices per weight (W + (x·A)·B·s, rank r) instead of the full model:
 * :func:`merge_to_dense` folds adapters into plain weights for serving
   (and for int8/int4 quantization) with no inference overhead.
 
-The JAX package's ``adapter_specs`` (the adapters' sharding) has no
-counterpart until the port's parallel slice (ROADMAP A5).
+:func:`adapter_specs` shards the adapters as the JAX package does: A
+like its weight's input dim, B like its output dim.
 """
 
 from __future__ import annotations
@@ -81,6 +81,18 @@ def init_adapters(params: dict, rank: int = 8, targets=DEFAULT_TARGETS,
                              device=w.device),
         }
     return adapters
+
+
+def adapter_specs(base_specs: dict, adapters: dict) -> dict:
+    """Specs for the adapter tree: A shards like the weight's input dim,
+    B like its output dim (rank replicates)."""
+    layer_specs = base_specs["layers"]
+    out = {}
+    for name in adapters:
+        lead, in_ax, out_ax = (layer_specs[name][0], layer_specs[name][-2],
+                               layer_specs[name][-1])
+        out[name] = {"a": (lead, in_ax, None), "b": (lead, None, out_ax)}
+    return out
 
 
 def merge_params(base_params: dict, adapters: dict,

@@ -1,1 +1,4 @@
-"""Parallelism of the port: the mesh layout (one device so far)."""
+"""Parallelism of the port: the mesh layout (``mesh``), the logical
+sharding rules and placements (``sharding``), the collectives sharded
+training runs (``collectives``) and a local launcher of process-group
+ranks (``launch``)."""

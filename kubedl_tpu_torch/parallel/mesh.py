@@ -3,10 +3,18 @@
 The axes carry the same parallelism taxonomy, outermost to innermost:
 ``dp`` (data), ``fsdp`` (data with sharded params and optimizer state),
 ``ep`` (experts), ``pp`` (pipeline stages), ``cp`` (context / sequence)
-and ``tp`` (tensor). This slice trains on one card, so
-:func:`build_mesh` takes only a layout that resolves to one device; a
-layout across cards raises until ROADMAP A5 (context, tensor and
-pipeline parallelism over ``torch.distributed``) lands.
+and ``tp`` (tensor), resolved by the same :meth:`MeshConfig.resolve`.
+
+In torch every card is its own process, so a mesh of more than one card
+needs a process group first (``runtime.bootstrap.initialize_distributed``).
+With a group open, :func:`build_mesh` lays the group's ranks out over a
+``torch.distributed.device_mesh.DeviceMesh`` in the JAX axis order (rank
+``r`` sits where device ``r`` sits in the JAX mesh's reshape). Without
+one it returns the one-device mesh of earlier slices, and any axis above
+1 is a layout this one process cannot hold.
+
+``dp``, ``fsdp`` and ``tp`` train (``train/trainer.py``); ``ep`` and
+``cp`` wait for ROADMAP A5b and ``pp`` for A5c, and raise by item.
 """
 
 from __future__ import annotations
@@ -20,6 +28,11 @@ import torch
 from .._device import resolve_device
 
 AXES = ("dp", "fsdp", "ep", "pp", "cp", "tp")
+
+#: mesh axes that are not ported yet, and the ROADMAP item of each
+UNPORTED_AXES = {"ep": "ROADMAP A5b (expert parallelism)",
+                 "cp": "ROADMAP A5b (context parallelism: ring/ulysses)",
+                 "pp": "ROADMAP A5c (pipeline parallelism)"}
 
 
 @dataclass(frozen=True)
@@ -47,23 +60,87 @@ class MeshConfig:
         return dims
 
 
+def refuse_unported(sizes: dict) -> None:
+    """Raise for an axis above 1 whose parallelism is not ported yet,
+    naming its ROADMAP item."""
+    for axis, item in UNPORTED_AXES.items():
+        if sizes.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"mesh axis {axis}={sizes[axis]} is not ported yet: {item}")
+
+
 @dataclass(frozen=True)
 class Mesh:
-    """A resolved layout: the device and the size of every axis."""
+    """A resolved layout: this process's device, the size of every axis
+    and, under a process group, the ``DeviceMesh`` over the group's
+    ranks (None for the one-device mesh)."""
     device: torch.device
     shape: dict
+    device_mesh: object = None
+
+    @property
+    def sharded(self) -> bool:
+        """Whether any axis spans more than one rank (collectives run)."""
+        return any(n > 1 for n in self.shape.values())
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis`` (0 on one device)."""
+        if self.device_mesh is None:
+            return 0
+        return self.device_mesh.get_local_rank(axis)
+
+    def group(self, axis: str):
+        """The process group of ``axis`` through this rank."""
+        return self.device_mesh.get_group(axis)
+
+    @property
+    def data_size(self) -> int:
+        """Ranks the global batch is split over (``dp`` x ``fsdp``)."""
+        return self.size("dp") * self.size("fsdp")
+
+    @property
+    def data_index(self) -> int:
+        """Which slice of the global batch this rank holds (``dp``
+        major, as JAX's ``(dp, fsdp)`` split orders its shards)."""
+        return self.index("dp") * self.size("fsdp") + self.index("fsdp")
 
 
 def build_mesh(config: Optional[MeshConfig] = None, device=None) -> Mesh:
-    """The one-device mesh on ``device`` (the card unless the caller
-    names the CPU). Any axis above 1 raises: sharded training is ROADMAP
-    A5."""
+    """The named mesh on ``device`` (the card unless the caller names the
+    CPU). Under an open process group its axes cover the group's ranks,
+    with ``MeshConfig``'s default (-1) putting every rank on ``fsdp``;
+    without one it is the one-device mesh. ``ep``, ``cp`` and ``pp``
+    above 1 raise, naming their ROADMAP items."""
     config = config or MeshConfig()
-    sizes = {a: getattr(config, a) for a in AXES}
-    if any(d > 1 for d in sizes.values()):
-        raise NotImplementedError(
-            f"mesh {sizes} spans more than one device: multi-device "
-            "training (dp/fsdp/ep/pp/cp/tp over torch.distributed) is "
-            "ROADMAP A5, not ported yet")
+    refuse_unported({a: getattr(config, a) for a in AXES})
+    dev = resolve_device(device)
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        from torch.distributed.device_mesh import init_device_mesh
+        dims = config.resolve(dist.get_world_size())
+        dm = init_device_mesh(dev.type, dims, mesh_dim_names=AXES)
+        return Mesh(device=dev, shape=dict(zip(AXES, dims)), device_mesh=dm)
     dims = config.resolve(1)
-    return Mesh(device=resolve_device(device), shape=dict(zip(AXES, dims)))
+    return Mesh(device=dev, shape=dict(zip(AXES, dims)))
+
+
+def data_axes() -> tuple:
+    """Mesh axes the global batch is sharded over."""
+    return ("dp", "fsdp")
+
+
+def batch_spec() -> tuple:
+    """``[batch, seq]`` tokens: batch over ``(dp, fsdp)``, seq over
+    ``cp`` (the ``PartitionSpec`` of the JAX package, as a tuple)."""
+    return (("dp", "fsdp"), "cp")
+
+
+def host_local_batch_size(global_batch: int, mesh: Mesh) -> int:
+    n = mesh.shape["dp"] * mesh.shape["fsdp"]
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} not divisible by "
+                         f"dp*fsdp={n}")
+    return global_batch // n

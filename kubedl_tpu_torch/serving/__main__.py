@@ -12,7 +12,7 @@ environment contract:
 * ``KUBEDL_SERVING_SPEC_K``   — >0 enables speculative lanes with the
   draft model at ``KUBEDL_SERVING_DRAFT_PATH``: every lane drafts k tokens
   per round and ONE [lanes, k+1] target pass verifies them
-* ``KUBEDL_SERVING_TP``       — refused above 1 (ROADMAP A5)
+* ``KUBEDL_SERVING_TP``       — refused above 1 (ROADMAP A5d)
 * ``KUBEDL_KV_MODE``          — "paged" (default), "dense" or "parity"
 * ``KUBEDL_SERVING_KV_BLOCK`` / ``KUBEDL_SERVING_POOL_BLOCKS`` — paged
   pool geometry: tokens per block and usable block count (0 = engine
@@ -62,7 +62,7 @@ def build_engine(model_path: str, lanes: int, quantize: str, spec_k: int,
     if tp > 1:
         raise NotImplementedError(
             f"KUBEDL_SERVING_TP={tp}: tensor-parallel serving is not "
-            "ported yet: ROADMAP A5")
+            "ported yet: ROADMAP A5d")
     from .._device import resolve_device
     from ..models.io import load_model
     from .batching import ContinuousBatchingEngine

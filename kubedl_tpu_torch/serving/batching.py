@@ -47,7 +47,7 @@ blocks (``serving/adapters.py``); residency is host accounting, so greedy
 tokens under an adapter equal the base model's, as in the JAX engine.
 
 Not ported yet, and refused by name: a tensor-parallel ``mesh`` (ROADMAP
-A5).
+A5d).
 """
 
 from __future__ import annotations
@@ -423,7 +423,8 @@ class ContinuousBatchingEngine:
                  max_adapters: Optional[int] = None, device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh: tensor-parallel serving is not ported yet: ROADMAP A5")
+                "mesh: tensor-parallel serving is not ported yet: "
+                "ROADMAP A5d")
         if max_adapters is not None and adapters is None:
             # the JAX engine ignores the cap without a catalog; a cap that
             # would silently do nothing is refused here

@@ -12,7 +12,7 @@
   applied as the weights move to the device, leaf by leaf.
 
 Tensor-parallel serving (the JAX engine's ``mesh``) arrives with a later
-slice and raises until then (ROADMAP A5).
+slice and raises until then (ROADMAP A5d).
 """
 
 from __future__ import annotations
@@ -245,8 +245,7 @@ class InferenceEngine:
         from ..trace import NOOP_TRACER
         if mesh is not None:
             raise NotImplementedError(
-                "tensor-parallel serving is not ported yet: ROADMAP A5, "
-                "context and pipeline parallelism")
+                "tensor-parallel serving is not ported yet: ROADMAP A5d")
         self.device = resolve_device(device)
         self.config = config
         self.gen = gen or GenerateConfig()

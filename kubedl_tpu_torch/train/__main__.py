@@ -48,9 +48,22 @@ data fingerprint matches. ``"eval": {"every": N, "data": {...},
 (LoRA folded first; an MoE model has no HF mapping and raises
 ``ValueError`` up front, as in the JAX package).
 
-Not ported yet, and refused by name: ``mode: grpo`` (ROADMAP A7), mesh
-axes above 1 (A5), a multi-process rendezvous and the in-cluster elastic
-agent (A8).
+Across processes: with the operator's rendezvous contract in the env
+(``KUBEDL_COORDINATOR_ADDRESS``, ``KUBEDL_NUM_PROCESSES``,
+``KUBEDL_PROCESS_ID``; ``runtime/bootstrap.py``) the job opens a process
+group first (NCCL on the card, gloo on the CPU), then lays ``"mesh":
+{"dp": .., "fsdp": .., "tp": ..}`` over its ranks (default: every rank on
+``fsdp``), places the params by the family's ``param_specs`` (and the
+adapters by ``adapter_specs`` under ``lora``) and trains every mode
+sharded: each rank draws the global batch and keeps its rows, the loss
+is the global mean, checkpoints reshard across world sizes, and the
+export gathers the params and only rank 0 writes. The group is torn
+down on exit.
+
+Not ported yet, and refused by name: ``mode: grpo`` (ROADMAP A7), the
+mesh axes ``ep`` and ``cp`` (A5b) and ``pp`` (A5c) above 1, and the
+in-cluster elastic agent and a multi-process launch without the
+operator's contract (``WORLD_SIZE`` of torchrun or a PyTorchJob) (A8).
 """
 
 from __future__ import annotations
@@ -125,17 +138,23 @@ def data_stream(cfg: dict, config, mesh, batch: int, seq: int,
     from .data import CountingIterator, prefetch_to_device
 
     data = cfg.get("data", {"kind": "synthetic"})
-    raw = _raw_stream(data, config, batch, seq, skip=skip)
-    return CountingIterator(prefetch_to_device(raw, mesh.device, size=2),
+    raw = _raw_stream(data, config, batch, seq, skip=skip,
+                      host=(mesh.data_index, mesh.data_size))
+    return CountingIterator(prefetch_to_device(raw, size=2, mesh=mesh),
                             consumed=skip)
 
 
-def _raw_stream(data: dict, config, batch: int, seq: int, skip: int = 0):
+def _raw_stream(data: dict, config, batch: int, seq: int, skip: int = 0,
+                host: tuple = (0, 1)):
     """Host-side batch stream for one ``data`` spec; ``mixture`` draws
     each step's batch from one source, in expectation proportional to the
     weights. ``skip`` fast-forwards: token files by index math, synthetic
     by replaying rng draws, packed text and mixtures by replaying the
-    host-side packing and selection."""
+    host-side packing and selection. ``host`` is (index, count) of this
+    process's slice of the corpus, where the JAX entrypoint passes
+    ``jax.process_index()``/``process_count()``: here the rank's place
+    on the data axes, since a process is one card and its ``tp`` peers
+    must read the same rows."""
     import numpy as np
 
     from .data import TokenFileDataset, skip_batches, synthetic_lm_batches
@@ -156,7 +175,7 @@ def _raw_stream(data: dict, config, batch: int, seq: int, skip: int = 0):
         counts = [0] * len(sources)
         for _ in range(skip):
             counts[int(rng.choice(len(sources), p=weights))] += 1
-        streams = [_raw_stream(s, config, batch, seq, skip=c)
+        streams = [_raw_stream(s, config, batch, seq, skip=c, host=host)
                    for s, c in zip(sources, counts)]
 
         def mixed():
@@ -169,6 +188,8 @@ def _raw_stream(data: dict, config, batch: int, seq: int, skip: int = 0):
         skip = 0
     elif kind == "tokens":
         raw = TokenFileDataset(data["path"], seq, batch,
+                               process_index=host[0],
+                               process_count=host[1],
                                seed=data.get("seed", 0)).batches(skip=skip)
         skip = 0
     elif kind == "text":
@@ -178,11 +199,15 @@ def _raw_stream(data: dict, config, batch: int, seq: int, skip: int = 0):
         if tok is None:
             raise ValueError("data.kind='text' needs data.tokenizer")
         _check_tok_vocab(tok, config)
-        docs = list(text_documents(data["path"], tok,
+        # each host takes a disjoint stride of the corpus
+        docs = [d for i, d in enumerate(
+                    text_documents(data["path"], tok,
                                    text_key=data.get("text_key", "text")))
+                if i % host[1] == host[0]]
         if not docs:
-            raise ValueError(f"no documents in {data['path']}")
-        rng = np.random.default_rng(data.get("seed", 0))
+            raise ValueError(f"no documents in {data['path']} for host "
+                             f"{host[0]}")
+        rng = np.random.default_rng(data.get("seed", 0) + host[0])
 
         def packed_epochs():
             while True:
@@ -251,7 +276,7 @@ def sft_stream(cfg: dict, config, mesh, batch: int, seq: int,
     stream = sft_batches(examples, seq, batch,
                          pad_id=tok.pad_id if tok is not None else 0,
                          seed=data.get("seed", 0), skip=skip)
-    return CountingIterator(prefetch_to_device(stream, mesh.device, size=2),
+    return CountingIterator(prefetch_to_device(stream, size=2, mesh=mesh),
                             consumed=skip)
 
 
@@ -277,16 +302,15 @@ def build_eval_fn(cfg: dict, config, mesh, batch: int, seq: int,
     stream = data_stream({**cfg, "data": ecfg["data"]}, config, mesh,
                          batch, seq)
     ev_batches = list(itertools.islice(stream, n))
-    row_nll = ev.make_row_nll_fn(config)
+    row_nll = ev.make_row_nll_fn(config, mesh)
 
     def eval_fn(state):
         p = params_of(state) if params_of is not None else state.params
         total = cnt = 0.0
         for b in ev_batches:
-            total += float(row_nll(p, b).sum())
-            mask = b.get("mask")
-            cnt += (float(mask.float().sum()) if mask is not None
-                    else b["tokens"].shape[0] * b["tokens"].shape[1])
+            t, c = ev.batch_totals(row_nll, p, b, mesh)
+            total += t
+            cnt += c
         nll = total / max(cnt, 1.0)
         return {"val_nll": nll, "val_ppl": math.exp(min(nll, 80.0))}
 
@@ -299,8 +323,9 @@ def dpo_batches(cfg: dict, config, params, mesh, batch: int,
     log-probabilities computed once per batch under the frozen initial
     weights ``params``. ``skip`` fast-forwards the round-robin cursor by
     index math, without computing the skipped batches' references."""
+    from ..parallel.sharding import local_of
     from . import dpo
-    from .data import CountingIterator, to_device
+    from .data import CountingIterator, shard_batch
 
     data = cfg.get("data", {})
     if data.get("kind") != "dpo_jsonl":
@@ -312,18 +337,20 @@ def dpo_batches(cfg: dict, config, params, mesh, batch: int,
                 rows.append(json.loads(line))
     if len(rows) < batch:
         raise ValueError(f"{len(rows)} pairs < batch {batch}")
-    ref_fn = dpo.reference_logps_fn(config, params)
+    ref_fn = dpo.reference_logps_fn(config, params, mesh)
 
     def stream():
         i = (skip * batch) % len(rows)
         while True:
             chunk = [rows[(i + j) % len(rows)] for j in range(batch)]
             i = (i + batch) % len(rows)
-            b = to_device(dpo.preference_batch(
+            b = shard_batch(dpo.preference_batch(
                 [r["chosen"] for r in chunk],
                 [r["rejected"] for r in chunk],
-                [r["prompt_len"] for r in chunk]), mesh.device)
-            b["ref_chosen_logps"], b["ref_rejected_logps"] = ref_fn(b)
+                [r["prompt_len"] for r in chunk]), mesh)
+            # the reference scores this rank's own pairs
+            b["ref_chosen_logps"], b["ref_rejected_logps"] = ref_fn(
+                {k: local_of(v) for k, v in b.items()})
             yield b
 
     return CountingIterator(stream(), consumed=skip)
@@ -373,7 +400,7 @@ def run_evaluate(cfg: dict, config, params, mesh) -> int:
                       "options": [ids_of(o, bos=False)
                                   for o in r["options"]]} for r in rows]
         ranked = ev.loglikelihood_ranks(
-            config, params, questions,
+            config, params, questions, mesh=mesh,
             length_normalize=bool(ecfg.get("length_normalize", False)))
         results = {"kind": "loglikelihood", "questions": len(ranked),
                    "choices": [r["choice"] for r in ranked]}
@@ -386,13 +413,13 @@ def run_evaluate(cfg: dict, config, params, mesh) -> int:
         batch = int(cfg.get("batch", 8))
         seq = int(cfg.get("seq", 256))
         batches = data_stream(cfg, config, mesh, batch, seq)
-        results = ev.perplexity(config, params, batches,
+        results = ev.perplexity(config, params, batches, mesh=mesh,
                                 max_batches=int(cfg.get("steps", 16)))
         results["kind"] = "perplexity"
 
     log.info("evaluate results: %s", json.dumps(results))
     out = cfg.get("results_path")
-    if out:
+    if out and _rank() == 0:
         with open(out, "w") as f:
             json.dump(results, f, indent=1)
         log.info("results written to %s", out)
@@ -438,36 +465,70 @@ def _refuse_unported(cfg: dict, env) -> None:
         raise NotImplementedError(
             "the in-cluster elastic checkpoint agent needs the API-server "
             "client, which is not ported yet: ROADMAP A8")
-    nproc = env.get("KUBEDL_NUM_PROCESSES", "")
-    hosts = [h for h in env.get("TPU_WORKER_HOSTNAMES", "").split(",")
-             if h.strip()]
-    if (nproc and int(nproc) > 1) or len(hosts) > 1 \
-            or int(env.get("WORLD_SIZE", "1") or 1) > 1:
-        raise NotImplementedError(
-            "a multi-process rendezvous is set in the environment: "
-            "distributed training (NCCL rendezvous) is ROADMAP A8, and "
-            "this entrypoint trains on one card")
+    from ..runtime.bootstrap import rendezvous_from_env
+    if rendezvous_from_env(env) is None:
+        # a launcher's env other than the operator's contract (torchrun's
+        # or a PyTorchJob's WORLD_SIZE, TPU worker hostnames with no
+        # worker id): each process would train alone on one card and
+        # write the same checkpoints and export
+        nproc = env.get("KUBEDL_NUM_PROCESSES", "")
+        hosts = [h for h in env.get("TPU_WORKER_HOSTNAMES", "").split(",")
+                 if h.strip()]
+        if (nproc and int(nproc) > 1) or len(hosts) > 1 \
+                or int(env.get("WORLD_SIZE", "1") or 1) > 1:
+            raise NotImplementedError(
+                "a multi-process launch is set in the environment without "
+                "the operator's rendezvous contract (KUBEDL_COORDINATOR_"
+                "ADDRESS, KUBEDL_NUM_PROCESSES, KUBEDL_PROCESS_ID): "
+                "reading another launcher's env is ROADMAP A8")
+    from ..parallel.mesh import refuse_unported
+    refuse_unported(cfg.get("mesh", {}))
+
+
+def _rank() -> int:
+    """This process's rank (0 without a process group)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def main(argv=None, device=None, on_step=None) -> int:
     """Run one training job. ``device`` is the card unless the caller
     names the CPU (``device="cpu"``); ``on_step(step, loss)`` is called
-    after every optimizer step."""
+    after every optimizer step. With the rendezvous contract in the env
+    the process group opens first (and closes on exit)."""
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     cfg = load_config(argv)
     _refuse_unported(cfg, os.environ)
 
-    import torch
+    import torch.distributed as dist
 
     from .._device import resolve_device
-    from ..models import io
-    from ..parallel.mesh import MeshConfig, build_mesh
-    from .trainer import TrainConfig, Trainer
+    from ..runtime import bootstrap
 
     dev = resolve_device(device)
+    info = bootstrap.rendezvous_from_env()
+    opened = info is not None and not dist.is_initialized()
+    if opened:
+        bootstrap.initialize_distributed(info, device=dev)
+    try:
+        return _run(cfg, dev, on_step)
+    finally:
+        if opened and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(cfg: dict, dev, on_step) -> int:
+    import torch
+
+    from ..models import io
+    from ..parallel.mesh import MeshConfig, build_mesh
+    from ..parallel.sharding import full_tensor, shard_tree, views
+    from .trainer import TrainConfig, Trainer, tree_map
+
     mesh = build_mesh(MeshConfig(**cfg.get("mesh", {})), device=dev)
+    sharded = mesh.device_mesh is not None
     config, params = resolve_model(cfg, device=dev)
     family = io.family_of(config)
     mode = cfg.get("mode", "pretrain")
@@ -482,9 +543,17 @@ def main(argv=None, device=None, on_step=None) -> int:
             config,
             torch.Generator(device=dev).manual_seed(int(cfg.get("seed", 0))),
             device=dev)
+    specs = family.param_specs(config) if sharded else None
+
+    def placed_views(tree):
+        """A full tree as the model reads it under the mesh: placed by
+        its specs and viewed (no gradient); the tree itself on one
+        device."""
+        return views(shard_tree(tree, mesh, specs), mesh) if sharded \
+            else tree
 
     if mode == "evaluate":
-        return run_evaluate(cfg, config, params, mesh)
+        return run_evaluate(cfg, config, placed_views(params), mesh)
 
     # the checkpoint manager opens BEFORE the data stream is built: the
     # saved data cursor decides how far to fast-forward the stream, so a
@@ -507,14 +576,16 @@ def main(argv=None, device=None, on_step=None) -> int:
                     "current %s); stream restarts at batch 0",
                     cursor.get("fingerprint"), fingerprint)
 
+    model_mesh = mesh if sharded else None
     if mode == "dpo":
         from . import dpo as dpo_mod
-        from .trainer import tree_map
         loss_fn = dpo_mod.make_dpo_loss_fn(
-            config, dpo_mod.DPOConfig(**cfg.get("dpo", {})))
+            config, dpo_mod.DPOConfig(**cfg.get("dpo", {})),
+            mesh=model_mesh)
         # the frozen reference is the INITIAL weights: a copy, since the
         # trainer updates its parameters in place
-        ref_params = tree_map(lambda t: t.detach().clone(), params)
+        ref_params = placed_views(
+            tree_map(lambda t: t.detach().clone(), params))
         batches = dpo_batches(cfg, config, ref_params, mesh, batch,
                               skip=resume_skip)
     else:
@@ -524,13 +595,16 @@ def main(argv=None, device=None, on_step=None) -> int:
             return family.loss_fn(config, p, b["tokens"], b["targets"],
                                   mask=b.get("mask"),
                                   segment_ids=b.get("segment_ids"),
-                                  positions=b.get("positions"))
+                                  positions=b.get("positions"),
+                                  mesh=model_mesh)
 
         batches = (sft_stream(cfg, config, mesh, batch, seq,
                               skip=resume_skip) if mode == "sft"
                    else data_stream(cfg, config, mesh, batch, seq,
                                     skip=resume_skip))
     opt = TrainConfig(**cfg.get("optimizer", {}))
+    placement = ({"param_specs": specs, "mesh": mesh} if sharded
+                 else {"device": dev})
     lora_cfg = cfg.get("lora")
     merge = params_of = None
     if lora_cfg:
@@ -541,14 +615,17 @@ def main(argv=None, device=None, on_step=None) -> int:
         rank = int(lora_cfg.get("rank", 8))
         alpha = float(lora_cfg.get("alpha", 16.0))
         targets = tuple(lora_cfg.get("targets") or lora.DEFAULT_TARGETS)
-        base = params
         adapters = lora.init_adapters(
-            base, rank=rank, targets=targets,
+            params, rank=rank, targets=targets,
             generator=torch.Generator(device=dev).manual_seed(
                 int(cfg.get("seed", 0)) + 1))
+        placed_base = shard_tree(params, mesh, specs) if sharded else None
+        base = views(placed_base, mesh) if sharded else params
+        if sharded:
+            placement["param_specs"] = lora.adapter_specs(specs, adapters)
         trainer = Trainer(
             lambda ad, b: loss_fn(lora.merge_params(base, ad, alpha=alpha),
-                                  b), opt, device=dev)
+                                  b), opt, **placement)
         state = trainer.init_state(adapters)
         log.info("lora: rank=%d alpha=%.1f targets=%s (%.2fM trainable)",
                  rank, alpha, ",".join(sorted(targets)),
@@ -558,13 +635,21 @@ def main(argv=None, device=None, on_step=None) -> int:
         def merge(adapters):
             # fold the trained adapters into dense weights: the exported
             # artifact serves with no adapter overhead
-            return lora.merge_to_dense(base, adapters, alpha=alpha)
+            full_base = (tree_map(full_tensor, placed_base) if sharded
+                         else base)
+            return lora.merge_to_dense(full_base,
+                                       tree_map(full_tensor, adapters),
+                                       alpha=alpha)
 
         def params_of(st):
-            return lora.merge_params(base, st.params, alpha=alpha)
+            return lora.merge_params(base, views(st.params, mesh),
+                                     alpha=alpha)
     else:
-        trainer = Trainer(loss_fn, opt, device=dev)
+        trainer = Trainer(loss_fn, opt, **placement)
         state = trainer.init_state(params)
+        if sharded:
+            def params_of(st):
+                return views(st.params, mesh)
     del params
 
     if manager is not None:
@@ -595,13 +680,16 @@ def main(argv=None, device=None, on_step=None) -> int:
         log.warning("export_hf_path is written beside export_path (or "
                     "$KUBEDL_MODEL_PATH), and neither is set: no export")
     if export:
-        final = merge(state.params) if merge else state.params
-        io.save_model(config, final, export)
-        log.info("exported model to %s", export)
-        if hf_out:
-            from ..models.convert import save_hf_checkpoint
-            save_hf_checkpoint(config, final, hf_out)
-            log.info("exported HF checkpoint to %s", hf_out)
+        # every rank joins the gathers; only rank 0 touches the disk
+        final = (merge(state.params) if merge
+                 else tree_map(full_tensor, state.params))
+        if _rank() == 0:
+            io.save_model(config, final, export)
+            log.info("exported model to %s", export)
+            if hf_out:
+                from ..models.convert import save_hf_checkpoint
+                save_hf_checkpoint(config, final, hf_out)
+                log.info("exported HF checkpoint to %s", hf_out)
     return 0
 
 

@@ -3,11 +3,20 @@ protocol: the counterpart of ``kubedl_tpu/train/checkpoint.py``.
 
 * :class:`CheckpointManager` saves and restores the trainer's
   :class:`~kubedl_tpu_torch.train.trainer.TrainState` with
-  ``torch.distributed.checkpoint`` (one process, no process group), where
-  the JAX package uses Orbax. The contract is the JAX one: the three
-  call shapes of :meth:`~CheckpointManager.save`, the data cursor saved
-  with the step, ``max_to_keep``, and a step directory ``<dir>/<step>``
-  that appears under its final name only when it is complete (it is
+  ``torch.distributed.checkpoint``, where the JAX package uses Orbax.
+  Under a process group a sharded state's ``DTensor`` leaves are written
+  by the ranks that hold them, and a restore into a state placed on
+  another mesh (another world size, or one process with no group)
+  reads the chunks it needs: the resharding the JAX package gets from
+  Orbax. Rank 0 alone touches the step directories (creates, commits,
+  retires) and writes ``data.json``; barriers around each write keep
+  every rank's view of the finished steps the same. The group's
+  checkpoint traffic runs on a gloo group of its own, so a write on the
+  background thread never interleaves with the step's collectives. The
+  contract is the JAX one: the three call shapes of
+  :meth:`~CheckpointManager.save`, the data cursor saved with the step,
+  ``max_to_keep``, and a step directory ``<dir>/<step>`` that appears
+  under its final name only when it is complete (it is
   written as ``<step>.partial`` and renamed), so
   :class:`CheckpointTiers`' readiness test and its ``.uploading`` ->
   rename contract hold unchanged. An asynchronous save copies the state
@@ -62,9 +71,21 @@ class CheckpointConfig:
 
 
 def _nbytes(tree) -> int:
+    """Bytes this rank holds (a DTensor counts its shard)."""
+    from ..parallel.sharding import local_of
     total = []
-    tree_map(lambda t: total.append(t.numel() * t.element_size()), tree)
+    tree_map(lambda t: total.append(local_of(t).numel()
+                                    * t.element_size()), tree)
     return sum(total)
+
+
+def _group():
+    """(checkpoint gloo group, rank) under an open process group, else
+    (None, 0)."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return None, 0
+    return dist.new_group(backend="gloo"), dist.get_rank()
 
 
 class CheckpointManager:
@@ -77,12 +98,15 @@ class CheckpointManager:
     def __init__(self, config: CheckpointConfig):
         self.config = config
         self.directory = str(config.directory)
-        os.makedirs(self.directory, exist_ok=True)
-        for name in os.listdir(self.directory):
-            if name.endswith(self.PARTIAL_SUFFIX):
-                # a save torn by a crash: never finalized, never served
-                shutil.rmtree(os.path.join(self.directory, name),
-                              ignore_errors=True)
+        self._group, self._rank = _group()
+        if self._rank == 0:
+            os.makedirs(self.directory, exist_ok=True)
+            for name in os.listdir(self.directory):
+                if name.endswith(self.PARTIAL_SUFFIX):
+                    # a save torn by a crash: never finalized, never served
+                    shutil.rmtree(os.path.join(self.directory, name),
+                                  ignore_errors=True)
+        self._barrier()
         self._thread: Optional[threading.Thread] = None
         self._pending: Optional[int] = None
         self._error: Optional[BaseException] = None
@@ -109,6 +133,11 @@ class CheckpointManager:
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
 
+    def _barrier(self) -> None:
+        if self._group is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self._group)
+
     # -- save ---------------------------------------------------------------
 
     def save(self, state: TrainState, force: bool = False,
@@ -134,7 +163,7 @@ class CheckpointManager:
                 return False
         if step == self._pending or step in self.all_steps():
             return False
-        self.wait_until_finished()       # one save in flight at a time
+        self._join()                     # one save in flight at a time
         t0 = time.perf_counter()
         host = _state_dict(state, copy_to_host=True)
         self.last_save = {"step": step, "bytes": _nbytes(host),
@@ -160,23 +189,32 @@ class CheckpointManager:
 
         t0 = time.perf_counter()
         tmp = self._step_dir(step) + self.PARTIAL_SUFFIX
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
+        lead = self._rank == 0
+        if lead:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(os.path.join(tmp, "state"))
+        self._barrier()
         dcp.save(host, storage_writer=dcp.FileSystemWriter(
-            os.path.join(tmp, "state")), no_dist=True)
-        if data_state is not None:
-            with open(os.path.join(tmp, "data.json"), "w") as f:
-                json.dump(data_state, f)
-        os.replace(tmp, self._step_dir(step))   # the commit
+            os.path.join(tmp, "state")), process_group=self._group,
+            no_dist=self._group is None)
+        if lead:
+            if data_state is not None:
+                with open(os.path.join(tmp, "data.json"), "w") as f:
+                    json.dump(data_state, f)
+            os.replace(tmp, self._step_dir(step))   # the commit
+            keep = self.config.max_to_keep
+            if keep and keep > 0:
+                for old in self.all_steps()[:-keep]:
+                    shutil.rmtree(self._step_dir(old), ignore_errors=True)
+        self._barrier()                 # every rank sees the commit
         self.last_save["write_s"] = time.perf_counter() - t0
         log.info("checkpoint saved at step %d", step)
-        keep = self.config.max_to_keep
-        if keep and keep > 0:
-            for old in self.all_steps()[:-keep]:
-                shutil.rmtree(self._step_dir(old), ignore_errors=True)
 
-    def wait_until_finished(self) -> None:
-        """Join the save in flight; a failed write raises here."""
+    def _join(self) -> None:
+        """Join this manager's own save in flight; a failed write raises
+        here. ``save``, ``restore`` and ``latest_data_state`` join
+        through this, never through :meth:`wait_until_finished`, which a
+        subclass may widen (the object tier's uploads)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
@@ -185,8 +223,12 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise RuntimeError("checkpoint save failed") from err
 
+    def wait_until_finished(self) -> None:
+        """Join the save in flight; a failed write raises here."""
+        self._join()
+
     def close(self) -> None:
-        self.wait_until_finished()
+        self._join()
 
     # -- restore ------------------------------------------------------------
 
@@ -199,7 +241,7 @@ class CheckpointManager:
         when there is no checkpoint."""
         import torch.distributed.checkpoint as dcp
 
-        self.wait_until_finished()
+        self._join()
         step = self.latest_step() if step is None else step
         if step is None:
             return None
@@ -207,7 +249,8 @@ class CheckpointManager:
         target = _state_dict(state, copy_to_host=False)
         with torch.no_grad():
             dcp.load(target, storage_reader=dcp.FileSystemReader(
-                os.path.join(self._step_dir(step), "state")), no_dist=True)
+                os.path.join(self._step_dir(step), "state")),
+                process_group=self._group, no_dist=self._group is None)
         if any(t.device.type == "cuda" for t in _leaves(target)):
             torch.cuda.synchronize()
         self.last_restore = {"step": step, "bytes": _nbytes(target),
@@ -222,7 +265,7 @@ class CheckpointManager:
         """The data cursor saved with ``step`` (default the latest), or
         None. Reads one small JSON file, so the entrypoint learns the
         resume offset before it builds the data stream."""
-        self.wait_until_finished()
+        self._join()
         step = self.latest_step() if step is None else step
         if step is None:
             return None
@@ -250,15 +293,22 @@ def _leaves(tree) -> list:
 def _state_dict(state: TrainState, copy_to_host: bool) -> dict:
     """The state as ``torch.distributed.checkpoint`` sees it: the step and
     the update count as 0-dim int64 tensors, the parameter tree and the
-    moments. ``copy_to_host`` takes a host copy (a save); otherwise the
-    tensors are detached aliases of the state's own (a restore loads into
-    them in place)."""
+    moments. ``copy_to_host`` takes a host copy (a save; a DTensor keeps
+    its placement over a host copy of its shard); otherwise the tensors
+    are aliases of the state's own (a restore loads into them in
+    place)."""
+    from torch.distributed.tensor import DTensor
     if copy_to_host:
         def leaf(t):
+            if isinstance(t, DTensor):
+                return DTensor.from_local(
+                    t.to_local().detach().to("cpu", copy=True),
+                    t.device_mesh, t.placements, run_check=False,
+                    shape=t.shape, stride=t.stride())
             return t.detach().to("cpu", copy=True)
     else:
         def leaf(t):
-            return t.detach()
+            return t if isinstance(t, DTensor) else t.detach()
     opt = state.opt_state
     return {"step": torch.tensor(int(state.step), dtype=torch.int64),
             "params": tree_map(leaf, state.params),
@@ -462,10 +512,13 @@ class TieredCheckpointManager(CheckpointManager):
 
     def __init__(self, config: CheckpointConfig, object_dir: str,
                  upload: bool = True):
+        import torch.distributed as dist
+        lead = not dist.is_initialized() or dist.get_rank() == 0
         self.tiers = CheckpointTiers(config.directory, object_dir)
-        self.tiers.localize_latest()
+        if lead:                        # rank 0 alone moves step dirs
+            self.tiers.localize_latest()
         super().__init__(config)
-        self._upload_enabled = bool(upload)
+        self._upload_enabled = bool(upload) and lead
 
     def save(self, state, force: bool = False, step: Optional[int] = None,
              periodic: bool = False,
@@ -488,6 +541,38 @@ class TieredCheckpointManager(CheckpointManager):
                         e)
         self.tiers.close()
         super().close()
+
+
+def abstract_state_like(state: TrainState, mesh, param_specs) -> TrainState:
+    """The restore target for ``state`` on ``mesh``: every leaf of the
+    same global shape and dtype, uninitialized, placed by the *target*
+    specs, so :meth:`CheckpointManager.restore` into it reshards a
+    checkpoint written at another world size. The moments mirror their
+    param's spec. On a one-device mesh the leaves are plain tensors on
+    its device, the params grad-requiring as ``Trainer.init_state``
+    leaves them. (The JAX function also takes the optimizer's and the
+    step's specs; here the moments are keyed by param path and the step
+    is a host integer.)"""
+    from ..parallel.sharding import empty_like_placed, map_specs, \
+        spec_leaves
+    one_device = mesh.device_mesh is None
+
+    def place(s, x):
+        t = empty_like_placed(tuple(x.shape), x.dtype, mesh, s)
+        return t.requires_grad_(True) if one_device else t
+
+    flat = spec_leaves(param_specs)
+    opt = state.opt_state
+
+    def moments(tree):
+        return {k: empty_like_placed(tuple(v.shape), v.dtype, mesh, flat[k])
+                for k, v in tree.items()}
+
+    return TrainState(
+        step=state.step,
+        params=map_specs(place, param_specs, state.params),
+        opt_state=AdamState(count=opt.count, mu=moments(opt.mu),
+                            nu=moments(opt.nu)))
 
 
 class ElasticCheckpointAgent:

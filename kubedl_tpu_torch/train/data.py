@@ -5,7 +5,10 @@ A numpy copy of ``kubedl_tpu/train/data.py`` (the port imports nothing
 from the JAX package): every host-side stream yields the same batches,
 bit for bit, as the JAX package's for the same arguments. Batches are
 dicts of numpy arrays; :func:`prefetch_to_device` turns them into device
-tensors, integer ids as int64 (PyTorch's index type).
+tensors, integer ids as int64 (PyTorch's index type). Under a sharded
+mesh every rank builds the same global batch and keeps its own rows
+(:func:`shard_batch`), as each JAX process hands ``device_put`` the
+global array and keeps its devices' shards.
 """
 
 from __future__ import annotations
@@ -195,23 +198,70 @@ def to_device(batch: dict, device) -> dict:
     return out
 
 
+def shard_batch(batch: dict, mesh) -> dict:
+    """Rank-aware batch sharding: the leading axis shards over the data
+    axes, an integer rank-2 ``[b, s]`` leaf also shards its sequence axis
+    over ``cp``, and other leaves (float features, bool masks, images)
+    shard the batch axis only; 0-dim leaves replicate. Under a process
+    group each leaf becomes a ``DTensor`` holding this rank's rows (its
+    shape is the global one); on a one-device mesh the batch simply moves
+    to the device."""
+    if mesh.device_mesh is None:
+        return to_device(batch, mesh.device)
+    from ..parallel.sharding import distribute
+    out = {}
+    for name, arr in batch.items():
+        arr = np.asarray(arr)
+        t = next(iter(to_device({name: arr}, torch.device("cpu")).values()))
+        out[name] = distribute(t, mesh, batch_leaf_spec(arr))
+    return out
+
+
+def batch_leaf_spec(x) -> tuple:
+    """The spec :func:`shard_batch` places a host leaf by: integer
+    ``[b, s]`` ids are ``((dp, fsdp), cp)``, a 0-dim leaf replicates, and
+    any other leaf shards its batch axis only."""
+    from ..parallel.mesh import batch_spec
+    full = batch_spec()
+    if x.ndim == 0:
+        return ()
+    if x.ndim == 2 and np.issubdtype(x.dtype, np.integer):
+        return full
+    return (full[0],) + (None,) * (x.ndim - 1)
+
+
+def sharded_synthetic_stream(batch_size: int, seq_len: int, vocab_size: int,
+                             mesh, seed: int = 0) -> Iterator[dict]:
+    for batch in synthetic_lm_batches(batch_size, seq_len, vocab_size, seed):
+        yield shard_batch(batch, mesh)
+
+
 def prefetch_to_device(batches: Iterator[dict], device=None,
-                       size: int = 2) -> Iterator[dict]:
+                       size: int = 2, mesh=None) -> Iterator[dict]:
     """Keep ``size`` device batches in flight ahead of the consumer: the
-    copy of batch N+1 is issued while the step for batch N runs. Host
+    copy of batch N+1 is issued while the step for batch N runs. With
+    ``mesh`` each host batch is sharded on the way in
+    (:func:`shard_batch`); otherwise it moves whole to ``device``. Host
     memory holds at most ``size`` extra batches."""
-    dev = resolve_device(device)
+    if mesh is not None:
+        def put(b):
+            return shard_batch(b, mesh)
+    else:
+        dev = resolve_device(device)
+
+        def put(b):
+            return to_device(b, dev)
     size = max(size, 1)  # size<=0 would silently drop the whole stream
     queue = collections.deque()
     try:
         for _ in range(size):
-            queue.append(to_device(next(batches), dev))
+            queue.append(put(next(batches)))
     except StopIteration:
         pass
     while queue:
         out = queue.popleft()
         try:
-            queue.append(to_device(next(batches), dev))
+            queue.append(put(next(batches)))
         except StopIteration:
             pass
         yield out

@@ -63,22 +63,26 @@ def sequence_logprobs(config, params, tokens, targets, mask=None,
 
 
 def dpo_loss(policy_chosen, policy_rejected, ref_chosen, ref_rejected,
-             cfg: DPOConfig = DPOConfig()):
+             cfg: DPOConfig = DPOConfig(), mesh=None):
     """Scalar loss + metrics from per-sequence logps (all [b] float32).
     Returns ``(loss, metrics)``: the implied rewards, their margin, and
-    ranking accuracy."""
+    ranking accuracy. Under a sharded ``mesh`` the pairs are this rank's
+    and the loss is its share of the global mean (the metrics stay this
+    rank's)."""
     chosen_reward = cfg.beta * (policy_chosen - ref_chosen)
     rejected_reward = cfg.beta * (policy_rejected - ref_rejected)
     logits = chosen_reward - rejected_reward
     if cfg.loss_type == "ipo":
         # IPO regresses the raw log-ratio margin (logits / beta) to
         # 1/(2 beta); no label smoothing term
-        loss = torch.mean(
-            (logits / cfg.beta - 1.0 / (2.0 * cfg.beta)) ** 2)
+        per = (logits / cfg.beta - 1.0 / (2.0 * cfg.beta)) ** 2
     else:
         ls = cfg.label_smoothing
-        loss = torch.mean(-(1.0 - ls) * F.logsigmoid(logits)
-                          - ls * F.logsigmoid(-logits))
+        per = (-(1.0 - ls) * F.logsigmoid(logits)
+               - ls * F.logsigmoid(-logits))
+    from ..parallel.collectives import loss_share
+    loss = loss_share(per.sum(), torch.tensor(float(per.numel()),
+                                              device=per.device), mesh)
     metrics = {
         "reward_chosen": chosen_reward.mean(),
         "reward_rejected": rejected_reward.mean(),
@@ -128,7 +132,7 @@ def make_dpo_loss_fn(config, dpo: DPOConfig = DPOConfig(), ref_params=None,
             raise ValueError(
                 "DPO needs ref_{chosen,rejected}_logps in the batch or "
                 "ref_params at build time")
-        loss, _ = dpo_loss(pol_c, pol_r, ref_c, ref_r, dpo)
+        loss, _ = dpo_loss(pol_c, pol_r, ref_c, ref_r, dpo, mesh=mesh)
         # MoE: keep the router balanced through preference tuning too
         aux_w = getattr(config, "aux_loss_weight", 0.0)
         return loss + aux_w * aux

@@ -12,7 +12,10 @@ counterpart of ``kubedl_tpu/train/evaluate.py``.
   JAX package.
 
 Scoring runs without autograd; on the card every layer's attention is
-the flash forward kernel.
+the flash forward kernel. Under a sharded mesh the params are
+``ShardedTensor`` views, a corpus batch holds each rank's rows and the
+totals are summed over the data axes; every rank scores every
+multiple-choice question.
 """
 
 from __future__ import annotations
@@ -33,8 +36,11 @@ def make_row_nll_fn(config, mesh=None, chunk: int = 512):
     """``(params, batch) -> per-row summed NLL [b]`` (float32) over
     ``{tokens, targets[, mask]}``: the one step both evaluators share."""
 
+    from ..parallel.sharding import local_of
+
     @torch.no_grad()
     def rows(params, batch):
+        batch = {k: local_of(v) for k, v in batch.items()}
         x, head, _ = hidden_and_head(config, params, batch["tokens"], mesh)
         return chunked_token_nll(x, head, batch["targets"],
                                  mask=batch.get("mask"), chunk=chunk,
@@ -56,15 +62,30 @@ def perplexity(config, params, batches: Iterable[dict], mesh=None,
         # extra batch just to discard it
         batches = itertools.islice(batches, max_batches)
     for batch in batches:
-        total += float(row_nll(params, batch).sum())
-        mask = batch.get("mask")
-        count += (float(mask.float().sum()) if mask is not None
-                  else batch["tokens"].shape[0] * batch["tokens"].shape[1])
+        t, n = batch_totals(row_nll, params, batch, mesh)
+        total += t
+        count += n
     if count == 0:
         raise ValueError("no target tokens evaluated")
     nll = total / count
     return {"nll": nll, "perplexity": math.exp(min(nll, 80.0)),
             "tokens": int(count)}
+
+
+def batch_totals(row_nll, params, batch, mesh=None) -> tuple:
+    """(summed NLL, target count) of one batch as floats: over the
+    global batch under a sharded mesh (this rank's rows, summed over the
+    data axes)."""
+    from ..parallel.collectives import data_sum
+    from ..parallel.sharding import local_of
+    local = {k: local_of(v) for k, v in batch.items()}
+    total = row_nll(params, local).sum()
+    mask = local.get("mask")
+    count = (mask.float().sum() if mask is not None
+             else torch.tensor(float(local["tokens"].numel()),
+                               device=total.device))
+    return (float(data_sum(total, mesh)),
+            float(data_sum(count.to(total.device), mesh)))
 
 
 def _render_options(prompt, options, pad_to: int, pad_id: int, device):

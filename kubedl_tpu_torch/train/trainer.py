@@ -1,5 +1,5 @@
-"""Training loop on one card: the counterpart of
-``kubedl_tpu/train/trainer.py``.
+"""Training loop, on one card or sharded over a process group's mesh:
+the counterpart of ``kubedl_tpu/train/trainer.py``.
 
 * ``Trainer.step``: the loss and its gradients by autograd (accumulated in
   float32 over ``accum_steps`` micro-batches), then one optimizer update;
@@ -14,7 +14,36 @@
   place, leaf by leaf, so no second copy of the parameters or of the
   float32 updates is ever alive.
 
-Sharded state (the JAX trainer's mesh) is ROADMAP A5; checkpoints are
+With ``param_specs`` and a ``mesh`` over a process group
+(``parallel/mesh.py``), the state is sharded as the JAX trainer's is:
+
+* ``init_state`` places each param by its spec as a ``DTensor``
+  (``parallel.sharding.shard_tree``), and ``mu``/``nu`` mirror their
+  param's placement (the JAX ``_opt_specs``);
+* the step hands ``loss_fn`` a tree of ``ShardedTensor`` views over
+  aliases of the shards; the model gathers each weight where it uses it
+  (per layer, so ``fsdp`` holds one layer whole at a time) and the
+  gathers' backward reduce-scatters the gradients back to the shards
+  (``parallel/collectives.py``). ``loss_fn(params, batch)`` gets this
+  rank's rows and returns its *share* of the global loss (the families'
+  ``loss_fn`` with ``mesh=``); the shares of all ranks add up to the
+  JAX package's global mean, and the step returns that sum;
+* the optimizer runs on the local shards, leaf by leaf, exactly the
+  one-card update, with one ``all_reduce`` for the global norm: each
+  sharded leaf's sum of squares is taken on its shard (``g*g`` in the
+  leaf's dtype, summed in float32 and rounded to the leaf's dtype once,
+  where one card rounds the one sum), counted once over the ranks that
+  replicate it, and summed over all ranks. The update is elementwise, so
+  running it on shards is the same arithmetic as on the whole leaf, and
+  a local update needs no DTensor rule for the ``_weak`` scalars; that is
+  why the optimizer takes local shards and not DTensors.
+
+At world size 1 every collective is skipped and the losses, gradients
+and updates are the one-card path's, bit for bit. With ``accum_steps >
+1`` each rank splits its own rows into micro-batches: micro-batch ``i``
+is the union of the ranks' ``i``-th slices, where the JAX step takes
+rows ``[i*b/n, (i+1)*b/n)`` of the global batch (the same mean when no
+mask weights the rows differently). Checkpoints are
 ``train/checkpoint.py``.
 """
 
@@ -148,9 +177,13 @@ class Optimizer:
             nu={k: torch.zeros_like(p) for k, p in leaves})
 
     @torch.no_grad()
-    def apply(self, params: dict, grads: dict, state: AdamState) -> AdamState:
+    def apply(self, params: dict, grads: dict, state: AdamState,
+              sq_sums: Optional[dict] = None) -> AdamState:
         """One update of ``params`` in place from ``grads`` (keyed like
-        :func:`tree_leaves`); returns the new state."""
+        :func:`tree_leaves`); returns the new state. ``sq_sums`` gives
+        each leaf's sum of squares in its dtype when ``grads`` are shards
+        (the sharded trainer's global values); by default each leaf's
+        own."""
         c = self.config
         leaves = tree_leaves(params)
         # clip_by_global_norm: sqrt of the per-leaf sums of squares, each
@@ -158,7 +191,8 @@ class Optimizer:
         total = 0
         for k, _ in leaves:
             g = grads[k]
-            total = total + (g * g).sum()
+            total = total + (sq_sums[k] if sq_sums is not None
+                             else (g * g).sum())
         g_norm = torch.sqrt(total)
         keep = g_norm < c.grad_clip
         count = state.count + 1
@@ -200,28 +234,63 @@ def make_optimizer(config: TrainConfig) -> Optimizer:
 
 class Trainer:
     """Wires ``loss_fn(params, batch) -> scalar`` to autograd and the
-    optimizer on one device (the card unless ``device="cpu"``)."""
+    optimizer on one device (the card unless ``device="cpu"``), or, with
+    ``param_specs`` and a ``mesh`` over a process group, on this rank's
+    shards of the state (see the module docstring)."""
 
     def __init__(self, loss_fn: Callable, config: Optional[TrainConfig] = None,
-                 device=None):
+                 device=None, *, param_specs=None, mesh=None):
         self.loss_fn = loss_fn
         self.config = config or TrainConfig()
         self.optimizer = make_optimizer(self.config)
-        self.device = device
+        if (param_specs is None) != (mesh is None):
+            raise ValueError("param_specs and mesh come together")
+        self.param_specs = param_specs
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else device
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the state lives as shards over a process group."""
+        return self.mesh is not None and self.mesh.device_mesh is not None
 
     def init_state(self, params: dict) -> TrainState:
         """Params on the trainer's device as grad-requiring leaves, and
-        zero moments (float32 ``mu``, ``nu`` in each param's dtype)."""
+        zero moments (float32 ``mu``, ``nu`` in each param's dtype); under
+        a mesh, every leaf placed by its spec (params, and the moments
+        like their param)."""
         dev = resolve_device(self.device)
         self.device = dev
+        if self.sharded:
+            from ..parallel.sharding import shard_tree
+            placed = shard_tree(params, self.mesh, self.param_specs)
+            leaves = tree_leaves(placed)
+            return TrainState(step=0, params=placed, opt_state=AdamState(
+                count=0,
+                mu={k: _zeros_placed(p, torch.float32) for k, p in leaves},
+                nu={k: _zeros_placed(p, p.dtype) for k, p in leaves}))
 
         params = tree_map(
             lambda v: v.detach().to(dev).requires_grad_(True), params)
         return TrainState(step=0, params=params,
                           opt_state=self.optimizer.init(params))
 
+    def abstract_state(self, state: TrainState) -> TrainState:
+        """Restore target for this trainer's placement (see
+        ``checkpoint.abstract_state_like``)."""
+        from .checkpoint import abstract_state_like
+        if self.mesh is None:
+            from ..parallel.mesh import AXES, Mesh
+            one = Mesh(device=resolve_device(self.device),
+                       shape={a: 1 for a in AXES})
+            return abstract_state_like(state, one,
+                                       tree_map(lambda t: (), state.params))
+        return abstract_state_like(state, self.mesh, self.param_specs)
+
     def _value_and_grad(self, params: dict, batch: dict):
-        leaves = tree_leaves(params)
+        from ..parallel.sharding import ShardedTensor
+        leaves = [(k, p.local if isinstance(p, ShardedTensor) else p)
+                  for k, p in tree_leaves(params)]
         loss = self.loss_fn(params, batch)
         grads = torch.autograd.grad(loss, [p for _, p in leaves],
                                     allow_unused=True,
@@ -235,12 +304,71 @@ class Trainer:
         halves run under ``torch.profiler`` ranges ``train.loss_and_grads``
         and ``train.optimizer``, which a profile window (``profile_dir``)
         records."""
+        if self.sharded:
+            return self._sharded_step(state, batch)
         with torch.profiler.record_function("train.loss_and_grads"):
             loss, grads = self._grads(state.params, batch)
         with torch.profiler.record_function("train.optimizer"):
             opt = self.optimizer.apply(state.params, grads, state.opt_state)
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=opt), loss
+
+    def _sharded_step(self, state: TrainState, batch: dict):
+        from ..parallel import collectives
+        from ..parallel.sharding import local_of, views
+        mesh = self.mesh
+        with torch.profiler.record_function("train.loss_and_grads"):
+            view = views(state.params, mesh, requires_grad=True)
+            batch = {k: local_of(v) for k, v in batch.items()}
+            share, grads = self._grads(view, batch)
+            loss = collectives.world_sum(share)
+        with torch.profiler.record_function("train.optimizer"):
+            params = tree_map(local_of, state.params)
+            opt = state.opt_state
+            mu = {k: local_of(v) for k, v in opt.mu.items()}
+            nu = {k: local_of(v) for k, v in opt.nu.items()}
+            new = self.optimizer.apply(
+                params, grads, AdamState(count=opt.count, mu=mu, nu=nu),
+                sq_sums=self._sq_sums(state.params, grads))
+            # nu is a new tensor each update: rewrap it in nu's placement
+            nu = {k: _rewrap(new.nu[k], opt.nu[k]) for k in opt.nu}
+        return TrainState(step=state.step + 1, params=state.params,
+                          opt_state=AdamState(count=new.count, mu=opt.mu,
+                                              nu=nu)), loss
+
+    def _sq_sums(self, placed: dict, grads: dict) -> dict:
+        """Each leaf's global sum of squares of its gradient, in the
+        leaf's dtype: a replicated leaf's own; a sharded leaf's shard
+        sums (float32), counted once per replica set and summed over all
+        ranks in one ``all_reduce``."""
+        import torch.distributed as dist
+
+        from ..parallel.mesh import AXES
+        from ..parallel.sharding import spec_of
+        mesh = self.mesh
+        live = [a for a in AXES if mesh.size(a) > 1]
+        out, keys, parts = {}, [], []
+        for k, p in tree_leaves(placed):
+            g = grads[k]
+            spec = spec_of(p.placements)
+            on = {a for e in spec if e is not None
+                  for a in (e if isinstance(e, tuple) else (e,))}
+            shard_axes = [a for a in live if a in on]
+            if not shard_axes:
+                out[k] = (g * g).sum()
+                continue
+            first = all(mesh.index(a) == 0 for a in live
+                        if a not in shard_axes)
+            keys.append(k)
+            parts.append((g * g).sum(dtype=torch.float32) if first
+                         else torch.zeros((), dtype=torch.float32,
+                                          device=g.device))
+        if parts:
+            total = torch.stack(parts)
+            dist.all_reduce(total)
+            for k, v in zip(keys, total):
+                out[k] = v.to(grads[k].dtype)
+        return out
 
     def _grads(self, params: dict, batch: dict):
         n = self.config.accum_steps
@@ -359,6 +487,22 @@ class Trainer:
             checkpoint_manager.wait_until_finished()
             span("train.checkpoint", t_ck, step=state.step, periodic=False)
         return state
+
+
+def _zeros_placed(p, dtype):
+    """Zeros in ``p``'s placement (a DTensor's shard) and ``dtype``."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(
+        torch.zeros_like(p.to_local(), dtype=dtype), p.device_mesh,
+        p.placements, run_check=False, shape=p.shape, stride=p.stride())
+
+
+def _rewrap(local, like):
+    """``local`` as the shard of a DTensor placed like ``like``."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
 
 
 def _start_profile():

@@ -265,6 +265,92 @@ def test_the_tiered_manager_restores_from_the_nearest_tier(tmp_path):
     mngr.close()
 
 
+#: how much slower than a save an upload is in the slowed case: a save
+#: that waited for an earlier upload would take at least this long
+SLOW_UPLOAD_S = 1.0
+
+
+def _tiered_saves(manager, state_at, case):
+    """Saves at steps 2-4, 0.2 s apart, through ``manager`` with its
+    object-tier uploads slowed or failing: (returns, seconds of each
+    save, what ``latest_data_state`` gave, whether ``flush`` raised).
+    An untimed save at step 1 comes first: it takes the manager's
+    one-time costs (the JAX manager's first save pays its set-up), and
+    its upload is one that each timed save could wrongly wait for. The
+    managers keep all four steps: an upload waits for its step on the
+    local tier, and retention would delete it first."""
+    import time
+    tiers = manager.tiers
+    upload = tiers._upload
+    if case == "slow":
+        def slowed(step):
+            time.sleep(SLOW_UPLOAD_S)
+            upload(step)
+        tiers._upload = slowed
+    else:
+        tiers.max_attempts = 1
+
+        def failing(step):
+            raise OSError("object store unreachable")
+        tiers._upload = failing
+    manager.save(state_at(1), step=1, data_state={"step": 1})
+    time.sleep(0.2)
+    returns, seconds = [], []
+    for step in (2, 3, 4):
+        t0 = time.perf_counter()
+        returns.append(bool(manager.save(state_at(step), step=step,
+                                         data_state={"step": step})))
+        seconds.append(time.perf_counter() - t0)
+        time.sleep(0.2)
+    cursor = manager.latest_data_state()
+    try:
+        manager.wait_until_finished()      # the public join does flush
+        raised = False
+    except RuntimeError:
+        raised = True
+    manager.close()
+    return returns, seconds, cursor, raised
+
+
+@pytest.mark.parametrize("case", ["slow", "failing"])
+def test_tiered_save_does_not_wait_for_uploads(tmp_path, case):
+    """A save joins only its own write, never the object tier's uploads
+    of earlier steps: with uploads slowed, the saves return as fast as
+    the JAX manager's; with uploads failing for good, later saves still
+    return True, as the JAX manager's do. ``wait_until_finished`` (the
+    public join) flushes the uploads and raises for a failed one in both
+    packages."""
+    import jax.numpy as jnp
+
+    from kubedl_tpu.train import checkpoint as jck
+    from kubedl_tpu.train.trainer import TrainState as JState
+    port = ck.TieredCheckpointManager(
+        ck.CheckpointConfig(str(tmp_path / "port"), max_to_keep=4),
+        str(tmp_path / "port_object"))
+
+    def port_state(step):
+        return ttrainer.TrainState(
+            step=step, params={"w": torch.full((256, 256), float(step))},
+            opt_state=ttrainer.AdamState(count=step, mu={}, nu={}))
+    got = _tiered_saves(port, port_state, case)
+    ref = jck.TieredCheckpointManager(
+        jck.CheckpointConfig(str(tmp_path / "jax"), max_to_keep=4),
+        str(tmp_path / "jax_object"))
+
+    def jax_state(step):
+        return JState(step=jnp.asarray(step, jnp.int32),
+                      params={"w": jnp.full((256, 256), float(step))},
+                      opt_state=())
+    want = _tiered_saves(ref, jax_state, case)
+    assert got[0] == want[0] == [True, True, True]
+    # every save returns within 0.5 s, as the JAX manager's do; one that
+    # waited for an earlier upload would take SLOW_UPLOAD_S
+    assert max(want[1]) < 0.5, want[1]
+    assert max(got[1]) < 0.5, got[1]
+    assert got[2] == {"step": 4}
+    assert got[3] == want[3] == (case == "failing")
+
+
 # -- the elastic agent --------------------------------------------------------------
 
 def _job(api, name="ej"):

@@ -63,6 +63,16 @@ def test_the_checkpoint_conversion_and_training_modes_slice_is_checked():
             "kubedl_tpu_torch.train.scoring"} <= set(MODULES)
 
 
+def test_the_rendezvous_and_sharding_slice_modules_are_checked():
+    """...and so are the rendezvous, the sharding rules, the training
+    collectives and the local launcher."""
+    assert {"kubedl_tpu_torch.runtime",
+            "kubedl_tpu_torch.runtime.bootstrap",
+            "kubedl_tpu_torch.parallel.sharding",
+            "kubedl_tpu_torch.parallel.collectives",
+            "kubedl_tpu_torch.parallel.launch"} <= set(MODULES)
+
+
 def test_every_module_imports_with_jax_blocked():
     code = ("import sys\nsys.modules['jax'] = None\n"
             "import importlib\n"

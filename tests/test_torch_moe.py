@@ -265,9 +265,13 @@ def test_forward_logits_match_jax(model):
                                atol=LOGITS_ATOL)
     _, jaux = jmoe.forward_hidden(jcfg, params, jnp.asarray(toks))
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+    # expert parallelism (a mesh with ep > 1) waits for ROADMAP A5b
+    from kubedl_tpu_torch.parallel import mesh as tmesh
+    ep_mesh = tmesh.Mesh(device=torch.device("cpu"),
+                         shape={a: 2 if a == "ep" else 1 for a in tmesh.AXES})
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tmoe.forward(tcfg, tparams, torch.from_numpy(toks).long(),
-                     mesh=object())
+                     mesh=ep_mesh)
 
 
 def test_decode_equals_the_full_forward_when_dropless(model):

@@ -305,9 +305,13 @@ def test_mesh_resolve_matches_jax(kw, n):
 
 
 def test_build_mesh_takes_one_device_only():
+    """Without a process group the mesh is this one device: a layout of
+    more devices is JAX's resolve error (ranks come from a process
+    group, ``tests/test_torch_sharded_train.py``)."""
     mesh = tmesh.build_mesh(tmesh.MeshConfig(dp=1, fsdp=-1), device="cpu")
     assert mesh.device.type == "cpu" and set(mesh.shape.values()) == {1}
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    assert mesh.device_mesh is None
+    with pytest.raises(ValueError, match="devices, have 1"):
         tmesh.build_mesh(tmesh.MeshConfig(tp=2), device="cpu")
 
 
@@ -365,7 +369,9 @@ def test_main_sft_masks_the_prompt(tmp_path):
     ({"mode": "grpo"}, "ROADMAP A7"),
     # the MoE family trains (test_torch_moe_train.py); its ep axis waits
     ({"model": "moe.mixtral_8x7b", "mesh": {"ep": 2}}, "ROADMAP A5"),
-    ({"mesh": {"fsdp": 2}}, "ROADMAP A5"),
+    # dp/fsdp/tp train across processes (test_torch_sharded_*.py); the
+    # context-parallel axis waits
+    ({"mesh": {"cp": 2}}, "ROADMAP A5b"),
 ])
 def test_main_refuses_what_is_not_ported(tmp_path, over, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -374,9 +380,32 @@ def test_main_refuses_what_is_not_ported(tmp_path, over, match):
 
 
 def test_main_refuses_a_multi_process_rendezvous(tmp_path, monkeypatch):
-    monkeypatch.setenv("KUBEDL_NUM_PROCESSES", "4")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tmain.main(["--config", _write_config(tmp_path)], device="cpu")
+    """Multi-process training runs over the operator's contract
+    (``tests/test_torch_sharded_*.py``). Refused: a contract without this
+    worker's process id, which would hang (the JAX package's rule), and
+    a multi-process launch without the contract (torchrun's or a
+    PyTorchJob's ``WORLD_SIZE``, TPU worker hostnames with no worker id,
+    a process count alone), whose processes would each train alone on
+    one card."""
+    names = ("KUBEDL_COORDINATOR_ADDRESS", "KUBEDL_NUM_PROCESSES",
+             "KUBEDL_PROCESS_ID", "TPU_WORKER_HOSTNAMES", "TPU_WORKER_ID",
+             "WORLD_SIZE")
+    path = _write_config(tmp_path)
+    for env, error, match in [
+            ({"KUBEDL_COORDINATOR_ADDRESS": "127.0.0.1:1",
+              "KUBEDL_NUM_PROCESSES": "4"}, ValueError,
+             "KUBEDL_PROCESS_ID is missing"),
+            ({"WORLD_SIZE": "2"}, NotImplementedError, "ROADMAP A8"),
+            ({"TPU_WORKER_HOSTNAMES": "h0,h1"}, NotImplementedError,
+             "ROADMAP A8"),
+            ({"KUBEDL_NUM_PROCESSES": "4"}, NotImplementedError,
+             "ROADMAP A8")]:
+        for name in names:
+            monkeypatch.delenv(name, raising=False)
+        for name, value in env.items():
+            monkeypatch.setenv(name, value)
+        with pytest.raises(error, match=match):
+            tmain.main(["--config", path], device="cpu")
 
 
 def test_fit_records_train_step_spans(monkeypatch):
