@@ -113,6 +113,26 @@ beside the unsharded run's. Then a sharded ``llama.tiny`` state is saved
 with ``torch.distributed.checkpoint`` under a new NCCL group and restored
 bit for bit. Every group is destroyed before the next phase; the card
 machine has one card, so no phase runs more than one rank.
+
+Since slice 12, right after the adapter pages, tensor-parallel serving:
+``tp`` opens a one-rank NCCL group and serves the continuous phase's
+16 requests through ``ContinuousBatchingEngine(mesh=...)`` on the
+``MeshConfig(dp=1, fsdp=1, tp=1)`` serving mesh (every device step
+posted on the step channel, every tick on the graph route; tokens equal
+to the continuous phase's bit for bit), reads the graph tick against the
+unsharded one in turns, serves ``/v1/embeddings`` through the server on
+that engine (32 K1 launches on ``sm90``, vectors equal bit for bit to an
+unsharded server's), checks that ``build_engine(tp=2)`` refuses on one
+card, and times K1 at one tp=2 rank's embeddings shape. ``tp2`` runs
+tp=2 for real in two processes on the one card under gloo (NCCL refuses
+two ranks on one device; the weights reach them over CUDA IPC): the
+eager route, K1 checked at each rank's local shape, 8 Llama-3-8B and 4
+Gemma-2B requests held to the unsharded reference by the near-tie check,
+the embeddings forward as an engine step (K1 on each rank's own heads;
+ids drawn over the whole vocabulary, so both vocab shards serve the
+lookup) with rank 0's hidden states held to the unsharded forward
+position by position, and each rank's peak memory. ``--phases tp,tp2`` runs them alone after
+the unsharded continuous run they compare with.
 """
 
 from __future__ import annotations
@@ -1237,6 +1257,450 @@ def phase_adapters(torch, cfg, params, cont) -> dict:
               exact=True, lps=lps)
     return {"status": st, "run_s": wall, "identical": r["identical"],
             "ticks": ticks}
+
+
+#: the tensor-parallel phases' timeout for every wait of one rank on
+#: another, seconds
+TP_TIMEOUT_S = 300.0
+#: K1 at the local shape of one rank of Llama-3-8B over tp=2 in
+#: ``/v1/embeddings``: half the query and half the KV heads
+TP_LOCAL = {**MAIN, "nh": 16, "nkv": 4}
+#: the embeddings phases' two inputs (the longer is 512 tokens with BOS)
+EMBED_TEXTS = ("kubedl " * 73)[:511], "a TPU kernel ported by hand to " \
+    "Hopper " * 8
+
+
+#: ``[tp2]``'s embeddings check: the least cosine of any position's hidden
+#: state on rank 0 with the unsharded forward's (bf16 rounds the two
+#: ranks' partial sums before their sum, so the directions differ a
+#: little; a rank reading wrong rows or wrong KV heads turns them)
+TP2_HIDDEN_COS = 0.99
+
+
+def _tp2_embed_ids(cfg) -> "np.ndarray":
+    """``[tp2]``'s embeddings input: [2, 512] ids drawn over the whole
+    vocabulary (seed 6), so each rank's vocab shard holds about half of
+    the looked-up rows (byte-tokenized text lies in rank 0's alone)."""
+    import numpy as np
+    rng = np.random.default_rng(6)
+    return rng.integers(3, cfg.vocab_size, (TP_LOCAL["b"], TP_LOCAL["sq"]),
+                        dtype=np.int64)
+
+
+def _embed_ids(texts) -> "np.ndarray":
+    import numpy as np
+
+    from kubedl_tpu_torch.tokenizer import ByteTokenizer, encode_prompt
+    tok = ByteTokenizer()
+    ids = [encode_prompt(tok, t) for t in texts]
+    out = np.zeros((len(ids), max(map(len, ids))), np.int64)
+    for i, r in enumerate(ids):
+        out[i, :len(r)] = r
+    return out
+
+
+def phase_tp(torch, cfg, params, cont) -> dict:
+    """Tensor-parallel serving through its own path at world size 1: a
+    one-rank NCCL group (``parallel.launch.open_group``) and the serving
+    mesh ``MeshConfig(dp=1, fsdp=1, tp=1)`` over it, so
+    ``ContinuousBatchingEngine(mesh=...)`` runs on the continuous phase's
+    Llama-3-8B weights with every device step posted on the step channel
+    (packed and pickled; one rank broadcasts nothing) and the tick on the
+    graph route (one rank's collectives are capturable). (a) The
+    continuous phase's 16 requests: tokens equal to its served tokens bit
+    for bit (tp=1 cuts nothing, so the computation is the unsharded
+    one); (b) the graph tick at 1, 4 and 8 lanes against the unsharded
+    engine's on the same state, in turns (the channel's host cost: a
+    reading, not a gate); (c)
+    ``/v1/embeddings`` through ``InferenceServer`` on the meshed engine:
+    32 K1 launches, all ``sm90``, vectors equal bit for bit to an
+    unsharded server's on the same weights; (d) ``build_engine`` with
+    ``tp=2`` refuses on a one-card machine before reading anything.
+
+    What world size 1 cannot show: the all-reduces, the vocab lookup's
+    sum and the logits' all-gather inside a captured tick (each collective
+    on a one-rank group is skipped). ``[tp2]`` runs them over gloo."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.parallel import launch
+    from kubedl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from kubedl_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          InferenceServer, ServerConfig)
+    from kubedl_tpu_torch.serving import __main__ as serve_main
+    from kubedl_tpu_torch.tokenizer import ByteTokenizer
+
+    reqs, served = cont["reqs"], cont["served"]
+    out = {}
+    launch.open_group(0, 1, _free_port(), torch.device("cuda", 0),
+                      TP_TIMEOUT_S)
+    try:
+        mesh = build_mesh(MeshConfig(dp=1, fsdp=1, tp=1), device="cuda")
+
+        def engine(**kw):
+            kw.setdefault("lanes", CONT_LANES)
+            return ContinuousBatchingEngine(cfg, params, max_len=CONT_MAX_LEN,
+                                            mesh=mesh, device="cuda", **kw)
+
+        eng = engine()
+        t0 = time.perf_counter()
+        got, lps = _run(eng, reqs)
+        wall = time.perf_counter() - t0
+        out["ticks_a"] = _graph_only(eng, "[tp] (a)")
+        out["posts"] = eng._channel.posts
+        same = sum(a == b for a, b in zip(got, served))
+        log(f"[tp] (a) 16 requests through the step channel (tp=1, NCCL "
+            f"group of one): {wall:.3f} s, {eng._channel.posts} steps "
+            f"posted, ticks by route {out['ticks_a']}; tokens identical to "
+            f"the continuous phase's: {same}/16 requests")
+        if got != served:
+            raise AssertionError("[tp] tokens differ from the unsharded "
+                                 "engine's")
+        _hold(torch, cfg, params, reqs, got, "[tp] (a) tp=1 mesh",
+              want=served, want_label="the continuous phase", exact=True,
+              lps=lps)
+        del eng
+        gc.collect()
+
+        out["ticks"] = _tp_tick_ab(torch, cfg, params, mesh, reqs[1][0])
+
+        ids = _embed_ids(EMBED_TEXTS)
+        vecs = {}
+        for tag, kw in (("tp", {"mesh": mesh}), ("unsharded", {})):
+            e = ContinuousBatchingEngine(cfg, params, lanes=1,
+                                         max_len=CONT_MAX_LEN, device="cuda",
+                                         **kw).start()
+            srv = InferenceServer(e, ServerConfig(
+                model_name="llama3-8b", host="127.0.0.1", port=0,
+                tokenizer=ByteTokenizer())).start()
+            try:
+                if tag == "tp":
+                    _reset_counts(attn)
+                emb = json.loads(_post(srv.url, "/v1/embeddings",
+                                       {"input": list(EMBED_TEXTS)}))
+                if tag == "tp":
+                    out["embeddings_launches"] = attn.flash_forward.launches
+                    out["embeddings_by_route"] = dict(
+                        attn.flash_forward.launches_by_route)
+            finally:
+                srv.stop()
+                e.stop()
+            vecs[tag] = np.asarray([d["embedding"] for d in emb["data"]])
+        k1 = out["embeddings_launches"]
+        if k1 != cfg.n_layers or out["embeddings_by_route"]["sm90"] != k1:
+            raise AssertionError(f"[tp] /v1/embeddings launched K1 {k1} "
+                                 f"times {out['embeddings_by_route']}; want "
+                                 f"{cfg.n_layers}, all sm90")
+        if vecs["tp"].shape != (2, cfg.d_model) or not np.array_equal(
+                vecs["tp"], vecs["unsharded"]):
+            raise AssertionError(
+                f"[tp] embeddings differ from the unsharded server's: max "
+                f"abs diff {np.abs(vecs['tp'] - vecs['unsharded']).max()}")
+        log(f"[tp] (c) /v1/embeddings ({ids.shape[1]} tokens) on the meshed "
+            f"engine: {k1} K1 launches {out['embeddings_by_route']}, vectors "
+            f"equal bit for bit to the unsharded server's")
+    finally:
+        dist.destroy_process_group()
+
+    if torch.cuda.device_count() == 1:
+        try:
+            serve_main.build_engine(str(BUILD_OUT / "no-such-artifact"),
+                                    CONT_LANES, "", 0, tp=2)
+        except ValueError as e:
+            out["refusal"] = str(e)
+        if out.get("refusal") != "KUBEDL_SERVING_TP=2 but only 1 local " \
+                "devices":
+            raise AssertionError(f"[tp] build_engine(tp=2) on one card: "
+                                 f"{out.get('refusal')!r}")
+        log(f"[tp] (d) build_engine(tp=2) on one card refuses before "
+            f"loading: {out['refusal']}")
+    row = _fwd_timing(torch, TP_LOCAL, seed=460)
+    q, k, v, _ = _inputs(torch, TP_LOCAL, seed=460)
+    got_o, _ = attn.flash_forward(q, k, v, True)
+    ref_o, _ = attn.flash_forward_plain(q, k, v, True)
+    row["max_abs_err"] = (got_o.float() - ref_o.float()).abs().max().item()
+    if row["max_abs_err"] > ATOL["bfloat16"] or row["kernel_route"] != \
+            "sm90":
+        raise AssertionError(f"[tp] K1 at {_shape(TP_LOCAL)}: {row}")
+    out["k1_local"] = row
+    log(f"[tp] K1 at one tp=2 rank's embeddings shape {_shape(TP_LOCAL)} "
+        f"({row['kernel_route']}): max_abs_err {row['max_abs_err']:.3e}, "
+        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return out
+
+
+def _tp_tick_ab(torch, cfg, params, mesh, prompt) -> dict:
+    """The graph tick through the step channel (tp=1 mesh) against the
+    unsharded engine's on the same weights and lane state, at 1, 4 and 8
+    lanes, timed in turns (unsharded, meshed, meshed, unsharded) so run
+    order does not read as the channel's cost; at 8 lanes the device
+    busy time and kernels of each (``_tick_launches``)."""
+    from kubedl_tpu_torch.serving import ContinuousBatchingEngine
+    rows = {}
+    for lanes in (1, 4, 8):
+        engs = {}
+        for tag, kw in (("unsharded", {}), ("tp", {"mesh": mesh})):
+            e = ContinuousBatchingEngine(cfg, params, lanes=lanes,
+                                         max_len=CONT_MAX_LEN, device="cuda",
+                                         **kw)
+            for i in range(lanes):
+                e.submit(prompt[:500] + [i + 3], 256)
+            e.step()
+            engs[tag] = e
+        row = {tag: [] for tag in engs}
+        for tag in ("unsharded", "tp", "tp", "unsharded"):
+            row[tag].append(_tick_ms(torch, engs[tag], None))
+        if lanes == 8:
+            row["launches"] = {tag: _tick_launches(torch, e, None)
+                               for tag, e in engs.items()}
+            # the post alone, host clock: what the meshed tick adds
+            e = engs["tp"]
+            args = {"tick": "paged", "buf": e._tick_p.pack(
+                e._cur, e._pos, e._tables), "eager": False}
+            t0 = time.perf_counter()
+            for _ in range(10000):
+                e._channel.post("decode", args)
+            row["post_us"] = (time.perf_counter() - t0) * 1e2
+        for tag, e in engs.items():
+            _graph_only(e, f"[tp] (b) {tag} {lanes} lanes")
+        row["host_cost_ms"] = (sum(row["tp"]) - sum(row["unsharded"])) / 2
+        rows[lanes] = row
+        log(f"[tp] (b) {lanes} lane(s), graph tick in turns: unsharded "
+            f"{row['unsharded'][0]:.3f}, tp=1 mesh {row['tp'][0]:.3f} / "
+            f"{row['tp'][1]:.3f}, unsharded {row['unsharded'][1]:.3f} ms "
+            f"(channel's cost {row['host_cost_ms']:+.3f} ms)"
+            + ("" if lanes != 8 else
+               f"; per tick (host launch calls, device kernels, device busy "
+               f"ms): unsharded {row['launches']['unsharded']}, tp "
+               f"{row['launches']['tp']}; one post of the tick alone "
+               f"{row['post_us']:.2f} us (host clock, 10,000 posts)"))
+        del engs, e
+        gc.collect()
+    return rows
+
+
+def _tp2_rank(rank, port, models, queue):
+    """One rank of ``[tp2]`` on ``cuda:0`` (both ranks share the card):
+    a gloo group over the two processes, the serving mesh at tp=2, K1 at
+    this rank's local shape against its plain version, then Llama-3-8B
+    and Gemma-2B (``models``: name -> (config, the parent's weights over
+    CUDA IPC, requests, embeddings ids)) through
+    ``ContinuousBatchingEngine(mesh=...)`` (rank 0 schedules, rank 1
+    follows) and the embeddings forward as an engine step. Each model's
+    shared weights are dropped before the next: the parent frees a
+    shared block only once every process that opened it has let it go.
+    Puts ``(rank, result)`` or ``(rank, traceback)`` on ``queue``."""
+    import traceback
+    from datetime import timedelta
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from kubedl_tpu_torch.ops import attention as attn
+        from kubedl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+        from kubedl_tpu_torch.serving import ContinuousBatchingEngine
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=2, rank=rank,
+                                timeout=timedelta(seconds=TP_TIMEOUT_S))
+        mesh = build_mesh(MeshConfig(dp=1, fsdp=1, tp=2), device="cuda:0")
+        res = {"rank": rank}
+        q, k, v, _ = _inputs(torch, TP_LOCAL, seed=470 + rank)
+        o, _ = attn.flash_forward(q, k, v, True)
+        ref, _ = attn.flash_forward_plain(q, k, v, True)
+        res["k1_err"] = (o.float() - ref.float()).abs().max().item()
+        res["k1_route"] = attn.flash_fwd_route(q.dtype, TP_LOCAL["hd"])
+        del q, k, v, o, ref
+        for tag in ("llama", "gemma"):
+            c, p, rs, emb = models.pop(tag)
+            gc.collect()             # an engine and its ticks form a cycle
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            eng = ContinuousBatchingEngine(c, p, lanes=CONT_LANES,
+                                           max_len=CONT_MAX_LEN, mesh=mesh,
+                                           device="cuda:0")
+            row = {"route": eng._tick_p.route}
+            if eng._channel.leader:
+                t0 = time.perf_counter()
+                row["tokens"], row["logprobs"] = _run(eng, rs)
+                row["seconds"] = time.perf_counter() - t0
+                row["ticks"] = eng.tick_launches
+                _reset_counts(attn)
+                with torch.inference_mode():
+                    x = eng.hidden_states(emb)
+                    row["hidden"] = x.float().cpu().numpy()
+                eng.stop()
+            else:
+                _reset_counts(attn)
+                row["followed"] = eng.follow()
+            torch.cuda.synchronize()
+            row["k1"] = attn.flash_forward.launches
+            row["k1_by_route"] = dict(attn.flash_forward.launches_by_route)
+            row["peak_gib"] = (torch.cuda.max_memory_allocated()
+                               - held) / 2**30
+            row["local_wq"] = tuple(eng.params["layers"]["wq"].shape)
+            row["local_cache"] = tuple(
+                eng._pool["k"].shape)
+            res[tag] = row
+            del eng, p
+        gc.collect()
+        dist.destroy_process_group()
+        queue.put((rank, res))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        queue.put((rank, traceback.format_exc()))
+
+
+def _tp2_hidden(torch, tag, cfg, params, ids, hidden) -> dict:
+    """Rank 0's embeddings forward at tp=2 (``hidden`` [b, s, d]) held to
+    the unsharded ``forward_hidden`` on the same weights and ids, position
+    by position: the least cosine must reach ``TP2_HIDDEN_COS``."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.ops import attention as attn
+
+    with torch.inference_mode():
+        ref = llama.forward_hidden(cfg, params, torch.as_tensor(
+            ids, device="cuda")).float()
+    _reset_counts(attn)          # the reference ran K1 too
+    got = torch.from_numpy(hidden).cuda()
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"[tp2] {tag} embeddings: shape "
+                             f"{tuple(got.shape)}, want {tuple(ref.shape)}, "
+                             "all finite")
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
+    rel = (got - ref).norm(dim=-1) / ref.norm(dim=-1)
+    half = cfg.vocab_size // 2
+    out = {"min_cos": cos.min().item(), "max_rel": rel.max().item(),
+           "max_abs_err": (got - ref).abs().max().item(),
+           "ids_on_rank1": int((ids >= half).sum())}
+    log(f"[tp2] {tag} embeddings of {ids.shape} ids ({out['ids_on_rank1']} "
+        f"in rank 1's vocab shard) against the unsharded forward, by "
+        f"position: least cosine {out['min_cos']:.6f}, largest relative "
+        f"error {out['max_rel']:.4f}, max_abs_err {out['max_abs_err']:.4f}")
+    if out["min_cos"] < TP2_HIDDEN_COS:
+        raise AssertionError(f"[tp2] {tag} embeddings disagree with the "
+                             f"unsharded forward: {out}")
+    return out
+
+
+def _tp2_reading(torch, tag, res, model) -> dict:
+    """One model's ``[tp2]`` results from both ranks, checked: the eager
+    route, K1 once a layer on each rank, all ``sm90``, rank 0's hidden
+    states against the unsharded forward, and the served tokens held to
+    the unsharded reference."""
+    cfg, params, reqs, ids = model
+    lead = res[0][tag]
+    for rank in (0, 1):
+        row = res[rank][tag]
+        if row["route"] != "eager":
+            raise AssertionError(f"[tp2] {tag} rank {rank}: tick route "
+                                 f"{row['route']}, want eager (gloo)")
+        if row["k1"] != cfg.n_layers or \
+                row["k1_by_route"]["sm90"] != cfg.n_layers:
+            raise AssertionError(f"[tp2] {tag} rank {rank}: K1 {row['k1']} "
+                                 f"{row['k1_by_route']}, want "
+                                 f"{cfg.n_layers} on sm90")
+    if lead["ticks"]["graph"] or not lead["ticks"]["eager"]:
+        raise AssertionError(f"[tp2] {tag}: ticks {lead['ticks']}")
+    hidden = _tp2_hidden(torch, tag, cfg, params, ids, lead.pop("hidden"))
+    r = _hold(torch, cfg, params, reqs, lead["tokens"], f"[tp2] {tag} tp=2",
+              lps=lead["logprobs"])
+    out = {"reading": r, "hidden": hidden, "ticks": lead["ticks"],
+           "seconds": lead["seconds"],
+           "followed": res[1][tag]["followed"],
+           "k1": [res[k][tag]["k1"] for k in (0, 1)],
+           "peak_gib": [res[k][tag]["peak_gib"] for k in (0, 1)]}
+    log(f"[tp2] {tag}: {len(reqs)} requests in {lead['seconds']:.2f} s on "
+        f"2 ranks (ticks {lead['ticks']}, rank 1 followed "
+        f"{res[1][tag]['followed']} steps); local wq {lead['local_wq']}, "
+        f"local pool {lead['local_cache']}; K1 {out['k1']} launches by "
+        f"rank, all sm90; peak {[round(x, 2) for x in out['peak_gib']]} GiB "
+        f"by rank")
+    return out
+
+
+def phase_tp2(torch, cfg, params, reqs) -> dict:
+    """Tensor-parallel serving at tp=2 on the one card: two processes on
+    ``cuda:0`` under a gloo group (NCCL refuses two ranks on one device),
+    so the tick's collectives run eagerly (the route asserted ``eager``)
+    and every collective moves through the host. Llama-3-8B at full width
+    (the continuous phase's weights, shared with the children over CUDA
+    IPC): each rank holds half of every sharded leaf and 4 of the 8 KV
+    heads; 8 of the continuous phase's requests, every served token and
+    its log-probability held to the unsharded teacher-forced reference
+    (``_hold``). Then Gemma-2B at full size (random bf16, seed 0; one KV
+    head, so every rank holds K/V whole and writes the same cache) with 4
+    requests. Each rank checks K1 at its local embeddings shape against
+    the plain version and runs the embeddings forward as an engine step
+    (K1 on its own heads: 32 and 18 launches a rank) on [2, 512] ids
+    drawn over the whole vocabulary; rank 0's hidden states must agree
+    with the unsharded forward's position by position (``_tp2_hidden``);
+    each rank's peak memory is reported."""
+    import torch.multiprocessing as tmp
+
+    from kubedl_tpu_torch.models import gemma, llama
+
+    gcfg = gemma.gemma_2b()
+    gparams = llama.init_params(
+        gcfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    reqs8 = reqs[:8]
+    greqs = [(p[:200], n) for p, n in reqs[8:12]]
+    ctx = tmp.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    t0 = time.perf_counter()
+    models = {"llama": (cfg, params, reqs8, _tp2_embed_ids(cfg)),
+              "gemma": (gcfg, gparams, greqs, _tp2_embed_ids(gcfg))}
+    procs = [ctx.Process(target=_tp2_rank, daemon=True,
+                         args=(r, port, models, queue)) for r in range(2)]
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        while len(res) < 2:
+            rank, value = queue.get(timeout=TP_TIMEOUT_S)
+            res[rank] = value
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        # the blocks the children opened, released by them, go back to
+        # the allocator (else they stay held until this process ends)
+        torch.cuda.ipc_collect()
+    wall = time.perf_counter() - t0
+    for rank, value in res.items():
+        if isinstance(value, str):
+            raise AssertionError(f"[tp2] rank {rank} failed:\n{value}")
+    out = {"seconds": wall}
+    for tag in ("llama", "gemma"):
+        out[tag] = _tp2_reading(torch, tag, res, models[tag])
+    out["k1_err"] = [res[k]["k1_err"] for k in (0, 1)]
+    if max(out["k1_err"]) > ATOL["bfloat16"] or {
+            res[k]["k1_route"] for k in (0, 1)} != {"sm90"}:
+        raise AssertionError(f"[tp2] K1 at {_shape(TP_LOCAL)}: errors "
+                             f"{out['k1_err']}")
+    log(f"[tp2] K1 at {_shape(TP_LOCAL)} on each rank against its plain "
+        f"version: max_abs_err {out['k1_err']}; phase {wall:.1f} s")
+    before = torch.cuda.memory_allocated()
+    del gparams, models
+    gc.collect()
+    torch.cuda.ipc_collect()
+    freed = (before - torch.cuda.memory_allocated()) / 1e9
+    want = gcfg.num_params * 2 / 1e9
+    log(f"[tp2] Gemma-2B's weights, shared with both ranks, freed: "
+        f"{freed:.2f} GB of {want:.2f} GB")
+    if freed < 0.99 * want:
+        raise AssertionError("[tp2] the weights the ranks shared were not "
+                             "given back")
+    return out
 
 
 def phase_gemma(torch) -> tuple:
@@ -3555,19 +4019,55 @@ def phase_resnet(torch) -> dict:
     return out
 
 
+def _tp_probe(torch, only, timed) -> None:
+    """``[tp]`` and ``[tp2]`` on their own: Llama-3-8B from seed 0 (the
+    serving phase's weights) and the unsharded continuous engine's 16
+    requests, which ``[tp]`` compares with."""
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.serving import ContinuousBatchingEngine
+    cfg = llama.llama3_8b()
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+
+    def engine(**kw):
+        kw.setdefault("lanes", CONT_LANES)
+        return ContinuousBatchingEngine(cfg, params, max_len=CONT_MAX_LEN,
+                                        device="cuda", **kw)
+    _, reqs = _cont_requests(cfg)
+    cont = {"reqs": reqs}
+    if "tp" in only:
+        cont["served"], _ = _run(engine(), reqs)
+        gc.collect()
+        timed("tp", phase_tp, torch, cfg, params, cont)
+    if "tp2" in only:
+        timed("tp2", phase_tp2, torch, cfg, params, reqs)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[tp] device memory still allocated after the phases: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+
 def _probe(torch, argv, timed) -> int:
-    """``--phases hf,lifecycle,resnet,moe_timing,dist [--layers N]``: the
-    named phases alone after the build, the slice-10 ones on Gemma-2B
-    ``N`` layers deep, ``dist`` after the unsharded Gemma-2B training it
-    compares with (a quick check of one part on the card; no kernels
+    """``--phases hf,lifecycle,resnet,moe_timing,dist,tp,tp2 [--layers
+    N]``: the named phases alone after the build, the slice-10 ones on
+    Gemma-2B ``N`` layers deep, ``dist`` after the unsharded Gemma-2B
+    training it compares with, ``tp`` after the unsharded continuous run
+    it compares with (a quick check of one part on the card; no kernels
     line and no last line)."""
     if len(argv) not in (2, 4) or argv[0] != "--phases" or (
             len(argv) == 4 and argv[2] != "--layers"):
         print("usage: chip_smoke.py [--phases hf,lifecycle,resnet,"
-              "moe_timing,dist [--layers N]]", file=sys.stderr)
+              "moe_timing,dist,tp,tp2 [--layers N]]", file=sys.stderr)
         return 2
     only = set(argv[1].split(","))
     layers = int(argv[3]) if len(argv) == 4 else None
+    log("[env] " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip())
+    if only & {"tp", "tp2"}:
+        _tp_probe(torch, only, timed)
     if "dist" in only:
         gtrain = timed("gemma_training", phase_gemma_training, torch)
         gc.collect()
@@ -3629,6 +4129,9 @@ def main() -> int:
     timed("predictor", phase_predictor, torch, cfg8b, params)
     timed("quantized", phase_quantized, torch, cfg8b, params, cont)
     timed("adapters", phase_adapters, torch, cfg8b, params, cont)
+    tp_run = timed("tp", phase_tp, torch, cfg8b, params, cont)
+    gc.collect()
+    tp2_run = timed("tp2", phase_tp2, torch, cfg8b, params, cont["reqs"])
     del params, cont
     gc.collect()                 # the 16 GB serving model goes first
     torch.cuda.empty_cache()
@@ -3710,7 +4213,9 @@ def main() -> int:
     launches["flash_forward"].update(
         serving=serving_launches,
         gemma_embeddings=gemma["embeddings_launches"],
-        moe_embeddings=moe_out["embeddings_launches"])
+        moe_embeddings=moe_out["embeddings_launches"],
+        tp_embeddings=tp_run["embeddings_launches"],
+        tp2_embeddings=sum(tp2_run["llama"]["k1"] + tp2_run["gemma"]["k1"]))
     new_paths = {**hf["launches"], **life["launches"]}
     for name in launches:
         launches[name].update({path: new_paths[path][name]
@@ -3763,6 +4268,12 @@ def main() -> int:
          "gemma": gemma_row("flash_forward",
                             fwd["gemma_max_abs_err"]["gemma_train"]),
          "moe": moe_row("flash_forward", fwd["moe_max_abs_err"]),
+         "tp": {"shape": _shape(TP_LOCAL), **tp_run["k1_local"],
+                "launches": {"tp_embeddings": tp_run["embeddings_launches"],
+                             "tp2_embeddings_by_rank": {
+                                 "llama": tp2_run["llama"]["k1"],
+                                 "gemma": tp2_run["gemma"]["k1"]}},
+                "tp2_max_abs_err_by_rank": tp2_run["k1_err"]},
          "simt_source": source("flash_forward", "simt"),
          "kernel_route": "sm90", "design": DESIGN["flash_forward"]},
         {"name": "flash_dq", "route": "cuda",

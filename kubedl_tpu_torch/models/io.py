@@ -92,12 +92,15 @@ def save_model(config: llama.LlamaConfig, params: dict, path: str) -> None:
 
 
 def params_from_numpy(config: llama.LlamaConfig, tree: dict,
-                      device=None) -> dict:
+                      device=None, select=None) -> dict:
     """The JAX package's parameter tree (numpy leaves, stacked
     ``layers/*`` or a per-layer ``layers/<i>/*`` list, ``[in, out]``
     weights, bfloat16 widened to float32) -> the port's parameter dict on
     ``device``: float32 for norms and biases, the config dtype for the
-    rest. Keys and shapes are checked against the config."""
+    rest. Keys and shapes are checked against the config. ``select(name,
+    host_tensor)`` (optional) returns the part of each leaf to keep, a
+    view of the host tensor (a tensor-parallel rank's shard): only that
+    part is converted and reaches ``device``."""
     dev = resolve_device(device)
     shapes = family_of(config).param_shapes(config)
 
@@ -109,7 +112,9 @@ def params_from_numpy(config: llama.LlamaConfig, tree: dict,
         dt = torch.float32 if name.split("/")[-1] in _F32_LEAVES \
             else config.dtype
         host = torch.from_numpy(np.asarray(arr, np.float32))
-        out = host.to(device=dev, dtype=dt)
+        if select is not None:
+            host = select(name, host)
+        out = host.to(device=dev, dtype=dt).contiguous()
         # a leaf that needed no conversion would alias its host array
         # (for a mapped artifact, the file's pages): own the bytes
         return out.clone() if out.data_ptr() == host.data_ptr() else out
@@ -199,12 +204,14 @@ def _npz_arrays(path: str) -> dict:
     return out
 
 
-def load_model(path: str, device=None) -> Tuple[llama.LlamaConfig, dict]:
+def load_model(path: str, device=None,
+               select=None) -> Tuple[llama.LlamaConfig, dict]:
     """(config, params on ``device``) from a ``save_model`` directory —
     the JAX package's or the port's. The arrays are mapped from the file
     and copied to ``device`` leaf by leaf while a thread hashes the file:
     a ``params_sha256`` mismatch means a corrupt or partial copy and
-    raises before anything is returned."""
+    raises before anything is returned. ``select`` keeps part of each
+    leaf (see :func:`params_from_numpy`)."""
     config = read_config(path)
     dev = resolve_device(device)
 
@@ -232,7 +239,7 @@ def load_model(path: str, device=None) -> Tuple[llama.LlamaConfig, dict]:
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = arr
-        params = params_from_numpy(config, tree, device=dev)
+        params = params_from_numpy(config, tree, device=dev, select=select)
     except Exception as e:
         check(e)              # a torn file reports as one
         raise

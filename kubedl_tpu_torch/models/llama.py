@@ -29,6 +29,16 @@ gathered whole over ``tp`` for the lookup and the loss, their storage
 and gradients staying sharded (a vocab-parallel loss would skip that
 gather: ROADMAP B11). Context parallelism (ring, ulysses) is ROADMAP A5b
 and raises.
+
+Tensor-parallel serving (``serving.engine.shard_for_serving``) hands the
+model plain tensors, each rank's own shard, with the serving ``mesh``:
+the cache-aware steps (:func:`forward_step`, :func:`attention_step`)
+run the rank's heads against its KV heads (the cache from
+:func:`init_cache` / :func:`init_block_pool` holds ``n_kv_heads // tp``
+of them, or all where ``tp`` does not divide them), the embedding lookup
+and the LM head stay on the rank's vocab shard (``vocab_lookup``, then
+each rank's logits all-gathered: ``vocab_gather``), and ``forward_hidden``
+runs the flash kernel on the rank's heads.
 """
 
 from __future__ import annotations
@@ -46,7 +56,8 @@ from ..ops.attention import multi_head_attention
 from ..ops.loss import chunked_token_nll
 from ..ops.quant import mm as _mm
 from ..ops.quant import to_dense
-from ..parallel.collectives import is_sharded, loss_share, tp_sum
+from ..parallel.collectives import (is_sharded, loss_share, tp_sum,
+                                    vocab_gather, vocab_lookup)
 from ..parallel.mesh import refuse_unported
 from ..parallel.sharding import materialize, spec
 
@@ -366,6 +377,23 @@ def _lm_head(config: LlamaConfig, params: dict):
     return w.to(config.dtype) if torch.is_tensor(w) else w
 
 
+def _vocab_parallel(params: dict, mesh) -> bool:
+    """Whether the embedding table is this rank's vocab shard (serving
+    under ``tp``: a plain tensor; sharded training passes
+    ``ShardedTensor`` views, gathered whole)."""
+    return _tp(mesh) > 1 and torch.is_tensor(params["embed"])
+
+
+def _logits(config: LlamaConfig, params: dict, x, mesh=None):
+    """Final hidden states -> float32 logits over the whole vocabulary
+    (softcapped). Under serving ``tp`` each rank projects onto its vocab
+    shard and the shards are all-gathered."""
+    logits = _mm(x, _lm_head(config, params)).float()
+    if _vocab_parallel(params, mesh):
+        logits = vocab_gather(logits, mesh)
+    return _softcap(config, logits)
+
+
 def _softcap(config: LlamaConfig, logits):
     cap = config.logit_softcap
     if cap and cap > 0:
@@ -373,8 +401,12 @@ def _softcap(config: LlamaConfig, logits):
     return logits
 
 
-def _embed(config: LlamaConfig, params: dict, tokens):
-    x = materialize(params["embed"], gather_tp=True)[tokens].to(config.dtype)
+def _embed(config: LlamaConfig, params: dict, tokens, mesh=None):
+    if _vocab_parallel(params, mesh):
+        x = vocab_lookup(params["embed"], tokens, mesh).to(config.dtype)
+    else:
+        x = materialize(params["embed"], gather_tp=True)[tokens].to(
+            config.dtype)
     if config.embed_scale:
         # a fill, not a host-to-device copy: legal inside a CUDA graph
         x = x * torch.full((), math.sqrt(config.d_model), dtype=config.dtype,
@@ -446,8 +478,19 @@ def _local_kv(config: LlamaConfig, k, v, nq: int, mesh):
     lo, n = idx[0], idx[-1] + 1 - idx[0]
     if nq % n == 0 and idx == [lo + i // (nq // n) for i in range(nq)]:
         return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
-    sel = torch.tensor(idx, device=k.device)
+    # built on the device, so a captured decode tick takes it too
+    sel = torch.div(torch.arange(first, first + nq, device=k.device),
+                    group, rounding_mode="floor")
     return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def kv_heads_local(config: LlamaConfig, mesh) -> int:
+    """The KV heads a rank's cache holds: its ``n_kv_heads // tp`` when
+    ``tp`` divides them, else all of them (every rank writes the same
+    K/V; the JAX serving path replicates its cache there)."""
+    tp = _tp(mesh)
+    return config.n_kv_heads // tp if config.n_kv_heads % tp == 0 \
+        else config.n_kv_heads
 
 
 _ATTN_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
@@ -539,7 +582,7 @@ def forward_hidden(config: LlamaConfig, params: dict, tokens,
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
     cos, sin = rope_frequencies(c, positions)
-    x = _embed(c, params, tokens)
+    x = _embed(c, params, tokens, mesh)
     if apply_layers is not None:
         x = apply_layers(x, cos, sin)
     else:
@@ -566,17 +609,17 @@ def forward(config: LlamaConfig, params: dict, tokens, positions=None,
             segment_ids=None, mesh=None):
     """tokens [b, s] int -> logits [b, s, vocab] float32."""
     x = forward_hidden(config, params, tokens, positions, segment_ids, mesh)
-    logits = _mm(x, _lm_head(config, params)).float()
-    return _softcap(config, logits)
+    return _logits(config, params, x, mesh)
 
 
 # -- KV-cache inference path -------------------------------------------------
 
 def init_cache(config: LlamaConfig, batch: int, max_len: int, dtype=None,
-               device=None) -> dict:
-    """Stacked KV cache [n_layers, b, max_len, n_kv_heads, hd]."""
+               device=None, mesh=None) -> dict:
+    """Stacked KV cache [n_layers, b, max_len, n_kv_heads, hd]; under a
+    serving ``mesh``, the rank's KV heads (:func:`kv_heads_local`)."""
     c = config
-    shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.hd)
+    shape = (c.n_layers, batch, max_len, kv_heads_local(c, mesh), c.hd)
     dev = resolve_device(device)
     dt = dtype or c.dtype
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
@@ -584,14 +627,15 @@ def init_cache(config: LlamaConfig, batch: int, max_len: int, dtype=None,
 
 
 def init_block_pool(config: LlamaConfig, num_blocks: int, block: int,
-                    dtype=None, device=None) -> dict:
+                    dtype=None, device=None, mesh=None) -> dict:
     """Paged KV pool [n_layers, num_blocks, block, n_kv_heads, hd]: one
     shared arena of fixed-size token blocks instead of a dense per-lane
     slab. Block 0 is the garbage sink by convention: free, dead and
     parked rows point their table entries at it, so their writes never
-    land in a live block."""
+    land in a live block. Under a serving ``mesh`` the KV-head axis is the
+    rank's (:func:`kv_heads_local`); the block axis is every rank's."""
     c = config
-    shape = (c.n_layers, num_blocks, block, c.n_kv_heads, c.hd)
+    shape = (c.n_layers, num_blocks, block, kv_heads_local(c, mesh), c.hd)
     dev = resolve_device(device)
     dt = dtype or c.dtype
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
@@ -599,7 +643,7 @@ def init_block_pool(config: LlamaConfig, num_blocks: int, block: int,
 
 
 def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
-                   valid=None, window_on=None, tables=None):
+                   valid=None, window_on=None, tables=None, mesh=None):
     """Cache-aware attention sublayer (with residual): write this chunk's
     K/V at ``start_pos`` and attend against the cache with a position
     mask. ``start_pos`` is an int (whole batch at one position) or a [b]
@@ -626,17 +670,25 @@ def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
     prefix's blocks with one shared position). The JAX body gathers the
     view, writes into it and scatters the whole view back; a gathered
     view here is a copy, so writing the pool first is what keeps the
-    writes, at a chunk's bytes instead of a second pass over the view."""
+    writes, at a chunk's bytes instead of a second pass over the view.
+
+    Under a serving ``mesh`` the weights are the rank's shards: it
+    projects its own query heads and its KV heads (all of them where
+    ``tp`` does not divide ``n_kv_heads``, then reads those its query
+    heads belong to), writes its cache, and the output projection's
+    partial sums are added over ``tp``."""
     c = config
     b, s, _ = x.shape
-    nh, nkv, hd = c.n_heads, c.n_kv_heads, c.hd
+    hd = c.hd
+    nkv = kc.shape[-2]
     dev = x.device
     row_pos = torch.is_tensor(start_pos) and start_pos.ndim == 1
     pool_k, pool_v = kc, vc
 
     h = rms_norm(x, lp["attn_norm"], c.rms_eps, c.norm_weight_offset)
-    q = apply_rope(_qkv(c, h, lp, "wq", "bq").reshape(b, s, nh, hd),
+    q = apply_rope(_qkv(c, h, lp, "wq", "bq").reshape(b, s, -1, hd),
                    cos, sin)
+    nh = q.shape[2]
     k = apply_rope(_qkv(c, h, lp, "wk", "bk").reshape(b, s, nkv, hd),
                    cos, sin)
     v = _qkv(c, h, lp, "wv", "bv").reshape(b, s, nkv, hd)
@@ -699,6 +751,9 @@ def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
             if valid is not None:
                 valid_a = valid[rows, gather]
 
+    if _kv_replicated(c, mesh):
+        ka, va = _local_kv(c, ka, va, nh, mesh)
+        nkv = ka.shape[2]
     # GQA-grouped attention straight against the cache, no repeat_kv;
     # products and sums in float32 as the JAX step's
     # preferred_element_type=float32
@@ -721,7 +776,7 @@ def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
     probs = torch.softmax(scores, dim=-1)
     attn = torch.einsum("bhgqk,bkhd->bqhgd", probs, va.float())
     attn = attn.reshape(b, s, nh, hd).to(x.dtype)
-    delta = _mm(attn.reshape(b, s, nh * hd), lp["wo"])
+    delta = tp_sum(_mm(attn.reshape(b, s, nh * hd), lp["wo"]), mesh)
     if c.sandwich_norms:
         delta = rms_norm(delta, lp["post_attn_norm"], c.rms_eps,
                          c.norm_weight_offset)
@@ -729,16 +784,16 @@ def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
 
 
 def _layer_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
-                valid=None, window_on=None, tables=None):
+                valid=None, window_on=None, tables=None, mesh=None):
     """Cache-aware layer: attention step + gated MLP."""
     x, kc, vc = attention_step(config, x, lp, kc, vc, cos, sin, start_pos,
-                               valid, window_on, tables=tables)
-    return _mlp(config, x, lp), kc, vc
+                               valid, window_on, tables=tables, mesh=mesh)
+    return _mlp(config, x, lp, mesh), kc, vc
 
 
 def forward_step(config: LlamaConfig, params: dict, tokens, cache: dict,
                  start_pos, valid=None, layer_body=None, last_pos=None,
-                 all_logits: bool = False):
+                 all_logits: bool = False, mesh=None):
     """Prefill (s = prompt len) or decode (s = 1) step against the KV
     cache. tokens [b, s] + cache + start_pos -> (last-token logits
     [b, vocab] float32, the cache, updated in place). ``valid`` [b,
@@ -748,7 +803,9 @@ def forward_step(config: LlamaConfig, params: dict, tokens, cache: dict,
     ``all_logits`` returns the whole chunk's logits [b, s, vocab].
 
     ``layer_body`` is the pluggable per-layer step, with the signature of
-    ``_layer_step``; it must write the layer's cache slices in place."""
+    ``_layer_step``; it must write the layer's cache slices in place.
+    ``mesh`` is the serving mesh of tensor-parallel serving (see the
+    module docstring)."""
     c = config
     s = tokens.shape[1]
     steps = torch.arange(s, device=tokens.device)
@@ -757,26 +814,24 @@ def forward_step(config: LlamaConfig, params: dict, tokens, cache: dict,
     else:
         positions = int(start_pos) + steps
     cos, sin = rope_frequencies(c, positions)
-    x = _embed(c, params, tokens)
+    x = _embed(c, params, tokens, mesh)
     body = layer_body or _layer_step
     flags = window_flags(c)
     for i in range(c.n_layers):
         x, _, _ = body(c, x, layer_params(params, i), cache["k"][i],
                        cache["v"][i], cos, sin, start_pos, valid,
-                       *(() if flags is None else (flags[i],)))
+                       *(() if flags is None else (flags[i],)), mesh=mesh)
 
     if all_logits:
         x = rms_norm(x, params["final_norm"], c.rms_eps,
                      c.norm_weight_offset)
-        logits = _mm(x, _lm_head(c, params)).float()
-        return _softcap(c, logits), cache
+        return _logits(c, params, x, mesh), cache
     if last_pos is not None:
         x = x[:, int(last_pos):int(last_pos) + 1]
     else:
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm"], c.rms_eps, c.norm_weight_offset)
-    logits = _mm(x, _lm_head(c, params)).float()
-    return _softcap(c, logits)[:, 0], cache
+    return _logits(c, params, x, mesh)[:, 0], cache
 
 
 def paged_layer_body(tables, inner_body=None):
@@ -793,9 +848,10 @@ def paged_layer_body(tables, inner_body=None):
     :func:`attention_step`."""
     inner = inner_body or _layer_step
 
-    def body(c, x, lp, kp, vp, cos, sin, start_pos, valid=None, *rest):
+    def body(c, x, lp, kp, vp, cos, sin, start_pos, valid=None, *rest,
+             mesh=None):
         return inner(c, x, lp, kp, vp, cos, sin, start_pos, valid, *rest,
-                     tables=tables)
+                     tables=tables, mesh=mesh)
 
     return body
 
@@ -803,7 +859,7 @@ def paged_layer_body(tables, inner_body=None):
 def forward_step_paged(config: LlamaConfig, params: dict, tokens,
                        pool: dict, tables, start_pos, valid=None,
                        inner_body=None, last_pos=None,
-                       all_logits: bool = False):
+                       all_logits: bool = False, mesh=None):
     """:func:`forward_step` against a paged KV pool: same contract, but
     the cache operand is an :func:`init_block_pool` arena plus per-row
     block ``tables`` [b, blocks_per_row]. The dense view exists one layer
@@ -815,7 +871,7 @@ def forward_step_paged(config: LlamaConfig, params: dict, tokens,
     is the per-layer body :func:`paged_layer_body` wraps."""
     return forward_step(config, params, tokens, pool, start_pos, valid,
                         layer_body=paged_layer_body(tables, inner_body),
-                        last_pos=last_pos, all_logits=all_logits)
+                        last_pos=last_pos, all_logits=all_logits, mesh=mesh)
 
 
 # -- training loss -----------------------------------------------------------

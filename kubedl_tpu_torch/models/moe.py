@@ -24,8 +24,10 @@ the llama core's rules (``fsdp`` gathers per layer; under ``tp`` each
 rank runs its own ``d_ff`` columns of every expert and the expert
 outputs are summed over ``tp`` before the combine), and the aux loss is
 this rank's share of the global batch's (its statistics summed over the
-data axes). Expert parallelism (the ``ep`` mesh axis) is ROADMAP A5b and
-raises.
+data axes). Tensor-parallel serving runs the decode steps the same way
+on each rank's shard of every expert (``mesh=`` of :func:`forward_step`),
+the float32 router replicated, so every rank routes alike. Expert
+parallelism (the ``ep`` mesh axis) is ROADMAP A5b and raises.
 """
 
 from __future__ import annotations
@@ -356,8 +358,7 @@ def forward(config: MoEConfig, params: dict, tokens, positions=None,
     ``loss_fn`` keeps it for training)."""
     x, _ = forward_hidden(config, params, tokens, positions, segment_ids,
                           mesh)
-    logits = llama._mm(x, llama._lm_head(config, params)).float()
-    return llama._softcap(config, logits)
+    return llama._logits(config, params, x, mesh)
 
 
 # -- KV-cache inference path -------------------------------------------------
@@ -367,13 +368,14 @@ init_block_pool = llama.init_block_pool  # the paged pool's likewise
 
 
 def _decode_layer_body(c, x, lp, kc, vc, cos, sin, start_pos, valid=None,
-                       window_on=None, tables=None):
+                       window_on=None, tables=None, mesh=None):
     """Per-layer decode body plugged into llama's decode driver (the
     signature of ``llama._layer_step``): the cache-aware attention, then
     the sparse-MLP block. The chunk's token mask is cut from ``valid`` so
     padding never takes expert capacity ahead of real tokens."""
     x, kc, vc = llama.attention_step(c, x, lp, kc, vc, cos, sin, start_pos,
-                                     valid, window_on, tables=tables)
+                                     valid, window_on, tables=tables,
+                                     mesh=mesh)
     token_mask = None
     if valid is not None:
         s = x.shape[1]
@@ -385,13 +387,13 @@ def _decode_layer_body(c, x, lp, kc, vc, cos, sin, start_pos, valid=None,
             # the JAX dynamic_slice clamps the start so the slice fits
             start = min(max(int(start_pos), 0), valid.shape[1] - s)
             token_mask = valid[:, start:start + s]
-    x, _ = _moe_block(c, x, lp, token_mask=token_mask)
+    x, _ = _moe_block(c, x, lp, mesh=mesh, token_mask=token_mask)
     return x, kc, vc
 
 
 def forward_step(config: MoEConfig, params: dict, tokens, cache: dict,
                  start_pos, valid=None, last_pos=None,
-                 all_logits: bool = False):
+                 all_logits: bool = False, mesh=None):
     """Prefill/decode step against the KV cache: llama's one decode
     driver with the MoE layer body plugged in, so the engines drive
     either family through the same contract. At decode (s=1) capacity is
@@ -399,18 +401,19 @@ def forward_step(config: MoEConfig, params: dict, tokens, cache: dict,
     nothing drops."""
     return llama.forward_step(config, params, tokens, cache, start_pos,
                               valid, layer_body=_decode_layer_body,
-                              last_pos=last_pos, all_logits=all_logits)
+                              last_pos=last_pos, all_logits=all_logits,
+                              mesh=mesh)
 
 
 def forward_step_paged(config: MoEConfig, params: dict, tokens,
                        pool: dict, tables, start_pos, valid=None,
-                       last_pos=None, all_logits: bool = False):
+                       last_pos=None, all_logits: bool = False, mesh=None):
     """Paged-pool step: llama's paged driver with the sparse layer body
     plugged in (same seam as :func:`forward_step`)."""
     return llama.forward_step_paged(
         config, params, tokens, pool, tables, start_pos, valid,
         inner_body=_decode_layer_body, last_pos=last_pos,
-        all_logits=all_logits)
+        all_logits=all_logits, mesh=mesh)
 
 
 # -- training loss -----------------------------------------------------------

@@ -16,6 +16,15 @@ gradient is the gradient of the sum over ranks of each rank's loss:
   rows' sum over the global count, over ``tp``'s size, so the shares
   add up to the JAX package's global mean.
 
+Tensor-parallel serving holds the embedding table and the LM head as
+each rank's vocab shard (Megatron's form): :func:`vocab_lookup` reads
+the rows of the ids the rank holds and sums them over ``tp``, and
+:func:`vocab_gather` all-gathers each rank's logits over its shard into
+the whole vocabulary. Outside autograd (serving runs under
+``torch.inference_mode``, and a decode tick is captured into a CUDA
+graph) ``tp_sum`` is a bare in-place all-reduce, with no autograd
+``Function`` on the path.
+
 Every axis of size 1 is skipped: on one rank nothing here runs.
 """
 
@@ -109,10 +118,40 @@ class _SumOver(torch.autograd.Function):
 
 
 def tp_sum(x, mesh):
-    """Sum the ``tp`` ranks' partial outputs (row-parallel products)."""
+    """Sum the ``tp`` ranks' partial outputs (row-parallel products);
+    forward only when autograd does not record."""
     if not is_sharded(mesh) or mesh.size("tp") == 1:
         return x
+    if not torch.is_grad_enabled():
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=mesh.group("tp"))
+        return x
     return _SumOver.apply(x, mesh.group("tp"))
+
+
+def vocab_lookup(table, ids, mesh):
+    """Rows of ``ids`` from this rank's vocab shard ``table`` [V/tp, d]
+    of an embedding table, summed over ``tp``: each id's row comes from
+    the one rank that holds it and zeros from the others, so the sum is
+    exact. Forward only (serving)."""
+    tp = mesh.size("tp") if is_sharded(mesh) else 1
+    if tp == 1:
+        return table[ids]
+    n = table.shape[0]
+    local = ids - mesh.index("tp") * n
+    hit = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)] * hit[..., None].to(table.dtype)
+    return tp_sum(rows, mesh)
+
+
+def vocab_gather(logits, mesh):
+    """``[..., V/tp]`` logits over each rank's vocab shard -> ``[...,
+    V]`` on every rank, shards in ``tp`` order (one all-gather; forward
+    only)."""
+    tp = mesh.size("tp") if is_sharded(mesh) else 1
+    if tp == 1:
+        return logits
+    return _all_gather(logits, logits.ndim - 1, mesh.group("tp"), tp)
 
 
 @torch.no_grad()

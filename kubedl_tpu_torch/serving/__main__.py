@@ -12,7 +12,14 @@ environment contract:
 * ``KUBEDL_SERVING_SPEC_K``   — >0 enables speculative lanes with the
   draft model at ``KUBEDL_SERVING_DRAFT_PATH``: every lane drafts k tokens
   per round and ONE [lanes, k+1] target pass verifies them
-* ``KUBEDL_SERVING_TP``       — refused above 1 (ROADMAP A5d)
+* ``KUBEDL_SERVING_TP``       — >1 serves the model tensor-parallel over
+  that many cards of this host: this process is rank 0 (the HTTP front,
+  the tokenizer, the scheduler) on ``cuda:0`` and starts ranks 1..N-1 as
+  ``python -m kubedl_tpu_torch.serving.tp`` on ``cuda:1..N-1``, which
+  repeat its device steps; each rank loads only its shard of the
+  artifact. Refused above the host's cards (on the CPU, its cores)
+  before anything loads, with weight quantization, and where ``tp`` does
+  not split the heads, ``d_ff`` or the vocabulary evenly
 * ``KUBEDL_KV_MODE``          — "paged" (default), "dense" or "parity"
 * ``KUBEDL_SERVING_KV_BLOCK`` / ``KUBEDL_SERVING_POOL_BLOCKS`` — paged
   pool geometry: tokens per block and usable block count (0 = engine
@@ -28,8 +35,10 @@ environment contract:
   automatically; "off" disables even that
 
 The engine runs on the card; ``main(..., device="cpu")`` is how tests
-reach the CPU. SIGTERM (pod shutdown) stops the HTTP server, drains the
-engine and exits 0.
+reach the CPU (its tensor-parallel ranks are gloo processes). SIGTERM
+(pod shutdown) stops the HTTP server, drains the engine (posting stop to
+the followers and waiting for them) and exits 0; a follower that exits
+while serving ends the predictor with exit code 1.
 
 Offline batch inference (no HTTP): ``--batch-input prompts.jsonl
 --batch-output out.jsonl`` reads rows ``{"prompt": "text" | [ids],
@@ -58,19 +67,24 @@ def build_engine(model_path: str, lanes: int, quantize: str, spec_k: int,
     ``$KUBEDL_KV_MODE`` (paged by default). With ``quantize`` ("int8" or
     "int4") the weights load on the host and the engine quantizes them
     onto the device one matrix at a time, so the float weights never
-    occupy the card."""
-    if tp > 1:
-        raise NotImplementedError(
-            f"KUBEDL_SERVING_TP={tp}: tensor-parallel serving is not "
-            "ported yet: ROADMAP A5d")
+    occupy the card. With ``tp`` > 1 this process becomes rank 0 of a
+    tensor-parallel group whose other ranks it starts (see the module
+    docstring); the engine's ``launcher`` holds them and ``stop`` ends
+    them."""
     from .._device import resolve_device
-    from ..models.io import load_model
-    from .batching import ContinuousBatchingEngine
-    from .engine import GenerateConfig
+    from ..models.io import read_config
+    from .engine import (MESH_QUANTIZE_REFUSAL, check_serving_split,
+                         local_device_count)
 
     dev = resolve_device(device)
-    config, params = load_model(model_path,
-                                device="cpu" if quantize else dev)
+    if tp > 1:
+        have = local_device_count(dev)
+        if have < tp:
+            raise ValueError(f"KUBEDL_SERVING_TP={tp} but only {have} "
+                             "local devices")
+        if quantize:
+            raise ValueError(MESH_QUANTIZE_REFUSAL)
+    config = read_config(model_path)
     if eos_id >= config.vocab_size or tokenizer_vocab > config.vocab_size:
         # a mismatched tokenizer would encode ids past the embedding table
         # and serve garbage with a 200 — refuse at startup
@@ -78,21 +92,74 @@ def build_engine(model_path: str, lanes: int, quantize: str, spec_k: int,
             f"tokenizer (vocab {tokenizer_vocab}, eos {eos_id}) does not "
             f"fit the model vocab ({config.vocab_size}) — wrong "
             "tokenizer for this model?")
+    if spec_k > 0 and not draft_path:
+        raise ValueError("KUBEDL_SERVING_SPEC_K > 0 needs "
+                         "KUBEDL_SERVING_DRAFT_PATH")
+    if tp > 1:
+        check_serving_split(config, tp)
+        if spec_k > 0:
+            check_serving_split(read_config(draft_path), tp)
+    from .batching import resolve_kv_mode
+    spec = {"model_path": model_path, "lanes": lanes, "quantize": quantize,
+            "spec_k": spec_k, "draft_path": draft_path, "max_len": max_len,
+            "eos_id": eos_id, "kv_block": kv_block,
+            "pool_blocks": pool_blocks, "kv_mode": resolve_kv_mode()}
+    if tp == 1:
+        return engine_for_rank(spec, dev).start()
+    import json
+
+    from ..parallel.launch import start_local_ranks
+    from .tp import TIMEOUT_S
+    if dev.type == "cuda":
+        import torch
+        dev = torch.device("cuda", 0)       # rank r takes card r
+    ranks = start_local_ranks(tp, "kubedl_tpu_torch.serving.tp",
+                              ["--spec", json.dumps(spec)], dev, TIMEOUT_S)
+    try:
+        engine = engine_for_rank(spec, dev, tp=tp)
+    except BaseException:
+        ranks.close(kill=True)
+        raise
+    engine.launcher = ranks
+    return engine.start()
+
+
+def engine_for_rank(spec: dict, device, tp: int = 1):
+    """The engine of ``build_engine``'s ``spec`` on ``device``, not yet
+    started: under ``tp`` > 1 (an open group of ``tp`` ranks) on this
+    rank's serving mesh, every leaf loaded as this rank's shard only."""
+    from ..models.io import load_model, read_config
+    from .batching import ContinuousBatchingEngine
+    from .engine import GenerateConfig, serving_cut
+
+    mesh = None
+    if tp > 1:
+        from ..parallel.mesh import MeshConfig, build_mesh
+        mesh = build_mesh(MeshConfig(dp=1, fsdp=1, tp=tp), device=device)
+
+    def load(path, where):
+        select = (None if mesh is None
+                  else serving_cut(read_config(path), mesh))
+        return load_model(path, device=where, select=select)
+
+    quantize = spec["quantize"]
+    config, params = load(spec["model_path"],
+                          "cpu" if quantize else device)
     kw = {}
-    if kv_block:
-        kw["kv_block"] = kv_block
-    if pool_blocks:
-        kw["pool_blocks"] = pool_blocks
-    if spec_k > 0:
-        if not draft_path:
-            raise ValueError("KUBEDL_SERVING_SPEC_K > 0 needs "
-                             "KUBEDL_SERVING_DRAFT_PATH")
-        dcfg, dparams = load_model(draft_path, device=dev)
-        kw.update(draft_config=dcfg, draft_params=dparams, spec_k=spec_k)
+    if spec["kv_block"]:
+        kw["kv_block"] = spec["kv_block"]
+    if spec["pool_blocks"]:
+        kw["pool_blocks"] = spec["pool_blocks"]
+    if spec["spec_k"] > 0:
+        dcfg, dparams = load(spec["draft_path"], device)
+        kw.update(draft_config=dcfg, draft_params=dparams,
+                  spec_k=spec["spec_k"])
+    max_len = spec["max_len"]
     return ContinuousBatchingEngine(
-        config, params, lanes=lanes, max_len=max_len,
-        gen=GenerateConfig(max_len=max_len, eos_id=eos_id),
-        quantize=quantize or None, device=dev, **kw).start()
+        config, params, lanes=spec["lanes"], max_len=max_len,
+        gen=GenerateConfig(max_len=max_len, eos_id=spec["eos_id"]),
+        quantize=quantize or None, device=device, mesh=mesh,
+        kv_mode=spec["kv_mode"], **kw)
 
 
 def run_batch(engine, tokenizer, in_path: str, out_path: str,
@@ -211,8 +278,8 @@ def main(argv=None, device=None) -> int:
         tokenizer=tokenizer,
     )).start()
     log.info("serving %s on %s (lanes=%d quantize=%s kv=%s device=%s "
-             "tokenizer=%s)", model_path, server.url, lanes,
-             quantize or "off", engine.kv_mode, engine.device,
+             "tp=%d tokenizer=%s)", model_path, server.url, lanes,
+             quantize or "off", engine.kv_mode, engine.device, tp,
              tok_spec if tokenizer is not None else "off")
 
     done = threading.Event()
@@ -222,11 +289,16 @@ def main(argv=None, device=None) -> int:
 
     signal.signal(signal.SIGTERM, shutdown)
     signal.signal(signal.SIGINT, shutdown)
-    done.wait()
+    ranks = engine.launcher
+    while not done.wait(1.0):
+        if ranks is not None and ranks.failed.is_set():
+            log.error("a tensor-parallel rank exited while serving")
+            break
+    failed = ranks is not None and ranks.failed.is_set()
     log.info("draining")
     server.stop()
     engine.stop()
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -46,12 +46,22 @@ the adapter's weight pages allocate from the same refcounted pool as KV
 blocks (``serving/adapters.py``); residency is host accounting, so greedy
 tokens under an adapter equal the base model's, as in the JAX engine.
 
-Not ported yet, and refused by name: a tensor-parallel ``mesh`` (ROADMAP
-A5d).
+**Tensor-parallel serving** (``mesh=`` a serving mesh of ``tp`` ranks,
+one process per card): every rank builds the engine with the same
+arguments and holds its shard of the weights and its KV heads
+(``engine.init_mesh_serving``). Rank 0 runs the scheduler, and every
+device step goes through :meth:`ContinuousBatchingEngine._dev`, which
+posts the step and its host arguments on the step channel
+(``serving/tp.py``) before running it; the other ranks call
+:meth:`ContinuousBatchingEngine.follow` and repeat each step. The tick's
+route is stated, never chosen silently: ``graph`` on a card when its
+collectives can be captured (NCCL, or one rank), ``eager`` under a gloo
+group (:func:`decode_tick_route`).
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import threading
@@ -65,8 +75,11 @@ import torch
 from .._device import resolve_device
 from ..trace import NOOP_TRACER
 from .engine import (GenerateConfig, SpecStats, filtered_probs, hit_stop,
-                     maybe_quantize, resolve_family, sample_logits,
-                     sample_logits_many, spec_accept, token_logprobs)
+                     init_mesh_serving, resolve_family, sample_logits,
+                     sample_logits_many, serving_tp, spec_accept,
+                     token_logprobs)
+
+log = logging.getLogger("kubedl_tpu_torch.serving")
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -172,15 +185,15 @@ class BlockPool:
 
 @dataclass(frozen=True)
 class _Prefix:
-    """One registered prompt prefix. ``stored`` is the dense-mode full KV
-    copy; ``blocks`` are the paged pool blocks pinned for the prefix's
+    """One registered prompt prefix. ``stored`` is the id of the
+    dense-mode full KV copy (the engine's ``_stored``); ``blocks`` are the paged pool blocks pinned for the prefix's
     FULL blocks only — the partial tail block is never shared (two lanes
     would write different tokens into it), it is re-prefilled per lane.
     ``pinned`` prefixes are exempt from the least-recently-hit eviction
     at ``max_prefixes``. ``model`` scopes the entry ("" = base model)."""
     key: tuple
     plen: int
-    stored: Optional[dict] = None
+    stored: Optional[int] = None
     blocks: tuple = ()
     pinned: bool = False
     model: str = ""
@@ -318,34 +331,45 @@ class _Lane:
         self.adapter_blocks = []
 
 
-def decode_tick_route(device) -> str:
+def decode_tick_route(device, mesh=None) -> str:
     """How a decode tick runs on ``device``: ``graph`` on a CUDA device
     (a captured CUDA graph, replayed every tick; a capture that fails
-    raises, there is no eager fallback), ``eager`` elsewhere."""
-    return "graph" if torch.device(device).type == "cuda" else "eager"
+    raises, there is no eager fallback) when the tick's collectives can
+    be captured (NCCL, or a serving mesh of one rank), ``eager`` under a
+    gloo ``tp`` group and off the card."""
+    if torch.device(device).type != "cuda":
+        return "eager"
+    if serving_tp(mesh) > 1:
+        import torch.distributed as dist
+        if dist.get_backend(mesh.group("tp")) != "nccl":
+            return "eager"
+    return "graph"
 
 
 class DecodeTick:
     """One ``[lanes, 1]`` decode step of one model over one KV store.
 
     ``step(cur [lanes, 1], pos [lanes], tables [lanes, n] or None) ->
-    logits [lanes, vocab]`` writes the tick's K/V in place. On the
-    ``graph`` route the first call copies its inputs into one static
-    int64 buffer (tokens, positions, then tables), runs ``step`` twice on
-    a side stream (the allocator's and the libraries' warm-up) and
-    captures it; every call then refills the buffer with one
-    host-to-device copy and replays. The logits come back in the graph's
+    logits [lanes, vocab]`` writes the tick's K/V in place. The host
+    inputs travel as one int64 buffer (:meth:`pack`: tokens, positions,
+    then tables), the one a tensor-parallel rank 0 posts to its
+    followers. On the ``graph`` route the first :meth:`run` copies the
+    buffer to the device, runs ``step`` twice on a side stream (the
+    allocator's and the libraries' warm-up; the communicators' too under
+    a mesh) and captures it; every run then refills the static buffer
+    with one host-to-device copy and replays. The logits come back in the graph's
     static output, valid until the next call. Re-running a tick on the
     same inputs rewrites the same K/V at the same slots, so the warm-up
     runs on live lane state are harmless. ``launches`` counts ticks by
     route."""
 
-    def __init__(self, step, lanes: int, n_tables: int, device):
+    def __init__(self, step, lanes: int, n_tables: int, device,
+                 route: Optional[str] = None):
         self._step = step
         self.lanes = lanes
         self.n_tables = n_tables
         self.device = torch.device(device)
-        self.route = decode_tick_route(self.device)
+        self.route = route or decode_tick_route(self.device)
         self.launches = {"graph": 0, "eager": 0}
         self._graph = None
         self._static = None
@@ -356,23 +380,26 @@ class DecodeTick:
         tables = buf[2 * n:].view(n, self.n_tables) if self.n_tables else None
         return buf[:n].view(n, 1), buf[n:2 * n], tables
 
-    def _pack(self, cur, pos, tables) -> torch.Tensor:
+    def pack(self, cur, pos, tables=None) -> np.ndarray:
+        """The tick's host inputs as the one int64 buffer a replay copies
+        in (what the step channel posts)."""
         parts = [np.asarray(cur).reshape(-1), np.asarray(pos).reshape(-1)]
         if self.n_tables:
             parts.append(np.asarray(tables).reshape(-1))
-        return torch.from_numpy(np.concatenate(parts).astype(np.int64))
+        return np.concatenate(parts).astype(np.int64)
 
-    def eager(self, cur, pos, tables=None):
-        """The tick run eagerly, whatever the route (the comparison path;
-        not counted in ``launches``)."""
+    def eager(self, buf: np.ndarray):
+        """The tick on a packed buffer run eagerly, whatever the route
+        (the comparison path; not counted in ``launches``)."""
         return self._step(*self._views(
-            self._pack(cur, pos, tables).to(self.device)))
+            torch.from_numpy(buf).to(self.device)))
 
-    def __call__(self, cur, pos, tables=None):
+    def run(self, buf: np.ndarray):
+        """One tick on a packed buffer, on the tick's route (counted)."""
         if self.route == "eager":
             self.launches["eager"] += 1
-            return self.eager(cur, pos, tables)
-        host = self._pack(cur, pos, tables)
+            return self.eager(buf)
+        host = torch.from_numpy(buf)
         if self._graph is None:
             self._capture(host)
         self._static.copy_(host)
@@ -408,7 +435,13 @@ class ContinuousBatchingEngine:
     ``run(requests)`` takes ``[(prompt_tokens, max_new_tokens), ...]`` in
     arrival order and returns one generated-id list per request; requests
     are admitted to lanes as earlier ones finish, so a short request never
-    waits on a long co-batched one."""
+    waits on a long co-batched one.
+
+    Under a serving ``mesh`` (its device; see the module docstring) rank
+    0 schedules and the other ranks call :meth:`follow`; the draft rides
+    the same mesh, sharded by its own specs. ``launcher`` (set by the
+    predictor) is the ``parallel.launch.LocalRanks`` of the followers
+    this process started: :meth:`stop` closes it."""
 
     def __init__(self, config, params: dict,
                  lanes: int = 4, max_len: int = 1024,
@@ -421,17 +454,16 @@ class ContinuousBatchingEngine:
                  headroom_blocks: int = 1, tracer=None,
                  prefill_lanes: int = 0, adapters=None,
                  max_adapters: Optional[int] = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: tensor-parallel serving is not ported yet: "
-                "ROADMAP A5d")
+        tp = serving_tp(mesh)
         if max_adapters is not None and adapters is None:
             # the JAX engine ignores the cap without a catalog; a cap that
             # would silently do nothing is refused here
             raise ValueError("max_adapters caps resident adapters: it needs "
                              "an adapter catalog (adapters=)")
         self.family = family = resolve_family(config)
-        self.device = dev = resolve_device(device)
+        self.mesh = mesh
+        self.device = dev = (mesh.device if mesh is not None
+                             else resolve_device(device))
         self.config = config
         #: per-request span recorder (queue/prefill/decode/preemption)
         self.tracer = tracer if tracer is not None else NOOP_TRACER
@@ -489,8 +521,22 @@ class ContinuousBatchingEngine:
                 "weight pages live in the block pool; a dense slab has no "
                 "pool to page them from)")
         #: the weights on the device: quantized there leaf by leaf under
-        #: ``quantize`` ("int8"/"int4"), never densified afterwards
-        self.params = maybe_quantize(params, quantize, dev)
+        #: ``quantize`` ("int8"/"int4"), never densified afterwards; under
+        #: a mesh, this rank's shard of each (quantize is refused there)
+        self.params = init_mesh_serving(config, params, quantize, mesh, dev)
+        #: tensor-parallel serving: the step channel rank 0 posts every
+        #: device step on (None without a mesh), the lock that keeps each
+        #: post and its local run together, and the route of every tick
+        self._channel = None
+        if mesh is not None:
+            from .tp import StepChannel
+            self._channel = StepChannel(mesh)
+        self._op_lock = threading.Lock()
+        self.launcher = None
+        route = decode_tick_route(dev, mesh)
+        if mesh is not None:
+            log.info("tensor-parallel serving, rank %d of tp=%d: decode tick "
+                     "route %s", self._channel.rank, tp, route)
 
         # -- speculative decoding per lane: the draft proposes spec_k
         # tokens for EVERY lane, the target verifies all lanes' chunks in
@@ -502,22 +548,29 @@ class ContinuousBatchingEngine:
                     "target and draft must share a vocabulary")
             self.dcfg = draft_config
             self.dfam = resolve_family(draft_config)
-            self.dparams = maybe_quantize(draft_params, quantize_draft, dev)
+            # the draft rides the same mesh, cut by its own specs
+            self.dparams = init_mesh_serving(draft_config, draft_params,
+                                             quantize_draft, mesh, dev)
             #: aggregate + per-lane acceptance accounting (/metrics)
             self.stats = SpecStats()
             self.lane_stats = [SpecStats() for _ in range(lanes)]
             # the draft cache stays a dense slab in every kv mode
             self._d_cache = self.dfam.init_cache(self.dcfg, lanes, max_len,
-                                                 device=dev)
+                                                 device=dev, mesh=mesh)
             self._d_tick = DecodeTick(
                 lambda cur, pos, _: self.dfam.forward_step(
-                    self.dcfg, self.dparams, cur, self._d_cache, pos)[0],
-                lanes, 0, dev)
+                    self.dcfg, self.dparams, cur, self._d_cache, pos,
+                    mesh=mesh)[0],
+                lanes, 0, dev, route)
             #: per-request host rng for the sampled accept rule,
             #: allocated at admission (seed + admission ordinal)
             self._spec_admitted = 0
 
         self._prefixes: list = []   # sorted [_Prefix], longest first
+        #: dense mode: each prefix's KV, by the id its ``_Prefix.stored``
+        #: holds (every rank keeps its own under the same ids)
+        self._stored: dict = {}
+        self._stored_ids = itertools.count(1)
         #: admission-time hit ordinals per prefix key — the
         #: least-recently-hit order register_prefix evicts in
         self._prefix_hits: dict = {}
@@ -527,20 +580,23 @@ class ContinuousBatchingEngine:
         # (cur/pos/tables) feed the per-tick decode call
         if self.kv_mode in ("dense", "parity"):
             self._cache = family.init_cache(config, lanes, max_len,
-                                            device=dev)
+                                            device=dev, mesh=mesh)
             self._tick = DecodeTick(
                 lambda cur, pos, _: family.forward_step(
-                    config, self.params, cur, self._cache, pos)[0],
-                lanes, 0, dev)
+                    config, self.params, cur, self._cache, pos,
+                    mesh=mesh)[0],
+                lanes, 0, dev, route)
         if self.kv_mode in ("paged", "parity"):
             self._pool = family.init_block_pool(
-                config, self.pool_blocks + 1, self.kv_block, device=dev)
+                config, self.pool_blocks + 1, self.kv_block, device=dev,
+                mesh=mesh)
             self._bpool = BlockPool(self.pool_blocks)
             self._tables = np.zeros((lanes, self._bpl), np.int64)
             self._tick_p = DecodeTick(
                 lambda cur, pos, tables: family.forward_step_paged(
-                    config, self.params, cur, self._pool, tables, pos)[0],
-                lanes, self._bpl, dev)
+                    config, self.params, cur, self._pool, tables, pos,
+                    mesh=mesh)[0],
+                lanes, self._bpl, dev, route)
         #: multi-model serving: an AdapterCatalog turns this engine into a
         #: multiplexer — requests carry a ``model=`` id and the adapter's
         #: weight pages allocate from the SAME refcounted pool as KV
@@ -571,19 +627,157 @@ class ContinuousBatchingEngine:
         self._thread: Optional[threading.Thread] = None
         self._stopped = False
 
-    # -- the device steps (stubbable seams) ---------------------------------
+    # -- the device steps ----------------------------------------------------
+    #
+    # Every device step runs through ``_dev``: under a mesh it is posted on
+    # the step channel first, and the followers repeat it (``follow``).
+    # Each ``_op_*`` takes host arguments only and works on this rank's
+    # own weights and caches.
+
+    def _dev(self, op: str, **args):
+        """Run device step ``op`` here, posting it to the followers first
+        (one lock holds the post and the run together, so every rank runs
+        the steps in one order)."""
+        with self._op_lock:
+            if self._channel is not None:
+                self._channel.post(op, args)
+            out = self._run_op(op, args)
+            if self.launcher is not None and self.launcher.failed.is_set():
+                # a step its groups' abort ended: what it read is garbage
+                raise RuntimeError("a tensor-parallel rank exited while "
+                                   "serving")
+            return out
+
+    def _run_op(self, op: str, args: dict):
+        return getattr(self, "_op_" + op)(**args)
+
+    def follow(self) -> int:
+        """A follower rank's loop: repeat rank 0's device steps until it
+        stops (``serving.tp.follow``). Returns the steps run."""
+        from .tp import follow
+        return follow(self)
+
+    def _op_noop(self) -> None:
+        """Rank 0's heartbeat while idle."""
+
+    def _op_decode(self, tick: str, buf, eager: bool = False):
+        t = {"dense": getattr(self, "_tick", None),
+             "paged": getattr(self, "_tick_p", None),
+             "draft": getattr(self, "_d_tick", None)}[tick]
+        return t.eager(buf) if eager else t.run(buf)
+
+    def _forward_chunk(self, model: str, cache, tables, toks, pos0: int,
+                       n: int):
+        """One right-padded prefill bucket through ``forward_step`` (or
+        ``forward_step_paged`` with ``tables``) against ``cache``: the
+        real last token's logits. The valid mask marks the live cache
+        region, as the JAX prefill's."""
+        dev = self.device
+        fam, cfg, params = ((self.family, self.config, self.params)
+                            if model == "target"
+                            else (self.dfam, self.dcfg, self.dparams))
+        view = cache["k"].shape[2] if tables is None else \
+            tables.shape[1] * self.kv_block
+        valid = (torch.arange(view, device=dev) < pos0 + n)[None, :]
+        toks_t = torch.as_tensor(toks, device=dev)
+        if tables is None:
+            return fam.forward_step(cfg, params, toks_t, cache, pos0,
+                                    valid=valid, last_pos=n - 1,
+                                    mesh=self.mesh)[0]
+        return fam.forward_step_paged(cfg, params, toks_t, cache, tables,
+                                      pos0, valid=valid, last_pos=n - 1,
+                                      mesh=self.mesh)[0]
+
+    def _op_prefill(self, model: str, kv: str, ref, toks, pos0: int,
+                    n: int):
+        """One prefill chunk of ``model`` ("target" or "draft"): into lane
+        ``ref``'s rows of the dense cache (``kv="dense"``) or through the
+        block-table row ``ref`` [1, blocks_per_row] of the pool
+        (``kv="paged"``)."""
+        tables = None
+        if kv == "dense":
+            src = self._cache if model == "target" else self._d_cache
+            cache = {k: v[:, ref:ref + 1] for k, v in src.items()}
+        else:
+            cache = self._pool
+            tables = torch.as_tensor(ref, device=self.device)
+        return self._forward_chunk(model, cache, tables, toks, pos0, n)
+
+    def _op_store_prefix(self, sid: int, toks, n: int) -> None:
+        """Dense mode: prefill a prefix on a scratch single-lane cache
+        sized to its bucket, kept as ``_stored[sid]`` (garbage beyond its
+        length is causally invisible once loaded into a lane)."""
+        scratch = self.family.init_cache(self.config, 1, toks.shape[1],
+                                         device=self.device, mesh=self.mesh)
+        self._forward_chunk("target", scratch, None, toks, 0, n)
+        self._stored[sid] = scratch
+
+    def _op_load_prefix(self, sid: int, lane: int) -> None:
+        """Copy a stored prefix KV block into one lane's cache rows."""
+        stored = self._stored[sid]
+        for k, c in self._cache.items():
+            s = stored[k]
+            c[:, lane, :s.shape[2]].copy_(s[:, 0])
+
+    def _op_prune(self, keep) -> None:
+        """Drop the stored prefixes not in ``keep``."""
+        self._stored = {k: v for k, v in self._stored.items() if k in keep}
+
+    def _op_verify(self, kv: str, chunk, pos, tables=None):
+        """The target's [lanes, k+1] pass at per-row positions (eager):
+        all-position logits, against the dense cache or the pool."""
+        dev = self.device
+        chunk_t = torch.as_tensor(chunk, device=dev)
+        pos_t = torch.as_tensor(pos, device=dev)
+        if kv == "dense":
+            return self.family.forward_step(
+                self.config, self.params, chunk_t, self._cache, pos_t,
+                all_logits=True, mesh=self.mesh)[0]
+        return self.family.forward_step_paged(
+            self.config, self.params, chunk_t, self._pool,
+            torch.as_tensor(tables, device=dev), pos_t, all_logits=True,
+            mesh=self.mesh)[0]
+
+    def _op_recover(self) -> None:
+        """Zero every cache in place and drop the captured graphs (a
+        graph holds the caches' addresses; the next tick captures anew)."""
+        for tick in self._ticks():
+            tick.reset()
+        caches = [getattr(self, n, None) for n in ("_cache", "_pool",
+                                                  "_d_cache")]
+        for cache in caches:
+            for t in (cache or {}).values():
+                t.zero_()
+
+    def _op_embed(self, toks):
+        """The final hidden states [b, s, d] of ``toks`` (the
+        ``/v1/embeddings`` forward; the flash kernel on the card)."""
+        out = self.family.forward_hidden(
+            self.config, self.params, torch.as_tensor(toks,
+                                                      device=self.device),
+            mesh=self.mesh)
+        return out[0] if isinstance(out, tuple) else out   # MoE: (x, aux)
+
+    @torch.no_grad()
+    def hidden_states(self, tokens):
+        """``/v1/embeddings``' forward of ``tokens`` [b, s] (int) as a
+        device step, so under a mesh every rank runs it in the order rank
+        0's steps run: the final hidden states [b, s, d] on the device."""
+        return self._dev("embed", toks=np.asarray(tokens, np.int64))
 
     def _decode(self, cur, pos):
         """Dense decode tick: logits [lanes, vocab] on the device."""
-        return self._tick(cur, pos)
+        return self._dev("decode", tick="dense", buf=self._tick.pack(cur, pos))
 
     def _decode_p(self, cur, pos, tables):
         """Paged decode tick: logits [lanes, vocab] on the device."""
-        return self._tick_p(cur, pos, tables)
+        return self._dev("decode", tick="paged",
+                         buf=self._tick_p.pack(cur, pos, tables))
 
     def _d_decode(self, cur, pos):
         """Draft decode tick over the draft's dense cache."""
-        return self._d_tick(cur, pos)
+        return self._dev("decode", tick="draft",
+                         buf=self._d_tick.pack(cur, pos))
 
     def _ticks(self) -> list:
         return [t for t in (getattr(self, "_tick", None),
@@ -613,14 +807,13 @@ class ContinuousBatchingEngine:
         with self._sched_lock:
             paged = self.kv_mode != "dense"
             tick = self._tick_p if paged else self._tick
-            args = ((self._cur, self._pos, self._tables) if paged
-                    else (self._cur, self._pos))
-            if route == "eager":
-                return tick.eager(*args)
-            if route in (None, tick.route):
-                return tick(*args)
-            raise ValueError(f"route {route!r} does not run on "
-                             f"{self.device.type}")
+            buf = (tick.pack(self._cur, self._pos, self._tables) if paged
+                   else tick.pack(self._cur, self._pos))
+            if route not in (None, "eager", tick.route):
+                raise ValueError(f"route {route!r} does not run on "
+                                 f"{self.device.type}")
+            return self._dev("decode", tick="paged" if paged else "dense",
+                             buf=buf, eager=route == "eager")
 
     # -- public API -------------------------------------------------------
 
@@ -681,6 +874,8 @@ class ContinuousBatchingEngine:
                 while len(entries) >= max_prefixes:
                     victims = [p for p in entries if not p.pinned]
                     if not victims:
+                        # dense: drop the KV just stored for this prefix
+                        self._prune_stored()
                         raise ValueError(
                             f"prefix limit {max_prefixes} reached and "
                             "every stored prefix is pinned (each prefix "
@@ -737,15 +932,23 @@ class ContinuousBatchingEngine:
                                          model=model)]
             entries.sort(key=lambda p: -p.plen)
             self._prefixes = entries
+            self._prune_stored()
             self.residency_epoch += 1
 
-    def _chunked_prefill(self, step, seq: list, start: int):
+    def _prune_stored(self) -> None:
+        """Dense mode: drop the stored prefix KV no entry holds any more
+        (caller holds ``_sched_lock``)."""
+        if self.kv_mode == "dense":
+            self._dev("prune", keep=sorted(p.stored for p in self._prefixes))
+
+    def _chunked_prefill(self, target: dict, seq: list, start: int):
         """THE chunking rule, shared by every prefill path (dense lane,
-        paged lane, prefix fill, draft): feed ``seq[start:]`` through
-        ``step(toks [1, bucket] np.int64, pos0, n) -> logits`` in
-        right-padded power-of-two chunks that fit the remaining cache
-        space, so a padded chunk never runs past the cache end. Returns
-        the last chunk's logits. validate() guarantees the fit."""
+        paged lane, prefix fill, draft): feed ``seq[start:]`` to the
+        ``prefill`` device step on ``target`` (its ``model``, ``kv`` and
+        ``ref``) in right-padded power-of-two chunks that fit the
+        remaining cache space, so a padded chunk never runs past the
+        cache end. Returns the last chunk's logits. validate() guarantees
+        the fit."""
         logits = None
         pos0, remaining = start, list(seq[start:])
         while remaining:
@@ -755,54 +958,25 @@ class ContinuousBatchingEngine:
             chunk, remaining = remaining[:n], remaining[n:]
             toks = np.zeros((1, bucket), np.int64)
             toks[0, :n] = chunk
-            logits = step(toks, pos0, n)
+            logits = self._dev("prefill", **target, toks=toks, pos0=pos0,
+                               n=n)
             pos0 += n
         return logits
 
-    def _prefill_step(self, family, cfg, params, cache, tables=None):
-        """``step`` for :meth:`_chunked_prefill`: one bucket through
-        ``forward_step`` (or ``forward_step_paged`` with ``tables``)
-        against ``cache``, returning the real last token's logits. The
-        valid mask marks the live cache region, as the JAX prefill's."""
-        dev = self.device
-        view = cache["k"].shape[2] if tables is None else \
-            tables.shape[1] * self.kv_block
-
-        def step(toks, pos0, n):
-            valid = (torch.arange(view, device=dev) < pos0 + n)[None, :]
-            toks_t = torch.as_tensor(toks, device=dev)
-            if tables is None:
-                logits, _ = family.forward_step(
-                    cfg, params, toks_t, cache, pos0, valid=valid,
-                    last_pos=n - 1)
-            else:
-                logits, _ = family.forward_step_paged(
-                    cfg, params, toks_t, cache, tables, pos0, valid=valid,
-                    last_pos=n - 1)
-            return logits
-
-        return step
-
-    def _fill_prefix(self, tokens: list) -> dict:
-        """Dense mode: prefill a prefix on a scratch single-lane cache
-        sized to its bucket (garbage beyond plen is causally invisible
-        once loaded into a lane)."""
+    def _fill_prefix(self, tokens: list) -> int:
+        """Dense mode: prefill a prefix into its own stored KV (the
+        ``store_prefix`` step); returns the id it is stored under."""
         plen = len(tokens)
         bucket = min(_bucket(plen), self.max_len)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :plen] = tokens
-        scratch = self.family.init_cache(self.config, 1, bucket,
-                                         device=self.device)
-        step = self._prefill_step(self.family, self.config, self.params,
-                                  scratch)
-        step(toks, 0, plen)
-        return scratch
+        sid = next(self._stored_ids)
+        self._dev("store_prefix", sid=sid, toks=toks, n=plen)
+        return sid
 
-    def _load_prefix(self, stored: dict, lane: int) -> None:
-        """Copy a stored prefix KV block into one lane's cache rows."""
-        for k, c in self._cache.items():
-            s = stored[k]
-            c[:, lane, :s.shape[2]].copy_(s[:, 0])
+    def _load_prefix(self, stored: int, lane: int) -> None:
+        """Copy stored prefix KV ``stored`` into one lane's cache rows."""
+        self._dev("load_prefix", sid=stored, lane=lane)
 
     def _fill_prefix_blocks(self, blocks: Sequence[int],
                             tokens: list) -> None:
@@ -810,10 +984,8 @@ class ContinuousBatchingEngine:
         table row (caller holds ``_sched_lock``)."""
         row = np.zeros((1, self._bpl), np.int64)
         row[0, :len(blocks)] = blocks
-        step = self._prefill_step(
-            self.family, self.config, self.params, self._pool,
-            torch.as_tensor(row, device=self.device))
-        self._chunked_prefill(step, list(tokens), 0)
+        self._chunked_prefill({"model": "target", "kv": "paged", "ref": row},
+                              list(tokens), 0)
 
     @property
     def prefix_count(self) -> int:
@@ -827,6 +999,7 @@ class ContinuousBatchingEngine:
                 if p.blocks:
                     self._bpool.decref(p.blocks)
             self._prefixes = []
+            self._prune_stored()
             self._prefix_hits = {}
             self.residency_epoch += 1
 
@@ -988,6 +1161,10 @@ class ContinuousBatchingEngine:
         only (each lane samples with its own request's params). ``model``
         picks the adapter to decode under ("" / the catalog's base name =
         the base model), validated here in the caller's thread."""
+        if self._channel is not None and not self._channel.leader:
+            raise RuntimeError(
+                f"rank {self._channel.rank} of a tensor-parallel engine "
+                "follows rank 0: call follow()")
         self.validate(prompt, max_new)
         sampling = self.validate_sampling(temperature=temperature,
                                           top_k=top_k, top_p=top_p)
@@ -1124,18 +1301,12 @@ class ContinuousBatchingEngine:
         for req in abandoned:
             req._finish(cancelled=True)
             self._trace_finish(req, status="error")
-        for tick in self._ticks():
-            tick.reset()
-        if self.kv_mode in ("dense", "parity"):
-            for t in self._cache.values():
-                t.zero_()
+        self._dev("recover")
         if self.kv_mode in ("paged", "parity"):
             # rebuild the allocator, then re-pin + re-prefill every
             # registered prefix
             self._tables[:] = 0
             self._bpool = BlockPool(self.pool_blocks)
-            for t in self._pool.values():
-                t.zero_()
             entries = []
             for p in self._prefixes:
                 blocks: tuple = ()
@@ -1155,24 +1326,33 @@ class ContinuousBatchingEngine:
                 # above, so active counts restart)
                 self._adapters.rebuild(self._bpool)
             self.residency_epoch += 1
-        if self.spec_k:
-            for t in self._d_cache.values():
-                t.zero_()
         self._cur = np.zeros((self.lanes, 1), np.int64)
         self._pos = np.zeros((self.lanes,), np.int64)
 
     def start(self) -> "ContinuousBatchingEngine":
         """Run the scheduler on a background thread (HTTP serving mode).
-        That thread then captures and replays the decode graphs."""
+        That thread then captures and replays the decode graphs. Under a
+        mesh of more than one rank it posts a heartbeat while idle, every
+        quarter of the group's timeout."""
+        from .tp import TIMEOUT_S
+        beat = (TIMEOUT_S / 4 if self._channel is not None
+                and self._channel.world > 1 else None)
+
         def loop():
             while True:
+                idle = False
                 with self._cv:
                     while (not self._stopped and not self._queue
                            and not self._active()):
-                        self._cv.wait()
+                        if not self._cv.wait(beat):
+                            idle = True
+                            break
                     if self._stopped:
                         return
                 try:
+                    if idle:
+                        self._dev("noop")
+                        continue
                     with self._sched_lock:
                         self._step_once()
                 except Exception:  # noqa: BLE001 — a dead loop must not
@@ -1199,6 +1379,21 @@ class ContinuousBatchingEngine:
             self._thread.join(timeout=10)
             self._thread = None
         self._cancel_all()
+        channel, self._channel = self._channel, None
+        if channel is not None and channel.leader:
+            # after a follower's exit the groups are aborted: nothing to post
+            if self.launcher is None or not self.launcher.failed.is_set():
+                try:
+                    with self._op_lock:
+                        channel.post("stop", {})
+                except RuntimeError:
+                    # a follower already gone: its watcher reports it
+                    log.exception("could not post stop to the followers")
+            channel.close()
+        if self.launcher is not None:
+            codes = self.launcher.close()
+            self.launcher = None
+            log.info("followers exited with codes %s", codes)
 
     def _cancel_all(self) -> None:
         with self._sched_lock:
@@ -1453,22 +1648,12 @@ class ContinuousBatchingEngine:
     def _spec_verify(self, chunk, pos):
         """The target's [lanes, k+1] pass at per-row positions (eager):
         all-position logits on the device."""
-        dev = self.device
-        chunk_t = torch.as_tensor(chunk, device=dev)
-        pos_t = torch.as_tensor(pos, device=dev)
-        cfg, params = self.config, self.params
         if self.kv_mode == "dense":
-            return self.family.forward_step(cfg, params, chunk_t,
-                                            self._cache, pos_t,
-                                            all_logits=True)[0]
-        tables = torch.as_tensor(self._tables, device=dev)
-        logits_p = self.family.forward_step_paged(
-            cfg, params, chunk_t, self._pool, tables, pos_t,
-            all_logits=True)[0]
+            return self._dev("verify", kv="dense", chunk=chunk, pos=pos)
+        logits_p = self._dev("verify", kv="paged", chunk=chunk, pos=pos,
+                             tables=self._tables.copy())
         if self.kv_mode == "parity":
-            logits = self.family.forward_step(cfg, params, chunk_t,
-                                              self._cache, pos_t,
-                                              all_logits=True)[0]
+            logits = self._dev("verify", kv="dense", chunk=chunk, pos=pos)
             self._assert_parity(logits, logits_p, "spec_verify")
             return logits
         return logits_p
@@ -1576,20 +1761,15 @@ class ContinuousBatchingEngine:
 
     def _prefill_dense(self, lane_idx: int, seq: list, start: int):
         """Chunked dense-slab prefill of ``seq[start:]`` into one lane."""
-        row = {k: v[:, lane_idx:lane_idx + 1] for k, v in self._cache.items()}
         return self._chunked_prefill(
-            self._prefill_step(self.family, self.config, self.params, row),
-            seq, start)
+            {"model": "target", "kv": "dense", "ref": lane_idx}, seq, start)
 
     def _prefill_paged(self, lane_idx: int, seq: list, start: int):
         """Chunked paged prefill of ``seq[start:]`` through lane
         ``lane_idx``'s block table (grown by the caller)."""
-        tables = torch.as_tensor(self._tables[lane_idx:lane_idx + 1],
-                                 device=self.device)
         return self._chunked_prefill(
-            self._prefill_step(self.family, self.config, self.params,
-                               self._pool, tables),
-            seq, start)
+            {"model": "target", "kv": "paged",
+             "ref": self._tables[lane_idx:lane_idx + 1].copy()}, seq, start)
 
     def _admit(self, lane_idx: int) -> bool:
         """Admit the queue head onto free lane ``lane_idx``. Returns False
@@ -1751,11 +1931,8 @@ class ContinuousBatchingEngine:
         elif self.spec_k:
             # the draft prefills the FULL sequence into ITS lane (prefix KV
             # blocks are target-model state)
-            d_row = {k: v[:, lane_idx:lane_idx + 1]
-                     for k, v in self._d_cache.items()}
             self._chunked_prefill(
-                self._prefill_step(self.dfam, self.dcfg, self.dparams,
-                                   d_row), seq, 0)
+                {"model": "draft", "kv": "dense", "ref": lane_idx}, seq, 0)
             # per-request host rng drives the sampled accept rule; a
             # RESUMED request keeps its rng
             if req._spec_rng is None:

@@ -9,14 +9,20 @@
 * greedy or temperature/top-k/top-p sampling with a ``torch.Generator``,
   per-request stop handling on the host;
 * weight-only int8/int4 quantization (``quantize=``, :func:`maybe_quantize`)
-  applied as the weights move to the device, leaf by leaf.
-
-Tensor-parallel serving (the JAX engine's ``mesh``) arrives with a later
-slice and raises until then (ROADMAP A5d).
+  applied as the weights move to the device, leaf by leaf;
+* tensor-parallel serving over a ``mesh`` of one host's cards
+  (:func:`shard_for_serving`, :func:`init_mesh_serving`): each rank holds
+  its shard of every weight as a plain tensor and its KV heads of the
+  cache, and the model runs the ``tp`` collectives inside each step. In
+  torch every card is its own process, so :class:`InferenceEngine` under
+  a mesh is driven SPMD: every rank calls ``generate`` with the same
+  prompts. (The continuous engine, which the predictor serves, drives
+  its followers through one step channel instead: ``serving/tp.py``.)
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -29,6 +35,7 @@ from ..models import llama
 #: the model family module of a config (every family exposes the same
 #: ``init_cache`` / ``forward_step`` / ``forward_step_paged`` contract)
 from ..models.io import family_of as resolve_family
+from ..parallel.collectives import is_sharded
 
 
 @dataclass(frozen=True)
@@ -207,6 +214,117 @@ def maybe_quantize(params: dict, quantize, device=None) -> dict:
     return params if device is None else params_to(params, device)
 
 
+#: the JAX package's words for the pair it refuses
+MESH_QUANTIZE_REFUSAL = ("mesh-parallel serving does not compose with "
+                         "weight quantization yet")
+
+
+def local_device_count(device) -> int:
+    """The devices one host gives tensor-parallel serving: its cards on
+    ``cuda``; on the CPU, where each rank is a gloo process, its cores."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device_count()
+    return os.cpu_count() or 1
+
+
+def serving_tp(mesh) -> int:
+    """The ``tp`` size of a serving mesh (1 for None or one rank), after
+    refusing axes that serving does not shard over: the port's serving
+    mesh is one host's ``tp`` group, as the JAX predictor's. Axes not
+    ported yet raise by ROADMAP item first (``llama._check_mesh``)."""
+    if mesh is None:
+        return 1
+    llama._check_mesh(mesh)
+    other = {a: n for a, n in mesh.shape.items() if a != "tp" and n > 1}
+    if other:
+        raise ValueError(f"a serving mesh shards over tp only, got {other}")
+    return mesh.size("tp") if is_sharded(mesh) else 1
+
+
+def check_serving_split(config, tp: int) -> None:
+    """Refuse a ``tp`` that does not split the heads, the MLP (or each
+    expert's) hidden dim or the vocabulary into equal shards, naming the
+    dimension. The JAX package pads an uneven split (GSPMD); the port's
+    shards are equal (``parallel/sharding.py``). ``n_kv_heads`` need not
+    divide: the KV heads are then held whole on every rank."""
+    for name in ("n_heads", "d_ff", "vocab_size"):
+        n = getattr(config, name)
+        if n % tp:
+            raise ValueError(
+                f"tensor-parallel serving over tp={tp} needs {name} "
+                f"divisible by {tp}, got {name}={n}: the port's shards are "
+                "equal")
+
+
+def serving_cut(config, mesh):
+    """``cut(name, leaf)``: this rank's shard of a whole leaf (named as
+    ``layers/wq``) under the family's specs; a leaf already of the
+    shard's shape as it is; ``wk``/``wv`` (and their biases) whole where
+    ``tp`` does not divide the KV heads."""
+    from ..parallel.sharding import local_shard, spec_leaves
+    tp = serving_tp(mesh)
+    check_serving_split(config, tp)
+    family = resolve_family(config)
+    specs = spec_leaves(family.param_specs(config))
+    shapes = {}
+    for name, val in family.param_shapes(config).items():
+        if name == "layers":
+            shapes.update({f"layers/{k}": (config.n_layers,) + s
+                           for k, (s, _) in val.items()})
+        else:
+            shapes[name] = val[0]
+    whole = ({f"layers/{k}" for k in ("wk", "wv", "bk", "bv")}
+             if config.n_kv_heads % tp else set())
+
+    def cut(name, leaf):
+        if name in whole or tp == 1:
+            return leaf
+        if tuple(leaf.shape) == tuple(shapes[name]):
+            return local_shard(leaf, mesh, specs[name])
+        return leaf                  # already this rank's shard
+    return cut
+
+
+def shard_for_serving(config, params, cache, mesh):
+    """This rank's local tree for model-parallel serving over a local
+    mesh (``tp`` over the cards of ONE host, as the JAX function's):
+    params by the family's logical specs (heads, ``mlp`` and the vocab on
+    ``tp``), each leaf a plain tensor on the mesh's device, cut once; the
+    cache by KV heads when ``tp`` divides them, else whole on every rank
+    (MQA). Either tree may be None. ``params`` may be whole or already
+    this rank's shard (``models.io.load_model(select=)``). Both cache
+    layouts carry the KV heads on axis 3, so one rule cuts the dense slab
+    and the paged pool (the pool's block axis stays whole on every rank).
+    Refuses a split that is not even (:func:`check_serving_split`)."""
+    cut = serving_cut(config, mesh)
+    dev = mesh.device
+    if params is not None:
+        params = {k: ({n: cut(f"layers/{n}", t).to(dev).contiguous()
+                       for n, t in v.items()} if k == "layers"
+                      else cut(k, v).to(dev).contiguous())
+                  for k, v in params.items()}
+    if cache is not None:
+        from ..models.llama import kv_heads_local
+        nkv = kv_heads_local(config, mesh)
+        i = mesh.index("tp") if nkv != config.n_kv_heads else 0
+        cache = {k: t[:, :, :, i * nkv:(i + 1) * nkv].to(dev).contiguous()
+                 for k, t in cache.items()}
+    return params, cache
+
+
+def init_mesh_serving(config, params, quantize, mesh, device=None):
+    """The ONE param-preparation path both engines share: validates the
+    (mesh, quantize) pair, then either quantizes onto ``device`` (no
+    mesh) or returns this rank's shard of the params for serving
+    (:func:`shard_for_serving`). The unsupported mesh+quantize pair is
+    refused BEFORE any quantization pass runs."""
+    if mesh is None:
+        return maybe_quantize(params, quantize, device)
+    if quantize:
+        raise ValueError(MESH_QUANTIZE_REFUSAL)
+    return shard_for_serving(config, params, None, mesh)[0]
+
+
 def greedy_rollout(config, params, prompts, max_new: int):
     """Whole-generation greedy decode: prefill plus ``max_new - 1``
     single-token steps, argmax on the device, one copy to the host at the
@@ -236,28 +354,32 @@ def greedy_rollout(config, params, prompts, max_new: int):
 class InferenceEngine:
     """One loaded model and its prefill/decode steps on ``device``
     (``None``: the card; ``"cpu"`` only when asked). Parameters are moved
-    to the device once, quantized on the way with ``quantize``."""
+    to the device once, quantized on the way with ``quantize``. Under a
+    serving ``mesh`` (the mesh's device) each rank holds its shard
+    (:func:`init_mesh_serving`) and every rank calls :meth:`generate`
+    with the same arguments."""
 
     def __init__(self, config: llama.LlamaConfig, params: dict,
                  gen: Optional[GenerateConfig] = None,
                  quantize: Optional[str] = None, mesh=None, tracer=None,
                  device=None):
         from ..trace import NOOP_TRACER
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving is not ported yet: ROADMAP A5d")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.config = config
         self.gen = gen or GenerateConfig()
         #: span recorder: per-generate prefill/decode spans; the shared
         #: disabled tracer by default
         self.tracer = tracer if tracer is not None else NOOP_TRACER
-        self.params = maybe_quantize(params, quantize, self.device)
+        self.params = init_mesh_serving(config, params, quantize, mesh,
+                                        self.device)
         self._family = resolve_family(config)
 
     def _step(self, cache, tokens, start_pos: int, valid):
         return self._family.forward_step(self.config, self.params, tokens,
-                                         cache, start_pos, valid)
+                                         cache, start_pos, valid,
+                                         mesh=self.mesh)
 
     # -- public API -------------------------------------------------------
 
@@ -301,7 +423,7 @@ class InferenceEngine:
         lps: list[list[float]] = [[] for _ in range(b)]
         with torch.inference_mode():
             cache = self._family.init_cache(self.config, b, gen.max_len,
-                                            device=dev)
+                                            device=dev, mesh=self.mesh)
             logits, cache = self._step(
                 cache, torch.as_tensor(toks, device=dev), 0, valid)
             if tr is not None:

@@ -510,7 +510,10 @@ class InferenceServer:
         """``POST /v1/embeddings``: masked mean-pool of the model's final
         hidden states, L2-normalized — the standard decoder-as-embedder
         recipe. Serialized with generation on the device; on the card
-        every layer's attention is one launch of the flash kernel."""
+        every layer's attention is one launch of the flash kernel. Under
+        tensor-parallel serving the forward is one of the engine's device
+        steps (``hidden_states``), so every rank runs it, on its own
+        heads, in the order of the scheduler's steps."""
         tok = self._openai_tok()
         from ..tokenizer import encode_prompt
         inp = body.get("input")
@@ -548,9 +551,12 @@ class InferenceServer:
         nreal = np.asarray([len(r) for r in ids], np.int64)
         with self._gen_lock, torch.inference_mode():
             dev = eng.device
-            out = family.forward_hidden(config, params,
-                                        torch.as_tensor(toks, device=dev))
-            x = out[0] if isinstance(out, tuple) else out   # MoE: (x, aux)
+            if getattr(eng, "mesh", None) is not None:
+                x = eng.hidden_states(toks)
+            else:
+                out = family.forward_hidden(config, params,
+                                            torch.as_tensor(toks, device=dev))
+                x = out[0] if isinstance(out, tuple) else out  # MoE: (x, aux)
             mask = (torch.arange(x.shape[1], device=dev)[None, :]
                     < torch.as_tensor(nreal, device=dev)[:, None]).float()
             pooled = (x.float() * mask[..., None]).sum(dim=1) \

@@ -24,6 +24,7 @@ from kubedl_tpu.serving.engine import GenerateConfig as JGen
 from kubedl_tpu_torch.metrics.registry import PagedKVMetrics, Registry
 from kubedl_tpu_torch.models import io as tio
 from kubedl_tpu_torch.models import llama as tllama
+from kubedl_tpu_torch.parallel import mesh as tmesh
 from kubedl_tpu_torch.serving import batching as tbatching
 from kubedl_tpu_torch.serving.engine import GenerateConfig as TGen
 
@@ -194,6 +195,21 @@ def test_prefix_cap_evicts_least_recently_hit(models):
         eng.register_prefix([99, 98], max_prefixes=1)
     eng.clear_prefixes()
     assert eng._bpool.refcounts() == {} and eng.prefix_count == 0
+
+
+def test_dense_prefix_refused_at_the_cap_keeps_no_stored_kv(models):
+    """A re-registration under a lower cap passes the early check (its key
+    is stored), prefills, then is refused under the lock: the KV it just
+    stored is dropped, not kept beside the entries that hold theirs."""
+    eng = _torch(models, lanes=1, max_len=64, kv_mode="dense")
+    for start in (1, 20, 40):
+        eng.register_prefix(list(range(start, start + 8)), max_prefixes=3,
+                            pinned=True)
+    held = set(eng._stored)
+    assert held == {p.stored for p in eng._prefixes} and len(held) == 3
+    with pytest.raises(ValueError, match="pinned"):
+        eng.register_prefix(list(range(1, 9)), max_prefixes=1)
+    assert set(eng._stored) == held and eng.prefix_count == 3
 
 
 def test_cancel_midstream_keeps_partial_tokens_and_drains_blocks(models):
@@ -429,13 +445,18 @@ def test_paged_forward_step_matches_the_dense_cache(models):
                                cache["k"][:, 0, 10].numpy(), atol=1e-6)
 
 
-#: what each option refuses: the mesh is not ported (ROADMAP A5);
-#: quantization and adapters are, and refuse only a misuse, by name
+#: what each option refuses: quantization, adapters and a serving mesh
+#: are ported and refuse only a misuse, by name (a mesh with weight
+#: quantization in the JAX package's words)
 REFUSED = {
     "quantize": (dict(quantize="int3"), ValueError, "int3"),
     "quantize_draft": (dict(quantize_draft="fp8", spec_k=2,
                             draft_config=True), ValueError, "fp8"),
-    "mesh": (dict(mesh=object()), NotImplementedError, "ROADMAP A5"),
+    "mesh": (dict(mesh=tmesh.Mesh(device=torch.device("cpu"),
+                                  shape=dict.fromkeys(tmesh.AXES, 1)),
+                  quantize="int8"), ValueError,
+             "mesh-parallel serving does not compose with weight "
+             "quantization yet"),
     "adapters": (dict(adapters=object(), kv_mode="dense"), ValueError,
                  "adapters require a paged KV layout"),
     "max_adapters": (dict(max_adapters=2), ValueError,
@@ -454,14 +475,16 @@ def test_unported_options_are_refused_by_name(models, name):
 
 
 def test_moe_and_standalone_speculative_engine_are_refused():
-    """The MoE family serves (``test_torch_moe_serving.py``), but not over
-    a mesh: its expert-parallel ``ep`` axis waits for the parallel slice,
-    with every other mesh axis. The standalone speculative engine waits
-    for its own item."""
+    """The MoE family serves (``test_torch_moe_serving.py``), over a
+    ``tp`` mesh too (``test_torch_serving_tp.py``), but not over its
+    expert-parallel ``ep`` axis, which waits for ROADMAP A5b. The
+    standalone speculative engine waits for its own item."""
     from kubedl_tpu_torch.models import moe as tmoe
     from kubedl_tpu_torch.serving.speculative import SpeculativeEngine
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tbatching.ContinuousBatchingEngine(tmoe.tiny(), {}, mesh=object(),
+    ep_mesh = tmesh.Mesh(device=torch.device("cpu"),
+                         shape={a: 2 if a == "ep" else 1 for a in tmesh.AXES})
+    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
+        tbatching.ContinuousBatchingEngine(tmoe.tiny(), {}, mesh=ep_mesh,
                                            device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         SpeculativeEngine()

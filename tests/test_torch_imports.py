@@ -73,6 +73,14 @@ def test_the_rendezvous_and_sharding_slice_modules_are_checked():
             "kubedl_tpu_torch.parallel.launch"} <= set(MODULES)
 
 
+def test_the_tensor_parallel_serving_modules_are_checked():
+    """...and so is the step channel of tensor-parallel serving, with its
+    follower process's entry point (port-only, no JAX twin)."""
+    assert {"kubedl_tpu_torch.serving.tp",
+            "kubedl_tpu_torch.serving.engine",
+            "kubedl_tpu_torch.parallel.launch"} <= set(MODULES)
+
+
 def test_every_module_imports_with_jax_blocked():
     code = ("import sys\nsys.modules['jax'] = None\n"
             "import importlib\n"

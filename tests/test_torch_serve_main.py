@@ -9,6 +9,7 @@ run on the card in ``chip_smoke.py``."""
 
 import dataclasses
 import json
+import os
 import urllib.error
 import urllib.request
 
@@ -199,7 +200,11 @@ def test_startup_refusals(artifacts, monkeypatch):
     # quantization is ported: an unknown mode is what it refuses
     with pytest.raises(ValueError, match="unknown quantize mode"):
         tmain.build_engine(path, 2, "int3", 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tmain.build_engine(path, 2, "", 0, tp=2, device="cpu")
+    # tensor-parallel serving is ported: more ranks than the host has
+    # devices (on the CPU, cores) is refused in the JAX package's words
+    many = (os.cpu_count() or 1) + 1
+    with pytest.raises(ValueError, match=f"KUBEDL_SERVING_TP={many} but "
+                       f"only {many - 1} local devices"):
+        tmain.build_engine(path, 2, "", 0, tp=many, device="cpu")
     monkeypatch.delenv("KUBEDL_MODEL_PATH")
     assert tmain.main([], device="cpu") == 2
