@@ -133,6 +133,29 @@ ids drawn over the whole vocabulary, so both vocab shards serve the
 lookup) with rank 0's hidden states held to the unsharded forward
 position by position, and each rank's peak memory. ``--phases tp,tp2`` runs them alone after
 the unsharded continuous run they compare with.
+
+Since slice 13, after the MoE timing, context and expert parallelism:
+``ring`` runs ring attention for ``RING_CP`` = 4 ranks in one process
+(``parallel.ring.ring_schedule``: the loops the ranks run, the shift a
+rotation of the list) at Llama's training shape (shards of 512),
+Gemma-2B's (hd 256) and Llama's heads in float32 (``simt``): forward and
+gradients against the unsharded kernels by max abs and norm-wise
+relative error, K1-K3 launched cp² times each on the route, the whole
+ring's ms beside the unsharded kernels', Δ, each kernel at one ring
+block beside its plain version, bound and SDPA, K1-K3 on one rank's rows
+against the whole sequence's keys with split segment ids, and K1-K3
+against their plain versions, timed, at [cp2]'s ring block and Ulysses
+shape. ``cp2`` trains Llama-3-8B width (2 layers, one global batch of 2
+x 4096) through the train entrypoint's ``main`` under ``"mesh": {"cp":
+2}`` in two processes on the one card over gloo, on the ring and with
+``cp_impl: "ulysses"``, against the same job unsharded; ``ep2`` trains
+the ``moe_training`` job under ``"mesh": {"ep": 2}`` (4 of the 8 experts
+a rank) against that phase's run. Every K1-K3 launch is on ``sm90``; the
+losses, and the first step's hidden states, gradients and (ep) router
+choices against the same step on one process, are held to
+``MESH_BOUNDS``; each rank's step time and peak memory print.
+``--phases ring,cp2,ep2`` runs them alone (``ep2`` after the MoE
+training run it compares with).
 """
 
 from __future__ import annotations
@@ -2059,17 +2082,20 @@ def phase_predictor(torch, cfg, params) -> dict:
     return out
 
 
-def _bwd_err(torch, got, want, dtype) -> dict:
+def _bwd_err(torch, got, want, dtype, tol=None, rel_tol=None) -> dict:
     """The max abs error beside its tolerance at the largest value's
-    scale, the norm-wise relative error beside its bound, and the median
-    |want| (the bulk's scale)."""
+    scale (``tol``, absolute, where given), the norm-wise relative error
+    beside its bound (``BWD_NORM_TOL`` unless ``rel_tol``), and the
+    median |want| (the bulk's scale)."""
     got, want = got.float(), want.float()
     mag = want.abs()
     diff = got - want
     err = dict(max=float(diff.abs().max()),
-               tol=BWD_TOL[dtype] * max(float(mag.max()), 1.0),
+               tol=(BWD_TOL[dtype] * max(float(mag.max()), 1.0)
+                    if tol is None else tol),
                rel=float(diff.norm() / want.norm().clamp_min(1e-30)),
-               rel_tol=BWD_NORM_TOL[dtype], median=float(mag.median()))
+               rel_tol=BWD_NORM_TOL[dtype] if rel_tol is None else rel_tol,
+               median=float(mag.median()))
     err["ok"] = (math.isfinite(err["max"]) and err["max"] <= err["tol"]
                  and err["rel"] <= err["rel_tol"]
                  and bool(torch.isfinite(got).all()))
@@ -2337,24 +2363,24 @@ def _dkv_splits_readings(torch, attn, case, kernel) -> dict:
 
 
 def _train_config(name="train", model="llama.llama3_8b", vocab=128256,
-                  overrides=None, batch=4, steps=TRAIN_STEPS,
+                  overrides=None, batch=4, steps=TRAIN_STEPS, seq=2048,
                   **extra) -> tuple:
     """(config path, token path, config dict) of a training run on one
-    batch of ``batch`` x 2049 tokens from seed 0, written as a token file
-    so every step sees the same rows. The defaults are the slice's
-    Llama-3-8B run, 8 layers deep."""
+    batch of ``batch`` x (``seq`` + 1) tokens from seed 0, written as a
+    token file so every step sees the same rows. The defaults are the
+    slice's Llama-3-8B run, 8 layers deep."""
     import numpy as np
 
     BUILD_OUT.mkdir(parents=True, exist_ok=True)
     tokens = BUILD_OUT / f"{name}_tokens.bin"
-    np.random.default_rng(0).integers(0, vocab, batch * 2049,
+    np.random.default_rng(0).integers(0, vocab, batch * (seq + 1),
                                       dtype=np.int32).tofile(tokens)
     cfg = {"model": model,
            "model_overrides": ({"n_layers": 8} if overrides is None
                                else overrides),
            "mode": "pretrain", "data": {"kind": "tokens",
                                         "path": str(tokens)},
-           "batch": batch, "seq": 2048, "steps": steps, "seed": 0,
+           "batch": batch, "seq": seq, "steps": steps, "seed": 0,
            "optimizer": {"warmup_steps": 1}, "log_every": 1, **extra}
     path = BUILD_OUT / f"{name}.json"
     path.write_text(json.dumps(cfg))
@@ -3310,6 +3336,665 @@ def phase_moe_grad_check(torch):
 
 
 
+# -- slice 13: context and expert parallelism ----------------------------------
+
+#: the ring's card check: every shape cut into RING_CP sequence shards and
+#: run as the cp ranks' schedule in one process (``parallel.ring``)
+RING_CP = 4
+#: Llama's training shape (shards of 512), Gemma-2B's at b=2 (hd 256),
+#: and Llama's heads in float32 on the simt route (b=1)
+RING_CASES = {"llama": TRAIN, "gemma": GEMMA_TRAIN,
+              "llama_f32": {**TRAIN, "b": 1, "dtype": "float32"}}
+#: the ring against the unsharded kernels. The ring rounds each block's
+#: partial output and dq/dk/dv to bf16 before the float32 merge or sum
+#: over the cp blocks (ROADMAP §C "Rounding"), where one process rounds
+#: once: cp + 1 roundings of 2**-8 relative, summed with cancellation. So
+#: the norm-wise relative error (``_bwd_err``) within RING_NORM_TOL, a few
+#: times 2**-8, beside a max abs at the largest value's scale within 0.05
+#: for the gradients (ATOL for the output); float32 within the kernels'
+#: own bounds
+RING_GRAD_TOL = {"bfloat16": 0.05, "float32": BWD_TOL["float32"]}
+RING_NORM_TOL = {"bfloat16": 4 * 2.0 ** -8,
+                 "float32": BWD_NORM_TOL["float32"]}
+#: the kernels' shapes on [cp2]'s paths at Llama-3-8B's heads: one ring
+#: step of a rank's 2048 rows against the other rank's 2048 keys (offsets
+#: (2048, 0)), and Ulysses' local attention, the whole 4096 on 32 / 2
+#: query heads with K/V expanded to them
+CP2_BLOCK = {**TRAIN, "b": 2, "sq": 2048, "sk": 2048, "offsets": (2048, 0)}
+ULYSSES_LOCAL = {**TRAIN, "b": 2, "sq": 4096, "sk": 4096, "nh": 16,
+                 "nkv": 16}
+#: [cp2] and [ep2]: two processes on the one card under gloo
+MESH_TIMEOUT_S = 300.0
+#: [cp2]: Llama-3-8B width, 2 layers, global b=2 x 4096 (each cp rank
+#: b=2 x 2048); [ep2]: Mixtral width at MOE_TRAIN_LAYERS, each ep rank 4
+#: of the 8 experts, on the moe_training phase's config
+CP2_LAYERS, CP2_SEQ, CP2_STEPS = 2, 4096, 3
+#: what the sharded path decides, against the same job unsharded: the
+#: losses of every step within LOSS_GAP, and the first step's final
+#: hidden states (every position, gathered over cp) and whole gradient
+#: tree, each by norm-wise relative error, within HIDDEN_REL and GRAD_REL
+#: (``_hold_mesh_run``). Set at 2-5x the readings on an H100 80GB HBM3
+#: at 700 W (PERF.md §6): ring / Ulysses loss gaps 2.1e-4 / 2.7e-4,
+#: hidden 7.1e-3 / 0, gradients 9.2e-3 / 5.1e-3; ep loss gap 0.0467,
+#: hidden 0.0395, gradients 0.0549, where the router flipped 16 near-tie
+#: choices of 8,192. A ring without its K/V shift read 1.12 / 0.878 /
+#: 0.845, an ep run without ``ep_sum`` 0.533 / 0.968 / 0.846
+MESH_BOUNDS = {"cp2": {"loss_gap": 1e-3, "hidden_rel": 2e-2,
+                       "grad_rel": 3e-2},
+               "ep2": {"loss_gap": 0.1, "hidden_rel": 0.1,
+                       "grad_rel": 0.15}}
+
+
+def _ring_block(case, sq) -> dict:
+    """One ring step's kernel shape: a shard of ``sq`` q rows against one
+    block of ``sq`` keys wholly below the diagonal (offsets (sq, 0)), the
+    heaviest step the ring runs."""
+    return {**case, "sq": sq, "sk": sq, "offsets": (sq, 0)}
+
+
+def _sdpa_ms(torch, q, k, v, do, causal) -> tuple:
+    """(forward ms, backward ms) of SDPA on the same q, k, v (K/V
+    repeated to the query heads for the backward)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    reps = q.shape[2] // k.shape[2]
+    fwd = _time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                       enable_gqa=True), reps=20)
+    leaves = [t.detach().clone().requires_grad_() for t in
+              (qt, kt.repeat_interleave(reps, 1),
+               vt.repeat_interleave(reps, 1))]
+    out = sdpa(*leaves, is_causal=causal)
+    bwd = _time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do.transpose(1, 2), retain_graph=True), reps=20)
+    return fwd, bwd
+
+
+def _kernels_at(torch, attn, what, case, q, k, v, do, timed=False,
+                **kw) -> dict:
+    """K1, K2 and K3 at one shape of the slice's paths (``kw``: offsets,
+    segment ids, ``kv_segment_ids``), each against its plain version on
+    the same inputs by ``_bwd_err``: the max abs (K1's within ATOL, K2's
+    and K3's within BWD_TOL at the largest value's scale) and the
+    norm-wise relative error within BWD_NORM_TOL; K1's lse within
+    ATOL["lse"]. With ``timed``, each kernel beside its plain version, its
+    bound and SDPA on the same q, k, v (the shape's mask is all visible or
+    causal from 0)."""
+    dt = case["dtype"]
+    o, lse = attn.flash_forward(q, k, v, True, **kw)
+    delta = attn.flash_delta(o, do)
+    args = (q, k, v, do, lse, delta, True)
+    calls = {
+        "flash_forward": (lambda: attn.flash_forward(q, k, v, True, **kw),
+                          lambda: attn.flash_forward_plain(q, k, v, True,
+                                                           **kw)),
+        "flash_dq": (lambda: attn.flash_dq(*args, **kw),
+                     lambda: attn.flash_dq_plain(*args, **kw)),
+        "flash_dkv": (lambda: attn.flash_dkv(*args, **kw),
+                      lambda: attn.flash_dkv_plain(*args, **kw))}
+    if timed:
+        lib = _sdpa_ms(torch, q, k, v, do, causal=not kw.get("offsets"))
+    shape = _shape(case) + (f" offsets {kw['offsets']}"
+                            if kw.get("offsets") else "")
+    rows = {}
+    for name, (kernel, plain) in calls.items():
+        got, want = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        row = {"shape": shape}
+        if name == "flash_forward":
+            row["lse_err"] = float((got[1] - want[1]).abs().max())
+            got, want = got[:1], want[:1]
+        errs = [_bwd_err(torch, a, b, dt,
+                         tol=ATOL[dt] if name == "flash_forward" else None)
+                for a, b in zip(got, want)]
+        row.update(max_abs_err=max(e["max"] for e in errs),
+                   rel_err=max(e["rel"] for e in errs), checks=errs)
+        ok = all(e["ok"] for e in errs) and row.get("lse_err", 0.0) <= \
+            ATOL["lse"]
+        line = "; ".join(
+            f"max {e['max']:.3e} (limit {e['tol']:.3e}), norm-wise "
+            f"{e['rel']:.3e} (limit {e['rel_tol']:.3e}), median |want| "
+            f"{e['median']:.3e}" for e in errs)
+        if timed:
+            bound_ms, bound_by = _flash_bound(torch, {**case, **kw}, None,
+                                              name)
+            row.update(ms=_time_ms(torch, kernel, reps=20, warmup=2),
+                       plain_ms=_time_ms(torch, plain, reps=5, warmup=1),
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=lib[0] if name == "flash_forward"
+                       else lib[1])
+            line += (f"; kernel {row['ms']:.4f} ms, plain "
+                     f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f}"
+                     f" ms, bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"[ring] {name} at {what} {shape} "
+            f"({attn.flash_fwd_route(q.dtype, case['hd'])}): {line}"
+            + (f"; lse {row['lse_err']:.3e}" if "lse_err" in row else ""))
+        if not ok:
+            raise AssertionError(f"[ring] {name} at {what} {shape} "
+                                 f"disagrees with its plain version: "
+                                 f"{errs}, lse {row.get('lse_err')}")
+        rows[name] = row
+    return rows
+
+
+def _kernels_at_shape(torch, attn, what, case, seed, timed=True) -> dict:
+    """``_kernels_at`` on fresh inputs of ``case`` from ``seed``."""
+    q, k, v, _ = _inputs(torch, case, seed)
+    do = torch.randn(q.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed + 1)).to(q.dtype)
+    kw = {"offsets": case["offsets"]} if case.get("offsets") else {}
+    return _kernels_at(torch, attn, what, case, q, k, v, do, timed=timed,
+                       **kw)
+
+
+def _split_segments_check(torch, attn, case, seed) -> dict:
+    """K1-K3 on one cp rank's query rows (the second of 2 shards) against
+    the whole sequence's keys with packed segment ids, the query rows'
+    apart from the keys' (``kv_segment_ids``, offsets (s/2, 0)): the
+    llama block's case on the ring setting with segment ids, each kernel
+    against its plain version (``_kernels_at``)."""
+    q, k, v, _ = _inputs(torch, case, seed)
+    sq = case["sq"] // 2
+    q = q[:, sq:].contiguous()
+    do = torch.randn(q.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed + 1)).to(q.dtype)
+    pos = torch.arange(case["sq"], device="cuda")
+    seg = torch.stack([(pos >= case["sq"] // 3 + 7 * i).int()
+                       + (pos >= (2 * case["sq"]) // 3 - 5 * i).int()
+                       for i in range(case["b"])])
+    rows = _kernels_at(
+        torch, attn, f"a rank's rows {sq}-{case['sq']} against all "
+        f"{case['sq']} keys with split segments,", {**case, "sq": sq}, q, k,
+        v, do, segment_ids=seg[:, sq:], kv_segment_ids=seg, offsets=(sq, 0))
+    return {name: row["max_abs_err"] for name, row in rows.items()}
+
+
+def _ring_err(torch, what, got, want, dtype) -> dict:
+    """``_bwd_err`` of the ring against the unsharded kernels, held to the
+    ring's bounds (``RING_GRAD_TOL``, ``RING_NORM_TOL``)."""
+    scale = max(float(want.float().abs().max()), 1.0)
+    return _bwd_err(torch, got, want, dtype,
+                    tol=(ATOL[dtype] if what == "out"
+                         else RING_GRAD_TOL[dtype] * scale),
+                    rel_tol=RING_NORM_TOL[dtype])
+
+
+def phase_ring(torch) -> dict:
+    """Ring attention's loops on the card in one process
+    (``parallel.ring.ring_schedule``: every one of ``RING_CP`` ranks'
+    ring steps in ring order, through the loops the ranks run, the shift
+    a rotation of the list) at Llama's training shape (shards of 512),
+    Gemma-2B's (hd 256, b=2) and Llama's heads in float32 (simt): the
+    forward and the q/k/v gradients against the unsharded
+    ``flash_attention`` on the same inputs (``_ring_err``: max abs and
+    norm-wise relative error), K1, K2 and K3 each launched cp² times on
+    the shape's route. Times the whole ring's forward and backward beside
+    the unsharded kernels', Δ, and (Llama) each kernel at one ring block
+    beside its plain version, its bound and SDPA. Each shape also checks
+    K1-K3 on one rank's query rows against the whole sequence's keys with
+    split segment ids (``_split_segments_check``); then K1-K3 against
+    their plain versions, timed, at the shapes [cp2] launches them
+    (``CP2_BLOCK``, ``ULYSSES_LOCAL``)."""
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.parallel import ring
+
+    out = {}
+    for i, (tag, case) in enumerate(RING_CASES.items()):
+        split = _split_segments_check(torch, attn, {**case, "b": 2}, 730 + i)
+        q, k, v, _ = _inputs(torch, case, seed=700 + i)
+        do = torch.randn(q.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(710 + i)).to(q.dtype)
+        dt, hd = case["dtype"], case["hd"]
+        route = attn.flash_fwd_route(q.dtype, hd)
+        qs, ks, vs, dos = (list(t.chunk(RING_CP, 1)) for t in (q, k, v, do))
+        leaves = [t.clone().requires_grad_() for t in qs + ks + vs]
+        _reset_counts(attn)
+        outs = ring.ring_schedule(leaves[:RING_CP],
+                                  leaves[RING_CP:2 * RING_CP],
+                                  leaves[2 * RING_CP:], causal=True)
+        grads = torch.autograd.grad(outs, leaves, dos)
+        torch.cuda.synchronize()
+        counts = {fn.__name__: dict(fn.launches_by_route)
+                  for fn in (attn.flash_forward, attn.flash_dq,
+                             attn.flash_dkv)}
+        want = {route: RING_CP ** 2,
+                "simt" if route == "sm90" else "sm90": 0}
+        if any(c != want for c in counts.values()):
+            raise AssertionError(f"[ring] {tag}: launches {counts}, want "
+                                 f"{want} for each kernel")
+        full = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = attn.flash_attention(*full, causal=True)
+        ref_grads = torch.autograd.grad(ref, full, do)
+        got = [torch.cat(outs, 1)] + [
+            torch.cat(grads[j * RING_CP:(j + 1) * RING_CP], 1)
+            for j in range(3)]
+        checks = {what: _ring_err(torch, what, a.detach(), b.detach(), dt)
+                  for what, a, b in zip(("out", "dq", "dk", "dv"), got,
+                                        [ref, *ref_grads])}
+        errs = {what: e["max"] for what, e in checks.items()}
+        log(f"[ring] {tag} against the unsharded kernels: " + "; ".join(
+            f"{what} max {e['max']:.3e} (limit {e['tol']:.3e}), norm-wise "
+            f"{e['rel']:.3e} (limit {e['rel_tol']:.3e}), median |want| "
+            f"{e['median']:.3e}" for what, e in checks.items()))
+        bad = {what: e for what, e in checks.items() if not e["ok"]}
+        if bad:
+            raise AssertionError(f"[ring] {tag} disagrees with the "
+                                 f"unsharded kernels: {bad}")
+        del outs, grads, ref, ref_grads, full, leaves
+        shards = [t.contiguous() for t in qs + ks + vs]
+        sq_, sk_, sv_ = (shards[j * RING_CP:(j + 1) * RING_CP]
+                         for j in range(3))
+        local = ring.local_ring(RING_CP)
+        routs, rlses = ring.flash_ring_forward(local, sq_, sk_, sv_, True)
+        o, lse = attn.flash_forward(q, k, v, True)
+        row = {"shape": _shape(case), "cp": RING_CP, "route": route,
+               "launches_by_kernel": counts, "max_abs_err": errs,
+               "rel_err": {what: e["rel"] for what, e in checks.items()},
+               "split_segments_max_abs_err": split,
+               "ring_fwd_ms": _time_ms(
+                   torch, lambda: ring.flash_ring_forward(
+                       local, sq_, sk_, sv_, True), reps=10, warmup=2),
+               "unsharded_fwd_ms": _time_ms(
+                   torch, lambda: attn.flash_forward(q, k, v, True),
+                   reps=10, warmup=2),
+               "ring_bwd_ms": _time_ms(
+                   torch, lambda: ring.flash_ring_backward(
+                       local, sq_, sk_, sv_, routs, rlses, dos, True),
+                   reps=10, warmup=2),
+               "unsharded_bwd_ms": _time_ms(
+                   torch, lambda: attn.flash_backward(q, k, v, o, lse, do,
+                                                      True),
+                   reps=10, warmup=2),
+               "delta_ms": _time_ms(torch, lambda: attn.flash_delta(o, do),
+                                    reps=20, warmup=2)}
+        log(f"[ring] {tag} at {row['shape']} in {RING_CP} shards "
+            f"({route}): launches {counts}; whole ring "
+            f"forward {row['ring_fwd_ms']:.4f} ms against the unsharded "
+            f"K1 {row['unsharded_fwd_ms']:.4f} ms; whole ring backward "
+            f"{row['ring_bwd_ms']:.4f} ms against the unsharded Δ+K2+K3 "
+            f"{row['unsharded_bwd_ms']:.4f} ms; Δ {row['delta_ms']:.4f} ms "
+            f"(once per ring backward)")
+        if tag == "llama":
+            row["block"] = _kernels_at(
+                torch, attn, "one ring block", _ring_block(case, q.shape[1]
+                                                          // RING_CP),
+                sq_[1], sk_[0], sv_[0], dos[1].contiguous(), timed=True,
+                offsets=(q.shape[1] // RING_CP, 0))
+        out[tag] = row
+        del q, k, v, do, qs, ks, vs, dos, shards, sq_, sk_, sv_, routs
+        del rlses, o, lse
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["cp2_block"] = _kernels_at_shape(torch, attn, "[cp2]'s ring block",
+                                         CP2_BLOCK, 740)
+    out["ulysses_local"] = _kernels_at_shape(
+        torch, attn, "[cp2]'s Ulysses attention", ULYSSES_LOCAL, 750)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sq_dist(torch, a, b=None) -> float:
+    """sum((a - b)^2) (or sum(a^2)) in float64, a chunk of 2**26 values
+    at a time: an expert stack is 940 M values."""
+    a = a.reshape(-1)
+    b = None if b is None else b.reshape(-1)
+    total = 0.0
+    for i in range(0, a.numel(), 1 << 26):
+        x = a[i:i + (1 << 26)].float()
+        if b is not None:
+            x = x - b[i:i + (1 << 26)].float()
+        total += float(x.double().square().sum())
+    return total
+
+
+def _first_step(torch, path) -> dict:
+    """The first step of the training job at ``path`` as its sharded path
+    decides it, against the same step unsharded: the weights
+    ``init_params`` makes from the job's seed (as ``main`` does), the
+    job's first batch. On the rank's mesh: the final hidden states
+    (``forward_hidden``, gathered over ``cp``), the gradient of every
+    leaf's local piece for the rank's share of the loss, and for an MoE
+    model the router's choices. Then every rank runs the step on one
+    process (no collective) and compares: the hidden states' norm-wise
+    relative error and least cosine by position, and for each leaf the
+    squared distance and squared norm of its local piece against the same
+    piece of the unsharded gradient (``sharding.local_shard``; a leaf
+    sharded on ``ep`` is summed over the ranks by ``_hold_mesh_run``), the
+    first loss, and the router's choices that differ by layer
+    (``_flips``)."""
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.models import io, moe
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.parallel import collectives, sharding
+    from kubedl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from kubedl_tpu_torch.train import __main__ as train_main
+    from kubedl_tpu_torch.train import data as tdata
+    from kubedl_tpu_torch.train.trainer import tree_leaves
+
+    cfg = json.loads(Path(path).read_text())
+    config, _ = train_main.resolve_model(cfg, device="cuda")
+    fam = io.family_of(config)
+    mesh = build_mesh(MeshConfig(**cfg["mesh"]), device="cuda")
+    params = fam.init_params(config, torch.Generator(
+        device="cuda").manual_seed(int(cfg["seed"])), device="cuda")
+    host = next(iter(train_main._raw_stream(cfg["data"], config,
+                                            cfg["batch"], cfg["seq"])))
+    route = moe.route
+
+    def hidden(p, tokens, m, picks):
+        def recording(config_, probs, capacity, token_mask=None,
+                      mesh=None):
+            picks.append((probs.topk(config_.top_k, -1).indices,
+                          probs.detach()))
+            return route(config_, probs, capacity, token_mask, mesh=mesh)
+        with torch.no_grad(), unittest.mock.patch.object(
+                moe, "route", recording):
+            h = fam.forward_hidden(config, p, tokens, mesh=m)
+        return h[0] if isinstance(h, tuple) else h
+
+    rank = dist.get_rank()
+    log(f"[first step] rank {rank}: {cfg['mesh']} on the mesh")
+    placed = sharding.shard_tree(params, mesh, fam.param_specs(config))
+    specs = {k: sharding.spec_of(p.placements)
+             for k, p in tree_leaves(placed)}
+    batch = {k: sharding.local_of(v)
+             for k, v in tdata.shard_batch(host, mesh).items()}
+    picks = []
+    h = collectives.all_gather(
+        hidden(sharding.views(placed, mesh), batch["tokens"], mesh, picks),
+        mesh, 1).float()
+    view = sharding.views(placed, mesh, requires_grad=True)
+    leaves = tree_leaves(view)
+    share = fam.loss_fn(config, view, batch["tokens"], batch["targets"],
+                        mesh=mesh)
+    grads = torch.autograd.grad(share, [getattr(p, "local", p)
+                                        for _, p in leaves])
+    loss = float(collectives.world_sum(share))
+    local = {k: g for (k, _), g in zip(leaves, grads)}
+    del view, leaves, grads, placed, share
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[first step] rank {rank}: unsharded")
+    full = tdata.to_device(host, torch.device("cuda"))
+    ref_picks = []
+    ref_h = hidden(params, full["tokens"], None, ref_picks).float()
+    ref_leaves = [(k, t.requires_grad_()) for k, t in tree_leaves(params)]
+    ref_loss = fam.loss_fn(config, params, full["tokens"], full["targets"])
+    ref_grads = torch.autograd.grad(ref_loss, [t for _, t in ref_leaves])
+    _reset_counts(attn)            # the checks launched K1-K3 too
+    out = {"loss": loss, "ref_loss": float(ref_loss),
+           "hidden_rel": float((h - ref_h).norm() / ref_h.norm()),
+           "hidden_min_cos": float(torch.nn.functional.cosine_similarity(
+               h, ref_h, dim=-1).min()),
+           "leaves": {}}
+    for (k, _), g in zip(ref_leaves, ref_grads):
+        want = sharding.local_shard(g, mesh, specs[k])
+        out["leaves"][k] = (_sq_dist(torch, local[k], want),
+                            _sq_dist(torch, want),
+                            tuple(want.shape) != tuple(g.shape))
+    if ref_picks:
+        n = config.n_layers
+        out["router_differ_by_layer"] = [
+            int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+            for (a, _), (b, _) in zip(ref_picks[:n], picks[:n])]
+        out["router"] = _flips(torch, ref_picks, picks, config)
+    return out
+
+
+def _grad_rel(readings) -> tuple:
+    """(norm-wise relative error of the whole gradient tree, worst leaf,
+    its error) from the ranks' ``_first_step`` pieces: a sharded leaf's
+    pieces summed over the ranks, a replicated leaf's taken once."""
+    num = den = 0.0
+    worst = ("", 0.0)
+    for k, (d, n, sharded) in readings[0]["leaves"].items():
+        if sharded:
+            d = sum(r["leaves"][k][0] for r in readings)
+            n = sum(r["leaves"][k][1] for r in readings)
+        num, den = num + d, den + n
+        rel = math.sqrt(d / n) if n else math.sqrt(d)
+        if rel > worst[1]:
+            worst = (k, rel)
+    return math.sqrt(num / den), worst[0], worst[1]
+
+
+def _mesh_rank(rank, port, jobs, queue):
+    """One of two ranks on ``cuda:0`` under a gloo group (NCCL refuses two
+    ranks on one device): ``python -m kubedl_tpu_torch.train``'s ``main``
+    on each ``(tag, config path)`` of ``jobs`` over the open group, the
+    kernels' counts set to 0 just before each run and read just after.
+    Puts ``(rank, {tag: readings})`` or ``(rank, traceback)`` on
+    ``queue``."""
+    import traceback
+    from datetime import timedelta
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from kubedl_tpu_torch.ops import attention as attn
+        from kubedl_tpu_torch.parallel import collectives
+        from kubedl_tpu_torch.train import __main__ as train_main
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=2, rank=rank,
+                                timeout=timedelta(seconds=MESH_TIMEOUT_S))
+        res = {}
+        for tag, path in jobs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            marks = []
+            _reset_counts(attn)
+            collectives.ring_shift.host_staged = 0
+            t0 = time.perf_counter()
+            rc = train_main.main(["--config", path],
+                                 on_step=lambda step, loss: marks.append(
+                                     (time.perf_counter(), step, loss)))
+            torch.cuda.synchronize()
+            steady = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+            res[tag] = {
+                "rc": rc, "losses": [m[2] for m in marks],
+                "launches": {fn.__name__: fn.launches for fn in (
+                    attn.flash_forward, attn.flash_dq, attn.flash_dkv)},
+                "by_route": {fn.__name__: dict(fn.launches_by_route)
+                             for fn in (attn.flash_forward, attn.flash_dq,
+                                        attn.flash_dkv)},
+                "host_staged": collectives.ring_shift.host_staged,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "first_step_s": marks[0][0] - t0 if marks else None,
+                "step_s": sum(steady) / len(steady) if steady else None,
+                "step_times": [round(x, 4) for x in steady]}
+            gc.collect()
+            torch.cuda.empty_cache()
+            res[tag]["first_step"] = _first_step(torch, path)
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        queue.put((rank, res))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        queue.put((rank, traceback.format_exc()))
+
+
+def _two_ranks(torch, tag, jobs) -> dict:
+    """``_mesh_rank`` in two processes on the one card; {rank: results}.
+    A rank that fails fails the phase at once (the other is killed)."""
+    import torch.multiprocessing as tmp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = tmp.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_mesh_rank, daemon=True,
+                         args=(r, port, jobs, queue)) for r in range(2)]
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        while len(res) < 2:
+            rank, value = queue.get(timeout=MESH_TIMEOUT_S)
+            if isinstance(value, str):
+                raise AssertionError(f"[{tag}] rank {rank} failed:\n{value}")
+            res[rank] = value
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return res
+
+
+def _hold_mesh_run(tag, job, res, ref, n_layers, cp) -> tuple:
+    """Both ranks' readings of ``job`` against the unsharded run ``ref``,
+    logged, and what fails: rc 0, every K1-K3 launch on ``sm90`` at the
+    counts the path gives (K1 2*L per step with remat, K2/K3 L, each
+    times ``cp`` on the ring), the same losses on both ranks, and
+    ``MESH_BOUNDS[tag]`` on the loss gap and on rank 0's first-step
+    readings (``_first_step``). Returns (readings, failures)."""
+    runs = [res[r][job] for r in (0, 1)]
+    bounds = MESH_BOUNDS[tag]
+    first = dict(runs[0]["first_step"])
+    first["grad_rel"], first["worst_leaf"], first["worst_leaf_rel"] = \
+        _grad_rel([run["first_step"] for run in runs])
+    del first["leaves"]
+    steps = len(ref["losses"])
+    want = {"flash_forward": 2 * n_layers * steps * cp,
+            "flash_dq": n_layers * steps * cp,
+            "flash_dkv": n_layers * steps * cp}
+    bad = []
+    for r, run in enumerate(runs):
+        if run["rc"] != 0 or len(run["losses"]) != steps:
+            bad.append(f"rank {r}: rc {run['rc']} after "
+                       f"{len(run['losses'])} steps")
+        if run["launches"] != want or any(
+                c["simt"] for c in run["by_route"].values()):
+            bad.append(f"rank {r}: launched {run['by_route']}, want {want} "
+                       f"on sm90")
+    if runs[0]["losses"] != runs[1]["losses"]:
+        bad.append(f"the ranks' losses differ: {runs[0]['losses']} / "
+                   f"{runs[1]['losses']}")
+    gap = max(abs(a - b) for a, b in zip(runs[0]["losses"], ref["losses"]))
+    for key, got in (("loss_gap", gap), ("hidden_rel", first["hidden_rel"]),
+                     ("grad_rel", first["grad_rel"])):
+        if not got <= bounds[key]:
+            bad.append(f"{key} {got} > {bounds[key]}")
+    if "router" in first and (first["router_differ_by_layer"][0]
+                              or first["router"]["unexplained"]):
+        bad.append("the router chose other experts on layer 0's inputs, "
+                   "which are the unsharded run's, or away from a near-tie "
+                   f"and from any earlier flip: by layer "
+                   f"{first['router_differ_by_layer']}, {first['router']}")
+    log(f"[{tag}] {job}: losses {[round(x, 5) for x in runs[0]['losses']]} "
+        f"against the unsharded {[round(x, 5) for x in ref['losses']]} "
+        f"(max gap {gap}, limit {bounds['loss_gap']}); launches per rank "
+        f"{runs[0]['launches']}")
+    log(f"[{tag}] {job} first step against the same step unsharded: loss "
+        f"{first['loss']} / {first['ref_loss']}; final hidden states "
+        f"norm-wise {first['hidden_rel']:.4e} (limit "
+        f"{bounds['hidden_rel']}), least cosine by position "
+        f"{first['hidden_min_cos']:.6f}; gradients norm-wise "
+        f"{first['grad_rel']:.4e} (limit {bounds['grad_rel']}), worst leaf "
+        f"{first['worst_leaf']} {first['worst_leaf_rel']:.4e}")
+    if "router" in first:
+        log(f"[{tag}] {job} router choices differing from the unsharded "
+            f"step by layer {first['router_differ_by_layer']} of "
+            f"{first['router']['tokens'] // n_layers} tokens a layer; "
+            f"{first['router']}")
+    for r, run in enumerate(runs):
+        log(f"[{tag}] {job} rank {r}: step {run['step_s']:.4f} s (per step "
+            f"{run['step_times']}; both ranks share the one card and every "
+            f"collective goes through the host), first step "
+            f"{run['first_step_s']:.3f} s, peak device memory "
+            f"{run['peak_gib']:.2f} GiB, ring shifts staged through the "
+            f"host {run['host_staged']}")
+    return {"losses": runs[0]["losses"], "loss_gap": gap,
+            "first_step": first,
+            "launches": runs[0]["launches"],
+            "launches_by_rank": [run["launches"] for run in runs],
+            "step_s": [run["step_s"] for run in runs],
+            "peak_gib": [run["peak_gib"] for run in runs],
+            "host_staged": [run["host_staged"] for run in runs]}, \
+        [f"[{tag}] {job}: {b}" for b in bad]
+
+
+def phase_cp2(torch) -> dict:
+    """Context parallelism at cp=2 on the one card: ``python -m
+    kubedl_tpu_torch.train``'s ``main`` on Llama-3-8B at full width, 2
+    layers deep, one global batch of 2 x 4096 tokens (each rank b=2 x
+    2048), 3 steps, under ``"mesh": {"cp": 2}`` in two processes over
+    gloo: once on the ring (K1-K3 at global offsets, the K/V blocks
+    shifted through the host: gloo's point-to-point calls take host
+    memory only) and once with ``cp_impl: "ulysses"`` (two all-to-alls a
+    layer). Each run against the same job unsharded on one process:
+    every K1-K3 launch on ``sm90``, the losses, and the first step's
+    hidden states and gradients (``_hold_mesh_run``); each rank's step
+    time and peak memory. Both runs are read before either fails."""
+    over = {"n_layers": CP2_LAYERS}
+    path, _, cfg = _train_config("cp2_ref", overrides=over, batch=2,
+                                 steps=CP2_STEPS, seq=CP2_SEQ)
+    ref = _train_run(torch, "cp2_ref", path, cfg, ALL_SM90)
+    jobs = []
+    for impl in ("ring", "ulysses"):
+        p, _, _ = _train_config(f"cp2_{impl}", overrides={
+            **over, "cp_impl": impl}, batch=2, steps=CP2_STEPS, seq=CP2_SEQ,
+            mesh={"cp": 2})
+        jobs.append((impl, p))
+    t0 = time.perf_counter()
+    res = _two_ranks(torch, "cp2", jobs)
+    out = {"unsharded": {k: ref[k] for k in ("losses", "step_s", "peak_gib",
+                                              "launches")},
+           "seconds": time.perf_counter() - t0}
+    out["ring"], bad = _hold_mesh_run("cp2", "ring", res, ref, CP2_LAYERS, 2)
+    out["ulysses"], bad_u = _hold_mesh_run("cp2", "ulysses", res, ref,
+                                           CP2_LAYERS, 1)
+    if min(out["ring"]["host_staged"]) == 0:
+        bad.append("[cp2] the ring shifted no block")
+    log(f"[cp2] unsharded: step {ref['step_s']:.4f} s, peak "
+        f"{ref['peak_gib']:.2f} GiB; the two ranks ran in "
+        f"{out['seconds']:.1f} s")
+    if bad + bad_u:
+        raise AssertionError("; ".join(bad + bad_u))
+    return out
+
+
+def phase_ep2(torch, mtrain) -> dict:
+    """Expert parallelism at ep=2 on the one card: the moe_training
+    phase's job (Mixtral-8x7B at full width, ``MOE_TRAIN_LAYERS`` layers,
+    b=2 x 2048, 3 steps on one repeated batch) under ``"mesh": {"ep":
+    2}`` in two processes over gloo, each rank holding 4 of the 8 experts
+    of every layer; against that phase's unsharded run and the same first
+    step on one process (``_hold_mesh_run``): every K1-K3 launch on
+    ``sm90``, the losses, the hidden states, the gradients, and the
+    router's choices by layer: layer 0's inputs are the unsharded run's,
+    so it must choose alike, and a later layer may differ only at a
+    near-tie or after a flip (``_flips``), since each rank's bf16 partial
+    sum of its experts' outputs rounds otherwise than one einsum over 8;
+    each rank's step time and peak memory."""
+    path, _, _ = _train_config(
+        "ep2", model="moe.mixtral_8x7b", vocab=32000,
+        overrides={"n_layers": MOE_TRAIN_LAYERS}, batch=2, steps=3,
+        mesh={"ep": 2})
+    t0 = time.perf_counter()
+    res = _two_ranks(torch, "ep2", [("ep", path)])
+    out = {"seconds": time.perf_counter() - t0,
+           "unsharded": {k: mtrain[k] for k in ("losses", "step_s",
+                                                 "peak_gib")}}
+    out["ep"], bad = _hold_mesh_run("ep2", "ep", res, mtrain,
+                                    MOE_TRAIN_LAYERS, 1)
+    log(f"[ep2] unsharded: step {mtrain['step_s']:.4f} s, peak "
+        f"{mtrain['peak_gib']:.2f} GiB; the two ranks ran in "
+        f"{out['seconds']:.1f} s")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
 # -- slice 10: HF checkpoints, the training lifecycle, ResNet and the MLP ----
 
 #: google/gemma-2b's published config.json fields, typed as the model
@@ -4049,16 +4734,18 @@ def _tp_probe(torch, only, timed) -> None:
 
 
 def _probe(torch, argv, timed) -> int:
-    """``--phases hf,lifecycle,resnet,moe_timing,dist,tp,tp2 [--layers
-    N]``: the named phases alone after the build, the slice-10 ones on
-    Gemma-2B ``N`` layers deep, ``dist`` after the unsharded Gemma-2B
-    training it compares with, ``tp`` after the unsharded continuous run
+    """``--phases hf,lifecycle,resnet,moe_timing,dist,tp,tp2,ring,cp2,ep2
+    [--layers N]``: the named phases alone after the build, the slice-10
+    ones on Gemma-2B ``N`` layers deep, ``dist`` after the unsharded
+    Gemma-2B training it compares with, ``tp`` after the unsharded
+    continuous run it compares with, ``ep2`` after the MoE training run
     it compares with (a quick check of one part on the card; no kernels
     line and no last line)."""
     if len(argv) not in (2, 4) or argv[0] != "--phases" or (
             len(argv) == 4 and argv[2] != "--layers"):
         print("usage: chip_smoke.py [--phases hf,lifecycle,resnet,"
-              "moe_timing,dist,tp,tp2 [--layers N]]", file=sys.stderr)
+              "moe_timing,dist,tp,tp2,ring,cp2,ep2 [--layers N]]",
+              file=sys.stderr)
         return 2
     only = set(argv[1].split(","))
     layers = int(argv[3]) if len(argv) == 4 else None
@@ -4077,6 +4764,15 @@ def _probe(torch, argv, timed) -> int:
         torch.cuda.empty_cache()
     if "moe_timing" in only:
         timed("moe_timing", phase_timing, torch, MOE_TRAIN, 600)
+    if "ring" in only:
+        timed("ring", phase_ring, torch)
+    if "cp2" in only:
+        timed("cp2", phase_cp2, torch)
+    if "ep2" in only:
+        mtrain, _, _ = timed("moe_training", phase_moe_training, torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed("ep2", phase_ep2, torch, mtrain)
     if only & {"hf", "lifecycle"}:
         cfg, params, art, _ = timed("hf", phase_hf, torch, layers)
         if "lifecycle" in only:
@@ -4179,6 +4875,11 @@ def main() -> int:
     mtimes = timed("moe_timing", phase_timing, torch, MOE_TRAIN, 600)
     gc.collect()
     torch.cuda.empty_cache()
+    ring_run = timed("ring", phase_ring, torch)
+    cp2_run = timed("cp2", phase_cp2, torch)
+    ep2_run = timed("ep2", phase_ep2, torch, mtrain)
+    gc.collect()
+    torch.cuda.empty_cache()
     hcfg, hparams, hart, hf = timed("hf", phase_hf, torch)
     life = timed("lifecycle", phase_lifecycle, torch, hcfg, hparams, hart)
     del hparams
@@ -4204,11 +4905,18 @@ def main() -> int:
                  else attn._BWD_SOURCES)
         return f"kubedl_tpu_torch/csrc/{table[route][0]}.cu"
     shape = _shape(TRAIN)
+    def both_ranks(run, name):
+        return sum(r[name] for r in run["launches_by_rank"])
     launches = {name: {"training": train["launches"][name],
                        "gemma_training": gtrain["launches"][name],
                        "dist_training": dist_run["launches"][name],
                        "lora_training": lora_run["launches"][name],
-                       "moe_training": mtrain["launches"][name]}
+                       "moe_training": mtrain["launches"][name],
+                       "cp2_ring_training": both_ranks(cp2_run["ring"],
+                                                       name),
+                       "cp2_ulysses_training": both_ranks(
+                           cp2_run["ulysses"], name),
+                       "ep2_training": both_ranks(ep2_run["ep"], name)}
                 for name in ("flash_forward", "flash_dq", "flash_dkv")}
     launches["flash_forward"].update(
         serving=serving_launches,
@@ -4244,6 +4952,23 @@ def main() -> int:
                                      "gemma_embed"], **gtimes["embed"]}
         return row
 
+    def ring_row(name):
+        """The kernel at one ring block of Llama's training shape cut in
+        ``RING_CP`` shards, and the whole ring's forward (K1) or backward
+        (Δ, K2 and K3) against the unsharded kernels', by case."""
+        def plain(row):
+            return {k: v for k, v in row.items() if k != "checks"}
+        return {**plain(ring_run["llama"]["block"][name]),
+                "whole_ring": {tag: {k: ring_run[tag][k] for k in (
+                    "shape", "cp", "route", "ring_fwd_ms",
+                    "unsharded_fwd_ms", "ring_bwd_ms", "unsharded_bwd_ms",
+                    "delta_ms", "max_abs_err", "rel_err")}
+                    for tag in RING_CASES},
+                "launches": {tag: ring_run[tag]["launches_by_kernel"][name]
+                             for tag in RING_CASES},
+                "cp2_block": plain(ring_run["cp2_block"][name]),
+                "ulysses_local": plain(ring_run["ulysses_local"][name])}
+
     def moe_row(name, err):
         """The kernel checked and timed at Mixtral's training shape, as its
         step launches it, and its launches there by route."""
@@ -4268,6 +4993,7 @@ def main() -> int:
          "gemma": gemma_row("flash_forward",
                             fwd["gemma_max_abs_err"]["gemma_train"]),
          "moe": moe_row("flash_forward", fwd["moe_max_abs_err"]),
+         "ring": ring_row("flash_forward"),
          "tp": {"shape": _shape(TP_LOCAL), **tp_run["k1_local"],
                 "launches": {"tp_embeddings": tp_run["embeddings_launches"],
                              "tp2_embeddings_by_rank": {
@@ -4285,6 +5011,7 @@ def main() -> int:
          "shape": shape, "library": "sdpa backward (dq, dk and dv)",
          "gemma": gemma_row("flash_dq", bwd_err["gemma"]["flash_dq"]),
          "moe": moe_row("flash_dq", bwd_err["moe"]["flash_dq"]),
+         "ring": ring_row("flash_dq"),
          "simt_source": source("flash_dq", "simt"),
          "kernel_route": "sm90",
          "design": DESIGN["flash_dq"]},
@@ -4298,6 +5025,7 @@ def main() -> int:
          "gemma": gemma_row("flash_dkv", bwd_err["gemma"]["flash_dkv"],
                             checked_splits=bwd_err["gemma"]["dkv_splits"]),
          "moe": moe_row("flash_dkv", bwd_err["moe"]["flash_dkv"]),
+         "ring": ring_row("flash_dkv"),
          "simt_source": source("flash_dkv", "simt"),
          "kernel_route": "sm90",
          "design": DESIGN["flash_dkv"]},

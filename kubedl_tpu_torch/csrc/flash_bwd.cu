@@ -61,7 +61,8 @@ struct Params {
   const void* dout;
   const float* lse;          // [b*nh, sq]
   const float* delta;        // [b*nh, sq]
-  const int32_t* seg;        // [b, s] or null
+  const int32_t* seg;        // [b, sk] keys' segments, or null
+  const int32_t* seg_q;      // [b, sq] query rows' segments (with seg)
   void* dq;                  // [b, sq, nh, hd] contiguous
   void* dk;                  // [b, sk, nkv, hd] contiguous
   void* dv;
@@ -201,7 +202,7 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(Params p) {
     const int64_t at = static_cast<int64_t>(bh) * p.sq + row;
     lse[i] = in ? p.lse[at] : 0.f;
     dlt[i] = in ? p.delta[at] : 0.f;
-    seg_q[i] = (p.seg != nullptr && in) ? p.seg[bi * p.sq + row] : 0;
+    seg_q[i] = (p.seg != nullptr && in) ? p.seg_q[bi * p.sq + row] : 0;
   }
 
   float acc[RQ][CPT];
@@ -358,7 +359,7 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Params p) {
         const int64_t at = static_cast<int64_t>(bh) * p.sq + row;
         sLse[tid] = in ? p.lse[at] : 0.f;
         sDlt[tid] = in ? p.delta[at] : 0.f;
-        sSegQ[tid] = (p.seg != nullptr && in) ? p.seg[bi * p.sq + row] : 0;
+        sSegQ[tid] = (p.seg != nullptr && in) ? p.seg_q[bi * p.sq + row] : 0;
       }
       __syncthreads();
 
@@ -470,7 +471,8 @@ int run(const Params& p, int dtype, bool dkv, void* stream) {
 
 Params make_params(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse, const void* delta,
-                          const void* seg, void* dq, void* dk, void* dv, int b,
+                          const void* seg, const void* seg_q, void* dq,
+                          void* dk, void* dv, int b,
                           int sq, int sk, int nh, int nkv, int hd, int64_t q_sb,
                           int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
                           int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -479,6 +481,7 @@ Params make_params(const void* q, const void* k, const void* v,
                           float scale) {
   return Params{q, k, v, dout, static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<const int32_t*>(seg),
+                static_cast<const int32_t*>(seg_q),
                 dq, dk, dv, b, sq, sk, nh, nkv, hd,
                 q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                 o_sb, o_ss, o_sh, causal, window, has_off, q_off, k_off, scale};
@@ -491,14 +494,15 @@ extern "C" {
 // dtype: 0 float32, 1 bfloat16, 2 float16. Returns a cudaError_t (0 = ok).
 int kubedl_flash_bwd_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
-                        const void* seg, void* dq, int dtype, int b, int sq,
+                        const void* seg, const void* seg_q, void* dq,
+                        int dtype, int b, int sq,
                         int sk, int nh, int nkv, int hd, int64_t q_sb,
                         int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
                         int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
                         int64_t o_sb, int64_t o_ss, int64_t o_sh, int causal,
                         int window, int has_off, int q_off, int k_off,
                         float scale, void* stream) {
-  const Params p = make_params(q, k, v, dout, lse, delta, seg, dq, nullptr,
+  const Params p = make_params(q, k, v, dout, lse, delta, seg, seg_q, dq, nullptr,
                                nullptr, b, sq, sk, nh, nkv, hd, q_sb, q_ss,
                                q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
                                o_ss, o_sh, causal, window, has_off, q_off,
@@ -508,14 +512,16 @@ int kubedl_flash_bwd_dq(const void* q, const void* k, const void* v,
 
 int kubedl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
-                         const void* seg, void* dk, void* dv, int dtype, int b,
+                         const void* seg, const void* seg_q, void* dk,
+                         void* dv, int dtype, int b,
                          int sq, int sk, int nh, int nkv, int hd, int64_t q_sb,
                          int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
                          int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
                          int64_t o_sb, int64_t o_ss, int64_t o_sh, int causal,
                          int window, int has_off, int q_off, int k_off,
                          float scale, void* stream) {
-  const Params p = make_params(q, k, v, dout, lse, delta, seg, nullptr, dk, dv,
+  const Params p = make_params(q, k, v, dout, lse, delta, seg, seg_q, nullptr,
+                               dk, dv,
                                b, sq, sk, nh, nkv, hd, q_sb, q_ss, q_sh, k_sb,
                                k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                                causal, window, has_off, q_off, k_off, scale);

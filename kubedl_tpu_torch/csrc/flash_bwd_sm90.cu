@@ -114,7 +114,8 @@ struct Params {
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
   const float* lse;     // [b*nh, sq]
   const float* delta;   // [b*nh, sq]
-  const int32_t* seg;   // [b, s] or null
+  const int32_t* seg;   // [b, sk] keys' segments, or null
+  const int32_t* seg_q; // [b, sq] query rows' segments (with seg)
   void* dq;             // [b, sq, nh, hd] contiguous
   void* dk;             // [b, sk, nkv, hd] contiguous
   void* dv;
@@ -256,7 +257,7 @@ __device__ __forceinline__ float p_elem(const Params& p, bool plain, float s,
   if (plain) return sm90::exp2_approx(fmaf(s, scale_l2, -l2));
   bool keep = keep_pair(p, qr, kg);
   if (p.seg != nullptr)
-    keep = keep && p.seg[bi * p.sq + min(qr, p.sq - 1)] == seg_k;
+    keep = keep && p.seg_q[bi * p.sq + min(qr, p.sq - 1)] == seg_k;
   const float x = keep ? fmaf(s, scale_l2, -l2) : neg_l2 - l2;
   return qr < p.sq && kg < p.sk ? sm90::exp2_approx(x) : 0.f;
 }
@@ -656,7 +657,7 @@ __device__ __forceinline__ void dq_rows(const Params& p, const uint8_t* sm,
     l2[i] = reinterpret_cast<const float*>(sm + L::LSE)[r + 8 * i];
     dlt[i] = reinterpret_cast<const float*>(sm + L::DLT)[r + 8 * i];
     seg_q[i] = p.seg != nullptr && qr0 + 8 * i < p.sq
-        ? p.seg[bi * p.sq + qr0 + 8 * i] : 0;
+        ? p.seg_q[bi * p.sq + qr0 + 8 * i] : 0;
   }
 }
 
@@ -953,7 +954,7 @@ flash_dq256_kernel(const __grid_constant__ Params p) {
 }
 
 struct Args {
-  const void *q, *k, *v, *dout, *lse, *delta, *seg;
+  const void *q, *k, *v, *dout, *lse, *delta, *seg, *seg_q;
   void *dq, *dk, *dv, *ws;
   int dtype, b, sq, sk, nh, nkv, hd;
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
@@ -977,6 +978,7 @@ bool make_params(const Args& a, int q_rows, int k_rows, Params* p) {
   p->lse = static_cast<const float*>(a.lse);
   p->delta = static_cast<const float*>(a.delta);
   p->seg = static_cast<const int32_t*>(a.seg);
+  p->seg_q = static_cast<const int32_t*>(a.seg_q);
   p->dq = a.dq;
   p->dk = a.dk;
   p->dv = a.dv;
@@ -1090,14 +1092,16 @@ extern "C" {
 // dtype: 1 bfloat16, 2 float16. Returns a cudaError_t (0 = ok).
 int kubedl_flash_bwd90_dq(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse, const void* delta,
-                          const void* seg, void* dq, int dtype, int b, int sq,
+                          const void* seg, const void* seg_q, void* dq,
+                          int dtype, int b, int sq,
                           int sk, int nh, int nkv, int hd, int64_t q_sb,
                           int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
                           int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
                           int64_t o_sb, int64_t o_ss, int64_t o_sh, int causal,
                           int window, int has_off, int q_off, int k_off,
                           float scale, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, seg, dq, nullptr, nullptr, nullptr,
+  const Args a{q, k, v, dout, lse, delta, seg, seg_q, dq, nullptr, nullptr,
+               nullptr,
                dtype, b, sq, sk, nh, nkv, hd, q_sb, q_ss, q_sh, k_sb, k_ss,
                k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, window,
                has_off, q_off, k_off, scale, 1};
@@ -1110,7 +1114,8 @@ int kubedl_flash_bwd90_dq(const void* q, const void* k, const void* v,
 // splits * 2 * b * sk * nkv * hd elements; the other head dims take 1.
 int kubedl_flash_bwd90_dkv(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse, const void* delta,
-                           const void* seg, void* dk, void* dv, void* ws,
+                           const void* seg, const void* seg_q, void* dk,
+                           void* dv, void* ws,
                            int dtype, int b, int sq, int sk, int nh, int nkv,
                            int hd, int64_t q_sb, int64_t q_ss, int64_t q_sh,
                            int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -1118,7 +1123,8 @@ int kubedl_flash_bwd90_dkv(const void* q, const void* k, const void* v,
                            int64_t o_sb, int64_t o_ss, int64_t o_sh, int causal,
                            int window, int has_off, int q_off, int k_off,
                            float scale, int splits, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, seg, nullptr, dk, dv, ws, dtype, b,
+  const Args a{q, k, v, dout, lse, delta, seg, seg_q, nullptr, dk, dv, ws,
+               dtype, b,
                sq, sk, nh, nkv, hd, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                v_ss, v_sh, o_sb, o_ss, o_sh, causal, window, has_off, q_off,
                k_off, scale, splits};

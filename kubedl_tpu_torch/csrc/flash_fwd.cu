@@ -8,7 +8,9 @@
 //   * causal mask aligned top-left, col <= row, with optional global
 //     (q_off, k_off) offsets added to rows and columns (ring attention);
 //   * sliding window col > row - window (causal only);
-//   * packed sequences: keys only from the query's own segment;
+//   * packed sequences: keys only from the query's own segment (the query
+//     rows' segments may come apart from the keys', for one cp rank's
+//     rows against the whole sequence);
 //   * q scaled by 1/sqrt(hd) in f32 before Q*K^T;
 //   * masked scores are -1e30, not -inf (no inf - inf = NaN; a fully masked
 //     row averages the keys it visited, as the TPU kernel does);
@@ -48,7 +50,8 @@ struct Params {
   const void* v;
   void* o;
   float* lse;
-  const int32_t* seg;        // [b, s] or null
+  const int32_t* seg;        // [b, sk] keys' segments, or null
+  const int32_t* seg_q;      // [b, sq] query rows' segments (with seg)
   int b, sq, sk, nh, nkv, hd;
   int64_t q_sb, q_ss, q_sh;  // element strides (batch, seq, head); dim -1 is 1
   int64_t k_sb, k_ss, k_sh;
@@ -117,7 +120,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
   #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
-    seg_q[i] = (p.seg != nullptr && row < p.sq) ? p.seg[bi * p.sq + row] : 0;
+    seg_q[i] = (p.seg != nullptr && row < p.sq) ? p.seg_q[bi * p.sq + row] : 0;
   }
 
   float m[4], l[4], acc[4][CPT];
@@ -278,7 +281,8 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16, 2 float16. Returns a cudaError_t (0 = ok).
 int kubedl_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                     void* lse, const void* seg, int dtype, int b, int sq,
+                     void* lse, const void* seg, const void* seg_q,
+                     int dtype, int b, int sq,
                      int sk, int nh, int nkv, int hd, int64_t q_sb,
                      int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
                      int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -287,7 +291,8 @@ int kubedl_flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (hd < 1 || hd > 256 || nkv < 1 || nh % nkv != 0 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, o, static_cast<float*>(lse),
-           static_cast<const int32_t*>(seg), b, sq, sk, nh, nkv, hd,
+           static_cast<const int32_t*>(seg),
+           static_cast<const int32_t*>(seg_q), b, sq, sk, nh, nkv, hd,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
            causal, window, has_off, q_off, k_off, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -110,7 +110,8 @@ template <> struct Tiles<256> {
 struct Params {
   CUtensorMap tm_q, tm_k, tm_v, tm_o;   // tm_o: out [b, sq, nh, hd]
   float* lse;           // [b*nh, sq]
-  const int32_t* seg;   // [b, s] or null
+  const int32_t* seg;   // [b, sk] keys' segments, or null
+  const int32_t* seg_q; // [b, sq] query rows' segments (with seg)
   int sq, sk, nh, nkv;
   int bhn, num_qt;      // b * nh, and the q tiles of BQ rows of each
   int causal, window, has_off, q_off, k_off;
@@ -447,7 +448,7 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
       int seg_q[2] = {0, 0};
       if (p.seg != nullptr)
         for (int i = 0; i < 2; ++i)
-          seg_q[i] = p.seg[bi * p.sq + min(qw0 + r0 + 8 * i, p.sq - 1)];
+          seg_q[i] = p.seg_q[bi * p.sq + min(qw0 + r0 + 8 * i, p.sq - 1)];
       const int seg_base = bi * p.sk;
       #pragma unroll
       for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
@@ -511,7 +512,7 @@ flash_fwd_kernel(const __grid_constant__ Params p) {
 }
 
 struct Args {
-  const void *q, *k, *v, *seg;
+  const void *q, *k, *v, *seg, *seg_q;
   void *out, *lse;
   int dtype, b, sq, sk, nh, nkv, hd;
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
@@ -540,6 +541,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   p.lse = static_cast<float*>(a.lse);
   p.seg = static_cast<const int32_t*>(a.seg);
+  p.seg_q = static_cast<const int32_t*>(a.seg_q);
   p.sq = a.sq; p.sk = a.sk; p.nh = a.nh; p.nkv = a.nkv;
   p.bhn = a.b * a.nh;
   p.num_qt = (a.sq + BQ - 1) / BQ;
@@ -568,7 +570,8 @@ extern "C" {
 // 2 float16; head dim 64, 128 or 256; q/k/v 16-byte aligned with strides
 // of 8 elements (TMA). Returns a cudaError_t (0 = ok).
 int kubedl_flash_fwd90(const void* q, const void* k, const void* v, void* o,
-                       void* lse, const void* seg, int dtype, int b, int sq,
+                       void* lse, const void* seg, const void* seg_q,
+                       int dtype, int b, int sq,
                        int sk, int nh, int nkv, int hd, int64_t q_sb,
                        int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
                        int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -583,7 +586,7 @@ int kubedl_flash_fwd90(const void* q, const void* k, const void* v, void* o,
   if ((dtype != 1 && dtype != 2) || (hd != 64 && hd != 128 && hd != 256)
       || nkv < 1 || nh % nkv != 0 || !aligned)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, seg, o, lse, dtype, b, sq, sk, nh, nkv, hd, q_sb,
+  const Args a{q, k, v, seg, seg_q, o, lse, dtype, b, sq, sk, nh, nkv, hd, q_sb,
                q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, window,
                has_off, q_off, k_off, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -11,7 +11,9 @@ with the family knobs that distinguish it from Llama:
   sublayers, softcaps attention logits, scales queries by its own
   ``query_pre_attn_scalar``, and slides a 4096-token window on even
   layers only (``window_pattern="alternate"``). Those attention knobs
-  take the chunked attention path in both packages (no kernel).
+  take the chunked attention path in both packages (no kernel); on a
+  ``cp``-sharded sequence they need ``cp_impl="ulysses"``, and the ring
+  refuses them, as in the JAX package.
 
 ``forward`` / ``forward_step`` / ``loss_fn`` / ``init_params`` /
 ``init_cache`` work unchanged on these configs; this module only pins the

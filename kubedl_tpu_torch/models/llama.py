@@ -27,8 +27,17 @@ so every rank holds the KV heads its query heads read, as the JAX
 serving path replicates its cache. The embedding and the LM head are
 gathered whole over ``tp`` for the lookup and the loss, their storage
 and gradients staying sharded (a vocab-parallel loss would skip that
-gather: ROADMAP B11). Context parallelism (ring, ulysses) is ROADMAP A5b
-and raises.
+gather: ROADMAP B11).
+
+Under ``cp`` each rank holds a slice of the sequence, and attention takes
+one of the JAX block's three branches: Ulysses (``cp_impl="ulysses"``,
+``parallel/ulysses.py``), the ring (``parallel/ring.py``) when there are
+no segment ids, or, with segment ids on the ring setting, the rank's
+query rows against K, V and the segment ids all-gathered over ``cp`` (K1
+at offsets ``(my * s_local, 0)``), which GSPMD does for the JAX block.
+RoPE positions are global (``my * s_local + arange``), and the loss
+takes the rank's columns of a ``[b, s]`` mask that ``shard_batch``
+leaves whole.
 
 Tensor-parallel serving (``serving.engine.shard_for_serving``) hands the
 model plain tensors, each rank's own shard, with the serving ``mesh``:
@@ -52,12 +61,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..ops.attention import multi_head_attention
+from ..ops.attention import flash_attention, multi_head_attention
 from ..ops.loss import chunked_token_nll
 from ..ops.quant import mm as _mm
 from ..ops.quant import to_dense
-from ..parallel.collectives import (is_sharded, loss_share, tp_sum,
-                                    vocab_gather, vocab_lookup)
+from ..parallel.collectives import (all_gather, is_sharded, loss_share,
+                                    tp_sum, vocab_gather, vocab_lookup)
 from ..parallel.mesh import refuse_unported
 from ..parallel.sharding import materialize, spec
 
@@ -113,7 +122,9 @@ class LlamaConfig:
     query_scale: float = 0.0
     #: "uniform" or "alternate" (even layers slide, odd are global)
     window_pattern: str = "uniform"
-    #: context-parallel scheme, used once the parallel slice lands
+    #: context-parallel scheme when the mesh has cp > 1: "ring" (K/V
+    #: blocks rotate, O(s/cp) activations) or "ulysses" (all-to-all
+    #: heads <-> sequence; composes with segments, windows, Gemma-2 knobs)
     cp_impl: str = "ring"
 
     def __post_init__(self):
@@ -439,9 +450,9 @@ def apply_rope(x, cos, sin):
 
 
 def _check_mesh(mesh) -> None:
-    """The mesh axes the model reads (``cp`` for ring/ulysses attention,
-    ``ep`` for the experts, as in the JAX model) are not ported yet
-    (``parallel.mesh.refuse_unported``)."""
+    """A mesh the model can run: a ``parallel.mesh.Mesh`` whose axes
+    above 1 have a process group behind them (``build_mesh`` under an open
+    group), none of them not ported yet (``refuse_unported``)."""
     if mesh is None:
         return
     shape = getattr(mesh, "shape", None)
@@ -449,6 +460,23 @@ def _check_mesh(mesh) -> None:
         raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
                         f"{type(mesh).__name__}")
     refuse_unported(shape)
+    if mesh.sharded and getattr(mesh, "device_mesh", None) is None:
+        raise ValueError(f"mesh {shape} spans more than one rank but has no "
+                         "process group: build it with parallel.mesh."
+                         "build_mesh under an open group")
+
+
+def _cp(mesh) -> int:
+    return mesh.size("cp") if is_sharded(mesh) else 1
+
+
+def _cp_columns(x, mesh):
+    """This ``cp`` rank's columns of a ``[b, S]`` leaf held whole over
+    ``cp`` (``train/data.shard_batch`` shards only integer ``[b, s]``
+    leaves on it, as JAX's does)."""
+    s = x.shape[1] // _cp(mesh)
+    i = mesh.index("cp")
+    return x[:, i * s:(i + 1) * s]
 
 
 def _tp(mesh) -> int:
@@ -498,13 +526,45 @@ _ATTN_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
 _MLP_LEAVES = ("mlp_norm", "w_gate", "w_up", "w_down", "post_ffw_norm")
 
 
+def _cp_attention(config: LlamaConfig, q, k, v, segment_ids, mesh,
+                  window_on):
+    """Attention on a ``cp``-sharded sequence: the three branches of the
+    JAX block (module docstring). q/k/v are the rank's sequence shard of
+    its heads."""
+    c = config
+    knobs = _attn_knobs(c)
+    if c.cp_impl == "ulysses":
+        from ..parallel.ulysses import ulysses_attention
+        return ulysses_attention(mesh, q, k, v, segment_ids=segment_ids,
+                                 window_on=window_on, causal=True,
+                                 window=c.sliding_window, **knobs)
+    if knobs or window_on is not None:
+        raise ValueError(
+            "Gemma-2 attention knobs (query scale / attn softcap / "
+            "alternate window pattern) are not supported with a "
+            "ring-sharded sequence; set cp_impl='ulysses'")
+    if segment_ids is None:
+        from ..parallel.ring import ring_attention
+        return ring_attention(mesh, q, k, v, causal=True,
+                              window=c.sliding_window)
+    # packed rows on the ring setting: this rank's query rows against the
+    # whole sequence's K/V and segments (all-gathered over cp; the
+    # backward reduce-scatters dK/dV back to the shards)
+    s = q.shape[1]
+    return flash_attention(
+        q, all_gather(k, mesh, 1), all_gather(v, mesh, 1), causal=True,
+        segment_ids=segment_ids,
+        kv_segment_ids=all_gather(segment_ids, mesh, 1),
+        offsets=(mesh.index("cp") * s, 0), window=c.sliding_window)
+
+
 def attention_block(config: LlamaConfig, x, lp, cos, sin, segment_ids,
                     mesh=None, window_on=None):
-    """Pre-norm attention sublayer with residual (the non-context-parallel
-    branch of the JAX block). ``window_on`` toggles the sliding window per
-    layer (Gemma-2's alternate pattern). Under ``tp`` the rank computes
-    its own heads and the output projection's partial sums are added over
-    ``tp``."""
+    """Pre-norm attention sublayer with residual. ``window_on`` toggles
+    the sliding window per layer (Gemma-2's alternate pattern). Under
+    ``tp`` the rank computes its own heads and the output projection's
+    partial sums are added over ``tp``; under ``cp`` attention runs on the
+    rank's slice of the sequence (:func:`_cp_attention`)."""
     c = config
     _check_mesh(mesh)
     if c.window_pattern == "alternate" and window_on is None:
@@ -525,10 +585,13 @@ def attention_block(config: LlamaConfig, x, lp, cos, sin, segment_ids,
         k, v = _local_kv(c, k, v, q.shape[2], mesh)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    attn = multi_head_attention(q, k, v, causal=True,
-                                segment_ids=segment_ids,
-                                window=c.sliding_window,
-                                window_on=window_on, **_attn_knobs(c))
+    if _cp(mesh) > 1:
+        attn = _cp_attention(c, q, k, v, segment_ids, mesh, window_on)
+    else:
+        attn = multi_head_attention(q, k, v, causal=True,
+                                    segment_ids=segment_ids,
+                                    window=c.sliding_window,
+                                    window_on=window_on, **_attn_knobs(c))
     delta = tp_sum(_mm(attn.reshape(b, s, -1), lp["wo"]), mesh)
     if c.sandwich_norms:
         delta = rms_norm(delta, lp["post_attn_norm"], c.rms_eps,
@@ -580,7 +643,9 @@ def forward_hidden(config: LlamaConfig, params: dict, tokens,
     _check_mesh(mesh)
     s = tokens.shape[1]
     if positions is None:
-        positions = torch.arange(s, device=tokens.device)
+        # under cp the rank's tokens sit at global positions
+        first = mesh.index("cp") * s if _cp(mesh) > 1 else 0
+        positions = torch.arange(first, first + s, device=tokens.device)
     cos, sin = rope_frequencies(c, positions)
     x = _embed(c, params, tokens, mesh)
     if apply_layers is not None:
@@ -883,7 +948,10 @@ def lm_loss(config: LlamaConfig, x, params: dict, targets, mask=None,
     LM-head product and softmax run in sequence chunks
     (``ops.loss.chunked_token_nll``), so the [b, s, vocab] logits are
     never materialized. Under a sharded ``mesh`` it is this rank's share
-    of the global mean (``parallel.collectives.loss_share``)."""
+    of the global mean (``parallel.collectives.loss_share``); under ``cp``
+    a ``mask`` held whole over the sequence is cut to the rank's columns."""
+    if mask is not None and mask.shape[1] != targets.shape[1]:
+        mask = _cp_columns(mask, mesh)
     head = to_dense(_lm_head(config, params), config.dtype)
     if config.loss_chunk > 0:
         total = chunked_token_nll(x, head, targets, mask=mask,

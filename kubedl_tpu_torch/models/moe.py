@@ -26,8 +26,16 @@ outputs are summed over ``tp`` before the combine), and the aux loss is
 this rank's share of the global batch's (its statistics summed over the
 data axes). Tensor-parallel serving runs the decode steps the same way
 on each rank's shard of every expert (``mesh=`` of :func:`forward_step`),
-the float32 router replicated, so every rank routes alike. Expert
-parallelism (the ``ep`` mesh axis) is ROADMAP A5b and raises.
+the float32 router replicated, so every rank routes alike.
+
+Under ``ep`` each rank holds ``E / ep`` experts of every stack (their
+storage and gradients stay on the rank) and the same tokens as the other
+``ep`` ranks, as JAX's batch is not sharded on ``ep``: every rank routes
+alike, runs the expert products on its own experts' slice of the
+dispatch and combine, and ``ep_sum`` adds the partial outputs. Under
+``cp`` routing stays global: the router probabilities are all-gathered
+over ``cp``, so capacities and queue positions count the whole sequence
+as JAX's do, and each rank keeps its own rows.
 """
 
 from __future__ import annotations
@@ -42,7 +50,8 @@ from .._device import resolve_device
 from . import llama
 from .llama import LlamaConfig, _check_mesh, rms_norm
 from ..ops.quant import to_dense
-from ..parallel.collectives import data_sum, loss_share, tp_sum
+from ..parallel.collectives import (all_gather, data_sum, ep_sum,
+                                    is_sharded, loss_share, tp_sum)
 from ..parallel.sharding import spec
 
 
@@ -231,8 +240,11 @@ def route(config: MoEConfig, probs, capacity: int, token_mask=None,
     out of the queues and out of the aux statistics. aux is the Switch
     load-balancing loss (E * Σ_e frac_e · prob_e); under a sharded
     ``mesh``, this rank's share of the global batch's: the top-1 counts
-    and the token count summed over the data axes, its own probabilities
-    over the global count, over ``tp``'s size.
+    and the token count summed over the token axes (data and ``cp``), its
+    own probabilities over the global count, over the sizes of ``tp`` and
+    ``ep``. Under ``cp`` the queues run over the whole sequence (the
+    probabilities all-gathered, no gradient through the choice) and the
+    rank keeps its rows; ``capacity`` is then the whole sequence's.
 
     Every op is a device op with shapes fixed by (b, s, E, C), so the
     decode tick's CUDA graph captures it."""
@@ -240,16 +252,21 @@ def route(config: MoEConfig, probs, capacity: int, token_mask=None,
     b, s, E = probs.shape
     k = c.top_k
     dev = probs.device
-    gate, idx = _top_k(probs, k)                              # [b, s, k]
+    cp = mesh.size("cp") if is_sharded(mesh) else 1
+    if cp > 1:
+        # route the whole sequence: every rank ranks the same queues
+        full = all_gather(probs.detach(), mesh, 1)
+        full_mask = (None if token_mask is None
+                     else all_gather(token_mask, mesh, 1))
+        _, idx_full = _top_k(full, k)
+        oh_full, pos_full = _queues(idx_full, E, full_mask)
+        rows = slice(mesh.index("cp") * s, (mesh.index("cp") + 1) * s)
+        idx, oh, pos = idx_full[:, rows], oh_full[:, rows], pos_full[:, rows]
+        gate = probs.gather(-1, idx)
+    else:
+        gate, idx = _top_k(probs, k)                          # [b, s, k]
+        oh, pos = _queues(idx, E, token_mask)
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
-    oh = (idx[..., None] == torch.arange(E, device=dev)).float()
-    if token_mask is not None:
-        oh = oh * token_mask.float()[:, :, None, None]      # [b, s, k, E]
-
-    # position of each (token, choice) in its expert's queue, choice-major
-    ohk = oh.transpose(1, 2).reshape(b, k * s, E)            # [b, k*s, E]
-    pos = torch.cumsum(ohk, dim=1) - ohk
-    pos = pos.reshape(b, k, s, E).transpose(1, 2)            # [b, s, k, E]
     keep = (pos < capacity).float() * oh
     # a position past the capacity matches no slot: the token drops (the
     # JAX one_hot's zero row; torch's one_hot would raise on it)
@@ -272,6 +289,19 @@ def route(config: MoEConfig, probs, capacity: int, token_mask=None,
     return dispatch, combine, aux
 
 
+def _queues(idx, E: int, token_mask=None):
+    """(one-hot choices [b, s, k, E], each choice's position in its
+    expert's queue), choice-major: every first choice outranks any second
+    choice."""
+    b, s, k = idx.shape
+    oh = (idx[..., None] == torch.arange(E, device=idx.device)).float()
+    if token_mask is not None:
+        oh = oh * token_mask.float()[:, :, None, None]      # [b, s, k, E]
+    ohk = oh.transpose(1, 2).reshape(b, k * s, E)            # [b, k*s, E]
+    pos = torch.cumsum(ohk, dim=1) - ohk
+    return oh, pos.reshape(b, k, s, E).transpose(1, 2)       # [b, s, k, E]
+
+
 def capacity_of(config: MoEConfig, s: int) -> int:
     """Expert slots per batch row for a chunk of ``s`` tokens."""
     return max(1, int(math.ceil(
@@ -281,18 +311,27 @@ def capacity_of(config: MoEConfig, s: int) -> int:
 def _moe_block(config: MoEConfig, x, lp, mesh=None, token_mask=None):
     """Sparse-MLP sublayer with residual. Returns (x, aux_loss). Under
     ``tp`` the rank runs its own ``d_ff`` columns of every expert; the
-    expert outputs are summed over ``tp`` before the combine."""
+    expert outputs are summed over ``tp`` before the combine. Under
+    ``ep`` it runs its own experts and the combined outputs are summed
+    over ``ep``; under ``cp`` it routes the whole sequence (``route``)."""
     c = config
     _check_mesh(mesh)
     lp = llama._views(lp, ("mlp_norm", "w_router", "w_gate", "w_up",
                            "w_down"))
-    s = x.shape[1]
+    sharded = is_sharded(mesh)
+    s = x.shape[1] * (mesh.size("cp") if sharded else 1)
     h = rms_norm(x, lp["mlp_norm"], c.rms_eps, c.norm_weight_offset)
 
     logits = h.float() @ lp["w_router"]                      # [b, s, E]
     probs = torch.softmax(logits, dim=-1)
     dispatch, combine, aux = route(c, probs, capacity_of(c, s), token_mask,
                                    mesh=mesh)
+    ep = mesh.size("ep") if sharded else 1
+    if ep > 1:
+        # this rank's experts' slots; its stacks hold those experts
+        n = c.n_experts // ep
+        mine = slice(mesh.index("ep") * n, (mesh.index("ep") + 1) * n)
+        dispatch, combine = dispatch[:, :, mine], combine[:, :, mine]
 
     # [b, s, E, C] x [b, s, d] -> [E, b, C, d]
     xe = torch.einsum("bsec,bsd->ebcd", dispatch.to(c.dtype), h)
@@ -305,7 +344,8 @@ def _moe_block(config: MoEConfig, x, lp, mesh=None, token_mask=None):
         torch.einsum("ebcd,edf->ebcf", xe, w_gate).float()).to(xe.dtype)
     up = torch.einsum("ebcd,edf->ebcf", xe, w_up)
     ye = tp_sum(torch.einsum("ebcf,efd->ebcd", gated * up, w_down), mesh)
-    out = torch.einsum("bsec,ebcd->bsd", combine.to(c.dtype), ye)
+    out = ep_sum(torch.einsum("bsec,ebcd->bsd", combine.to(c.dtype), ye),
+                 mesh)
     return x + out, aux
 
 

@@ -173,10 +173,11 @@ def _offsets(offsets):
 
 
 def _tile_keep(rows, k0: int, n: int, causal, segment_ids, k_off: int,
-               window: int):
+               window: int, kv_segment_ids=None):
     """[b or 1, 1, sq, n] keep-mask of the K/V tile at columns [k0, k0+n)
     for global ``rows`` [sq, 1], or None: the ONE mask the plain versions
-    of the forward and both backward kernels share."""
+    of the forward and both backward kernels share. The keys' segments
+    are ``kv_segment_ids`` [b, sk] when given, else ``segment_ids``."""
     keep = None
     if causal:
         cols = torch.arange(k0, k0 + n, device=rows.device)[None, :] + k_off
@@ -185,16 +186,18 @@ def _tile_keep(rows, k0: int, n: int, causal, segment_ids, k_off: int,
             keep = keep & (cols > rows - window)
         keep = keep[None, None]
     if segment_ids is not None:
+        kv_seg = segment_ids if kv_segment_ids is None else kv_segment_ids
         seg = (segment_ids[:, :, None]
-               == segment_ids[:, None, k0:k0 + n])[:, None]
+               == kv_seg[:, None, k0:k0 + n])[:, None]
         keep = seg if keep is None else keep & seg
     return keep
 
 
 def flash_forward_plain(q, k, v, causal, segment_ids=None, offsets=None,
-                        window=0):
+                        window=0, kv_segment_ids=None):
     """The kernel's arithmetic in plain PyTorch. q [b, sq, nh, hd]; k/v
-    [b, sk, nkv, hd]; segment_ids [b, s] (sq == sk); offsets (q_off,
+    [b, sk, nkv, hd]; segment_ids [b, s] (sq == sk), or the query rows'
+    [b, sq] with ``kv_segment_ids`` the keys' [b, sk]; offsets (q_off,
     k_off) global positions for the causal mask. Returns (out [b, sq, nh,
     hd] in q's dtype, lse [b*nh, sq] float32).
 
@@ -221,7 +224,7 @@ def flash_forward_plain(q, k, v, causal, segment_ids=None, offsets=None,
         vj = vh[:, :, k0:k0 + _BLOCK_K]
         scores = qh @ kj.transpose(-1, -2)
         keep = _tile_keep(rows, k0, kj.shape[2], causal, segment_ids, k_off,
-                          window)
+                          window, kv_segment_ids)
         if keep is not None:
             scores = torch.where(keep, scores, _NEG_INF)
         new_max = torch.maximum(row_max, scores.amax(dim=-1))
@@ -267,12 +270,24 @@ def _unit_stride(*ts):
     return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
 
 
-def _segments(segment_ids, b: int, sq: int, sk: int, device):
+def _segments(segment_ids, b: int, sq: int, sk: int, device,
+              kv_segment_ids=None):
+    """(the keys' segments [b, sk], the query rows' [b, sq]) as the
+    kernels read them, or (None, None)."""
     if segment_ids is None:
-        return None
-    if sq != sk or tuple(segment_ids.shape) != (b, sq):
-        raise ValueError("segment_ids must be [b, s] with sq == sk")
-    return segment_ids.to(device=device, dtype=torch.int32).contiguous()
+        if kv_segment_ids is not None:
+            raise ValueError("kv_segment_ids come with segment_ids")
+        return None, None
+    if kv_segment_ids is None:
+        if sq != sk or tuple(segment_ids.shape) != (b, sq):
+            raise ValueError("segment_ids must be [b, s] with sq == sk")
+        kv_segment_ids = segment_ids
+    elif (tuple(segment_ids.shape) != (b, sq)
+          or tuple(kv_segment_ids.shape) != (b, sk)):
+        raise ValueError("segment_ids must be [b, sq] and kv_segment_ids "
+                         "[b, sk]")
+    return tuple(x.to(device=device, dtype=torch.int32).contiguous()
+                 for x in (kv_segment_ids, segment_ids))
 
 
 def _strides(*ts):
@@ -315,7 +330,7 @@ def _fwd_lib(route: str) -> ctypes.CDLL:
     lib = library(name)
     i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
     fn = getattr(lib, entry)
-    fn.argtypes = [ptr] * 6 + [i32] * 7 + [i64] * 9 + [i32] * 5 + [
+    fn.argtypes = [ptr] * 7 + [i32] * 7 + [i64] * 9 + [i32] * 5 + [
         ctypes.c_float, ptr]
     fn.restype = i32
     lib.kubedl_cuda_error_string.argtypes = [i32]
@@ -324,7 +339,7 @@ def _fwd_lib(route: str) -> ctypes.CDLL:
 
 
 def flash_forward(q, k, v, causal, segment_ids=None, offsets=None,
-                  window=0):
+                  window=0, kv_segment_ids=None):
     """FlashAttention-2 forward, same contract as
     :func:`flash_forward_plain`. On CUDA tensors it launches the forward
     kernel of :func:`flash_fwd_route`'s source (counted in
@@ -333,12 +348,13 @@ def flash_forward(q, k, v, causal, segment_ids=None, offsets=None,
     take raises."""
     if not q.is_cuda:
         return flash_forward_plain(q, k, v, causal, segment_ids=segment_ids,
-                                   offsets=offsets, window=window)
+                                   offsets=offsets, window=window,
+                                   kv_segment_ids=kv_segment_ids)
     _check_qkv("flash_forward", q, k, v, window)
     b, sq, nh, hd = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     q, k, v = _unit_stride(q, k, v)
-    seg = _segments(segment_ids, b, sq, sk, q.device)
+    seg, seg_q = _segments(segment_ids, b, sq, sk, q.device, kv_segment_ids)
     q_off, k_off = _offsets(offsets)
     out = torch.empty((b, sq, nh, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * nh, sq), dtype=torch.float32, device=q.device)
@@ -353,6 +369,7 @@ def flash_forward(q, k, v, causal, segment_ids=None, offsets=None,
     err = getattr(lib, _FWD_SOURCES[route][1])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), 0 if seg is None else seg.data_ptr(),
+        0 if seg_q is None else seg_q.data_ptr(),
         _DTYPE_CODES[q.dtype], b, sq, sk, nh, nkv, hd, *_strides(q, k, v),
         int(bool(causal)), int(window), int(offsets is not None), q_off,
         k_off, 1.0 / math.sqrt(hd),
@@ -384,7 +401,7 @@ def flash_delta(o, do):
 
 
 def _bwd_tiles(q, k, v, do, lse, delta, causal, segment_ids, offsets,
-               window):
+               window, kv_segment_ids=None):
     """The backward kernels' per-tile arithmetic in float32, q-head space:
     for each 64-column K/V tile yields ``(k0, kj, p, ds)`` with p = exp(s
     - lse) over scores s = (q·k)·scale masked to -1e30, and ds = p ∘
@@ -405,7 +422,7 @@ def _bwd_tiles(q, k, v, do, lse, delta, causal, segment_ids, offsets,
         vj = vh[:, :, k0:k0 + _BLOCK_K]
         scores = (qh @ kj.transpose(-1, -2)) * scale
         keep = _tile_keep(rows, k0, kj.shape[2], causal, segment_ids, k_off,
-                          window)
+                          window, kv_segment_ids)
         if keep is not None:
             scores = torch.where(keep, scores, _NEG_INF)
         p = torch.exp(scores - lse)
@@ -414,7 +431,7 @@ def _bwd_tiles(q, k, v, do, lse, delta, causal, segment_ids, offsets,
 
 
 def flash_dq_plain(q, k, v, do, lse, delta, causal, segment_ids=None,
-                   offsets=None, window=0):
+                   offsets=None, window=0, kv_segment_ids=None):
     """The dQ kernel's arithmetic in plain PyTorch: dq = scale · Σ ds·K
     over the K/V tiles, in q's dtype [b, sq, nh, hd]. ``lse`` is the
     forward's [b*nh, sq]; ``delta`` is :func:`flash_delta`. Skipped tiles
@@ -423,13 +440,14 @@ def flash_dq_plain(q, k, v, do, lse, delta, causal, segment_ids=None,
     dq = torch.zeros(q.transpose(1, 2).shape, dtype=torch.float32,
                      device=q.device)
     for _, kj, _, ds in _bwd_tiles(q, k, v, do, lse, delta, causal,
-                                   segment_ids, offsets, window):
+                                   segment_ids, offsets, window,
+                                   kv_segment_ids):
         dq += ds @ kj
     return (dq * scale).transpose(1, 2).to(q.dtype)
 
 
 def flash_dkv_plain(q, k, v, do, lse, delta, causal, segment_ids=None,
-                    offsets=None, window=0):
+                    offsets=None, window=0, kv_segment_ids=None):
     """The dK/dV kernel's arithmetic in plain PyTorch: dv = Σ pᵀ·dO and dk
     = scale · Σ dsᵀ·Q over every query row of the GQA group's heads,
     returned in kv-head space [b, sk, nkv, hd] in k's and v's dtypes."""
@@ -442,7 +460,8 @@ def flash_dkv_plain(q, k, v, do, lse, delta, causal, segment_ids=None,
     dk = torch.zeros((b, nkv, sk, hd), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
     for k0, kj, p, ds in _bwd_tiles(q, k, v, do, lse, delta, causal,
-                                    segment_ids, offsets, window):
+                                    segment_ids, offsets, window,
+                                    kv_segment_ids):
         n = kj.shape[2]
         dv[:, :, k0:k0 + n] = torch.einsum(
             "bgrqk,bgrqd->bgkd", p.reshape(b, nkv, reps, sq, n), og)
@@ -453,13 +472,14 @@ def flash_dkv_plain(q, k, v, do, lse, delta, causal, segment_ids=None,
 
 
 def flash_backward_plain(q, k, v, o, lse, do, causal, segment_ids=None,
-                         offsets=None, window=0):
+                         offsets=None, window=0, kv_segment_ids=None):
     """Both backward kernels' arithmetic in plain PyTorch: (dq [b, sq, nh,
     hd], dk, dv [b, sk, nkv, hd]) from the forward's ``o`` and ``lse`` and
     the incoming gradient ``do``, the arguments of the JAX package's
     ``_flash_backward``."""
     delta = flash_delta(o, do)
-    kw = dict(segment_ids=segment_ids, offsets=offsets, window=window)
+    kw = dict(segment_ids=segment_ids, offsets=offsets, window=window,
+              kv_segment_ids=kv_segment_ids)
     dq = flash_dq_plain(q, k, v, do, lse, delta, causal, **kw)
     dk, dv = flash_dkv_plain(q, k, v, do, lse, delta, causal, **kw)
     return dq, dk, dv
@@ -521,7 +541,7 @@ def _bwd_lib(route: str) -> ctypes.CDLL:
     lib = library(name)
     i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
     shapes = [i32] * 7 + [i64] * 12 + [i32] * 5 + [ctypes.c_float]
-    for fn, n_ptr in (("dq", 8), ("dkv", 9)):
+    for fn, n_ptr in (("dq", 9), ("dkv", 10)):
         # the sm90 dK/dV entry also takes a workspace and the split count
         split = int(route == "sm90" and fn == "dkv")
         f = getattr(lib, prefix + fn)
@@ -573,8 +593,10 @@ def _bwd_kernel(name: str, q, k, v, do, lse, delta, seg, outs, causal,
     wrapper.launches_by_route[route] += 1
 
 
-def _bwd_args(name, q, k, v, do, lse, delta, segment_ids, window):
-    """Checked, unit-stride kernel operands of a backward launch."""
+def _bwd_args(name, q, k, v, do, lse, delta, segment_ids, window,
+              kv_segment_ids=None):
+    """Checked, unit-stride kernel operands of a backward launch; ``seg``
+    is the pair of :func:`_segments`."""
     _check_qkv(name, q, k, v, window)
     b, sq, nh, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
@@ -587,7 +609,8 @@ def _bwd_args(name, q, k, v, do, lse, delta, segment_ids, window):
                              f"[{b * nh}, {sq}] on q's device, got "
                              f"{t.dtype} {tuple(t.shape)}")
     q, k, v, do = _unit_stride(q, k, v, do)
-    seg = _segments(segment_ids, b, sq, k.shape[1], q.device)
+    seg = _segments(segment_ids, b, sq, k.shape[1], q.device,
+                    kv_segment_ids)
     return q, k, v, do, lse.contiguous(), delta.contiguous(), seg
 
 
@@ -598,7 +621,8 @@ def _bwd_launch(fn, q, k, v, do, lse, delta, seg, outs, causal, offsets,
     q_off, k_off = _offsets(offsets)
     return fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), 0 if seg is None else seg.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        *[0 if t is None else t.data_ptr() for t in seg],
         *[0 if t is None else t.data_ptr() for t in outs],
         _DTYPE_CODES[q.dtype], b, sq, sk, nh, nkv, hd, *_strides(q, k, v, do),
         int(bool(causal)), int(window), int(offsets is not None), q_off,
@@ -607,7 +631,7 @@ def _bwd_launch(fn, q, k, v, do, lse, delta, seg, outs, causal, offsets,
 
 
 def flash_dq(q, k, v, do, lse, delta, causal, segment_ids=None,
-             offsets=None, window=0):
+             offsets=None, window=0, kv_segment_ids=None):
     """dQ kernel, same contract as :func:`flash_dq_plain`. On CUDA tensors
     it launches the dQ kernel of :func:`flash_dq_route`'s source (counted
     in ``flash_dq.launches`` and ``flash_dq.launches_by_route``); on CPU
@@ -615,9 +639,10 @@ def flash_dq(q, k, v, do, lse, delta, causal, segment_ids=None,
     if not q.is_cuda:
         return flash_dq_plain(q, k, v, do, lse, delta, causal,
                               segment_ids=segment_ids, offsets=offsets,
-                              window=window)
+                              window=window, kv_segment_ids=kv_segment_ids)
     q, k, v, do, lse, delta, seg = _bwd_args(
-        "flash_dq", q, k, v, do, lse, delta, segment_ids, window)
+        "flash_dq", q, k, v, do, lse, delta, segment_ids, window,
+        kv_segment_ids)
     b, sq, nh, hd = q.shape
     dq = torch.empty((b, sq, nh, hd), dtype=q.dtype, device=q.device)
     if sq == 0 or b * nh == 0:
@@ -630,7 +655,7 @@ def flash_dq(q, k, v, do, lse, delta, causal, segment_ids=None,
 
 
 def flash_dkv(q, k, v, do, lse, delta, causal, segment_ids=None,
-              offsets=None, window=0):
+              offsets=None, window=0, kv_segment_ids=None):
     """dK/dV kernel, same contract as :func:`flash_dkv_plain`. On CUDA
     tensors it launches the dK/dV kernel of :func:`flash_dkv_route`'s
     source (counted in ``flash_dkv.launches`` and
@@ -639,9 +664,10 @@ def flash_dkv(q, k, v, do, lse, delta, causal, segment_ids=None,
     if not q.is_cuda:
         return flash_dkv_plain(q, k, v, do, lse, delta, causal,
                                segment_ids=segment_ids, offsets=offsets,
-                               window=window)
+                               window=window, kv_segment_ids=kv_segment_ids)
     q, k, v, do, lse, delta, seg = _bwd_args(
-        "flash_dkv", q, k, v, do, lse, delta, segment_ids, window)
+        "flash_dkv", q, k, v, do, lse, delta, segment_ids, window,
+        kv_segment_ids)
     b, sq = q.shape[:2]
     sk, nkv, hd = k.shape[1:]
     dk = torch.empty((b, sk, nkv, hd), dtype=k.dtype, device=k.device)
@@ -664,15 +690,27 @@ flash_dkv.launches_by_route = {"sm90": 0, "simt": 0}
 
 
 def flash_backward(q, k, v, o, lse, do, causal, segment_ids=None,
-                   offsets=None, window=0):
+                   offsets=None, window=0, kv_segment_ids=None):
     """Flash-2 backward, same contract as :func:`flash_backward_plain`:
     Δ in PyTorch, then :func:`flash_dq` and :func:`flash_dkv` (the two
     kernels on CUDA tensors, their plain versions on CPU tensors)."""
     delta = flash_delta(o, do)
-    kw = dict(segment_ids=segment_ids, offsets=offsets, window=window)
+    kw = dict(segment_ids=segment_ids, offsets=offsets, window=window,
+              kv_segment_ids=kv_segment_ids)
     dq = flash_dq(q, k, v, do, lse, delta, causal, **kw)
     dk, dv = flash_dkv(q, k, v, do, lse, delta, causal, **kw)
     return dq, dk, dv
+
+
+def chunked_backward_opted_in(why: Optional[str] = None) -> bool:
+    """Whether ``KUBEDL_FLASH_BWD=chunked`` is set (read at each
+    backward). With ``why``, a backward that cannot take the opt-in (it
+    says why) raises instead of ignoring it."""
+    on = os.environ.get("KUBEDL_FLASH_BWD", "kernel") == "chunked"
+    if on and why:
+        raise ValueError(f"KUBEDL_FLASH_BWD=chunked is set, but {why}: "
+                         "this backward runs the kernels only; unset it")
+    return on
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -681,44 +719,58 @@ class _FlashAttention(torch.autograd.Function):
     lse; backward :func:`flash_backward`. ``KUBEDL_FLASH_BWD=chunked``
     (read at each backward) recomputes through the differentiable
     :func:`chunked_attention` instead; it is an explicit opt-in, never
-    taken on a failure."""
+    taken on a failure, and refused (a ``ValueError``) with global
+    ``offsets`` or ``kv_segment_ids``, which the chunked path cannot
+    take."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segment_ids, causal, window):
+    def forward(ctx, q, k, v, segment_ids, causal, window, offsets=None,
+                kv_segment_ids=None):
         out, lse = flash_forward(q, k, v, causal, segment_ids=segment_ids,
-                                 window=window)
-        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
-        ctx.causal, ctx.window = causal, window
+                                 window=window, offsets=offsets,
+                                 kv_segment_ids=kv_segment_ids)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids, kv_segment_ids)
+        ctx.causal, ctx.window, ctx.offsets = causal, window, offsets
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, o, lse, segment_ids = ctx.saved_tensors
-        if os.environ.get("KUBEDL_FLASH_BWD", "kernel") == "chunked":
+        q, k, v, o, lse, segment_ids, kv_segment_ids = ctx.saved_tensors
+        split = ctx.offsets is not None or kv_segment_ids is not None
+        if chunked_backward_opted_in(
+                "the chunked path cannot take global offsets or "
+                "kv_segment_ids (one cp rank's rows against the whole "
+                "sequence's keys)" if split else None):
             with torch.enable_grad():
                 qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
                 out = chunked_attention(qd, kd, vd, causal=ctx.causal,
                                         segment_ids=segment_ids,
                                         window=ctx.window)
                 dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
-            return dq, dk, dv, None, None, None
+            return dq, dk, dv, None, None, None, None, None
         dq, dk, dv = flash_backward(q, k, v, o, lse, g, ctx.causal,
                                     segment_ids=segment_ids,
-                                    window=ctx.window)
-        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+                                    window=ctx.window, offsets=ctx.offsets,
+                                    kv_segment_ids=kv_segment_ids)
+        return (dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None,
+                None)
 
 
 def flash_attention(q, k, v, causal: bool = True, segment_ids=None,
-                    window: int = 0):
+                    window: int = 0, offsets=None, kv_segment_ids=None):
     """Flash attention out [b, sq, nh, hd]. When autograd records (a
     grad-requiring q, k or v) it runs the :class:`_FlashAttention`
     Function, so the backward kernels produce dq/dk/dv; otherwise (the
-    serving path) just :func:`flash_forward`."""
+    serving path) just :func:`flash_forward`. ``offsets`` and
+    ``kv_segment_ids`` as in :func:`flash_forward_plain` (the query rows
+    of one ``cp`` rank against the whole sequence's keys)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, segment_ids, causal, window)
+        return _FlashAttention.apply(q, k, v, segment_ids, causal, window,
+                                     offsets, kv_segment_ids)
     out, _ = flash_forward(q, k, v, causal, segment_ids=segment_ids,
-                           window=window)
+                           window=window, offsets=offsets,
+                           kv_segment_ids=kv_segment_ids)
     return out
 
 

@@ -13,8 +13,22 @@ gradient is the gradient of the sum over ranks of each rank's loss:
   (a value every ``tp`` rank holds, used on every rank, is a sum of the
   ranks' uses);
 * each rank's loss is its share of the global loss (``loss_share``): its
-  rows' sum over the global count, over ``tp``'s size, so the shares
-  add up to the JAX package's global mean.
+  rows' sum over the global count (its tokens: the ``cp`` ranks hold
+  different tokens of the same rows), over the sizes of ``tp`` and
+  ``ep`` (whose ranks hold the same tokens), so the shares add up to the
+  JAX package's global mean.
+
+Context and expert parallelism move activations:
+
+* :func:`ring_shift` hands a tensor to the next rank of the ``cp`` ring
+  and takes the previous rank's (``dist.batch_isend_irecv``; a gloo
+  group stages CUDA tensors through the host, counted in
+  ``ring_shift.host_staged``); its backward shifts the gradient back;
+* :func:`all_to_all` is the tiled all-to-all between heads and sequence
+  of Ulysses attention; its backward is the reverse all-to-all;
+* :func:`ep_sum` sums the ``ep`` ranks' partial expert outputs as
+  ``tp_sum`` sums ``tp``'s, and expert stacks sharded on ``ep`` stay
+  local in :func:`gather` as a ``tp`` shard does.
 
 Tensor-parallel serving holds the embedding table and the LM head as
 each rank's vocab shard (Megatron's form): :func:`vocab_lookup` reads
@@ -77,7 +91,10 @@ def gather_steps(spec: tuple, mesh, gather_tp: bool) -> list:
     """The plan of :class:`_Gather` for a leaf sharded by ``spec`` (one
     entry per tensor dim: None, an axis name or a tuple of them): every
     axis of size > 1 gathers, innermost first, except ``tp`` when the
-    caller computes on its ``tp`` shard (``gather_tp`` False)."""
+    caller computes on its ``tp`` shard (``gather_tp`` False) and ``ep``
+    (an expert stack's rank computes on its own experts). An axis the
+    leaf is replicated over (``cp`` always, ``ep`` for every leaf but the
+    expert stacks) all-reduces the gradient."""
     from .mesh import AXES
     steps = []
     for axis in reversed(AXES):
@@ -87,7 +104,8 @@ def gather_steps(spec: tuple, mesh, gather_tp: bool) -> list:
         dims = [d for d, e in enumerate(spec)
                 if e == axis or (isinstance(e, tuple) and axis in e)]
         dim = dims[0] if dims else None
-        if axis == "tp" and dim is not None and not gather_tp:
+        if dim is not None and (axis == "ep"
+                                or (axis == "tp" and not gather_tp)):
             continue
         steps.append((mesh.group(axis), n, dim))
     return steps
@@ -117,16 +135,129 @@ class _SumOver(torch.autograd.Function):
         return g, None
 
 
-def tp_sum(x, mesh):
-    """Sum the ``tp`` ranks' partial outputs (row-parallel products);
-    forward only when autograd does not record."""
-    if not is_sharded(mesh) or mesh.size("tp") == 1:
+def _sum_over(x, mesh, axis: str):
+    if not is_sharded(mesh) or mesh.size(axis) == 1:
         return x
     if not torch.is_grad_enabled():
         x = x.contiguous().clone()
-        dist.all_reduce(x, group=mesh.group("tp"))
+        dist.all_reduce(x, group=mesh.group(axis))
         return x
-    return _SumOver.apply(x, mesh.group("tp"))
+    return _SumOver.apply(x, mesh.group(axis))
+
+
+def tp_sum(x, mesh):
+    """Sum the ``tp`` ranks' partial outputs (row-parallel products);
+    forward only when autograd does not record."""
+    return _sum_over(x, mesh, "tp")
+
+
+def ep_sum(x, mesh):
+    """Sum the ``ep`` ranks' partial expert outputs (each rank's experts'
+    share of the combine), as :func:`tp_sum` sums ``tp``'s."""
+    return _sum_over(x, mesh, "ep")
+
+
+def _shift(x, group, n: int, step: int):
+    """``x`` sent ``step`` places along the ring of ``group``'s ranks
+    (rank ``r`` to ``r + step``); returns the tensor rank ``r - step``
+    sent. CUDA tensors on a gloo group go through the host: gloo's
+    point-to-point calls take host memory only."""
+    me = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (me + step) % n)
+    src = dist.get_global_rank(group, (me - step) % n)
+    x = x.contiguous()
+    staged = x.is_cuda and dist.get_backend(group) == "gloo"
+    if staged:
+        ring_shift.host_staged += 1
+        x = x.cpu()
+    out = torch.empty_like(x)
+    for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, dst, group),
+                                       dist.P2POp(dist.irecv, out, src,
+                                                  group)]):
+        req.wait()
+    return out.cuda() if staged else out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _shift(x, group, n, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.group, ctx.n, -1), None, None
+
+
+def ring_shift(x, mesh, axis: str = "cp"):
+    """``x`` handed to the next rank of ``axis``'s ring, the previous
+    rank's returned (``lax.ppermute`` by ``j -> j + 1``); the backward
+    hands the gradient back the other way. Outside autograd a bare
+    exchange."""
+    n = mesh.size(axis)
+    if n == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _RingShift.apply(x, mesh.group(axis), n)
+    return _shift(x, mesh.group(axis), n, 1)
+
+
+#: CUDA tensors a gloo ring shift carried through the host (a NCCL group
+#: never does)
+ring_shift.host_staged = 0
+
+
+def _a2a(x, group, n: int, split_dim: int, concat_dim: int):
+    """Tiled all-to-all: chunk ``j`` of ``x`` along ``split_dim`` goes to
+    rank ``j``, and the chunks received are concatenated in rank order
+    along ``concat_dim``."""
+    parts = x.movedim(split_dim, 0)
+    parts = parts.reshape((n, parts.shape[0] // n) + tuple(parts.shape[1:]))
+    parts = parts.contiguous()
+    out = torch.empty_like(parts)
+    dist.all_to_all_single(out, parts, group=group)
+    # out[j] is rank j's chunk of this rank's split: [n, c, ...] with the
+    # split dim leading; put it back, then lay the n chunks along concat
+    out = out.movedim(1, split_dim + 1)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, split_dim, concat_dim):
+        ctx.args = (group, n, split_dim, concat_dim)
+        return _a2a(x, group, n, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, split_dim, concat_dim = ctx.args
+        return _a2a(g, group, n, concat_dim, split_dim), None, None, None, \
+            None
+
+
+def all_to_all(x, mesh, split_dim: int, concat_dim: int, axis: str = "cp"):
+    """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+    ``x`` cut into ``axis``'s size chunks along ``split_dim``, chunk ``j``
+    sent to rank ``j``, the received chunks laid in rank order along
+    ``concat_dim``. Its backward is the reverse all-to-all."""
+    n = mesh.size(axis)
+    if n == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x, mesh.group(axis), n, split_dim, concat_dim)
+    return _a2a(x, mesh.group(axis), n, split_dim, concat_dim)
+
+
+def all_gather(x, mesh, dim: int, axis: str = "cp"):
+    """``x`` all-gathered over ``axis`` along ``dim`` (tiled, rank order);
+    the backward reduce-scatters the gradient back to the shards."""
+    n = mesh.size(axis)
+    if n == 1:
+        return x
+    steps = [(mesh.group(axis), n, dim)]
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Gather.apply(x, steps)
+    return _all_gather(x, dim, mesh.group(axis), n)
 
 
 def vocab_lookup(table, ids, mesh):
@@ -156,13 +287,14 @@ def vocab_gather(logits, mesh):
 
 @torch.no_grad()
 def data_sum(x, mesh):
-    """``x`` summed over the data axes (``dp``, ``fsdp``), no gradient:
-    the global counts the loss shares divide by (``x`` itself, detached,
-    off a sharded mesh)."""
+    """``x`` summed over the axes whose ranks hold different tokens: the
+    data axes (``dp``, ``fsdp``) and ``cp`` (each rank a slice of the
+    sequence). No gradient: the global counts the loss shares divide by
+    (``x`` itself, detached, off a sharded mesh)."""
     if not is_sharded(mesh):
         return x.detach()
     x = x.detach().clone()
-    for axis in ("fsdp", "dp"):
+    for axis in ("cp", "fsdp", "dp"):
         if mesh.size(axis) > 1:
             dist.all_reduce(x, group=mesh.group(axis))
     return x
@@ -170,11 +302,14 @@ def data_sum(x, mesh):
 
 def loss_share(total, count, mesh):
     """This rank's share of a global mean: its ``total`` over the count
-    summed over the data axes, over ``tp``'s size (every ``tp`` rank
-    holds the same value). The shares of all ranks add up to the mean;
-    off a sharded mesh it is the mean itself, ``total / count``."""
+    summed over the token axes (:func:`data_sum`), over the sizes of
+    ``tp`` and ``ep`` (every rank of either holds the same value). The
+    shares of all ranks add up to the mean; off a sharded mesh it is the
+    mean itself, ``total / count``."""
     mean = total / torch.clamp_min(data_sum(count.float(), mesh), 1.0)
-    return mean / mesh.size("tp") if is_sharded(mesh) else mean
+    if not is_sharded(mesh):
+        return mean
+    return mean / (mesh.size("tp") * mesh.size("ep"))
 
 
 def is_sharded(mesh) -> bool:

@@ -13,8 +13,10 @@ With a group open, :func:`build_mesh` lays the group's ranks out over a
 one it returns the one-device mesh of earlier slices, and any axis above
 1 is a layout this one process cannot hold.
 
-``dp``, ``fsdp`` and ``tp`` train (``train/trainer.py``); ``ep`` and
-``cp`` wait for ROADMAP A5b and ``pp`` for A5c, and raise by item.
+``dp``, ``fsdp``, ``tp``, ``cp`` (ring and Ulysses attention,
+``parallel/ring.py`` and ``parallel/ulysses.py``) and ``ep`` (MoE experts,
+``models/moe.py``) train (``train/trainer.py``); ``pp`` waits for
+ROADMAP A5c and raises by item.
 """
 
 from __future__ import annotations
@@ -30,9 +32,7 @@ from .._device import resolve_device
 AXES = ("dp", "fsdp", "ep", "pp", "cp", "tp")
 
 #: mesh axes that are not ported yet, and the ROADMAP item of each
-UNPORTED_AXES = {"ep": "ROADMAP A5b (expert parallelism)",
-                 "cp": "ROADMAP A5b (context parallelism: ring/ulysses)",
-                 "pp": "ROADMAP A5c (pipeline parallelism)"}
+UNPORTED_AXES = {"pp": "ROADMAP A5c (pipeline parallelism)"}
 
 
 @dataclass(frozen=True)
@@ -112,8 +112,8 @@ def build_mesh(config: Optional[MeshConfig] = None, device=None) -> Mesh:
     """The named mesh on ``device`` (the card unless the caller names the
     CPU). Under an open process group its axes cover the group's ranks,
     with ``MeshConfig``'s default (-1) putting every rank on ``fsdp``;
-    without one it is the one-device mesh. ``ep``, ``cp`` and ``pp``
-    above 1 raise, naming their ROADMAP items."""
+    without one it is the one-device mesh. ``pp`` above 1 raises,
+    naming its ROADMAP item."""
     config = config or MeshConfig()
     refuse_unported({a: getattr(config, a) for a in AXES})
     dev = resolve_device(device)

@@ -230,10 +230,19 @@ def local_device_count(device) -> int:
 def serving_tp(mesh) -> int:
     """The ``tp`` size of a serving mesh (1 for None or one rank), after
     refusing axes that serving does not shard over: the port's serving
-    mesh is one host's ``tp`` group, as the JAX predictor's. Axes not
-    ported yet raise by ROADMAP item first (``llama._check_mesh``)."""
+    mesh is one host's ``tp`` group, as the JAX predictor's. ``cp`` and
+    ``ep`` train (``parallel/ring.py``, ``parallel/ulysses.py``,
+    ``models/moe.py``) but no JAX entry point serves over them; they
+    raise by their ROADMAP item first, as do axes not ported at all
+    (``llama._check_mesh``)."""
     if mesh is None:
         return 1
+    for axis in ("cp", "ep"):
+        if mesh.size(axis) > 1:
+            raise NotImplementedError(
+                f"serving over a mesh with {axis}={mesh.size(axis)} is not "
+                "ported: ROADMAP A5e (serving over a cp/ep mesh, which no "
+                "JAX entry point builds)")
     llama._check_mesh(mesh)
     other = {a: n for a, n in mesh.shape.items() if a != "tp" and n > 1}
     if other:

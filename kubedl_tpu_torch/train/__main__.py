@@ -52,8 +52,10 @@ Across processes: with the operator's rendezvous contract in the env
 (``KUBEDL_COORDINATOR_ADDRESS``, ``KUBEDL_NUM_PROCESSES``,
 ``KUBEDL_PROCESS_ID``; ``runtime/bootstrap.py``) the job opens a process
 group first (NCCL on the card, gloo on the CPU), then lays ``"mesh":
-{"dp": .., "fsdp": .., "tp": ..}`` over its ranks (default: every rank on
-``fsdp``), places the params by the family's ``param_specs`` (and the
+{"dp": .., "fsdp": .., "ep": .., "cp": .., "tp": ..}`` over its ranks
+(default: every rank on ``fsdp``; ``cp`` shards the sequence through ring
+or Ulysses attention, picked by ``"model_overrides": {"cp_impl": ...}``
+as in the JAX entrypoint, and ``ep`` an MoE model's experts), places the params by the family's ``param_specs`` (and the
 adapters by ``adapter_specs`` under ``lora``) and trains every mode
 sharded: each rank draws the global batch and keeps its rows, the loss
 is the global mean, checkpoints reshard across world sizes, and the
@@ -61,7 +63,8 @@ export gathers the params and only rank 0 writes. The group is torn
 down on exit.
 
 Not ported yet, and refused by name: ``mode: grpo`` (ROADMAP A7), the
-mesh axes ``ep`` and ``cp`` (A5b) and ``pp`` (A5c) above 1, and the
+mesh axis ``pp`` (A5c) above 1, the modes ``evaluate`` and ``dpo`` and
+in-training eval over ``cp`` above 1 (A5f), and the
 in-cluster elastic agent and a multi-process launch without the
 operator's contract (``WORLD_SIZE`` of torchrun or a PyTorchJob) (A8).
 """
@@ -483,6 +486,13 @@ def _refuse_unported(cfg: dict, env) -> None:
                 "reading another launcher's env is ROADMAP A8")
     from ..parallel.mesh import refuse_unported
     refuse_unported(cfg.get("mesh", {}))
+    if cfg.get("mesh", {}).get("cp", 1) > 1 and (
+            mode in ("evaluate", "dpo") or cfg.get("eval")):
+        # their per-row sums span the sequence, which cp splits
+        raise NotImplementedError(
+            f"mode {mode!r}{' with in-training eval' if cfg.get('eval') else ''}"
+            " over a cp mesh is not ported yet: ROADMAP A5f (per-row "
+            "sums of a sequence split over cp)")
 
 
 def _rank() -> int:

@@ -477,13 +477,15 @@ def test_unported_options_are_refused_by_name(models, name):
 def test_moe_and_standalone_speculative_engine_are_refused():
     """The MoE family serves (``test_torch_moe_serving.py``), over a
     ``tp`` mesh too (``test_torch_serving_tp.py``), but not over its
-    expert-parallel ``ep`` axis, which waits for ROADMAP A5b. The
-    standalone speculative engine waits for its own item."""
+    expert-parallel ``ep`` axis: ``ep`` trains
+    (``test_torch_cp_ep_train.py``), and serving over it waits for
+    ROADMAP A5e. The standalone speculative engine waits for its own
+    item."""
     from kubedl_tpu_torch.models import moe as tmoe
     from kubedl_tpu_torch.serving.speculative import SpeculativeEngine
     ep_mesh = tmesh.Mesh(device=torch.device("cpu"),
                          shape={a: 2 if a == "ep" else 1 for a in tmesh.AXES})
-    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5e"):
         tbatching.ContinuousBatchingEngine(tmoe.tiny(), {}, mesh=ep_mesh,
                                            device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):

@@ -81,6 +81,13 @@ def test_the_tensor_parallel_serving_modules_are_checked():
             "kubedl_tpu_torch.parallel.launch"} <= set(MODULES)
 
 
+def test_the_context_and_expert_parallel_modules_are_checked():
+    """...and so are ring and Ulysses attention, the context-parallel
+    twins of the JAX package's modules."""
+    assert {"kubedl_tpu_torch.parallel.ring",
+            "kubedl_tpu_torch.parallel.ulysses"} <= set(MODULES)
+
+
 def test_every_module_imports_with_jax_blocked():
     code = ("import sys\nsys.modules['jax'] = None\n"
             "import importlib\n"

@@ -265,11 +265,13 @@ def test_forward_logits_match_jax(model):
                                atol=LOGITS_ATOL)
     _, jaux = jmoe.forward_hidden(jcfg, params, jnp.asarray(toks))
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
-    # expert parallelism (a mesh with ep > 1) waits for ROADMAP A5b
+    # expert parallelism (a mesh with ep > 1) trains across processes
+    # (test_torch_cp_ep_train.py); a mesh that claims ep=2 with no
+    # process group behind it is refused
     from kubedl_tpu_torch.parallel import mesh as tmesh
     ep_mesh = tmesh.Mesh(device=torch.device("cpu"),
                          shape={a: 2 if a == "ep" else 1 for a in tmesh.AXES})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="has no process group"):
         tmoe.forward(tcfg, tparams, torch.from_numpy(toks).long(),
                      mesh=ep_mesh)
 

@@ -367,11 +367,12 @@ def test_main_sft_masks_the_prompt(tmp_path):
     # checkpoints, eval, evaluate/dpo and HF export run since slice 10
     # (test_torch_train_main.py); GRPO rides the RL item
     ({"mode": "grpo"}, "ROADMAP A7"),
-    # the MoE family trains (test_torch_moe_train.py); its ep axis waits
-    ({"model": "moe.mixtral_8x7b", "mesh": {"ep": 2}}, "ROADMAP A5"),
-    # dp/fsdp/tp train across processes (test_torch_sharded_*.py); the
-    # context-parallel axis waits
-    ({"mesh": {"cp": 2}}, "ROADMAP A5b"),
+    # the MoE family trains (test_torch_moe_train.py), over ep too
+    # (test_torch_cp_ep_train.py); pipeline stages wait
+    ({"model": "moe.mixtral_8x7b", "mesh": {"pp": 2}}, "ROADMAP A5c"),
+    # dp/fsdp/tp/cp train across processes (test_torch_sharded_*.py,
+    # test_torch_cp_ep_train.py); evaluation over cp waits
+    ({"mode": "evaluate", "mesh": {"cp": 2}}, "ROADMAP A5f"),
 ])
 def test_main_refuses_what_is_not_ported(tmp_path, over, match):
     with pytest.raises(NotImplementedError, match=match):
