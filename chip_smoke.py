@@ -156,6 +156,26 @@ choices against the same step on one process, are held to
 ``MESH_BOUNDS``; each rank's step time and peak memory print.
 ``--phases ring,cp2,ep2`` runs them alone (``ep2`` after the MoE
 training run it compares with).
+
+Since slice 14, after ``ep2``, pipeline parallelism and GRPO: ``pp``
+holds the training cell's configuration (Llama-3-8B width, 8 layers, b=4
+x 2048) in 4 stages of one process (``parallel.pipeline.local_stages``,
+the slots the ranks run) and checks the train entry's GPipe loss
+(``build_pp_pretrain``, 4 microbatches) against the flat step and
+``pipeline_grads_1f1b`` against GPipe on the same weights, with each
+run's K1-K3 launches, time and peak memory and each stage's stash peak
+beside 1F1B's ``max_inflight``, then K1-K3 at the microbatch shape.
+``pp2`` trains Llama-3-8B width and Gemma-2B width (2 layers each)
+through the train entrypoint's ``main`` under ``"mesh": {"pp": 2}`` in
+two gloo processes on the one card, each against the same job unsharded
+(``_hold_mesh_run``; the exchanges must go through the host). ``grpo``
+runs ``main`` in ``mode: grpo`` on Gemma-2B at full size (2 rounds of 2
+steps, 2 prompts x 4 completions of 32 tokens): the on-policy identity
+at each round's first step, round 2's rollouts on the updated weights;
+then ``rl.FlywheelLearner`` steps and publishes a small model, and the
+continuous engine, refreshed in place with the published policy, samples
+on it through its captured decode graphs. ``--phases pp,pp2,grpo`` runs
+them alone.
 """
 
 from __future__ import annotations
@@ -3382,7 +3402,14 @@ CP2_LAYERS, CP2_SEQ, CP2_STEPS = 2, 4096, 3
 MESH_BOUNDS = {"cp2": {"loss_gap": 1e-3, "hidden_rel": 2e-2,
                        "grad_rel": 3e-2},
                "ep2": {"loss_gap": 0.1, "hidden_rel": 0.1,
-                       "grad_rel": 0.15}}
+                       "grad_rel": 0.15},
+               # set before the first reading: the stages run the
+               # unsharded layers on microbatches, and the leaves outside
+               # the stages add two stages' bf16 gradients; read on an
+               # H100 at 700 W (PERF.md §6): loss gaps 4.4e-5 (Llama) and
+               # 2.1e-4 (Gemma-2B), hidden states 0, gradients 2.4e-3
+               "pp2": {"loss_gap": 5e-3, "hidden_rel": 2e-2,
+                       "grad_rel": 3e-2}}
 
 
 def _ring_block(case, sq) -> dict:
@@ -3410,7 +3437,7 @@ def _sdpa_ms(torch, q, k, v, do, causal) -> tuple:
 
 
 def _kernels_at(torch, attn, what, case, q, k, v, do, timed=False,
-                **kw) -> dict:
+                tag="ring", **kw) -> dict:
     """K1, K2 and K3 at one shape of the slice's paths (``kw``: offsets,
     segment ids, ``kv_segment_ids``), each against its plain version on
     the same inputs by ``_bwd_err``: the max abs (K1's within ATOL, K2's
@@ -3466,25 +3493,26 @@ def _kernels_at(torch, attn, what, case, q, k, v, do, timed=False,
             line += (f"; kernel {row['ms']:.4f} ms, plain "
                      f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f}"
                      f" ms, bound {bound_ms:.4f} ms ({bound_by})")
-        log(f"[ring] {name} at {what} {shape} "
+        log(f"[{tag}] {name} at {what} {shape} "
             f"({attn.flash_fwd_route(q.dtype, case['hd'])}): {line}"
             + (f"; lse {row['lse_err']:.3e}" if "lse_err" in row else ""))
         if not ok:
-            raise AssertionError(f"[ring] {name} at {what} {shape} "
+            raise AssertionError(f"[{tag}] {name} at {what} {shape} "
                                  f"disagrees with its plain version: "
                                  f"{errs}, lse {row.get('lse_err')}")
         rows[name] = row
     return rows
 
 
-def _kernels_at_shape(torch, attn, what, case, seed, timed=True) -> dict:
+def _kernels_at_shape(torch, attn, what, case, seed, timed=True,
+                      tag="ring") -> dict:
     """``_kernels_at`` on fresh inputs of ``case`` from ``seed``."""
     q, k, v, _ = _inputs(torch, case, seed)
     do = torch.randn(q.shape, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(seed + 1)).to(q.dtype)
     kw = {"offsets": case["offsets"]} if case.get("offsets") else {}
     return _kernels_at(torch, attn, what, case, q, k, v, do, timed=timed,
-                       **kw)
+                       tag=tag, **kw)
 
 
 def _split_segments_check(torch, attn, case, seed) -> dict:
@@ -3791,6 +3819,7 @@ def _mesh_rank(rank, port, jobs, queue):
             marks = []
             _reset_counts(attn)
             collectives.ring_shift.host_staged = 0
+            collectives.pp_shift.host_staged = 0
             t0 = time.perf_counter()
             rc = train_main.main(["--config", path],
                                  on_step=lambda step, loss: marks.append(
@@ -3805,13 +3834,17 @@ def _mesh_rank(rank, port, jobs, queue):
                              for fn in (attn.flash_forward, attn.flash_dq,
                                         attn.flash_dkv)},
                 "host_staged": collectives.ring_shift.host_staged,
+                "pp_staged": collectives.pp_shift.host_staged,
                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                 "first_step_s": marks[0][0] - t0 if marks else None,
                 "step_s": sum(steady) / len(steady) if steady else None,
                 "step_times": [round(x, 4) for x in steady]}
             gc.collect()
             torch.cuda.empty_cache()
-            res[tag]["first_step"] = _first_step(torch, path)
+            pipelined = json.loads(Path(path).read_text())["mesh"].get(
+                "pp", 1) > 1
+            res[tag]["first_step"] = (_first_step_pp if pipelined
+                                      else _first_step)(torch, path)
             gc.collect()
             torch.cuda.empty_cache()
         dist.destroy_process_group()
@@ -3992,6 +4025,680 @@ def phase_ep2(torch, mtrain) -> dict:
         f"{out['seconds']:.1f} s")
     if bad:
         raise AssertionError("; ".join(bad))
+    return out
+
+
+# -- slice 14: pipeline parallelism, GRPO and the RL learner ------------------
+
+#: [pp]: the training cell's configuration (Llama-3-8B width, 8 layers, b=4
+#: x 2048, bf16, remat) in PP_STAGES stages held by one process, PP_MICRO
+#: microbatches
+PP_STAGES, PP_MICRO = 4, 4
+#: K1-K3 at [pp]'s microbatch shape: one row of Llama's training shape
+PP_MICRO_CASE = {**TRAIN, "b": TRAIN["b"] // PP_MICRO}
+#: the pipelines against the flat step on the same weights (GPipe) and
+#: against GPipe (1F1B): the loss gap and the norm-wise relative error of
+#: the whole gradient tree. The microbatches' matmuls (a quarter of the
+#: rows) round otherwise in bf16, and the stages' gradients add up over
+#: the microbatches in float32 before one bf16 rounding, so a few bf16
+#: ulps apart; a pipeline that drops or misroutes a stage reads ~1
+PP_BOUNDS = {"loss_gap": 5e-3, "grad_rel": 5e-2}
+#: [pp2]: two ranks at pp=2 over gloo, 2 layers, 3 steps, num_micro 2
+PP2_LAYERS, PP2_STEPS, PP2_MICRO = 2, 3, 2
+#: [grpo]: Gemma-2B at full size through the train entry's ``main`` in
+#: ``mode: grpo``: rounds, steps a round, prompts a round, the group and
+#: the completion length
+GRPO_ROUNDS, GRPO_STEPS, GRPO_PROMPTS, GRPO_GROUP, GRPO_NEW = 2, 2, 2, 4, 32
+#: the on-policy identity: at a round's first step the policy's own
+#: ``token_logps`` of the rollout over the engine's behavior logprobs
+#: average to 1 within the bf16 rule (BF16_LOSS_ULPS ulps at 1.0)
+GRPO_RATIO_TOL = BF16_LOSS_ULPS * 2.0 ** -7
+#: the learner's model: Llama-3's head width on a small body, its train
+#: state well under 1 GB (each of the two checkpoint tiers holds a copy)
+FLYWHEEL_CFG = dict(vocab_size=32000, d_model=512, n_layers=2, n_heads=4,
+                    n_kv_heads=4, d_ff=1536)
+
+
+def _nested(pairs) -> dict:
+    """The tree of ``[(path, tensor)]`` (``train.trainer.tree_leaves``'s
+    ``/``-joined paths)."""
+    tree = {}
+    for path, t in pairs:
+        node = tree
+        *up, last = path.split("/")
+        for key in up:
+            node = node.setdefault(key, {})
+        node[last] = t
+    return tree
+
+
+def _tree_rel(torch, got, want) -> tuple:
+    """(norm-wise relative error of a whole gradient tree, worst leaf, its
+    error); ``got``/``want`` map leaf names to tensors of one shape."""
+    num = den = 0.0
+    worst = ("", 0.0)
+    for k, w in want.items():
+        d, n = _sq_dist(torch, got[k], w), _sq_dist(torch, w)
+        num, den = num + d, den + n
+        rel = math.sqrt(d / n) if n else math.sqrt(d)
+        if rel > worst[1]:
+            worst = (k, rel)
+    return math.sqrt(num / den), worst[0], worst[1]
+
+
+def _pp_layer(torch, llama, config):
+    """The layer a stage runs, as the train entry's pipeline runs it:
+    ``llama._layer_forward`` under ``torch.utils.checkpoint`` when autograd
+    records (``config.remat``)."""
+    from torch.utils.checkpoint import checkpoint
+
+    def layer(x, lp, cos, sin):
+        if config.remat and torch.is_grad_enabled():
+            return checkpoint(llama._layer_forward, config, x, lp, cos, sin,
+                              None, use_reentrant=False)
+        return llama._layer_forward(config, x, lp, cos, sin, None)
+    return layer
+
+
+def phase_pp(torch) -> dict:
+    """Pipeline parallelism at pp=``PP_STAGES`` in one process
+    (``parallel.pipeline.local_stages``: every stage's slots in the order
+    the ranks run them, the neighbor exchange a shift of the list) on the
+    training cell's configuration: the flat step (loss and every
+    gradient), the train entry's GPipe loss (``build_pp_pretrain``) on the
+    same weights and batch in ``PP_MICRO`` microbatches, and
+    ``pipeline_grads_1f1b`` on the same batch, held to ``PP_BOUNDS``
+    (GPipe against the flat step, 1F1B against GPipe). Each run's K1-K3
+    launches (all ``sm90``, at the counts the schedule gives), its time
+    (two runs after the checked one) and its peak device memory above the
+    weights; by stage the schedule's ``max_inflight`` beside the
+    stash's measured peak, for GPipe and 1F1B. Then K1-K3 at the
+    microbatch shape against their plain versions, timed beside their
+    bound and SDPA."""
+    import numpy as np
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.parallel import pipeline as pipe
+    from kubedl_tpu_torch.train import __main__ as train_main
+    from kubedl_tpu_torch.train.trainer import tree_leaves
+
+    _, tokens, cfg = _train_config("pp")
+    config, _ = train_main.resolve_model(cfg, device="cuda")
+    L, S, M = config.n_layers, PP_STAGES, PP_MICRO
+    params = llama.init_params(config, torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    row = np.fromfile(tokens, dtype=np.int32).reshape(cfg["batch"],
+                                                      cfg["seq"] + 1)
+    toks = torch.as_tensor(row.astype(np.int64), device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    log(f"[pp] {cfg['model']} {L} layers ({config.num_params / 1e9:.3f} B "
+        f"params), b={cfg['batch']} s={cfg['seq']}, {S} stages of "
+        f"{L // S} layers in one process, {M} microbatches, remat "
+        f"{config.remat}, loss_chunk {config.loss_chunk}")
+
+    def leaves(tree):
+        """Autograd leaves aliasing ``tree``'s storage."""
+        return [(k, t.detach().requires_grad_(True))
+                for k, t in tree_leaves(tree)]
+
+    flat = leaves(params)
+    loss_stats = {}
+    real_apply = pipe.pipeline_apply
+
+    def gpipe_apply(*args, **kw):
+        return real_apply(*args, stats=loss_stats, **kw)
+    with unittest.mock.patch.object(pipe, "pipeline_apply", gpipe_apply):
+        loss_fn, to_pp, _, _ = train_main.build_pp_pretrain(
+            config, None, M, stages=pipe.local_stages(S))
+    staged = leaves(to_pp(params))
+    head_keys = ["final_norm", "lm_head"]     # what the loss reads
+    layer = _pp_layer(torch, llama, config)
+    f1b_stats = {}
+
+    def flat_step():
+        loss = llama.loss_fn(config, _nested(flat), batch["tokens"],
+                             batch["targets"])
+        return loss.detach(), torch.autograd.grad(loss,
+                                                  [t for _, t in flat])
+
+    def gpipe_step():
+        loss = loss_fn(_nested(staged), batch)
+        return loss.detach(), torch.autograd.grad(loss,
+                                                  [t for _, t in staged])
+
+    def f1b_step():
+        tree = _nested(staged)
+        with torch.no_grad():
+            x = llama._embed(config, tree, batch["tokens"])
+        cos, sin = llama.rope_frequencies(
+            config, torch.arange(cfg["seq"], device="cuda"))
+
+        def loss_mb(hp, y, aux):
+            h = llama.rms_norm(y, hp["final_norm"], config.rms_eps,
+                               config.norm_weight_offset)
+            return llama.lm_loss(config, h, hp, aux["targets"])
+        return pipe.pipeline_grads_1f1b(
+            pipe.local_stages(S),
+            pipe.stage_scan(lambda h, lp: layer(h, lp, cos, sin)),
+            tree["stages"], {k: tree[k] for k in head_keys}, x,
+            {"targets": batch["targets"]}, M, loss_mb, stats=f1b_stats)
+
+    sched = pipe.Schedule1F1B(S, M)
+    want = {"flat": {"flash_forward": 2 * L, "flash_dq": L, "flash_dkv": L},
+            "gpipe": {"flash_forward": 2 * L * M, "flash_dq": L * M,
+                      "flash_dkv": L * M},
+            # 1F1B's forward slots run the stages but the last without
+            # autograd (one K1 a layer); each backward slot recomputes
+            # its stage under the remat checkpoint (two)
+            "1f1b": {"flash_forward": 2 * L * M + (S - 1) * L * M // S,
+                     "flash_dq": L * M, "flash_dkv": L * M}}
+    runs = {}
+    results = {}
+    for tag, fn in (("flat", flat_step), ("gpipe", gpipe_step),
+                    ("1f1b", f1b_step)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _reset_counts(attn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[tag] = fn()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        launches = _read_counts(attn, f"[pp] {tag}", want[tag])
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        runs[tag] = {"launches": launches, "first_s": first,
+                     "step_s": sum(times) / len(times),
+                     "step_times": [round(x, 4) for x in times],
+                     "peak_gib_above_weights": peak}
+        log(f"[pp] {tag}: loss and gradients {runs[tag]['step_s']:.4f} s "
+            f"(runs {runs[tag]['step_times']}, the checked one "
+            f"{first:.3f} s), peak {peak:.2f} GiB above the weights, "
+            f"launches {launches} (all sm90)")
+    names = [k for k, _ in flat]
+    loss_f, g_f = results["flat"]
+    g_flat = dict(zip(names, g_f))
+    loss_g, g_g = results["gpipe"]
+    g_pipe = {k.replace("stages/", "layers/"): g.reshape(g_flat[
+        k.replace("stages/", "layers/")].shape)
+        for (k, _), g in zip(staged, g_g)}
+    loss_1, sg_1, hg_1 = results["1f1b"]
+    g_1f1b = {**{f"layers/{k}": g.reshape(g_flat[f"layers/{k}"].shape)
+                 for k, g in sg_1.items()}, **hg_1}
+    gap_g = abs(float(loss_g) - float(loss_f))
+    gap_1 = abs(float(loss_1) - float(loss_g))
+    rel_g = _tree_rel(torch, g_pipe, g_flat)
+    rel_1 = _tree_rel(torch, g_1f1b, {k: g_pipe[k] for k in g_1f1b})
+    del results, g_f, g_g, g_flat, g_pipe, g_1f1b, sg_1, hg_1
+    gc.collect()
+    torch.cuda.empty_cache()
+    stash = {"gpipe": loss_stats, "1f1b": f1b_stats}
+    out = {"config": {"layers": L, "stages": S, "num_micro": M,
+                      "batch": cfg["batch"], "seq": cfg["seq"]},
+           "runs": runs, "loss": {"flat": float(loss_f),
+                                  "gpipe": float(loss_g),
+                                  "1f1b": float(loss_1)},
+           "loss_gap": {"gpipe_vs_flat": gap_g, "1f1b_vs_gpipe": gap_1},
+           "grad_rel": {"gpipe_vs_flat": rel_g, "1f1b_vs_gpipe": rel_1},
+           "max_inflight": [sched.max_inflight(s) for s in range(S)],
+           "stash_peak": {k: v["stash_peak"] for k, v in stash.items()},
+           "stash_peak_mib": {k: [round(b / 2**20, 2)
+                                  for b in v["stash_peak_bytes"]]
+                              for k, v in stash.items()}}
+    log(f"[pp] losses flat {float(loss_f):.6f}, GPipe {float(loss_g):.6f}, "
+        f"1F1B {float(loss_1):.6f}: gaps {gap_g:.3e} and {gap_1:.3e} "
+        f"(limit {PP_BOUNDS['loss_gap']}); gradients norm-wise GPipe vs "
+        f"flat {rel_g[0]:.4e} (worst {rel_g[1]} {rel_g[2]:.4e}), 1F1B vs "
+        f"GPipe {rel_1[0]:.4e} (worst {rel_1[1]} {rel_1[2]:.4e}) (limit "
+        f"{PP_BOUNDS['grad_rel']})")
+    log(f"[pp] by stage: 1F1B max_inflight {out['max_inflight']}; stashed "
+        f"microbatches at the peak GPipe {out['stash_peak']['gpipe']}, 1F1B "
+        f"{out['stash_peak']['1f1b']}; their inputs (MiB) GPipe "
+        f"{out['stash_peak_mib']['gpipe']}, 1F1B "
+        f"{out['stash_peak_mib']['1f1b']}")
+    bad = [f"{what} loss gap {gap} > {PP_BOUNDS['loss_gap']}"
+           for what, gap in out["loss_gap"].items()
+           if not gap <= PP_BOUNDS["loss_gap"]]
+    bad += [f"{what} gradients {rel[0]} > {PP_BOUNDS['grad_rel']}"
+            for what, rel in out["grad_rel"].items()
+            if not rel[0] <= PP_BOUNDS["grad_rel"]]
+    if out["stash_peak"]["1f1b"] != out["max_inflight"] or \
+            out["stash_peak"]["gpipe"] != [M] * S:
+        bad.append(f"stash peaks {out['stash_peak']} against 1F1B's "
+                   f"max_inflight {out['max_inflight']} and GPipe's {M}")
+    if bad:
+        raise AssertionError("[pp] " + "; ".join(bad))
+    del params, flat, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["micro_kernels"] = _kernels_at_shape(
+        torch, attn, "[pp]'s microbatch", PP_MICRO_CASE, 700, tag="pp")
+    return out
+
+
+def _first_step_pp(torch, path) -> dict:
+    """``_first_step`` for a pipeline job: the first step as the train
+    entry's pipeline runs it on this rank's stage of the pp mesh
+    (``build_pp_pretrain`` on ``init_params`` from the job's seed and its
+    first batch), against the same step on one process through the flat
+    model: the final hidden states (the last stage holds them; their
+    norm-wise error and least cosine by position are shared with the
+    other stage), each leaf's gradient piece (a stage leaf's rows of the
+    staged gradient; a leaf outside the stages whole, summed over pp as
+    the trainer sums it), and the first loss."""
+    import torch.distributed as dist
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.parallel import collectives, sharding
+    from kubedl_tpu_torch.parallel import pipeline as pipe
+    from kubedl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from kubedl_tpu_torch.train import __main__ as train_main
+    from kubedl_tpu_torch.train import data as tdata
+    from kubedl_tpu_torch.train.trainer import tree_leaves
+
+    cfg = json.loads(Path(path).read_text())
+    config, _ = train_main.resolve_model(cfg, device="cuda")
+    mesh = build_mesh(MeshConfig(**cfg["mesh"]), device="cuda")
+    num_micro = train_main.pp_num_micro(cfg, config, mesh, cfg["batch"])
+    loss_fn, to_pp, _, specs_of = train_main.build_pp_pretrain(
+        config, mesh, num_micro)
+    params = llama.init_params(config, torch.Generator(
+        device="cuda").manual_seed(int(cfg["seed"])), device="cuda")
+    host = next(iter(train_main._raw_stream(cfg["data"], config,
+                                            cfg["batch"], cfg["seq"])))
+    staged = to_pp(params)
+    specs = specs_of(staged)
+    placed = sharding.shard_tree(staged, mesh, specs)
+    batch = {k: sharding.local_of(v)
+             for k, v in tdata.shard_batch(host, mesh).items()}
+    layer = _pp_layer(torch, llama, config)
+    rank = dist.get_rank()
+    log(f"[first step] rank {rank}: {cfg['mesh']}, stage "
+        f"{mesh.index('pp')} of {mesh.size('pp')}, {num_micro} microbatches")
+    view = sharding.views(placed, mesh)
+    local_stages = {k: sharding.materialize(v)
+                    for k, v in view["stages"].items()}
+
+    def apply_layers(x, cos, sin):
+        return pipe.pipeline_apply(
+            mesh, pipe.stage_scan(lambda h, lp: layer(h, lp, cos, sin)),
+            local_stages, x, num_micro)
+    with torch.no_grad():
+        h = llama.forward_hidden(config, view, batch["tokens"],
+                                 apply_layers=apply_layers).float()
+    view = sharding.views(placed, mesh, requires_grad=True)
+    leaves = tree_leaves(view)
+    share = loss_fn(view, batch)
+    grads = torch.autograd.grad(share, [p.local for _, p in leaves],
+                                materialize_grads=True)
+    for (k, _), g in zip(leaves, grads):
+        if not k.startswith("stages/"):
+            dist.all_reduce(g, group=mesh.group("pp"))
+    loss = float(collectives.world_sum(share))
+    local = {k: g for (k, _), g in zip(leaves, grads)}
+    del view, leaves, grads, placed, share
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[first step] rank {rank}: unsharded")
+    full = tdata.to_device(host, torch.device("cuda"))
+    with torch.no_grad():
+        ref_h = llama.forward_hidden(config, params, full["tokens"]).float()
+    ref_h = sharding.local_shard(ref_h, mesh, (("dp", "fsdp"),))
+    last = pipe.stages_of(mesh).holds_last
+    shared = torch.zeros(2, device="cuda")
+    if last:
+        shared[0] = (h - ref_h).norm() / ref_h.norm()
+        shared[1] = torch.nn.functional.cosine_similarity(
+            h, ref_h, dim=-1).min()
+    dist.all_reduce(shared, group=mesh.group("pp"))
+    del h, ref_h
+    ref_leaves = [(k, t.requires_grad_()) for k, t in tree_leaves(params)]
+    ref_loss = llama.loss_fn(config, params, full["tokens"], full["targets"])
+    ref_grads = dict(zip([k for k, _ in ref_leaves], torch.autograd.grad(
+        ref_loss, [t for _, t in ref_leaves])))
+    _reset_counts(attn)            # the checks launched K1-K3 too
+    out = {"loss": loss, "ref_loss": float(ref_loss.detach()),
+           "hidden_rel": float(shared[0]),
+           "hidden_min_cos": float(shared[1]), "leaves": {}}
+    flat_specs = sharding.spec_leaves(specs)
+    for k, g in local.items():
+        ref = ref_grads[k.replace("stages/", "layers/")]
+        if k.startswith("stages/"):
+            pp = mesh.size("pp")
+            ref = ref.reshape((pp, config.n_layers // pp)
+                              + tuple(ref.shape[1:]))
+        want = sharding.local_shard(ref, mesh, flat_specs[k])
+        out["leaves"][k] = (_sq_dist(torch, g, want), _sq_dist(torch, want),
+                            tuple(want.shape) != tuple(ref.shape))
+    return out
+
+
+def _pp2_job(name, model, vocab, layers, batch) -> tuple:
+    """(ref config path and dict, pp=2 config path) of one [pp2] job."""
+    over = {"n_layers": layers}
+    ref = _train_config(f"pp2_{name}_ref", model=model, vocab=vocab,
+                        overrides=over, batch=batch, steps=PP2_STEPS)
+    path, _, _ = _train_config(f"pp2_{name}", model=model, vocab=vocab,
+                               overrides=over, batch=batch, steps=PP2_STEPS,
+                               mesh={"pp": 2},
+                               pipeline={"num_micro": PP2_MICRO})
+    return ref, path
+
+
+def phase_pp2(torch) -> dict:
+    """Pipeline parallelism at pp=2 on the one card: ``python -m
+    kubedl_tpu_torch.train``'s ``main`` under ``"mesh": {"pp": 2}`` in
+    two processes over gloo (each rank one stage; activations and
+    cotangents cross through the host, as gloo's point-to-point calls
+    take host memory only), GPipe in ``PP2_MICRO`` microbatches, for two
+    jobs: Llama-3-8B width at ``PP2_LAYERS`` layers, b=4 x 2048, and
+    Gemma-2B width at ``PP2_LAYERS`` layers, b=2 x 2048 (its tied
+    embedding serves the lookup on stage 0 and the head on stage 1, and
+    its gradient is summed over the stages). Each against the same job
+    unsharded on one process (``_hold_mesh_run``): every K1-K3 launch on
+    ``sm90`` (a rank runs its ``L/pp`` layers for each microbatch), the
+    losses, the first step's hidden states and gradients
+    (``_first_step_pp``); the exchanges staged through the host, one each
+    way a slot; each rank's step time and peak memory."""
+    jobs, refs = [], {}
+    for name, model, vocab, batch in (
+            ("llama", "llama.llama3_8b", 128256, 4),
+            ("gemma", "gemma.gemma_2b", 256128, 2)):
+        (ref_path, _, ref_cfg), path = _pp2_job(name, model, vocab,
+                                                PP2_LAYERS, batch)
+        refs[name] = _train_run(torch, f"pp2_{name}_ref", ref_path,
+                                ref_cfg, ALL_SM90, mfu=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        jobs.append((name, path))
+    t0 = time.perf_counter()
+    res = _two_ranks(torch, "pp2", jobs)
+    out = {"seconds": time.perf_counter() - t0}
+    bad = []
+    per_rank_layers = PP2_LAYERS * PP2_MICRO // 2
+    want_staged = 2 * (PP2_MICRO + 2 - 2) * PP2_STEPS
+    for name, _ in jobs:
+        out[name], bad_j = _hold_mesh_run("pp2", name, res, refs[name],
+                                          per_rank_layers, 1)
+        out[name]["unsharded"] = {k: refs[name][k] for k in (
+            "losses", "step_s", "peak_gib")}
+        staged = [res[r][name]["pp_staged"] for r in (0, 1)]
+        out[name]["pp_staged"] = staged
+        log(f"[pp2] {name}: exchanges staged through the host by rank "
+            f"{staged} (want {want_staged}: one a slot each way, "
+            f"{PP2_MICRO} + 2 - 2 slots that send, {PP2_STEPS} steps); "
+            f"unsharded step {refs[name]['step_s']:.4f} s, peak "
+            f"{refs[name]['peak_gib']:.2f} GiB")
+        if staged != [want_staged] * 2:
+            bad_j.append(f"[pp2] {name}: the pipeline's exchanges staged "
+                         f"{staged} times, want {want_staged} a rank")
+        bad += bad_j
+    log(f"[pp2] the two ranks ran both jobs in {out['seconds']:.1f} s")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+def _grpo_reading(torch, grpo, config, params, batch, gcfg) -> dict:
+    """The on-policy identity on a rollout batch: the policy ``params``'
+    ``token_logps`` against the behavior logprobs the engine reported
+    (``old_logps``): ``grpo_loss``'s ratio_mean, and the mean absolute
+    logprob gap over the completion tokens to the policy and, where the
+    batch holds them, to the frozen initial weights' (``ref_logps``)."""
+    with torch.no_grad():
+        lp = grpo.token_logps(config, params, batch["tokens"],
+                              batch["targets"])
+        old = batch["old_logps"]
+        ref = batch.get("ref_logps", old)
+        _, m = grpo.grpo_loss(lp, old, ref, batch["advantages"],
+                              batch["mask"], gcfg)
+        mask = batch["mask"] > 0
+        return {"ratio_mean": float(m["ratio_mean"]),
+                "policy_gap": float((old - lp)[mask].abs().mean()),
+                "initial_gap": float((old - ref)[mask].abs().mean()),
+                "tokens": int(mask.sum())}
+
+
+def _grpo_files(out_dir, vocab, rows) -> tuple:
+    """(prompts path, reward spec): ``rows`` prompts of random token ids
+    from seed 0, and a reward function in its own ``.py`` file that
+    scores token ids (the share of even ids), so a group's completions
+    differ in reward."""
+    import numpy as np
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    prompts = out_dir / "prompts.jsonl"
+    prompts.write_text("".join(
+        json.dumps({"prompt": rng.integers(3, vocab, n).tolist()}) + "\n"
+        for n in (17, 41, 29, 64)[:rows]))
+    reward = out_dir / "reward.py"
+    reward.write_text("def reward(prompt, completion):\n"
+                      "    return sum(t % 2 == 0 for t in completion) "
+                      "/ max(len(completion), 1)\n")
+    return str(prompts), f"{reward}:reward"
+
+
+def phase_grpo(torch) -> dict:
+    """GRPO through ``python -m kubedl_tpu_torch.train``'s ``main`` in
+    ``mode: grpo`` on Gemma-2B at full size (random bf16 weights from a
+    seed): ``GRPO_ROUNDS`` rounds of ``GRPO_STEPS`` steps, each round
+    ``GRPO_PROMPTS`` prompts x a group of ``GRPO_GROUP`` sampled by the
+    static engine (``GRPO_NEW`` tokens), refreshed in place to the policy
+    before every round; the reference scored on the frozen initial
+    weights; no checkpoint. Held, at each round's first step (read
+    through the trainer's step): the on-policy identity, ratio_mean 1
+    within ``GRPO_RATIO_TOL``; in round 2 the behavior logprobs nearer
+    the updated policy's than the initial weights' by at least 2x; finite
+    losses; K1-K3 at the counts the path gives (each step's forward and
+    remat recompute, each round's reference scoring), all ``sm90``. Then
+    ``_grpo_flywheel``."""
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.train import __main__ as train_main
+    from kubedl_tpu_torch.train import grpo
+    from kubedl_tpu_torch.train import trainer as trainer_mod
+
+    out_dir = BUILD_OUT / "grpo"
+    prompts, reward = _grpo_files(out_dir, 256000, GRPO_PROMPTS)
+    cfg = {"model": "gemma.gemma_2b", "mode": "grpo", "seed": 0,
+           "data": {"kind": "prompts_jsonl", "path": prompts},
+           "reward": reward, "grpo": {"group_size": GRPO_GROUP},
+           "rollout": {"rounds": GRPO_ROUNDS, "steps_per_round": GRPO_STEPS,
+                       "max_new_tokens": GRPO_NEW, "max_len": 256,
+                       "prompts_per_round": GRPO_PROMPTS},
+           # the JAX trainer's default peak rate, with no warm-up so the
+           # first update moves every bf16 weight (~2.5 ulps at its scale)
+           "optimizer": {"learning_rate": 3e-4, "warmup_steps": 0}}
+    path = out_dir / "grpo.json"
+    path.write_text(json.dumps(cfg))
+    config, _ = train_main.resolve_model(cfg, device="cuda")
+    gcfg = grpo.GRPOConfig(group_size=GRPO_GROUP)
+    readings, held = [], []
+    real_step = trainer_mod.Trainer.step
+
+    def step(self, state, batch):
+        if not any(b is batch for b in held):
+            # a round's first step: read the on-policy identity, and keep
+            # this reading's launches out of the path's counts
+            held.append(batch)
+            kernels = (attn.flash_forward, attn.flash_dq, attn.flash_dkv)
+            snap = [(fn.launches, dict(fn.launches_by_route))
+                    for fn in kernels]
+            readings.append(_grpo_reading(torch, grpo, config, state.params,
+                                          batch, gcfg))
+            for fn, (n, by) in zip(kernels, snap):
+                fn.launches, fn.launches_by_route = n, by
+        return real_step(self, state, batch)
+
+    marks = []
+    L = config.n_layers
+    steps = GRPO_ROUNDS * GRPO_STEPS
+    want = {"flash_forward": GRPO_ROUNDS * L + steps * 2 * L,
+            "flash_dq": steps * L, "flash_dkv": steps * L}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(attn)
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(trainer_mod.Trainer, "step", step):
+        rc = train_main.main(["--config", str(path)],
+                             on_step=lambda s, loss: marks.append(
+                                 (time.perf_counter(), s, loss)))
+    seconds = time.perf_counter() - t0
+    launches = _read_counts(attn, "[grpo]", want)
+    losses = [m[2] for m in marks]
+    out = {"rc": rc, "losses": losses, "rounds": readings,
+           "launches": launches, "seconds": seconds,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "step_times": [round(b[0] - a[0], 4)
+                          for a, b in zip(marks, marks[1:])]}
+    for i, r in enumerate(readings):
+        log(f"[grpo] round {i + 1}: ratio_mean {r['ratio_mean']:.6f} (limit "
+            f"1 +- {GRPO_RATIO_TOL}), mean |behavior - policy| logprob "
+            f"{r['policy_gap']:.4e}, mean |behavior - initial weights| "
+            f"{r['initial_gap']:.4e} over {r['tokens']} tokens")
+    log(f"[grpo] losses {losses}; {seconds:.1f} s through main, times "
+        f"between steps {out['step_times']} s (a round's rollout and "
+        f"reference scoring fall between its last step and the next "
+        f"round's first); peak {out['peak_gib']:.2f} GiB; launches "
+        f"{launches} (all sm90)")
+    bad = []
+    if rc != 0 or len(losses) != steps or not all(map(math.isfinite,
+                                                      losses)):
+        bad.append(f"rc {rc}, losses {losses}")
+    if len(readings) != GRPO_ROUNDS:
+        bad.append(f"{len(readings)} rounds read, want {GRPO_ROUNDS}")
+    bad += [f"round {i + 1} ratio_mean {r['ratio_mean']}"
+            for i, r in enumerate(readings)
+            if not abs(r["ratio_mean"] - 1.0) <= GRPO_RATIO_TOL]
+    if len(readings) > 1 and not (2 * readings[1]["policy_gap"]
+                                  <= readings[1]["initial_gap"]):
+        bad.append(f"round 2's behavior logprobs are not the updated "
+                   f"policy's: {readings[1]}")
+    if bad:
+        raise AssertionError("[grpo] " + "; ".join(bad))
+    out["flywheel"] = _grpo_flywheel(torch, out_dir)
+    import shutil
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return out
+
+
+def _grpo_flywheel(torch, out_dir) -> dict:
+    """``rl.FlywheelLearner`` on ``FLYWHEEL_CFG`` (bf16, its train state
+    well under 1 GB): a rollout of the continuous engine (8 lanes, the
+    decode tick on the graph route), one ``step`` (the reference scored
+    on the host copy of the initial weights), one ``publish`` through the
+    ``TieredCheckpointManager`` (a fresh manager restores the published
+    params bit for bit), then ``load_weights`` of the published params
+    into the engine, whose captured graphs replay on them: the next
+    rollout is on the updated policy (the ratio within
+    ``GRPO_RATIO_TOL``, nearer the policy than the initial weights by at
+    least 2x)."""
+    import types
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.rl import FlywheelLearner
+    from kubedl_tpu_torch.serving import ContinuousBatchingEngine
+    from kubedl_tpu_torch.train import grpo
+    from kubedl_tpu_torch.train.checkpoint import (CheckpointConfig,
+                                                   TieredCheckpointManager)
+    from kubedl_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                tree_leaves, tree_map)
+
+    config = llama.LlamaConfig(**FLYWHEEL_CFG, loss_chunk=512)
+    params = llama.init_params(config, torch.Generator(
+        device="cuda").manual_seed(3), device="cuda")
+    gcfg = grpo.GRPOConfig(group_size=GRPO_GROUP)
+    engine = ContinuousBatchingEngine(config, tree_map(torch.clone, params),
+                                      lanes=8, max_len=256, device="cuda")
+    prompts_path, reward_spec = _grpo_files(out_dir / "flywheel",
+                                            config.vocab_size, 2)
+    prompts = [json.loads(line)["prompt"]
+               for line in Path(prompts_path).read_text().splitlines()]
+    from kubedl_tpu_torch.train.__main__ import resolve_reward
+    reward = resolve_reward(reward_spec)
+    ck = TieredCheckpointManager(CheckpointConfig(str(out_dir / "local")),
+                                 str(out_dir / "object"))
+    learner = FlywheelLearner(config, Trainer(None, TrainConfig(
+        learning_rate=1e-3, warmup_steps=0)), params, grpo=gcfg,
+        checkpoint=ck)
+    state_bytes = sum(t.numel() * t.element_size() for tree in (
+        learner.state.params, learner.state.opt_state.mu,
+        learner.state.opt_state.nu) for _, t in tree_leaves(tree))
+    first = grpo.rollout_batch(engine, prompts, reward, GRPO_NEW, cfg=gcfg,
+                               seed=0)
+    ticks = engine.tick_launches
+    _reset_counts(attn)
+    t0 = time.perf_counter()
+    loss = learner.step(types.SimpleNamespace(batch=first, version=0))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    L = config.n_layers
+    launches = _read_counts(attn, "[grpo] learner step", {
+        "flash_forward": L + 2 * L, "flash_dq": L, "flash_dkv": L})
+    t0 = time.perf_counter()
+    published = learner.publish()
+    publish_s = time.perf_counter() - t0
+    other = TieredCheckpointManager(
+        CheckpointConfig(str(out_dir / "fresh")), str(out_dir / "object"))
+    restored = other.restore(Trainer(None, TrainConfig(
+        learning_rate=1e-3, warmup_steps=0), device="cuda").init_state(
+        tree_map(torch.zeros_like, params)))
+    want = dict(tree_leaves(published))
+    same = all(torch.equal(t.detach().cpu(), want[k])
+               for k, t in tree_leaves(restored.params))
+    engine.load_weights(published)
+    second = grpo.rollout_batch(engine, prompts, reward, GRPO_NEW, cfg=gcfg,
+                                seed=1)
+    second = {k: torch.as_tensor(v, device="cuda") for k, v in
+              second.items()}
+    second["tokens"], second["targets"] = (second["tokens"].long(),
+                                           second["targets"].long())
+    with torch.no_grad():
+        second["ref_logps"] = grpo.token_logps(
+            config, tree_map(lambda t: t.to("cuda"), learner.ref_params),
+            second["tokens"], second["targets"])
+    reading = _grpo_reading(torch, grpo, config, learner.state.params,
+                            second, gcfg)
+    after = engine.tick_launches
+    out = {"loss": loss, "launches": launches, "step_s": step_s,
+           "publish_s": publish_s, "state_gib": state_bytes / 2**30,
+           "published_restored": same, "refreshed": reading,
+           "ticks": {"before": ticks, "after": after}}
+    log(f"[grpo] learner: {config.num_params / 1e6:.1f} M params, train "
+        f"state {out['state_gib']:.3f} GiB; step {step_s:.3f} s (loss "
+        f"{loss:.5f}, launches {launches}, all sm90), publish "
+        f"{publish_s:.3f} s, restored bit for bit by a fresh manager: "
+        f"{same}; rollout ticks {ticks} then {after}")
+    log(f"[grpo] after load_weights of the published policy into the "
+        f"engine: ratio_mean {reading['ratio_mean']:.6f}, mean |behavior - "
+        f"policy| {reading['policy_gap']:.4e}, mean |behavior - initial| "
+        f"{reading['initial_gap']:.4e}")
+    ck.close()
+    other.close()
+    bad = []
+    if not same:
+        bad.append("the published params did not restore bit for bit")
+    if not (after["graph"] > ticks["graph"] > 0 and after["eager"] == 0):
+        bad.append(f"the rollouts' ticks {ticks} then {after}: every tick "
+                   f"on the graph route, both rollouts")
+    if not abs(reading["ratio_mean"] - 1.0) <= GRPO_RATIO_TOL or not (
+            2 * reading["policy_gap"] <= reading["initial_gap"]):
+        bad.append(f"the refreshed engine's rollout is not the published "
+                   f"policy's: {reading}")
+    if not math.isfinite(loss):
+        bad.append(f"loss {loss}")
+    if bad:
+        raise AssertionError("[grpo] learner: " + "; ".join(bad))
     return out
 
 
@@ -4734,9 +5441,10 @@ def _tp_probe(torch, only, timed) -> None:
 
 
 def _probe(torch, argv, timed) -> int:
-    """``--phases hf,lifecycle,resnet,moe_timing,dist,tp,tp2,ring,cp2,ep2
-    [--layers N]``: the named phases alone after the build, the slice-10
-    ones on Gemma-2B ``N`` layers deep, ``dist`` after the unsharded
+    """``--phases hf,lifecycle,resnet,moe_timing,dist,tp,tp2,ring,cp2,ep2,
+    pp,pp2,grpo [--layers N]``: the named phases alone after the build,
+    the slice-10 ones on Gemma-2B ``N`` layers deep, ``dist`` after the
+    unsharded
     Gemma-2B training it compares with, ``tp`` after the unsharded
     continuous run it compares with, ``ep2`` after the MoE training run
     it compares with (a quick check of one part on the card; no kernels
@@ -4744,8 +5452,8 @@ def _probe(torch, argv, timed) -> int:
     if len(argv) not in (2, 4) or argv[0] != "--phases" or (
             len(argv) == 4 and argv[2] != "--layers"):
         print("usage: chip_smoke.py [--phases hf,lifecycle,resnet,"
-              "moe_timing,dist,tp,tp2,ring,cp2,ep2 [--layers N]]",
-              file=sys.stderr)
+              "moe_timing,dist,tp,tp2,ring,cp2,ep2,pp,pp2,grpo "
+              "[--layers N]]", file=sys.stderr)
         return 2
     only = set(argv[1].split(","))
     layers = int(argv[3]) if len(argv) == 4 else None
@@ -4773,6 +5481,12 @@ def _probe(torch, argv, timed) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         timed("ep2", phase_ep2, torch, mtrain)
+    for name, fn in (("pp", phase_pp), ("pp2", phase_pp2),
+                     ("grpo", phase_grpo)):
+        if name in only:
+            gc.collect()
+            torch.cuda.empty_cache()
+            timed(name, fn, torch)
     if only & {"hf", "lifecycle"}:
         cfg, params, art, _ = timed("hf", phase_hf, torch, layers)
         if "lifecycle" in only:
@@ -4880,6 +5594,15 @@ def main() -> int:
     ep2_run = timed("ep2", phase_ep2, torch, mtrain)
     gc.collect()
     torch.cuda.empty_cache()
+    pp_run = timed("pp", phase_pp, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pp2_run = timed("pp2", phase_pp2, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    grpo_run = timed("grpo", phase_grpo, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     hcfg, hparams, hart, hf = timed("hf", phase_hf, torch)
     life = timed("lifecycle", phase_lifecycle, torch, hcfg, hparams, hart)
     del hparams
@@ -4916,7 +5639,16 @@ def main() -> int:
                                                        name),
                        "cp2_ulysses_training": both_ranks(
                            cp2_run["ulysses"], name),
-                       "ep2_training": both_ranks(ep2_run["ep"], name)}
+                       "ep2_training": both_ranks(ep2_run["ep"], name),
+                       "pp_gpipe": pp_run["runs"]["gpipe"]["launches"][name],
+                       "pp_1f1b": pp_run["runs"]["1f1b"]["launches"][name],
+                       "pp2_llama_training": both_ranks(pp2_run["llama"],
+                                                        name),
+                       "pp2_gemma_training": both_ranks(pp2_run["gemma"],
+                                                        name),
+                       "grpo": grpo_run["launches"][name],
+                       "grpo_learner": grpo_run["flywheel"]["launches"][
+                           name]}
                 for name in ("flash_forward", "flash_dq", "flash_dkv")}
     launches["flash_forward"].update(
         serving=serving_launches,
@@ -4969,6 +5701,16 @@ def main() -> int:
                 "cp2_block": plain(ring_run["cp2_block"][name]),
                 "ulysses_local": plain(ring_run["ulysses_local"][name])}
 
+    def pp_row(name):
+        """The kernel at [pp]'s microbatch shape (one row of Llama's
+        training shape), and its launches on the slice-14 paths."""
+        row = {k: v for k, v in pp_run["micro_kernels"][name].items()
+               if k != "checks"}
+        row["launches"] = {path: launches[name][path] for path in (
+            "pp_gpipe", "pp_1f1b", "pp2_llama_training",
+            "pp2_gemma_training", "grpo", "grpo_learner")}
+        return row
+
     def moe_row(name, err):
         """The kernel checked and timed at Mixtral's training shape, as its
         step launches it, and its launches there by route."""
@@ -4994,6 +5736,7 @@ def main() -> int:
                             fwd["gemma_max_abs_err"]["gemma_train"]),
          "moe": moe_row("flash_forward", fwd["moe_max_abs_err"]),
          "ring": ring_row("flash_forward"),
+         "pp": pp_row("flash_forward"),
          "tp": {"shape": _shape(TP_LOCAL), **tp_run["k1_local"],
                 "launches": {"tp_embeddings": tp_run["embeddings_launches"],
                              "tp2_embeddings_by_rank": {
@@ -5012,6 +5755,7 @@ def main() -> int:
          "gemma": gemma_row("flash_dq", bwd_err["gemma"]["flash_dq"]),
          "moe": moe_row("flash_dq", bwd_err["moe"]["flash_dq"]),
          "ring": ring_row("flash_dq"),
+         "pp": pp_row("flash_dq"),
          "simt_source": source("flash_dq", "simt"),
          "kernel_route": "sm90",
          "design": DESIGN["flash_dq"]},
@@ -5026,6 +5770,7 @@ def main() -> int:
                             checked_splits=bwd_err["gemma"]["dkv_splits"]),
          "moe": moe_row("flash_dkv", bwd_err["moe"]["flash_dkv"]),
          "ring": ring_row("flash_dkv"),
+         "pp": pp_row("flash_dkv"),
          "simt_source": source("flash_dkv", "simt"),
          "kernel_route": "sm90",
          "design": DESIGN["flash_dkv"]},

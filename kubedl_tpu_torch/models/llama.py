@@ -67,7 +67,6 @@ from ..ops.quant import mm as _mm
 from ..ops.quant import to_dense
 from ..parallel.collectives import (all_gather, is_sharded, loss_share,
                                     tp_sum, vocab_gather, vocab_lookup)
-from ..parallel.mesh import refuse_unported
 from ..parallel.sharding import materialize, spec
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -452,14 +451,13 @@ def apply_rope(x, cos, sin):
 def _check_mesh(mesh) -> None:
     """A mesh the model can run: a ``parallel.mesh.Mesh`` whose axes
     above 1 have a process group behind them (``build_mesh`` under an open
-    group), none of them not ported yet (``refuse_unported``)."""
+    group)."""
     if mesh is None:
         return
     shape = getattr(mesh, "shape", None)
     if not isinstance(shape, dict):
         raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
                         f"{type(mesh).__name__}")
-    refuse_unported(shape)
     if mesh.sharded and getattr(mesh, "device_mesh", None) is None:
         raise ValueError(f"mesh {shape} spans more than one rank but has no "
                          "process group: build it with parallel.mesh."

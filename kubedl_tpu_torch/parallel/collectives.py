@@ -28,7 +28,12 @@ Context and expert parallelism move activations:
   of Ulysses attention; its backward is the reverse all-to-all;
 * :func:`ep_sum` sums the ``ep`` ranks' partial expert outputs as
   ``tp_sum`` sums ``tp``'s, and expert stacks sharded on ``ep`` stay
-  local in :func:`gather` as a ``tp`` shard does.
+  local in :func:`gather` as a ``tp`` shard does;
+* :func:`pp_shift` is the pipeline's neighbor exchange (stage ``s`` to
+  ``s + 1`` for activations, back for cotangents), outside autograd: the
+  pipeline writes its backward out (``parallel/pipeline.py``). A stage
+  leaf stays local in :func:`gather`, and the trainer sums the gradients
+  of the leaves every stage holds over ``pp``.
 
 Tensor-parallel serving holds the embedding table and the LM head as
 each rank's vocab shard (Megatron's form): :func:`vocab_lookup` reads
@@ -94,12 +99,16 @@ def gather_steps(spec: tuple, mesh, gather_tp: bool) -> list:
     caller computes on its ``tp`` shard (``gather_tp`` False) and ``ep``
     (an expert stack's rank computes on its own experts). An axis the
     leaf is replicated over (``cp`` always, ``ep`` for every leaf but the
-    expert stacks) all-reduces the gradient."""
+    expert stacks) all-reduces the gradient. ``pp`` takes no step: a
+    stage computes on its own layers, and a leaf every stage holds (the
+    embedding, the head) has its gradient summed over ``pp`` by the
+    trainer, after the pipeline's backward, since not every stage uses
+    it."""
     from .mesh import AXES
     steps = []
     for axis in reversed(AXES):
         n = mesh.size(axis)
-        if n == 1:
+        if n == 1 or axis == "pp":
             continue
         dims = [d for d, e in enumerate(spec)
                 if e == axis or (isinstance(e, tuple) and axis in e)]
@@ -157,23 +166,32 @@ def ep_sum(x, mesh):
     return _sum_over(x, mesh, "ep")
 
 
-def _shift(x, group, n: int, step: int):
-    """``x`` sent ``step`` places along the ring of ``group``'s ranks
-    (rank ``r`` to ``r + step``); returns the tensor rank ``r - step``
-    sent. CUDA tensors on a gloo group go through the host: gloo's
-    point-to-point calls take host memory only."""
+def _shift(x, group, n: int, step: int, counter=None, ring: bool = True):
+    """``x`` sent ``step`` places along ``group``'s ranks (rank ``r`` to
+    ``r + step``); returns the tensor rank ``r - step`` sent. On a
+    ``ring`` the ends wrap around; on a chain an end sends or receives
+    nothing, and a rank that receives nothing gets zeros. CUDA tensors on
+    a gloo group go through the host, counted in ``counter.host_staged``
+    (``ring_shift``'s by default): gloo's point-to-point calls take host
+    memory only."""
     me = dist.get_rank(group)
-    dst = dist.get_global_rank(group, (me + step) % n)
-    src = dist.get_global_rank(group, (me - step) % n)
+    to, frm = me + step, me - step
+    if ring:
+        to, frm = to % n, frm % n
     x = x.contiguous()
     staged = x.is_cuda and dist.get_backend(group) == "gloo"
     if staged:
-        ring_shift.host_staged += 1
+        (counter or ring_shift).host_staged += 1
         x = x.cpu()
-    out = torch.empty_like(x)
-    for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, dst, group),
-                                       dist.P2POp(dist.irecv, out, src,
-                                                  group)]):
+    out = torch.zeros_like(x) if not 0 <= frm < n else torch.empty_like(x)
+    ops = []
+    if 0 <= to < n:
+        ops.append(dist.P2POp(dist.isend, x, dist.get_global_rank(group, to),
+                              group))
+    if 0 <= frm < n:
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(group, frm), group))
+    for req in dist.batch_isend_irecv(ops) if ops else ():
         req.wait()
     return out.cuda() if staged else out
 
@@ -205,6 +223,27 @@ def ring_shift(x, mesh, axis: str = "cp"):
 #: CUDA tensors a gloo ring shift carried through the host (a NCCL group
 #: never does)
 ring_shift.host_staged = 0
+
+
+def pp_shift(x, mesh, step: int, axis: str = "pp"):
+    """The pipeline's neighbor exchange: ``x`` handed from stage ``s`` to
+    stage ``s + step`` of ``axis`` (``step`` 1 carries activations
+    forward, -1 cotangents back), the tensor stage ``s - step`` sent
+    returned; the first stage to receive along ``step`` gets zeros, and
+    the last one's send goes nowhere (a chain, not a ring: JAX's
+    ``ppermute`` wraps, and the pipeline masks what wrapped). A bare
+    exchange: the pipeline writes its backward out
+    (``parallel/pipeline.py``), so no autograd records it. Every stage
+    calls it at every slot, so the sends and receives pair up in one
+    order on every rank."""
+    n = mesh.size(axis)
+    if n == 1:
+        return torch.zeros_like(x)
+    return _shift(x, mesh.group(axis), n, step, counter=pp_shift, ring=False)
+
+
+#: CUDA tensors a gloo pipeline exchange carried through the host
+pp_shift.host_staged = 0
 
 
 def _a2a(x, group, n: int, split_dim: int, concat_dim: int):

@@ -13,10 +13,10 @@ With a group open, :func:`build_mesh` lays the group's ranks out over a
 one it returns the one-device mesh of earlier slices, and any axis above
 1 is a layout this one process cannot hold.
 
-``dp``, ``fsdp``, ``tp``, ``cp`` (ring and Ulysses attention,
-``parallel/ring.py`` and ``parallel/ulysses.py``) and ``ep`` (MoE experts,
-``models/moe.py``) train (``train/trainer.py``); ``pp`` waits for
-ROADMAP A5c and raises by item.
+Every axis trains (``train/trainer.py``): ``dp``, ``fsdp``, ``tp``,
+``cp`` (ring and Ulysses attention, ``parallel/ring.py`` and
+``parallel/ulysses.py``), ``ep`` (MoE experts, ``models/moe.py``) and
+``pp`` (pipeline stages, ``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -30,9 +30,6 @@ import torch
 from .._device import resolve_device
 
 AXES = ("dp", "fsdp", "ep", "pp", "cp", "tp")
-
-#: mesh axes that are not ported yet, and the ROADMAP item of each
-UNPORTED_AXES = {"pp": "ROADMAP A5c (pipeline parallelism)"}
 
 
 @dataclass(frozen=True)
@@ -58,15 +55,6 @@ class MeshConfig:
                 f"mesh {dict(zip(AXES, dims))} needs {math.prod(dims)} "
                 f"devices, have {n_devices}")
         return dims
-
-
-def refuse_unported(sizes: dict) -> None:
-    """Raise for an axis above 1 whose parallelism is not ported yet,
-    naming its ROADMAP item."""
-    for axis, item in UNPORTED_AXES.items():
-        if sizes.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis}={sizes[axis]} is not ported yet: {item}")
 
 
 @dataclass(frozen=True)
@@ -112,10 +100,8 @@ def build_mesh(config: Optional[MeshConfig] = None, device=None) -> Mesh:
     """The named mesh on ``device`` (the card unless the caller names the
     CPU). Under an open process group its axes cover the group's ranks,
     with ``MeshConfig``'s default (-1) putting every rank on ``fsdp``;
-    without one it is the one-device mesh. ``pp`` above 1 raises,
-    naming its ROADMAP item."""
+    without one it is the one-device mesh."""
     config = config or MeshConfig()
-    refuse_unported({a: getattr(config, a) for a in AXES})
     dev = resolve_device(device)
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():

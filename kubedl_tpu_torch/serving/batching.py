@@ -75,7 +75,8 @@ import torch
 from .._device import resolve_device
 from ..trace import NOOP_TRACER
 from .engine import (GenerateConfig, SpecStats, filtered_probs, hit_stop,
-                     init_mesh_serving, resolve_family, sample_logits,
+                     init_mesh_serving, load_into, resolve_family,
+                     sample_logits,
                      sample_logits_many, serving_tp, spec_accept,
                      token_logprobs)
 
@@ -523,6 +524,7 @@ class ContinuousBatchingEngine:
         #: the weights on the device: quantized there leaf by leaf under
         #: ``quantize`` ("int8"/"int4"), never densified afterwards; under
         #: a mesh, this rank's shard of each (quantize is refused there)
+        self.quantize = quantize
         self.params = init_mesh_serving(config, params, quantize, mesh, dev)
         #: tensor-parallel serving: the step channel rank 0 posts every
         #: device step on (None without a mesh), the lock that keeps each
@@ -986,6 +988,28 @@ class ContinuousBatchingEngine:
         row[0, :len(blocks)] = blocks
         self._chunked_prefill({"model": "target", "kv": "paged", "ref": row},
                               list(tokens), 0)
+
+    def load_weights(self, params: dict) -> None:
+        """Serve ``params`` from now on (a refreshed policy), prepared as
+        at construction (quantized under ``quantize``) and copied into
+        the tensors the engine holds: every decode tick's CUDA graph
+        holds those tensors' addresses, so it replays on the new weights
+        (a new tree would leave the graphs reading the old ones). Only an
+        idle engine refreshes. Registered prefixes hold K/V of the old
+        weights, so they are dropped. A tensor-parallel engine's
+        followers repeat device steps only, so it refreshes by a
+        restart."""
+        if self._channel is not None:
+            raise ValueError("a tensor-parallel engine cannot refresh its "
+                             "weights in place: its followers hold theirs")
+        with self._sched_lock:
+            if self._active() or self._queue:
+                raise RuntimeError("load_weights needs an idle engine: "
+                                   "requests are in flight")
+            load_into(self.params, init_mesh_serving(
+                self.config, params, self.quantize, self.mesh, self.device))
+        if self._prefixes:
+            self.clear_prefixes()
 
     @property
     def prefix_count(self) -> int:

@@ -233,8 +233,8 @@ def serving_tp(mesh) -> int:
     mesh is one host's ``tp`` group, as the JAX predictor's. ``cp`` and
     ``ep`` train (``parallel/ring.py``, ``parallel/ulysses.py``,
     ``models/moe.py``) but no JAX entry point serves over them; they
-    raise by their ROADMAP item first, as do axes not ported at all
-    (``llama._check_mesh``)."""
+    raise by their ROADMAP item first, and a mesh without a group behind
+    it raises (``llama._check_mesh``)."""
     if mesh is None:
         return 1
     for axis in ("cp", "ep"):
@@ -334,6 +334,28 @@ def init_mesh_serving(config, params, quantize, mesh, device=None):
     return shard_for_serving(config, params, None, mesh)[0]
 
 
+@torch.no_grad()
+def load_into(dst, src) -> None:
+    """Copy the tree ``src`` into the tensors of ``dst`` in place, leaf by
+    leaf (a wrapped quantized leaf field by field): whatever holds
+    ``dst``'s tensors (a captured CUDA graph holds their addresses) reads
+    the new values. The trees must match in keys, shapes and dtypes."""
+    if isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise ValueError(f"weights with keys {sorted(src)} do not match "
+                             f"the served {sorted(dst)}")
+        for k in dst:
+            load_into(dst[k], src[k])
+        return
+    fields = getattr(dst, "_arrays", ())
+    for d, s in ([(getattr(dst, f), getattr(src, f)) for f in fields]
+                 if fields else [(dst, src)]):
+        if d.shape != s.shape or d.dtype != s.dtype:
+            raise ValueError(f"a {tuple(s.shape)} {s.dtype} leaf cannot "
+                             f"replace the served {tuple(d.shape)} {d.dtype}")
+        d.copy_(s)
+
+
 def greedy_rollout(config, params, prompts, max_new: int):
     """Whole-generation greedy decode: prefill plus ``max_new - 1``
     single-token steps, argmax on the device, one copy to the host at the
@@ -381,9 +403,19 @@ class InferenceEngine:
         #: span recorder: per-generate prefill/decode spans; the shared
         #: disabled tracer by default
         self.tracer = tracer if tracer is not None else NOOP_TRACER
+        self.quantize = quantize
         self.params = init_mesh_serving(config, params, quantize, mesh,
                                         self.device)
         self._family = resolve_family(config)
+
+    def load_weights(self, params: dict) -> None:
+        """Serve ``params`` from the next :meth:`generate` on (a refreshed
+        policy: the JAX loop's ``init_mesh_serving`` onto the engine's
+        mesh), prepared as at construction and copied into the tensors
+        the engine holds. Under a mesh every rank calls it, as it calls
+        ``generate``."""
+        load_into(self.params, init_mesh_serving(
+            self.config, params, self.quantize, self.mesh, self.device))
 
     def _step(self, cache, tokens, start_pos: int, valid):
         return self._family.forward_step(self.config, self.params, tokens,

@@ -48,23 +48,37 @@ data fingerprint matches. ``"eval": {"every": N, "data": {...},
 (LoRA folded first; an MoE model has no HF mapping and raises
 ``ValueError`` up front, as in the JAX package).
 
+``mode: grpo`` is on-policy RL from a verifiable reward (``train.grpo``):
+``prompts_jsonl`` rows ``{"prompt": ...}`` (token ids, or text with
+``data.tokenizer``), ``"reward": "pkg.mod:fn"`` or ``"/path.py:fn"``
+(``fn(prompt_ids, completion_ids[, tokenizer=...]) -> float``), ``"grpo":
+{...}`` (``GRPOConfig``) and ``"rollout": {"rounds", "steps_per_round",
+"max_new_tokens", "max_len", "prompts_per_round"}``. Each round refreshes
+the rollout engine's weights to the policy, samples a group per prompt,
+scores the frozen initial weights as the KL reference and takes
+``steps_per_round`` steps; a resumed job starts at the next round.
+
 Across processes: with the operator's rendezvous contract in the env
 (``KUBEDL_COORDINATOR_ADDRESS``, ``KUBEDL_NUM_PROCESSES``,
 ``KUBEDL_PROCESS_ID``; ``runtime/bootstrap.py``) the job opens a process
 group first (NCCL on the card, gloo on the CPU), then lays ``"mesh":
-{"dp": .., "fsdp": .., "ep": .., "cp": .., "tp": ..}`` over its ranks
-(default: every rank on ``fsdp``; ``cp`` shards the sequence through ring
-or Ulysses attention, picked by ``"model_overrides": {"cp_impl": ...}``
-as in the JAX entrypoint, and ``ep`` an MoE model's experts), places the params by the family's ``param_specs`` (and the
-adapters by ``adapter_specs`` under ``lora``) and trains every mode
-sharded: each rank draws the global batch and keeps its rows, the loss
-is the global mean, checkpoints reshard across world sizes, and the
-export gathers the params and only rank 0 writes. The group is torn
-down on exit.
+{"dp": .., "fsdp": .., "ep": .., "pp": .., "cp": .., "tp": ..}`` over its
+ranks (default: every rank on ``fsdp``; ``cp`` shards the sequence
+through ring or Ulysses attention, picked by ``"model_overrides":
+{"cp_impl": ...}`` as in the JAX entrypoint, ``ep`` an MoE model's
+experts, and ``pp`` the layers of a Llama or Gemma model into pipeline
+stages, ``"pipeline": {"num_micro": n}`` microbatches a step through the
+GPipe schedule, :func:`build_pp_pretrain`), places the params by the
+family's ``param_specs`` (and the adapters by ``adapter_specs`` under
+``lora``) and trains every mode sharded: each rank draws the global batch
+and keeps its rows, the loss is the global mean, checkpoints reshard
+across world sizes (a ``pp`` checkpoint restores at the same ``pp``, as
+in the JAX package), and the export gathers the params (the stages
+restacked to the flat ``[L, ...]`` layout) and only rank 0 writes. The
+group is torn down on exit.
 
-Not ported yet, and refused by name: ``mode: grpo`` (ROADMAP A7), the
-mesh axis ``pp`` (A5c) above 1, the modes ``evaluate`` and ``dpo`` and
-in-training eval over ``cp`` above 1 (A5f), and the
+Not ported yet, and refused by name: the modes ``evaluate`` and ``dpo``
+and in-training eval over ``cp`` above 1 (ROADMAP A5f), and the
 in-cluster elastic agent and a multi-process launch without the
 operator's contract (``WORLD_SIZE`` of torchrun or a PyTorchJob) (A8).
 """
@@ -359,6 +373,141 @@ def dpo_batches(cfg: dict, config, params, mesh, batch: int,
     return CountingIterator(stream(), consumed=skip)
 
 
+def pp_num_micro(cfg: dict, config, mesh, batch: int) -> int:
+    """The up-front checks of pipeline training, run on every rank before
+    any data opens, with the JAX entrypoint's messages; returns
+    ``pipeline.num_micro`` (default ``max(2, pp)``)."""
+    from ..models import io
+    mode = cfg.get("mode", "pretrain")
+    if mode not in ("pretrain", "sft"):
+        raise ValueError("pp training supports mode pretrain/sft")
+    if cfg.get("lora"):
+        raise ValueError("pp does not compose with lora adapters")
+    if io.family_name(config) != "llama":
+        raise ValueError("pp training supports the dense llama "
+                         "family only (MoE scales with ep instead)")
+    if mesh.size("cp") > 1 or mesh.size("tp") > 1:
+        raise ValueError(
+            "pp training composes with dp/fsdp only; set cp=1 and "
+            "tp=1 (cp/tp inside pipeline stages is not wired yet)")
+    data = cfg.get("data", {"kind": "synthetic"})
+    kinds = ([src.get("kind") for src in data.get("sources", [])]
+             if data.get("kind") == "mixture"
+             else [data.get("kind", "synthetic")])
+    if mode == "pretrain" and "text" in kinds:
+        # before the corpus is tokenized and packed
+        raise ValueError(
+            "pp training does not support packed text batches yet — "
+            "use data.kind tokens/synthetic (or mode sft)")
+    num_micro = int(cfg.get("pipeline", {}).get("num_micro", 0)) \
+        or max(2, mesh.size("pp"))
+    if batch % num_micro:
+        raise ValueError(
+            f"batch {batch} not divisible by pipeline.num_micro="
+            f"{num_micro}")
+    if (batch // num_micro) % mesh.data_size:
+        raise ValueError(
+            f"microbatch {batch // num_micro} rows must divide "
+            f"the dp*fsdp width {mesh.data_size}")
+    return num_micro
+
+
+def build_pp_pretrain(config, mesh, num_micro: int, stages=None):
+    """``mesh: {"pp": n}`` with n > 1: GPipe pipeline training through the
+    entrypoint (the llama family, plain and SFT batches). Layers are
+    stage-stacked ``[pp, L/pp, ...]`` and flow through
+    ``parallel.pipeline.pipeline_apply``, whose written-out backward
+    reaches every param (the embedding and the head too). ``stages`` is
+    where the pipeline runs: this rank's stage of ``mesh``'s ``pp`` group
+    by default, or ``parallel.pipeline.local_stages(pp)`` to run every
+    stage in one process (``mesh`` then None, or a one-device mesh).
+    Returns ``(loss_fn, to_pp, from_pp, specs_of)``: to_pp/from_pp restack
+    params between the flat checkpoint/export layout and the staged
+    training layout. The loss is ``lm_loss`` over the whole reassembled
+    batch, taken on the last stage (its share of the global mean under a
+    sharded mesh; 0, still joined to the pipeline's graph, on the other
+    stages, so every stage runs the backward). Each stage's layers run
+    ``llama._layer_forward`` (K1-K3 on the card), each layer under
+    ``torch.utils.checkpoint`` with ``config.remat``.
+    ``pipeline_grads_1f1b`` stays the library-level memory-bound
+    scheduler, as in the JAX package."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from ..models import llama
+    from ..parallel.pipeline import (pipeline_apply, stack_stages,
+                                     stage_scan, stages_of)
+    from ..parallel.sharding import materialize
+    from ..parallel.sharding import spec as logical_spec
+
+    stages = stages_of(stages if stages is not None else mesh)
+    pp = stages.pp
+    if llama.window_flags(config) is not None:
+        raise ValueError(
+            "pp training does not support per-layer window patterns "
+            "(Gemma-2 alternating windows) yet")
+    if not config.scan_layers:
+        raise ValueError("pp training needs scan_layers=True "
+                         "(stacked layer params)")
+    if config.n_layers % pp:
+        raise ValueError(
+            f"{config.n_layers} layers not divisible by pp={pp}")
+
+    def to_pp(params):
+        out = {k: v for k, v in params.items() if k != "layers"}
+        out["stages"] = stack_stages(params["layers"], pp)
+        return out
+
+    def from_pp(params):
+        out = {k: v for k, v in params.items() if k != "stages"}
+        out["layers"] = {k: v.reshape((config.n_layers,)
+                                      + tuple(v.shape[2:]))
+                         for k, v in params["stages"].items()}
+        return out
+
+    def specs_of(params_pp):
+        base = llama.param_specs(config)
+        sp = {k: v for k, v in base.items() if k != "layers"}
+        sp["stages"] = {k: logical_spec("stages")
+                        for k in params_pp["stages"]}
+        return sp
+
+    def layer(x, lp, cos, sin):
+        if config.remat and torch.is_grad_enabled():
+            return checkpoint(llama._layer_forward, config, x, lp, cos, sin,
+                              None, use_reentrant=False)
+        return llama._layer_forward(config, x, lp, cos, sin, None)
+
+    def loss_fn(params, batch):
+        if "segment_ids" in batch:
+            # backstop: the entrypoint refuses packed data kinds before
+            # any data opens
+            raise ValueError(
+                "pp training does not support packed (segment-id) "
+                "batches yet — use data.kind tokens/synthetic/sft_jsonl")
+        # a stage leaf is this rank's stage (one row) or every stage (pp
+        # rows in one process); over dp/fsdp it is whole, and its
+        # gradient is summed there once, after the pipeline's backward
+        staged = {k: materialize(v) for k, v in params["stages"].items()}
+
+        def apply_layers(x, cos, sin):
+            return pipeline_apply(
+                stages, stage_scan(lambda h, lp: layer(h, lp, cos, sin)),
+                staged, x, num_micro)
+
+        # the prologue (embed, embed_scale, rope) and the final norm are
+        # the flat forward's, through its apply_layers hook
+        x = llama.forward_hidden(config, params, batch["tokens"],
+                                 apply_layers=apply_layers)
+        if not stages.holds_last:
+            # a float32 share, as the last stage's loss is
+            return x.sum().float() * 0.0
+        return llama.lm_loss(config, x, params, batch["targets"],
+                             mask=batch.get("mask"), mesh=mesh)
+
+    return loss_fn, to_pp, from_pp, specs_of
+
+
 def _data_fingerprint(cfg: dict, mode: str, batch: int, seq: int) -> dict:
     """Identity of the data stream a checkpoint cursor belongs to. A
     restored cursor only fast-forwards when the stream it counted is the
@@ -429,6 +578,159 @@ def run_evaluate(cfg: dict, config, params, mesh) -> int:
     return 0
 
 
+def resolve_reward(spec: str):
+    """``"pkg.mod:fn"`` or ``"/path/file.py:fn"`` -> the reward callable
+    ``fn(prompt_ids, completion_ids) -> float``."""
+    import importlib
+    import importlib.util
+
+    mod_spec, _, fn_name = spec.partition(":")
+    if not fn_name:
+        raise ValueError(
+            f"reward must be 'module:function' or '/path.py:function', "
+            f"got {spec!r}")
+    if mod_spec.endswith(".py"):
+        py_spec = importlib.util.spec_from_file_location(
+            "kubedl_reward", mod_spec)
+        mod = importlib.util.module_from_spec(py_spec)
+        py_spec.loader.exec_module(mod)
+    else:
+        mod = importlib.import_module(mod_spec)
+    try:
+        return getattr(mod, fn_name)
+    except AttributeError:
+        raise ValueError(
+            f"no function {fn_name!r} in {mod_spec}") from None
+
+
+def run_grpo(cfg: dict, config, trainer, state, manager, ref_params,
+             on_step=None):
+    """The on-policy RLVR loop: refresh the rollout engine's weights to
+    the current policy each round, sample a group per prompt, score with
+    the verifiable reward, update for ``steps_per_round`` steps.
+
+    On-policy means ``old_logps`` from the freshly refreshed engine ARE
+    the current policy: the clipped ratio only engages within a round as
+    the weights move. The engine (the static ``InferenceEngine``, as the
+    JAX loop's) holds its own copy of the weights, built once and
+    refreshed in place each round (``load_weights``). ``ref_params`` is
+    the frozen KL reference: the INITIAL weights, copied before any
+    checkpoint restore. ``on_step(step, loss)`` follows every step."""
+    import functools
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from ..parallel.sharding import full_tensor
+    from ..serving.engine import GenerateConfig, InferenceEngine
+    from ..tokenizer import load_tokenizer
+    from . import grpo as grpo_mod
+    from .data import shard_batch
+    from .trainer import tree_map
+
+    data = cfg.get("data", {})
+    if data.get("kind") != "prompts_jsonl":
+        raise ValueError("mode=grpo needs data.kind='prompts_jsonl'")
+    tok = load_tokenizer(data.get("tokenizer", ""))
+    _check_tok_vocab(tok, config)
+    prompts = []
+    with open(data["path"]) as f:
+        for line in f:
+            if line.strip():
+                p = json.loads(line)["prompt"]
+                if isinstance(p, str):
+                    if tok is None:
+                        raise ValueError(
+                            "text prompts need data.tokenizer")
+                    p = tok.encode(p, add_bos=True)
+                prompts.append(p)
+    if not prompts:
+        raise ValueError(f"no prompts in {data['path']}")
+    reward_fn = resolve_reward(cfg.get("reward", ""))
+    if "tokenizer" in inspect.signature(reward_fn).parameters:
+        if tok is None:
+            # fail before the first rollout, not at the first reward call
+            raise ValueError(
+                "reward function declares a tokenizer parameter but the "
+                "config sets no data.tokenizer")
+        # text-level rewards decode with the corpus tokenizer
+        reward_fn = functools.partial(reward_fn, tokenizer=tok)
+
+    gcfg = grpo_mod.GRPOConfig(**cfg.get("grpo", {}))
+    roll = cfg.get("rollout", {})
+    rounds = int(roll.get("rounds", 10))
+    steps_per_round = int(roll.get("steps_per_round", 4))
+    if rounds < 1 or steps_per_round < 1:
+        raise ValueError("rollout.rounds and rollout.steps_per_round "
+                         "must be >= 1")
+    max_new = int(roll.get("max_new_tokens", 64))
+    max_len = int(roll.get("max_len", 1024))
+    per_round = int(roll.get("prompts_per_round", 0)) or max(
+        1, 8 // gcfg.group_size)
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        raise ValueError("mode=grpo is single-host for now: the rollout "
+                         "engine runs in-process on this host's chips")
+
+    interval = manager.config.save_interval_steps if manager else 0
+    last_saved = int(state.step)
+    dev = trainer.device
+    mesh = trainer.placement_mesh
+    engine = None
+    # resume: rounds advance the step by exactly steps_per_round, so the
+    # restored step IS the data cursor: start at the next round (a resumed
+    # run rolls out the prompt schedule an uninterrupted one would)
+    start_rnd = min(int(state.step) // steps_per_round, rounds)
+    if start_rnd:
+        log.info("grpo resume: %d rounds already done (step %d), "
+                 "starting at round %d", start_rnd, int(state.step),
+                 start_rnd + 1)
+    for rnd in range(start_rnd, rounds):
+        with torch.no_grad():
+            policy = tree_map(lambda t: full_tensor(t).detach(),
+                              state.params)
+            if engine is None:
+                engine = InferenceEngine(
+                    config, tree_map(torch.clone, policy),
+                    GenerateConfig(max_len=max_len, temperature=1.0),
+                    device=dev)
+            else:
+                engine.load_weights(policy)
+            del policy
+        batch_prompts = [prompts[(rnd * per_round + j) % len(prompts)]
+                         for j in range(per_round)]
+        batch = grpo_mod.rollout_batch(
+            engine, batch_prompts, reward_fn, max_new, cfg=gcfg,
+            seed=int(cfg.get("seed", 0)) + rnd)
+        mean_reward = float(batch["rewards"].mean())
+        with torch.no_grad():
+            ref_lp = grpo_mod.token_logps(
+                config, ref_params,
+                torch.as_tensor(batch["tokens"], device=dev).long(),
+                torch.as_tensor(batch["targets"], device=dev).long())
+        train = {k: v for k, v in batch.items() if k != "rewards"}
+        train["ref_logps"] = ref_lp.float().cpu().numpy().astype(np.float32)
+        sb = shard_batch(train, mesh)
+        for _ in range(steps_per_round):
+            state, loss = trainer.step(state, sb)
+            if on_step is not None:
+                on_step(state.step, float(loss))
+        log.info("grpo round %d/%d mean_reward %.4f loss %.4f",
+                 rnd + 1, rounds, mean_reward, float(loss))
+        # host-side cadence: rounds advance step by steps_per_round, so the
+        # manager's `step % interval` periodic gate would only fire at
+        # lcm(steps_per_round, interval)
+        if manager is not None and interval \
+                and int(state.step) - last_saved >= interval:
+            manager.save(state, force=True)
+            last_saved = int(state.step)
+    if manager is not None:
+        manager.save(state, force=True)
+        manager.wait_until_finished()
+    return state
+
+
 def _family(cfg: dict) -> str:
     """The family (``models.io.FAMILIES``) of the config's ``model``,
     found without loading weights."""
@@ -449,11 +751,7 @@ def _refuse_unported(cfg: dict, env) -> None:
             "export_hf_path: MoE configs have no HF mapping — drop "
             "export_hf_path or use a llama-family model")
     mode = cfg.get("mode", "pretrain")
-    if mode == "grpo":
-        raise NotImplementedError(
-            "mode 'grpo' is not ported yet: ROADMAP A7 (its rollouts run "
-            "on the serving engine's submit path, with the RL learner)")
-    if mode not in ("pretrain", "sft", "evaluate", "dpo"):
+    if mode not in ("pretrain", "sft", "evaluate", "dpo", "grpo"):
         raise ValueError(f"unknown mode {mode!r}")
     if cfg.get("lora") and mode not in ("pretrain", "sft"):
         # adapter tuning only composes with the plain next-token losses
@@ -484,8 +782,6 @@ def _refuse_unported(cfg: dict, env) -> None:
                 "the operator's rendezvous contract (KUBEDL_COORDINATOR_"
                 "ADDRESS, KUBEDL_NUM_PROCESSES, KUBEDL_PROCESS_ID): "
                 "reading another launcher's env is ROADMAP A8")
-    from ..parallel.mesh import refuse_unported
-    refuse_unported(cfg.get("mesh", {}))
     if cfg.get("mesh", {}).get("cp", 1) > 1 and (
             mode in ("evaluate", "dpo") or cfg.get("eval")):
         # their per-row sums span the sequence, which cp splits
@@ -533,8 +829,9 @@ def _run(cfg: dict, dev, on_step) -> int:
     import torch
 
     from ..models import io
+    from ..parallel.collectives import all_gather
     from ..parallel.mesh import MeshConfig, build_mesh
-    from ..parallel.sharding import full_tensor, shard_tree, views
+    from ..parallel.sharding import full_tensor, local_of, shard_tree, views
     from .trainer import TrainConfig, Trainer, tree_map
 
     mesh = build_mesh(MeshConfig(**cfg.get("mesh", {})), device=dev)
@@ -548,6 +845,9 @@ def _run(cfg: dict, dev, on_step) -> int:
     log.info("model=%s params=%.2fM mesh=%s mode=%s device=%s",
              cfg.get("model"), config.num_params / 1e6, mesh.shape, mode,
              dev)
+    # pipeline training: validated up front, before any data opens
+    num_micro = (pp_num_micro(cfg, config, mesh, batch)
+                 if mesh.size("pp") > 1 else 0)
     if params is None:
         params = family.init_params(
             config,
@@ -587,6 +887,7 @@ def _run(cfg: dict, dev, on_step) -> int:
                     cursor.get("fingerprint"), fingerprint)
 
     model_mesh = mesh if sharded else None
+    batches = from_pp = None
     if mode == "dpo":
         from . import dpo as dpo_mod
         loss_fn = dpo_mod.make_dpo_loss_fn(
@@ -598,15 +899,32 @@ def _run(cfg: dict, dev, on_step) -> int:
             tree_map(lambda t: t.detach().clone(), params))
         batches = dpo_batches(cfg, config, ref_params, mesh, batch,
                               skip=resume_skip)
+    elif mode == "grpo":
+        from . import grpo as grpo_mod
+        loss_fn = grpo_mod.make_grpo_loss_fn(
+            config, grpo_mod.GRPOConfig(**cfg.get("grpo", {})),
+            mesh=model_mesh)
+        # the frozen KL reference is the INITIAL weights: a copy taken
+        # before init_state and before any restore, since the trainer
+        # updates its parameters in place (an alias would move the anchor)
+        grpo_ref = tree_map(lambda t: t.detach().clone(), params)
     else:
-        def loss_fn(p, b):
-            # packed text batches carry segment/position/mask planes;
-            # token/synthetic batches don't: one closure serves both
-            return family.loss_fn(config, p, b["tokens"], b["targets"],
-                                  mask=b.get("mask"),
-                                  segment_ids=b.get("segment_ids"),
-                                  positions=b.get("positions"),
-                                  mesh=model_mesh)
+        if num_micro:
+            loss_fn, to_pp, from_pp, specs_of = build_pp_pretrain(
+                config, model_mesh, num_micro)
+            params = to_pp(params)
+            specs = specs_of(params)
+            log.info("pipeline training: pp=%d num_micro=%d (GPipe)",
+                     mesh.size("pp"), num_micro)
+        else:
+            def loss_fn(p, b):
+                # packed text batches carry segment/position/mask planes;
+                # token/synthetic batches don't: one closure serves both
+                return family.loss_fn(config, p, b["tokens"], b["targets"],
+                                      mask=b.get("mask"),
+                                      segment_ids=b.get("segment_ids"),
+                                      positions=b.get("positions"),
+                                      mesh=model_mesh)
 
         batches = (sft_stream(cfg, config, mesh, batch, seq,
                               skip=resume_skip) if mode == "sft"
@@ -657,7 +975,28 @@ def _run(cfg: dict, dev, on_step) -> int:
     else:
         trainer = Trainer(loss_fn, opt, **placement)
         state = trainer.init_state(params)
-        if sharded:
+        if from_pp is not None:
+            def whole_stages(tree):
+                """The stage leaves gathered over pp (each rank holds
+                its own stage), whole."""
+                return {k: all_gather(local_of(v), mesh, 0, axis="pp")
+                        for k, v in tree["stages"].items()}
+
+            def merge(tree):
+                # restack [pp, L/pp, ...] stages to the flat [L, ...]
+                # layout every other consumer (serving, HF export) reads
+                return from_pp({**tree_map(full_tensor, {
+                    k: v for k, v in tree.items() if k != "stages"}),
+                    "stages": whole_stages(tree)})
+
+            def params_of(st):
+                # in-training eval runs the flat forward
+                with torch.no_grad():
+                    return from_pp({**views({k: v for k, v in
+                                             st.params.items()
+                                             if k != "stages"}, mesh),
+                                    "stages": whole_stages(st.params)})
+        elif sharded:
             def params_of(st):
                 return views(st.params, mesh)
     del params
@@ -668,21 +1007,25 @@ def _run(cfg: dict, dev, on_step) -> int:
             log.info("resumed from checkpoint step %s",
                      manager.latest_step())
 
-    from .data import CountingIterator
-    data_state_fn = None
-    if manager is not None and isinstance(batches, CountingIterator):
-        def data_state_fn():
-            return {"consumed_batches": batches.consumed,
-                    "fingerprint": fingerprint}
+    if mode == "grpo":
+        state = run_grpo(cfg, config, trainer, state, manager, grpo_ref,
+                         on_step=on_step)
+    else:
+        from .data import CountingIterator
+        data_state_fn = None
+        if manager is not None and isinstance(batches, CountingIterator):
+            def data_state_fn():
+                return {"consumed_batches": batches.consumed,
+                        "fingerprint": fingerprint}
 
-    ev_every, ev_fn = ((0, None) if mode == "dpo"
-                       else build_eval_fn(cfg, config, mesh, batch, seq,
-                                          params_of=params_of))
-    state = trainer.fit(state, batches, num_steps=steps,
-                        log_every=int(cfg.get("log_every", 10)),
-                        on_step=on_step, checkpoint_manager=manager,
-                        eval_every=ev_every, eval_fn=ev_fn,
-                        data_state_fn=data_state_fn)
+        ev_every, ev_fn = ((0, None) if mode == "dpo"
+                           else build_eval_fn(cfg, config, mesh, batch, seq,
+                                              params_of=params_of))
+        state = trainer.fit(state, batches, num_steps=steps,
+                            log_every=int(cfg.get("log_every", 10)),
+                            on_step=on_step, checkpoint_manager=manager,
+                            eval_every=ev_every, eval_fn=ev_fn,
+                            data_state_fn=data_state_fn)
 
     export = cfg.get("export_path") or os.environ.get("KUBEDL_MODEL_PATH")
     hf_out = cfg.get("export_hf_path")

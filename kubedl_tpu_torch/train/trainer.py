@@ -28,6 +28,11 @@ With ``param_specs`` and a ``mesh`` over a process group
   rank's rows and returns its *share* of the global loss (the families'
   ``loss_fn`` with ``mesh=``); the shares of all ranks add up to the
   JAX package's global mean, and the step returns that sum;
+* under ``pp`` each rank holds its own stage's layers (a ``[1, L/pp,
+  ...]`` shard of every ``stages`` leaf) and the leaves outside the
+  stages whole; the pipeline's backward gives each stage its layers'
+  gradients, and the step sums the other leaves' gradients over ``pp``
+  (stage 0 uses the embedding, the last stage the head);
 * the optimizer runs on the local shards, leaf by leaf, exactly the
   one-card update, with one ``all_reduce`` for the global norm: each
   sharded leaf's sum of squares is taken on its shard (``g*g`` in the
@@ -275,17 +280,34 @@ class Trainer:
         return TrainState(step=0, params=params,
                           opt_state=self.optimizer.init(params))
 
+    def remesh(self, mesh) -> None:
+        """Adopt a new mesh (an elastic resize, ``docs/elastic.md``): the
+        next :meth:`init_state` or :meth:`abstract_state` places by it. The
+        caller restores the state into :meth:`abstract_state` on the new
+        mesh, so a resize never re-initializes: the step counter and the
+        loss curve continue where the checkpoint left them."""
+        if (self.param_specs is None) != (mesh is None):
+            raise ValueError("param_specs and mesh come together")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else self.device
+
+    @property
+    def placement_mesh(self):
+        """The mesh the state and the batches live on: ``mesh``, or the
+        one-device mesh of the trainer's device."""
+        if self.mesh is not None:
+            return self.mesh
+        from ..parallel.mesh import AXES, Mesh
+        return Mesh(device=resolve_device(self.device),
+                    shape={a: 1 for a in AXES})
+
     def abstract_state(self, state: TrainState) -> TrainState:
         """Restore target for this trainer's placement (see
         ``checkpoint.abstract_state_like``)."""
         from .checkpoint import abstract_state_like
-        if self.mesh is None:
-            from ..parallel.mesh import AXES, Mesh
-            one = Mesh(device=resolve_device(self.device),
-                       shape={a: 1 for a in AXES})
-            return abstract_state_like(state, one,
-                                       tree_map(lambda t: (), state.params))
-        return abstract_state_like(state, self.mesh, self.param_specs)
+        specs = (self.param_specs if self.mesh is not None
+                 else tree_map(lambda t: (), state.params))
+        return abstract_state_like(state, self.placement_mesh, specs)
 
     def _value_and_grad(self, params: dict, batch: dict):
         from ..parallel.sharding import ShardedTensor
@@ -321,6 +343,8 @@ class Trainer:
             view = views(state.params, mesh, requires_grad=True)
             batch = {k: local_of(v) for k, v in batch.items()}
             share, grads = self._grads(view, batch)
+            if mesh.size("pp") > 1:
+                self._sum_over_stages(state.params, grads)
             loss = collectives.world_sum(share)
         with torch.profiler.record_function("train.optimizer"):
             params = tree_map(local_of, state.params)
@@ -335,6 +359,22 @@ class Trainer:
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=AdamState(count=new.count, mu=opt.mu,
                                               nu=nu)), loss
+
+    def _sum_over_stages(self, placed: dict, grads: dict) -> None:
+        """Under ``pp``, sum over the stages the gradient of every leaf
+        each stage holds whole (the embedding, the final norm, the head):
+        stage 0 uses the embedding and the last stage the head (a tied
+        one both), so every rank's copy takes the one update. A stage
+        leaf (sharded on ``pp``) keeps its own."""
+        import torch.distributed as dist
+
+        from ..parallel.sharding import spec_of
+        group = self.mesh.group("pp")
+        for k, p in tree_leaves(placed):
+            spec = spec_of(p.placements)
+            if not any(e == "pp" or (isinstance(e, tuple) and "pp" in e)
+                       for e in spec):
+                dist.all_reduce(grads[k], group=group)
 
     def _sq_sums(self, placed: dict, grads: dict) -> dict:
         """Each leaf's global sum of squares of its gradient, in the

@@ -214,11 +214,10 @@ def test_local_shard_takes_the_rank_chunk_dp_major():
 
 
 def test_build_mesh_refuses_unported_axes_by_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5c"):
-        tmesh.build_mesh(tmesh.MeshConfig(pp=2), device="cpu")
-    # ep and cp are ported (test_torch_cp_ep_train.py): one process holds
-    # no mesh of two ranks on either
-    for kw in ({"ep": 2}, {"cp": 2}):
+    # every axis is ported: ep and cp (test_torch_cp_ep_train.py), pp
+    # (test_torch_pp_train.py); one process holds no mesh of two ranks on
+    # any of them
+    for kw in ({"ep": 2}, {"cp": 2}, {"pp": 2}):
         with pytest.raises(ValueError, match="devices, have 1"):
             tmesh.build_mesh(tmesh.MeshConfig(**kw), device="cpu")
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):

@@ -363,19 +363,25 @@ def test_main_sft_masks_the_prompt(tmp_path):
     assert rc == 0 and len(losses) == 3 and all(map(np.isfinite, losses))
 
 
-@pytest.mark.parametrize("over,match", [
+@pytest.mark.parametrize("over,error,match", [
     # checkpoints, eval, evaluate/dpo and HF export run since slice 10
-    # (test_torch_train_main.py); GRPO rides the RL item
-    ({"mode": "grpo"}, "ROADMAP A7"),
+    # (test_torch_train_main.py), GRPO since slice 14
+    # (test_torch_grpo.py): without its prompts it refuses as the JAX
+    # entrypoint does
+    ({"mode": "grpo"}, ValueError,
+     "mode=grpo needs data.kind='prompts_jsonl'"),
     # the MoE family trains (test_torch_moe_train.py), over ep too
-    # (test_torch_cp_ep_train.py); pipeline stages wait
-    ({"model": "moe.mixtral_8x7b", "mesh": {"pp": 2}}, "ROADMAP A5c"),
+    # (test_torch_cp_ep_train.py), and pipeline stages train since slice
+    # 14 (test_torch_pp_train.py): one process holds no pp=2 mesh
+    ({"model": "moe.mixtral_8x7b", "mesh": {"pp": 2}}, ValueError,
+     "devices, have 1"),
     # dp/fsdp/tp/cp train across processes (test_torch_sharded_*.py,
     # test_torch_cp_ep_train.py); evaluation over cp waits
-    ({"mode": "evaluate", "mesh": {"cp": 2}}, "ROADMAP A5f"),
+    ({"mode": "evaluate", "mesh": {"cp": 2}}, NotImplementedError,
+     "ROADMAP A5f"),
 ])
-def test_main_refuses_what_is_not_ported(tmp_path, over, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_main_refuses_what_is_not_ported(tmp_path, over, error, match):
+    with pytest.raises(error, match=match):
         tmain.main(["--config", _write_config(tmp_path, **over)],
                    device="cpu")
 

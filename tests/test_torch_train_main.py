@@ -236,7 +236,10 @@ def test_export_hf_path_writes_the_trained_weights(artifact, tmp_path,
 
 
 def test_what_is_still_refused(artifact, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    # GRPO runs (test_torch_grpo.py); without prompts it refuses as the
+    # JAX entrypoint does
+    with pytest.raises(ValueError,
+                       match="mode=grpo needs data.kind='prompts_jsonl'"):
         tmain.main(_config(tmp_path, "grpo", mode="grpo"), device="cpu")
     with pytest.raises(ValueError, match="lora applies"):
         tmain.main(_config(tmp_path, "lora_dpo", mode="dpo",
