@@ -176,6 +176,24 @@ then ``rl.FlywheelLearner`` steps and publishes a small model, and the
 continuous engine, refreshed in place with the published policy, samples
 on it through its captured decode graphs. ``--phases pp,pp2,grpo`` runs
 them alone.
+
+Since slice 15, ``lifecycle``'s (a) and (b) are an in-cluster job of
+the operator: the job's identity and ``KUBERNETES_SERVICE_HOST``, with
+the port's ``KubeAPIServer`` over this script's stub API server (stdlib
+``http.server``: GET and merge-PATCH on the one PyTorchJob path) handed
+in as ``main``'s ``api``. (a) also has the env the operator renders for
+the master of a one-pod PyTorchJob (``MASTER_ADDR`` 127.0.0.1, a free
+``MASTER_PORT``, ``RANK`` 0, ``WORLD_SIZE`` 1, so ``main`` opens a
+world-size-1 NCCL group and trains DTensor state). The stub raises
+``ckpt-requested-version`` at step 2 of (a): the elastic agent's save
+there replaces the periodic one (no more bytes written than before), and
+its acknowledgement must land with the requested version. (b) has no
+rendezvous contract, so it is one process with no group, as (c) is: it
+restores (a)'s sharded save into plain tensors bit for bit, and its own
+save at step 4, of plain tensors, is read back bit for bit. The phase
+prints the poll's host time per step, the step time with the agent
+((b)) beside the step time without it ((c)), and the elastic save's copy
+and write, each with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -1957,6 +1975,14 @@ def phase_gemma_predictor(torch, cfg, params) -> dict:
     log(f"[gpred] int8 against bf16 (a reading): {same}/3 requests "
         f"identical, {prefix} of 36 tokens before the first divergence")
     return out
+
+
+def _card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
 
 
 def _free_port() -> int:
@@ -4978,51 +5004,189 @@ def _write_config(name, cfg) -> str:
     return str(path)
 
 
+#: the in-cluster job of [life]: its identity, and the checkpoint version
+#: the stub API server requests at step 2 of run (a)
+LIFE_JOB = {"KUBEDL_JOB_KIND": "PyTorchJob", "KUBEDL_JOB_NAMESPACE": "default",
+            "KUBEDL_JOB_NAME": "life"}
+LIFE_VERSION = 7
+
+
+class _StubJobServer:
+    """A stub API server holding one PyTorchJob: GET and merge-PATCH on
+    the job's path, 404 elsewhere (stdlib ``http.server`` on a free
+    localhost port; the elastic agent reaches it through the port's
+    ``KubeAPIServer``). :meth:`request` raises the checkpoint request as
+    the operator's scale-in would."""
+
+    def __init__(self, namespace: str, name: str):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        self.path = (f"/apis/training.kubedl.io/v1alpha1/namespaces/"
+                     f"{namespace}/pytorchjobs/{name}")
+        self.job = {"apiVersion": "training.kubedl.io/v1alpha1",
+                    "kind": "PyTorchJob", "metadata": {
+                        "name": name, "namespace": namespace,
+                        "annotations": {}}, "spec": {}}
+        self.calls = {"GET": 0, "PATCH": 0}
+        self.lock = threading.Lock()
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args):
+                pass
+
+            def _send(self, code, obj):
+                data = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def _answer(self, method, patch=None):
+                if self.path != stub.path:
+                    return self._send(404, {"kind": "Status", "code": 404,
+                                            "message": "not found"})
+                with stub.lock:
+                    stub.calls[method] += 1
+                    if patch is not None:
+                        _merge_patch(stub.job, patch)
+                    body = json.loads(json.dumps(stub.job))
+                self._send(200, body)
+
+            def do_GET(self):
+                self._answer("GET")
+
+            def do_PATCH(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                self._answer("PATCH", json.loads(self.rfile.read(n)))
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self.httpd.server_address[1]
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def annotations(self) -> dict:
+        with self.lock:
+            return dict(self.job["metadata"]["annotations"])
+
+    def request(self, version: int) -> None:
+        from kubedl_tpu_torch.train.checkpoint import \
+            ANNOTATION_CKPT_REQUESTED_VERSION
+        with self.lock:
+            self.job["metadata"]["annotations"][
+                ANNOTATION_CKPT_REQUESTED_VERSION] = str(version)
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join()
+
+
+def _merge_patch(target: dict, patch: dict) -> None:
+    """RFC 7386 merge patch in place: dicts merge, null deletes."""
+    for k, v in patch.items():
+        if v is None:
+            target.pop(k, None)
+        elif isinstance(v, dict) and isinstance(target.get(k), dict):
+            _merge_patch(target[k], v)
+        else:
+            target[k] = v
+
+
+def _pytorchjob_master_env() -> dict:
+    """What the operator renders for the master of a one-pod PyTorchJob,
+    the master's address on this host: the group opens over NCCL."""
+    return {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+            "RANK": "0", "WORLD_SIZE": "1"}
+
+
 def _lifecycle_runs(torch, attn, train_main, ck, cfg, art, out) -> None:
-    """(a) two steps with a checkpoint at step 2 and an eval there, (b) a
-    fresh job on the same directory taking two more steps (it resumes at
-    step 2 and runs steps 3-4: ``steps`` counts the steps a run takes, as
-    in the JAX entry point), (c) four steps with no checkpoint."""
+    """The in-cluster job: (a) two steps with an eval at step 2 under the
+    PyTorchJob master's env (a world-size-1 NCCL group, DTensor state),
+    where the stub API server requests a checkpoint and the elastic agent
+    takes it and acknowledges; (b) a fresh job on the same directory
+    taking two more steps (it resumes at step 2 and runs steps 3-4:
+    ``steps`` counts the steps a run takes, as in the JAX entry point)
+    with the agent polling, in the cluster but with no rendezvous
+    contract: one process and no process group, so it restores (a)'s
+    sharded save into plain tensors and its own save at step 4 is of
+    plain tensors, read back bit for bit after it; (c) four steps, one
+    process, with no checkpoint and so no agent."""
+    from kubedl_tpu_torch.core.kubeclient import ClusterConfig, KubeAPIServer
+    from kubedl_tpu_torch.parallel.sharding import local_of
+
     L = cfg.n_layers
+    card = _card()
     base = {"model": {"model_path": str(art)}, "mode": "pretrain",
             "data": {"kind": "tokens", "path": _tokens_file(
                 "lifecycle_tokens.bin", cfg.vocab_size, 8, 1)},
             "batch": 2, "seq": 2048, "seed": 0, "log_every": 1,
             "optimizer": {"warmup_steps": 1}}
-    ckpt = {"directory": str(SLICE10_OUT / "ckpt"), "save_interval_steps": 2,
+    # no periodic saves: the elastic save at step 2 is (a)'s one
+    # checkpoint, and (b) saves once, at its end
+    ckpt = {"directory": str(SLICE10_OUT / "ckpt"), "save_interval_steps": 0,
             "max_to_keep": 1}
-    saved, managers, checked = {}, [], {}
+    stub = _StubJobServer(LIFE_JOB["KUBEDL_JOB_NAMESPACE"],
+                          LIFE_JOB["KUBEDL_JOB_NAME"])
+    in_cluster = {**LIFE_JOB, "KUBERNETES_SERVICE_HOST": "127.0.0.1",
+                  "KUBERNETES_SERVICE_PORT": str(stub.port)}
+    saved, managers, checked, writes, polls = {}, [], {}, [], []
     init, write = ck.CheckpointManager.__init__, ck.CheckpointManager._write
     restore_or = ck.CheckpointManager.restore_or
+    poll = ck.ElasticCheckpointAgent.poll
 
     def record_init(self, config):
         init(self, config)
         managers.append(self)
 
     def record_write(self, step, host, data_state):
-        if not saved:                    # (a)'s save, kept for (b)'s check
-            saved[step] = (host, data_state)
+        # each save's host copy, kept for the checks of what is read back
+        writes.append(step)
+        saved[step] = (host, data_state)
         return write(self, step, host, data_state)
+
+    def unequal(cur, host) -> tuple:
+        """(leaves, the paths of those unequal) of a state dict against
+        a saved host copy (a DTensor's local shard is all of it at one
+        process)."""
+        pairs = [(k, (local_of(a), local_of(b)))
+                 for k, (a, b) in _pairs_of(cur, host)]
+        return len(pairs), [
+            k for k, (a, b) in pairs
+            if a.dtype != b.dtype or not torch.equal(a, b.to(a.device))]
 
     def check_restore(self, state, init_fn):
         got = restore_or(self, state, init_fn)
         if not saved:                    # (a): nothing on disk yet
             return got
         host, data_state = saved[2]
-        cur = ck._state_dict(got, copy_to_host=False)
-        bad = [k for k, (a, b) in _pairs_of(cur, host)
-               if a.dtype != b.dtype or not torch.equal(a, b.to(a.device))]
+        leaves, bad = unequal(ck._state_dict(got, copy_to_host=False), host)
         checked.update(step=got.step, count=got.opt_state.count, bad=bad,
                        cursor=self.latest_data_state() == data_state,
-                       leaves=len(_pairs_of(cur, host)))
+                       leaves=leaves,
+                       group=torch.distributed.is_initialized())
         return got
+
+    def timed_poll(self, state):
+        t0 = time.perf_counter()
+        took = poll(self, state)
+        polls.append((int(state.step), took, time.perf_counter() - t0))
+        return took
 
     patches = [unittest.mock.patch.object(ck.CheckpointManager, "__init__",
                                           record_init),
                unittest.mock.patch.object(ck.CheckpointManager, "_write",
                                           record_write),
                unittest.mock.patch.object(ck.CheckpointManager, "restore_or",
-                                          check_restore)]
+                                          check_restore),
+               unittest.mock.patch.object(ck.ElasticCheckpointAgent, "poll",
+                                          timed_poll)]
+    api = KubeAPIServer(ClusterConfig(server=stub.url))
     for p in patches:
         p.start()
     try:
@@ -5032,15 +5196,17 @@ def _lifecycle_runs(torch, attn, train_main, ck, cfg, art, out) -> None:
             marks.append((time.perf_counter(), step, loss))
             if step == 2:
                 counts["train"] = _read_counts(attn, "[life] (a) training")
+                stub.request(LIFE_VERSION)   # the operator's scale-in
 
         _reset_counts(attn)
         t0 = time.perf_counter()
-        train_main.main(["--config", _write_config("life_a", {
-            **base, "steps": 2, "checkpoint": ckpt,
-            "eval": {"every": 2, "max_batches": 1, "data": {
-                "kind": "tokens", "path": _tokens_file(
-                    "lifecycle_eval.bin", cfg.vocab_size, 2, 2)}}})],
-            on_step=step_a)
+        _with_env({**_pytorchjob_master_env(), **in_cluster},
+                  train_main.main, ["--config", _write_config("life_a", {
+                      **base, "steps": 2, "checkpoint": ckpt,
+                      "eval": {"every": 2, "max_batches": 1, "data": {
+                          "kind": "tokens", "path": _tokens_file(
+                              "lifecycle_eval.bin", cfg.vocab_size, 2,
+                              2)}}})], None, step_a, api)
         out["a_s"] = time.perf_counter() - t0
         total = _read_counts(attn, "[life] (a)")
         out["launches"]["lifecycle_train"] = counts["train"]
@@ -5053,28 +5219,51 @@ def _lifecycle_runs(torch, attn, train_main, ck, cfg, art, out) -> None:
                     "flash_forward": L, "flash_dq": 0, "flash_dkv": 0}:
             raise AssertionError(f"[life] (a) launched {counts['train']} "
                                  f"training, {total} in all")
+        ann = stub.annotations()
+        acked = (ann.get(ck.ANNOTATION_CKPT_REQUESTED_VERSION),
+                 ann.get(ck.ANNOTATION_CKPT_COMPLETED_VERSION))
+        out["elastic"] = {"requested": acked[0], "completed": acked[1],
+                          "polls_a": [(s, t) for s, t, _ in polls],
+                          "writes": list(writes), "api_calls": dict(
+                              stub.calls)}
+        if acked != (str(LIFE_VERSION),) * 2 or \
+                [(s, t) for s, t, _ in polls] != [(1, False), (2, True)] \
+                or writes != [2] or stub.calls["PATCH"] != 1:
+            raise AssertionError(f"[life] (a) the elastic checkpoint: "
+                                 f"{out['elastic']}")
         save = dict(managers[-1].last_save)
         out["checkpoint_bytes"] = save["bytes"]
         out["save_copy_s"], out["save_write_s"] = save["copy_s"], \
             save["write_s"]
+        out["elastic_poll_s"] = polls[-1][2]
         out["checkpoint_disk_bytes"] = _dir_bytes(Path(ckpt["directory"]))
         a_losses = [m[2] for m in marks]
-        log(f"[life] (a) 2 steps from the artifact, a checkpoint at step 2 "
-            f"and an eval there: {out['a_s']:.1f} s wall; losses "
-            f"{[round(x, 4) for x in a_losses]}; checkpoint "
-            f"{save['bytes'] / 1e9:.3f} GB (params bf16, mu f32, nu bf16; "
-            f"{out['checkpoint_disk_bytes'] / 1e9:.3f} GB on disk): host copy "
-            f"at the step boundary {_gb_s(save['bytes'], save['copy_s'])}, "
-            f"write {_gb_s(save['bytes'], save['write_s'])}; launches: "
-            f"training {counts['train']}, eval "
-            f"{out['launches']['lifecycle_eval']}, all sm90")
+        log(f"[life] (a) the in-cluster job, 2 steps from the artifact and "
+            f"an eval at step 2, a PyTorchJob master's env (NCCL group of 1)"
+            f": {out['a_s']:.1f} s wall; losses "
+            f"{[round(x, 4) for x in a_losses]}; the stub API server "
+            f"requested checkpoint v{LIFE_VERSION} at step 2, the agent "
+            f"saved at step {save['step']} and acknowledged v{acked[1]} "
+            f"({stub.calls['GET']} GETs, {stub.calls['PATCH']} PATCH); "
+            f"checkpoint {save['bytes'] / 1e9:.3f} GB (params bf16, mu f32, "
+            f"nu bf16; {out['checkpoint_disk_bytes'] / 1e9:.3f} GB on disk, "
+            f"the run's only save): elastic save's host copy "
+            f"{_gb_s(save['bytes'], save['copy_s'])}, write "
+            f"{_gb_s(save['bytes'], save['write_s'])}, the whole poll "
+            f"{polls[-1][2]:.3f} s; launches: training {counts['train']}, "
+            f"eval {out['launches']['lifecycle_eval']}, all sm90; {card}")
 
-        resumed = []
+        resumed, b_marks = [], []
+
+        def step_b(step, loss):
+            b_marks.append(time.perf_counter())
+            resumed.append((step, loss))
+
         _reset_counts(attn)
         t0 = time.perf_counter()
-        train_main.main(["--config", _write_config("life_b", {
-            **base, "steps": 2, "checkpoint": ckpt})],
-            on_step=lambda s, loss: resumed.append((s, loss)))
+        _with_env(in_cluster, train_main.main, ["--config", _write_config(
+            "life_b", {**base, "steps": 2, "checkpoint": ckpt})], None,
+            step_b, api)
         out["b_s"] = time.perf_counter() - t0
         out["launches"]["lifecycle_resume"] = _read_counts(
             attn, "[life] (b)", want=want_train)
@@ -5089,33 +5278,85 @@ def _lifecycle_runs(torch, attn, train_main, ck, cfg, art, out) -> None:
             f"{[s for s, _ in resumed]} in {out['b_s']:.1f} s wall")
         if checked.get("step") != 2 or checked.get("count") != 2 or \
                 checked.get("bad") or not checked.get("cursor") or \
-                [s for s, _ in resumed] != [3, 4]:
+                checked.get("group") is not False or \
+                [s for s, _ in resumed] != [3, 4] or \
+                [(s, t) for s, t, _ in polls[2:]] != [(3, False),
+                                                     (4, False)] or \
+                writes != [2, 4]:
             raise AssertionError(f"[life] the resume is not (a)'s state: "
-                                 f"{checked}, steps {resumed}")
+                                 f"{checked}, steps {resumed}, polls "
+                                 f"{polls}, writes {writes}")
+        # (b)'s save at step 4, of plain tensors with no process group,
+        # read back into host zeros through the manager's restore
+        host, data_state = saved[4]
+        kinds = {type(t).__name__ for t in ck._leaves(host)}
+        zeros = ck.tree_map(torch.zeros_like, host)
+        template = ck.TrainState(
+            step=0, params=zeros["params"], opt_state=ck.AdamState(
+                count=0, mu=zeros["opt_state"]["mu"],
+                nu=zeros["opt_state"]["nu"]))
+        reader = ck.CheckpointManager(ck.CheckpointConfig(ckpt["directory"]))
+        t0 = time.perf_counter()
+        got = reader.restore(template, step=4)
+        leaves, bad = unequal(ck._state_dict(got, copy_to_host=False), host)
+        out["plain_save"] = {
+            "step": got.step, "count": got.opt_state.count, "leaves": leaves,
+            "unequal": bad, "kinds": sorted(kinds),
+            "cursor": reader.latest_data_state(4) == data_state,
+            "read_s": time.perf_counter() - t0}
+        log(f"[life] (b)'s save at step 4 ({sorted(kinds)} leaves, no "
+            f"process group) read back: step {got.step}, count "
+            f"{got.opt_state.count}, {leaves} leaves, unequal: "
+            f"{bad or 'none'}; cursor equal: {out['plain_save']['cursor']}"
+            f"; {out['plain_save']['read_s']:.2f} s")
+        if got.step != 4 or got.opt_state.count != 4 or bad or \
+                kinds != {"Tensor"} or \
+                not out["plain_save"]["cursor"]:
+            raise AssertionError(f"[life] (b)'s plain save read back "
+                                 f"unequal: {out['plain_save']}")
     finally:
         for p in patches:
             p.stop()
+        stub.close()
     import shutil
     shutil.rmtree(ckpt["directory"])
     saved.clear()
 
-    whole = []
+    whole, c_marks = [], []
+
+    def step_c(step, loss):
+        c_marks.append(time.perf_counter())
+        whole.append((step, loss))
+
     _reset_counts(attn)
     t0 = time.perf_counter()
     train_main.main(["--config", _write_config("life_c", {
-        **base, "steps": 4})], on_step=lambda s, loss: whole.append(
-            (s, loss)))
+        **base, "steps": 4})], on_step=step_c)
     out["c_s"] = time.perf_counter() - t0
     gaps = [abs(a[1] - b[1]) for a, b in zip(resumed, whole[2:])]
     out["resume_gap"] = max(gaps)
     out["resume_bit_identical"] = [x for _, x in resumed] == \
         [x for _, x in whole[2:]]
-    log(f"[life] (c) 4 steps, no checkpoint: losses "
-        f"{[round(x, 4) for _, x in whole]}; (b) at steps 3-4 "
+    idle = sorted(t for _, took, t in polls if not took)
+    out["poll_ms"] = {"median": 1e3 * idle[len(idle) // 2],
+                      "max": 1e3 * idle[-1], "n": len(idle)}
+    # step 4's interval (on_step of step 3 to step 4's): with the agent's
+    # poll in (b), without an agent in (c)
+    out["step_s_agent"] = b_marks[1] - b_marks[0]
+    out["step_s_plain"] = c_marks[3] - c_marks[2]
+    out["card"] = card
+    log(f"[life] (c) 4 steps, one process, no checkpoint and no agent: "
+        f"losses {[round(x, 4) for _, x in whole]}; (b) at steps 3-4 "
         f"{[round(x, 6) for _, x in resumed]} against (c) "
         f"{[round(x, 6) for _, x in whole[2:]]}: largest gap "
         f"{out['resume_gap']:.3e} (limit {RESUME_ATOL}), bit for bit: "
         f"{out['resume_bit_identical']}; (c) {out['c_s']:.1f} s wall")
+    log(f"[life] the agent's poll (a GET of the job over HTTP) took "
+        f"{out['poll_ms']['median']:.3f} ms median, "
+        f"{out['poll_ms']['max']:.3f} ms max on the host over the "
+        f"{len(idle)} steps without a request; step 4 took "
+        f"{out['step_s_agent']:.4f} s with the agent ((b)) and "
+        f"{out['step_s_plain']:.4f} s without ((c)); {card}")
     if out["resume_gap"] > RESUME_ATOL or \
             not all(math.isfinite(x) for _, x in whole):
         raise AssertionError(f"[life] resumed losses {resumed} against "
@@ -5457,10 +5698,7 @@ def _probe(torch, argv, timed) -> int:
         return 2
     only = set(argv[1].split(","))
     layers = int(argv[3]) if len(argv) == 4 else None
-    log("[env] " + subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip())
+    log("[env] " + _card())
     if only & {"tp", "tp2"}:
         _tp_probe(torch, only, timed)
     if "dist" in only:
@@ -5613,10 +5851,7 @@ def main() -> int:
         f"rank-{LORA_RANK} adapters against {train['peak_gib']:.2f} GiB for "
         f"the full run of the same configuration; step "
         f"{lora_run['step_s']:.4f} s against {train['step_s']:.4f} s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
+    smi = _card()
     log(f"[done] {time.perf_counter() - t_all:.1f} s; by phase "
         f"{ {k: round(v, 1) for k, v in seconds.items()} }")
     from kubedl_tpu_torch.ops import attention as attn

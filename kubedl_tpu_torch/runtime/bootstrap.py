@@ -1,21 +1,41 @@
 """In-container rendezvous bootstrap: the counterpart of
 ``kubedl_tpu/runtime/bootstrap.py``.
 
-The consumer of the operator's injected env: a training container calls
+The consumer of the launcher's injected env: a training container calls
 :func:`initialize_distributed` to open a ``torch.distributed`` process
-group from ``KUBEDL_COORDINATOR_ADDRESS`` / ``KUBEDL_NUM_PROCESSES`` /
-``KUBEDL_PROCESS_ID`` (with GKE-native ``TPU_WORKER_ID`` /
-``TPU_WORKER_HOSTNAMES`` as fallback). :func:`rendezvous_from_env` reads
-the contract with the JAX package's rules, word for word; the env names
-are the port's own copy of ``kubedl_tpu/tpu/placement.py``'s.
+group. :func:`rendezvous_from_env` reads three contracts, first match
+wins:
+
+1. the operator's KubeDL contract, ``KUBEDL_COORDINATOR_ADDRESS`` /
+   ``KUBEDL_NUM_PROCESSES`` / ``KUBEDL_PROCESS_ID`` (rendered under a TPU
+   policy), with the JAX package's rules, word for word;
+2. GKE-native ``TPU_WORKER_ID`` / ``TPU_WORKER_HOSTNAMES``, likewise;
+3. the PyTorchJob contract, ``MASTER_ADDR`` / ``MASTER_PORT`` / ``RANK`` /
+   ``WORLD_SIZE``: what the operator renders for a PyTorchJob on other
+   nodes (one process per pod, the master at rank 0 and worker ``i`` at
+   ``i + 1``; ``WORLD_SIZE`` from the pod's ``world-size`` annotation
+   under elastic scaling), and what torchrun sets in each child. The
+   coordinator is ``MASTER_ADDR:MASTER_PORT``.
+
+A pod of a TPU-policy PyTorchJob carries both the first and the third,
+and their ranks can differ (``KUBEDL_PROCESS_ID`` counts across replica
+types): the KubeDL contract wins, as it is the only one the JAX reader
+knows. A partial contract raises ``ValueError`` naming what is missing
+where it claims more than one process (a partial torch contract: when
+``WORLD_SIZE`` > 1 or ``RANK`` > 0): every worker would otherwise
+rendezvous as process 0 or train alone, far from the cause. A partial
+torch contract that claims one process (a stray ``MASTER_ADDR``,
+``WORLD_SIZE=1`` alone) is no contract, and the job trains as one
+process, as before the port read it. The env names are the port's own copy of
+``kubedl_tpu/tpu/placement.py``'s.
 
 The group is NCCL on the card (``device_id`` = ``cuda:$LOCAL_RANK``, 0
-when unset) and gloo on the CPU, over a ``tcp://`` init method on the
-coordinator address.
+when unset; torchrun sets it) and gloo on the CPU, over a ``tcp://`` init
+method on the coordinator address.
 
 One deliberate difference: the JAX function does nothing at one process,
 because a JAX mesh needs no process group. A torch ``DeviceMesh`` does,
-so here a group opens whenever the contract is present, a one-process
+so here a group opens whenever a contract is present, a one-process
 contract included. With no contract the job stays single-process with no
 group, as before.
 
@@ -51,6 +71,13 @@ DEFAULT_COORDINATOR_PORT = 8476
 #: which card of the host this process drives (one process per card)
 ENV_LOCAL_RANK = "LOCAL_RANK"
 
+# the PyTorchJob / torchrun contract
+ENV_MASTER_ADDR = "MASTER_ADDR"
+ENV_MASTER_PORT = "MASTER_PORT"
+ENV_RANK = "RANK"
+ENV_WORLD_SIZE = "WORLD_SIZE"
+TORCH_CONTRACT = (ENV_MASTER_ADDR, ENV_MASTER_PORT, ENV_RANK, ENV_WORLD_SIZE)
+
 
 @dataclass(frozen=True)
 class RendezvousInfo:
@@ -67,7 +94,9 @@ class RendezvousInfo:
 
 def rendezvous_from_env(
         env: Optional[dict] = None) -> Optional[RendezvousInfo]:
-    """Parse the operator contract from the environment; None when absent."""
+    """Parse the rendezvous contract from the environment (the KubeDL
+    one, ``TPU_WORKER_*``, then the PyTorchJob/torchrun one); None when
+    absent."""
     env = env if env is not None else dict(os.environ)
     coord = env.get(ENV_COORDINATOR_ADDRESS, "")
     nproc = env.get(ENV_NUM_PROCESSES, "")
@@ -82,11 +111,15 @@ def rendezvous_from_env(
         # GKE-native fallback: derive from TPU_WORKER_* (single slice)
         hostnames = env.get(ENV_TPU_WORKER_HOSTNAMES, "")
         worker_id = env.get(ENV_TPU_WORKER_ID, "")
-        if not hostnames or worker_id == "":
-            return None
-        hosts = [h.strip() for h in hostnames.split(",") if h.strip()]
-        coord = f"{hosts[0]}:{DEFAULT_COORDINATOR_PORT}"
-        nproc, pid = str(len(hosts)), worker_id
+        if hostnames and worker_id != "":
+            hosts = [h.strip() for h in hostnames.split(",") if h.strip()]
+            coord = f"{hosts[0]}:{DEFAULT_COORDINATOR_PORT}"
+            nproc, pid = str(len(hosts)), worker_id
+        else:
+            torch_contract = _torch_contract(env)
+            if torch_contract is None:
+                return None
+            coord, nproc, pid = torch_contract
     num_slices = int(env.get(ENV_MEGASCALE_NUM_SLICES, 1) or 1)
     slice_id = int(env.get(ENV_MEGASCALE_SLICE_ID, 0) or 0)
     return RendezvousInfo(
@@ -95,6 +128,27 @@ def rendezvous_from_env(
         process_id=int(pid or 0),
         slice_id=slice_id,
         num_slices=num_slices)
+
+
+def _torch_contract(env: dict) -> Optional[tuple]:
+    """(coordinator, world size, rank) from the PyTorchJob/torchrun env;
+    None when it is absent, or partial and claims one process."""
+    got = {k: env.get(k, "") for k in TORCH_CONTRACT}
+    missing = [k for k, v in got.items() if not v]
+    if missing:
+        if int(got[ENV_WORLD_SIZE] or 1) <= 1 and \
+                int(got[ENV_RANK] or 0) <= 0:
+            return None
+        raise ValueError(
+            f"{', '.join(k for k, v in got.items() if v)} set but "
+            f"{', '.join(missing)} missing: the PyTorchJob/torchrun "
+            f"rendezvous needs all of {', '.join(TORCH_CONTRACT)}")
+    world, rank = int(got[ENV_WORLD_SIZE]), int(got[ENV_RANK])
+    if not 0 <= rank < world:
+        raise ValueError(f"{ENV_RANK}={rank} is outside "
+                         f"{ENV_WORLD_SIZE}={world}")
+    return (f"{got[ENV_MASTER_ADDR]}:{got[ENV_MASTER_PORT]}", str(world),
+            str(rank))
 
 
 def initialize_distributed(info: Optional[RendezvousInfo] = None,

@@ -58,10 +58,12 @@ the rollout engine's weights to the policy, samples a group per prompt,
 scores the frozen initial weights as the KL reference and takes
 ``steps_per_round`` steps; a resumed job starts at the next round.
 
-Across processes: with the operator's rendezvous contract in the env
-(``KUBEDL_COORDINATOR_ADDRESS``, ``KUBEDL_NUM_PROCESSES``,
-``KUBEDL_PROCESS_ID``; ``runtime/bootstrap.py``) the job opens a process
-group first (NCCL on the card, gloo on the CPU), then lays ``"mesh":
+Across processes: with a rendezvous contract in the env
+(``runtime/bootstrap.py``: the operator's ``KUBEDL_COORDINATOR_ADDRESS``,
+``KUBEDL_NUM_PROCESSES``, ``KUBEDL_PROCESS_ID``, or a PyTorchJob's or
+torchrun's ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``)
+the job opens a process group first (NCCL on the card, gloo on the CPU),
+then lays ``"mesh":
 {"dp": .., "fsdp": .., "ep": .., "pp": .., "cp": .., "tp": ..}`` over its
 ranks (default: every rank on ``fsdp``; ``cp`` shards the sequence
 through ring or Ulysses attention, picked by ``"model_overrides":
@@ -77,10 +79,19 @@ in the JAX package), and the export gathers the params (the stages
 restacked to the flat ``[L, ...]`` layout) and only rank 0 writes. The
 group is torn down on exit.
 
+In a cluster: when the operator's job identity (``KUBEDL_JOB_KIND``,
+``KUBEDL_JOB_NAMESPACE``, ``KUBEDL_JOB_NAME``) and
+``KUBERNETES_SERVICE_HOST`` are in the env and the config has a
+``checkpoint`` section, the job answers the operator's elastic
+checkpoint requests (:func:`_maybe_elastic_agent`: the agent polls the
+job object after every step, over ``core.kubeclient``). Under elastic
+scaling the container runs under ``python -m
+kubedl_tpu_torch.runtime.restart_agent --``, which ends the trainer when
+the operator asks for an in-place restart; the restarted trainer reads
+the new ``WORLD_SIZE`` and resumes from the agent's checkpoint.
+
 Not ported yet, and refused by name: the modes ``evaluate`` and ``dpo``
-and in-training eval over ``cp`` above 1 (ROADMAP A5f), and the
-in-cluster elastic agent and a multi-process launch without the
-operator's contract (``WORLD_SIZE`` of torchrun or a PyTorchJob) (A8).
+and in-training eval over ``cp`` above 1 (ROADMAP A5f).
 """
 
 from __future__ import annotations
@@ -604,7 +615,7 @@ def resolve_reward(spec: str):
 
 
 def run_grpo(cfg: dict, config, trainer, state, manager, ref_params,
-             on_step=None):
+             elastic_agent=None, on_step=None):
     """The on-policy RLVR loop: refresh the rollout engine's weights to
     the current policy each round, sample a group per prompt, score with
     the verifiable reward, update for ``steps_per_round`` steps.
@@ -615,7 +626,8 @@ def run_grpo(cfg: dict, config, trainer, state, manager, ref_params,
     JAX loop's) holds its own copy of the weights, built once and
     refreshed in place each round (``load_weights``). ``ref_params`` is
     the frozen KL reference: the INITIAL weights, copied before any
-    checkpoint restore. ``on_step(step, loss)`` follows every step."""
+    checkpoint restore. ``elastic_agent`` is polled after every round, as
+    in the JAX loop. ``on_step(step, loss)`` follows every step."""
     import functools
     import inspect
 
@@ -718,6 +730,8 @@ def run_grpo(cfg: dict, config, trainer, state, manager, ref_params,
                 on_step(state.step, float(loss))
         log.info("grpo round %d/%d mean_reward %.4f loss %.4f",
                  rnd + 1, rounds, mean_reward, float(loss))
+        if elastic_agent is not None:
+            elastic_agent.poll(state)
         # host-side cadence: rounds advance step by steps_per_round, so the
         # manager's `step % interval` periodic gate would only fire at
         # lcm(steps_per_round, interval)
@@ -742,10 +756,12 @@ def _family(cfg: dict) -> str:
 
 
 def _refuse_unported(cfg: dict, env) -> None:
-    """Config sections and environments of the JAX entrypoint whose
-    slice has not landed: each raises, naming its ROADMAP item. An
-    ``export_hf_path`` for an MoE model raises ``ValueError`` first, as
-    the JAX entrypoint's up-front check does: no HF format holds it."""
+    """Up-front refusals, before any process group opens: config
+    sections whose slice has not landed (each names its ROADMAP item),
+    and an incomplete rendezvous contract (``ValueError``, naming what
+    is missing). An ``export_hf_path`` for an MoE model raises
+    ``ValueError`` first, as the JAX entrypoint's up-front check does: no
+    HF format holds it."""
     if cfg.get("export_hf_path") and _family(cfg) == "moe":
         raise ValueError(
             "export_hf_path: MoE configs have no HF mapping — drop "
@@ -757,31 +773,25 @@ def _refuse_unported(cfg: dict, env) -> None:
         # adapter tuning only composes with the plain next-token losses
         raise ValueError("lora applies to mode pretrain/sft (dpo and "
                          "grpo tune full weights)")
-    if cfg.get("checkpoint") and env.get("KUBERNETES_SERVICE_HOST") and all(
-            env.get(f"KUBEDL_JOB_{k}") for k in ("KIND", "NAMESPACE",
-                                                 "NAME")):
-        # the JAX entrypoint would answer the operator's checkpoint
-        # requests here; an agent that silently is not there would leave
-        # the operator waiting for an acknowledgement that never comes
-        raise NotImplementedError(
-            "the in-cluster elastic checkpoint agent needs the API-server "
-            "client, which is not ported yet: ROADMAP A8")
     from ..runtime.bootstrap import rendezvous_from_env
     if rendezvous_from_env(env) is None:
-        # a launcher's env other than the operator's contract (torchrun's
-        # or a PyTorchJob's WORLD_SIZE, TPU worker hostnames with no
-        # worker id): each process would train alone on one card and
-        # write the same checkpoints and export
+        # a malformed operator contract (a process count with no
+        # coordinator, TPU worker hostnames with no worker id): each
+        # process would train alone on one card and write the same
+        # checkpoints and export
         nproc = env.get("KUBEDL_NUM_PROCESSES", "")
         hosts = [h for h in env.get("TPU_WORKER_HOSTNAMES", "").split(",")
                  if h.strip()]
-        if (nproc and int(nproc) > 1) or len(hosts) > 1 \
-                or int(env.get("WORLD_SIZE", "1") or 1) > 1:
-            raise NotImplementedError(
-                "a multi-process launch is set in the environment without "
-                "the operator's rendezvous contract (KUBEDL_COORDINATOR_"
-                "ADDRESS, KUBEDL_NUM_PROCESSES, KUBEDL_PROCESS_ID): "
-                "reading another launcher's env is ROADMAP A8")
+        if nproc and int(nproc) > 1:
+            raise ValueError(
+                f"KUBEDL_NUM_PROCESSES={nproc} is set without "
+                "KUBEDL_COORDINATOR_ADDRESS: an incomplete rendezvous "
+                "contract")
+        if len(hosts) > 1:
+            raise ValueError(
+                f"TPU_WORKER_HOSTNAMES lists {len(hosts)} hosts but "
+                "TPU_WORKER_ID is missing: an incomplete rendezvous "
+                "contract")
     if cfg.get("mesh", {}).get("cp", 1) > 1 and (
             mode in ("evaluate", "dpo") or cfg.get("eval")):
         # their per-row sums span the sequence, which cp splits
@@ -791,17 +801,40 @@ def _refuse_unported(cfg: dict, env) -> None:
             "sums of a sequence split over cp)")
 
 
+def _maybe_elastic_agent(manager, env, api=None):
+    """The :class:`~.checkpoint.ElasticCheckpointAgent` when the operator
+    injected the job's identity, the config checkpoints and the process
+    runs in a cluster (``KUBERNETES_SERVICE_HOST``); None otherwise
+    (standalone runs), as in the JAX entrypoint. The agent talks to
+    ``api``, or to the cluster's API server through the pod's service
+    account."""
+    kind = env.get("KUBEDL_JOB_KIND", "")
+    ns = env.get("KUBEDL_JOB_NAMESPACE", "")
+    name = env.get("KUBEDL_JOB_NAME", "")
+    if not (kind and ns and name and manager):
+        return None
+    if not env.get("KUBERNETES_SERVICE_HOST"):
+        return None
+    from .checkpoint import ElasticCheckpointAgent
+    if api is None:
+        from ..core.kubeclient import ClusterConfig, KubeAPIServer
+        api = KubeAPIServer(ClusterConfig.in_cluster())
+    return ElasticCheckpointAgent(api, kind, ns, name, manager)
+
+
 def _rank() -> int:
     """This process's rank (0 without a process group)."""
     import torch.distributed as dist
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def main(argv=None, device=None, on_step=None) -> int:
+def main(argv=None, device=None, on_step=None, api=None) -> int:
     """Run one training job. ``device`` is the card unless the caller
     names the CPU (``device="cpu"``); ``on_step(step, loss)`` is called
-    after every optimizer step. With the rendezvous contract in the env
-    the process group opens first (and closes on exit)."""
+    after every optimizer step; ``api`` is the API-server client of the
+    elastic agent in a cluster (default: the in-cluster one). With a
+    rendezvous contract in the env the process group opens first (and
+    closes on exit)."""
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -819,13 +852,13 @@ def main(argv=None, device=None, on_step=None) -> int:
     if opened:
         bootstrap.initialize_distributed(info, device=dev)
     try:
-        return _run(cfg, dev, on_step)
+        return _run(cfg, dev, on_step, api)
     finally:
         if opened and dist.is_initialized():
             dist.destroy_process_group()
 
 
-def _run(cfg: dict, dev, on_step) -> int:
+def _run(cfg: dict, dev, on_step, api) -> int:
     import torch
 
     from ..models import io
@@ -1007,9 +1040,10 @@ def _run(cfg: dict, dev, on_step) -> int:
             log.info("resumed from checkpoint step %s",
                      manager.latest_step())
 
+    agent = _maybe_elastic_agent(manager, os.environ, api)
     if mode == "grpo":
         state = run_grpo(cfg, config, trainer, state, manager, grpo_ref,
-                         on_step=on_step)
+                         elastic_agent=agent, on_step=on_step)
     else:
         from .data import CountingIterator
         data_state_fn = None
@@ -1021,9 +1055,12 @@ def _run(cfg: dict, dev, on_step) -> int:
         ev_every, ev_fn = ((0, None) if mode == "dpo"
                            else build_eval_fn(cfg, config, mesh, batch, seq,
                                               params_of=params_of))
+        if agent is not None:
+            agent.data_state_fn = data_state_fn
         state = trainer.fit(state, batches, num_steps=steps,
                             log_every=int(cfg.get("log_every", 10)),
                             on_step=on_step, checkpoint_manager=manager,
+                            elastic_agent=agent,
                             eval_every=ev_every, eval_fn=ev_fn,
                             data_state_fn=data_state_fn)
 

@@ -26,7 +26,9 @@ protocol: the counterpart of ``kubedl_tpu/train/checkpoint.py``.
   object-store tier (file operations only; a copy of the JAX module's).
 * :class:`ElasticCheckpointAgent`: watches the job's
   ``ckpt-requested-version`` annotation, saves, and acknowledges through
-  ``ckpt-completed-version``.
+  ``ckpt-completed-version``. Under a process group rank 0 alone reads
+  the job and tells every rank which version to save, so the collective
+  save happens at one step everywhere.
 
 An Orbax checkpoint of the JAX package does not restore here: the two
 packages share the model artifact (``models/io.py``) and HF directories,
@@ -47,6 +49,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..core.kubeclient import ApiError
 from .trainer import AdamState, TrainState, tree_map
 
 log = logging.getLogger("kubedl_tpu_torch.checkpoint")
@@ -55,11 +58,6 @@ log = logging.getLogger("kubedl_tpu_torch.checkpoint")
 #: (``kubedl_tpu/api/common.py``)
 ANNOTATION_CKPT_REQUESTED_VERSION = "kubedl.io/ckpt-requested-version"
 ANNOTATION_CKPT_COMPLETED_VERSION = "kubedl.io/ckpt-completed-version"
-
-
-class ApiError(Exception):
-    """An API-server write that failed (conflict, transient error): what
-    the elastic agent's acknowledgement retries on by default."""
 
 
 @dataclass
@@ -581,10 +579,23 @@ class ElasticCheckpointAgent:
     The controller requests a checkpoint by bumping
     ``kubedl.io/ckpt-requested-version`` on the job; this agent saves and
     acknowledges by writing the same version into
-    ``kubedl.io/ckpt-completed-version``. ``api`` is any client with the
-    API server's ``try_get`` and ``patch_merge``; ``retry_on`` is the
+    ``kubedl.io/ckpt-completed-version``, after which the controller
+    releases the leaving pods. ``api`` is any client with the API
+    server's ``try_get`` and ``patch_merge``
+    (``core.kubeclient.KubeAPIServer`` in a pod); ``retry_on`` is the
     exception type(s) its failed writes raise (conflicts, transient
-    errors), which the acknowledgement retries."""
+    errors), which the acknowledgement retries.
+
+    Under a process group every rank calls :meth:`poll` at the same point
+    of each step. The save is collective, so rank 0 alone reads the job
+    and broadcasts the version it will save (0: none), one broadcast per
+    poll; every rank saves, every rank joins the write and a barrier, and
+    only then does rank 0 acknowledge, so the operator never releases a
+    pod while a rank is still writing. The broadcast and the barrier run
+    on a gloo group of the agent's own, opened at the first poll, on a
+    host tensor: a poll never waits on the card's stream, and never
+    shares a group with the manager's write in flight. (The JAX agent
+    polls on every process: its save has no such collective to pair.)"""
 
     def __init__(self, api, kind: str, namespace: str, name: str,
                  manager: CheckpointManager, data_state_fn=None,
@@ -599,30 +610,52 @@ class ElasticCheckpointAgent:
         self.data_state_fn = data_state_fn
         self.retry_on = retry_on
         self._acked = 0
+        self._group = None
 
     @staticmethod
     def _version(job, key: str) -> int:
         ann = (job.get("metadata") or {}).get("annotations") or {}
         return int(ann.get(key, 0) or 0)
 
-    def poll(self, state) -> bool:
-        """Check for an outstanding checkpoint request; save + ack if one
-        is pending. Returns True when a checkpoint was taken."""
+    def _pending(self) -> int:
+        """The requested version still to save and acknowledge, or 0."""
         job = self.api.try_get(self.kind, self.namespace, self.name)
         if job is None:
-            return False
+            return 0
         requested = self._version(job, ANNOTATION_CKPT_REQUESTED_VERSION)
         completed = self._version(job, ANNOTATION_CKPT_COMPLETED_VERSION)
-        if requested <= max(completed, self._acked):
+        return requested if requested > max(completed, self._acked) else 0
+
+    def poll(self, state) -> bool:
+        """Check for an outstanding checkpoint request; save + ack if one
+        is pending. Returns True (on every rank) when a checkpoint was
+        taken."""
+        import torch.distributed as dist
+        group = dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1
+        if group and self._group is None:
+            self._group = dist.new_group(backend="gloo")
+        lead = not group or dist.get_rank() == 0
+        requested = self._pending() if lead else 0
+        if group:
+            t = torch.tensor([requested], dtype=torch.int64)
+            dist.broadcast(t, src=0, group=self._group)
+            requested = int(t.item())
+        if not requested:
             return False
         self.manager.save(state, force=True,
                           data_state=(self.data_state_fn()
                                       if self.data_state_fn else None))
         self.manager.wait_until_finished()  # ack only after bytes are down
+        if group:
+            dist.barrier(group=self._group)  # ... on every rank
+        if not lead:
+            return True
         acked = self._ack(requested)
         if acked is None:
-            # the ack could not land this poll: the next poll retries it
-            # (the checkpoint is down; re-saving is a no-op)
+            # the ack could not land: the request stays pending, so the
+            # next poll (a step later) saves again at its step, on every
+            # rank, and retries the ack
             log.warning("elastic checkpoint v%d saved but the ack write "
                         "did not land; will retry", requested)
             return True
@@ -652,3 +685,4 @@ class ElasticCheckpointAgent:
                 log.warning("elastic ack conflicted (%s); re-applying "
                             "as v%d", e, requested)
         return None
+

@@ -440,7 +440,9 @@ class Trainer:
             data_state_fn=None, tracer=None):
         """Training loop, in the JAX package's order after each step:
         ``on_step(step, loss)``, the elastic agent's poll (an
-        operator-requested checkpoint is taken between steps), the
+        operator-requested checkpoint is taken between steps; every rank
+        polls here, at the same point of every step, since the agent
+        pairs one host broadcast per poll across the group), the
         checkpoint manager's periodic save, the log line, then
         ``eval_fn(state) -> dict`` every ``eval_every`` steps and after
         the last one. At the end a forced save and a wait for it.

@@ -388,25 +388,27 @@ def test_main_refuses_what_is_not_ported(tmp_path, over, error, match):
 
 def test_main_refuses_a_multi_process_rendezvous(tmp_path, monkeypatch):
     """Multi-process training runs over the operator's contract
-    (``tests/test_torch_sharded_*.py``). Refused: a contract without this
-    worker's process id, which would hang (the JAX package's rule), and
-    a multi-process launch without the contract (torchrun's or a
-    PyTorchJob's ``WORLD_SIZE``, TPU worker hostnames with no worker id,
-    a process count alone), whose processes would each train alone on
-    one card."""
+    (``tests/test_torch_sharded_*.py``) or a PyTorchJob's
+    (``tests/test_torch_incluster_train.py``). Refused with a
+    ``ValueError`` naming what is missing: an incomplete contract, which
+    would hang or have each process train alone on one card (a KubeDL
+    contract without this worker's process id, the JAX package's rule;
+    a torch contract without its rank and master; TPU worker hostnames
+    with no worker id; a process count alone)."""
     names = ("KUBEDL_COORDINATOR_ADDRESS", "KUBEDL_NUM_PROCESSES",
              "KUBEDL_PROCESS_ID", "TPU_WORKER_HOSTNAMES", "TPU_WORKER_ID",
-             "WORLD_SIZE")
+             "MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
     path = _write_config(tmp_path)
     for env, error, match in [
             ({"KUBEDL_COORDINATOR_ADDRESS": "127.0.0.1:1",
               "KUBEDL_NUM_PROCESSES": "4"}, ValueError,
              "KUBEDL_PROCESS_ID is missing"),
-            ({"WORLD_SIZE": "2"}, NotImplementedError, "ROADMAP A8"),
-            ({"TPU_WORKER_HOSTNAMES": "h0,h1"}, NotImplementedError,
-             "ROADMAP A8"),
-            ({"KUBEDL_NUM_PROCESSES": "4"}, NotImplementedError,
-             "ROADMAP A8")]:
+            ({"WORLD_SIZE": "2"}, ValueError,
+             "MASTER_ADDR, MASTER_PORT, RANK missing"),
+            ({"TPU_WORKER_HOSTNAMES": "h0,h1"}, ValueError,
+             "TPU_WORKER_ID is missing"),
+            ({"KUBEDL_NUM_PROCESSES": "4"}, ValueError,
+             "without KUBEDL_COORDINATOR_ADDRESS")]:
         for name in names:
             monkeypatch.delenv(name, raising=False)
         for name, value in env.items():

@@ -4,8 +4,8 @@ against ``python -m kubedl_tpu.train`` on the same JAX-made artifact:
 multiple-choice choices), ``mode: dpo`` (the first loss ln 2, the
 exported weights), ``eval.every``, ``checkpoint`` with a resume that
 ends bit for bit where an uninterrupted run ends, ``export_hf_path``
-(LoRA folded first), and the refusals left: ``grpo`` (ROADMAP A7) and
-the in-cluster elastic agent (A8)."""
+(LoRA folded first), the refusals left, and the in-cluster elastic
+agent polling an API server through ``main``'s ``api``."""
 
 import dataclasses
 import json
@@ -19,6 +19,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+from kubedl_tpu.core import meta as m
 from kubedl_tpu.models import io as jio
 from kubedl_tpu.models import llama as jllama
 from kubedl_tpu.train.__main__ import main as jmain
@@ -247,12 +248,23 @@ def test_what_is_still_refused(artifact, tmp_path, monkeypatch):
     for key, value in (("KUBEDL_JOB_KIND", "PyTorchJob"),
                        ("KUBEDL_JOB_NAMESPACE", "default"),
                        ("KUBEDL_JOB_NAME", "j"),
-                       ("KUBERNETES_SERVICE_HOST", "10.0.0.1")):
+                       ("KUBERNETES_SERVICE_HOST", "127.0.0.1")):
         monkeypatch.setenv(key, value)
     cfg = dict(model={"model_path": artifact}, batch=2, seq=32, steps=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tmain.main(_config(tmp_path, "agent", **cfg, checkpoint={
-            "directory": str(tmp_path / "ck")}), device="cpu")
+    # the in-cluster elastic agent is no longer refused: it polls the job
+    # after the step, and a request there is saved and acknowledged
+    from kubedl_tpu.api import common as c
+    from kubedl_tpu.core.apiserver import APIServer
+    api = APIServer()
+    api.create({"apiVersion": "training.kubedl.io/v1alpha1",
+                "kind": "PyTorchJob", "metadata": {
+                    "name": "j", "namespace": "default", "annotations": {
+                        c.ANNOTATION_CKPT_REQUESTED_VERSION: "3"}},
+                "spec": {}})
+    assert tmain.main(_config(tmp_path, "agent", **cfg, checkpoint={
+        "directory": str(tmp_path / "ck")}), device="cpu", api=api) == 0
+    assert m.annotations(api.get("PyTorchJob", "default", "j"))[
+        c.ANNOTATION_CKPT_COMPLETED_VERSION] == "3"
     # without a checkpoint section there is no agent to run
     assert tmain.main(_config(tmp_path, "no_agent", **cfg),
                       device="cpu") == 0
