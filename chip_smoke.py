@@ -4085,6 +4085,25 @@ FLYWHEEL_CFG = dict(vocab_size=32000, d_model=512, n_layers=2, n_heads=4,
                     n_kv_heads=4, d_ff=1536)
 
 
+#: [replay]: the flywheel day's learner: ``FLYWHEEL_CFG``'s body and head
+#: width (K1-K3 on ``sm90`` at hd 128, bf16) at vocab 8192, so the day's
+#: six copies of the train state (two publishes and the resize save, each
+#: in both checkpoint tiers) write ~0.73 GB (~1.9 GB at vocab 32000)
+REPLAY_RL_CFG = {**FLYWHEEL_CFG, "vocab_size": 8192}
+#: the fleet smoke profile of the JAX package's fleet tests at its
+#: 60-request, 120 s day, with the disaggregated leg's overrides
+REPLAY_FLEET = dict(sim_seconds=120.0, requests=60, bursts=10, replicas=2,
+                    max_replicas=2, decode_lanes=6, prefill_lanes=1,
+                    pool_blocks=100, prefixes=10, max_prefixes_per_replica=5,
+                    zipf_s=0.7, long_prompt_frac=0.5, prefix_share=0.35)
+#: the job of the JAX package's ``test_flywheel_replay_small_profile``
+REPLAY_RL_SPEC = dict(total_batches=4, publish_every=2,
+                      resize_after_batches=3, gen_interval_s=5.0,
+                      max_new_tokens=4)
+#: the ``rl`` fields that depend on the sampled tokens
+REPLAY_SAMPLED = ("losses",)
+
+
 def _nested(pairs) -> dict:
     """The tree of ``[(path, tensor)]`` (``train.trainer.tree_leaves``'s
     ``/``-joined paths)."""
@@ -4770,6 +4789,189 @@ SLICE10_PATHS = ("hf_serve", "lifecycle_train", "lifecycle_resume",
 RESNET50_PARAMS = 25_557_032
 #: the lifecycle's resumed losses against the uninterrupted run's
 RESUME_ATOL = 2e-3
+
+
+def _host_timer(obj, attr: str, sync=None) -> list:
+    """Wrap ``obj.attr`` so each call appends its host seconds (after
+    ``sync``, when given) to the returned list."""
+    fn = getattr(obj, attr)
+    seconds = []
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        if sync is not None:
+            sync()
+        seconds.append(time.perf_counter() - t0)
+        return res
+    setattr(obj, attr, timed)
+    return seconds
+
+
+def _same_day(tag, got, want, skip=()) -> None:
+    """A card day's observation dict equal to the CPU day's, key by key
+    (the ``rl`` block's too, but for ``skip``)."""
+    bad = [k for k in sorted(set(got) | set(want))
+           if k != "rl" and got.get(k) != want.get(k)]
+    if "rl" in want:
+        bad += [f"rl.{k}" for k in sorted(set(got["rl"]) | set(want["rl"]))
+                if k not in skip and got["rl"].get(k) != want["rl"].get(k)]
+    if bad:
+        raise AssertionError(
+            f"{tag}: the card's day differs from the CPU's at {bad}: "
+            + "; ".join(f"{k}: {str(got.get(k))[:200]} != "
+                        f"{str(want.get(k))[:200]}" for k in bad[:3]))
+
+
+def _median_ms(seconds) -> float:
+    import statistics
+    return 1e3 * statistics.median(seconds)
+
+
+def phase_replay(torch, cfg, params) -> dict:
+    """The engine-driven replays on the card, each held to the same day
+    run on the CPU on the replays' tiny float32 model: every request has
+    a fixed ``max_new`` and no stop token, so what a day observes is
+    scheduling and the observation dicts must be equal key by key.
+
+    (a) ``ServingReplay`` of the smoke serving day on Llama-3-8B (the
+    continuous phases' bf16 weights), every decode tick on the graph
+    route; (b) ``ServingFleetReplay`` of the fleet smoke day,
+    disaggregated (prefill lanes hand block tables to decode lanes), its
+    two replicas sharing those weights (nothing writes them); (c)
+    ``FlywheelReplay`` of the RL smoke day on ``REPLAY_RL_CFG`` in bf16
+    with ``resize=True``, each replica on tensors of its own: the
+    learner's four GRPO steps launch K1-K3 on ``sm90`` (counted here),
+    the resize restores bit for bit, every replica ends on the published
+    version, and only the losses (sampled rollouts) are held to
+    themselves (finite)."""
+    import dataclasses
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.replay import (FLEET_PROFILES, FleetProfile,
+                                         FlywheelReplay, RLJobSpec,
+                                         ServingFleetReplay, ServingReplay,
+                                         generate, generate_fleet)
+    out = {}
+
+    # (a) the serving smoke day
+    t0 = time.perf_counter()
+    want = ServingReplay(generate("smoke", 0), device="cpu").run()
+    cpu_s = time.perf_counter() - t0
+    replay = ServingReplay(generate("smoke", 0), model=(cfg, params),
+                           device="cuda")
+    host = _host_timer(replay.engine, "step")
+    t0 = time.perf_counter()
+    got = replay.run()
+    wall = time.perf_counter() - t0
+    _same_day("[replay] (a) the serving day", got, want)
+    ticks = _graph_only(replay.engine, "[replay] (a) the serving day")
+    out["serving"] = {"ticks": got["engine_ticks"], "wall_s": wall,
+                      "cpu_s": cpu_s, "host_ms_median": _median_ms(host),
+                      "tick_launches": ticks,
+                      "requests": got["requests_completed"],
+                      "tokens": got["tokens_generated"]}
+    log(f"[replay] (a) the smoke serving day on Llama-3-8B bf16: "
+        f"{got['requests_completed']} requests, {got['tokens_generated']} "
+        f"tokens, {got['engine_ticks']} ticks in {wall:.2f} s (median "
+        f"host {out['serving']['host_ms_median']:.3f} ms a tick; decode "
+        f"ticks {ticks}); the CPU day {cpu_s:.2f} s; the observation "
+        f"dicts equal key by key")
+    del replay
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the disaggregated fleet day
+    profile = FleetProfile(name="smoke", **REPLAY_FLEET)
+    t0 = time.perf_counter()
+    want = ServingFleetReplay(generate_fleet(profile, 1), router="prefix",
+                              disaggregate=True, device="cpu").run()
+    cpu_s = time.perf_counter() - t0
+    replay = ServingFleetReplay(generate_fleet(profile, 1), router="prefix",
+                                disaggregate=True, model=(cfg, params),
+                                device="cuda")
+    host = [_host_timer(rep.engine, "step") for rep in replay.fleet.replicas]
+    t0 = time.perf_counter()
+    got = replay.run()
+    wall = time.perf_counter() - t0
+    _same_day("[replay] (b) the fleet day", got, want)
+    if not got["handoffs"] > 0:
+        raise AssertionError(f"[replay] (b): {got['handoffs']} handoffs")
+    ticks = [_graph_only(rep.engine, f"[replay] (b) {rep.name}")
+             for rep in replay.fleet.replicas]
+    out["fleet"] = {"ticks": got["engine_ticks"], "wall_s": wall,
+                    "cpu_s": cpu_s, "handoffs": got["handoffs"],
+                    "host_ms_median": _median_ms([x for h in host
+                                                  for x in h]),
+                    "tick_launches": ticks}
+    log(f"[replay] (b) the disaggregated fleet day on Llama-3-8B bf16, 2 "
+        f"replicas sharing the weights: {got['requests_completed']} "
+        f"requests, {got['handoffs']} handoffs, {got['engine_ticks']} "
+        f"ticks in {wall:.2f} s (median host "
+        f"{out['fleet']['host_ms_median']:.3f} ms a replica step; decode "
+        f"ticks {ticks}); the CPU day {cpu_s:.2f} s; equal key by key")
+    del replay
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the RL flywheel day
+    rl_profile = dataclasses.replace(
+        FLEET_PROFILES["routing"], name="rl-smoke", sim_seconds=300.0,
+        requests=300, bursts=4)
+    spec = RLJobSpec(**REPLAY_RL_SPEC)
+    t0 = time.perf_counter()
+    want = FlywheelReplay(generate_fleet(rl_profile, 0), spec=spec,
+                          device="cpu").run()
+    cpu_s = time.perf_counter() - t0
+    rcfg = llama.LlamaConfig(**REPLAY_RL_CFG, loss_chunk=512)
+    rparams = llama.init_params(rcfg, torch.Generator(
+        device="cuda").manual_seed(4), device="cuda")
+    state_gb = 8 * rcfg.num_params / 1e9    # bf16 params and nu, f32 mu
+    replay = FlywheelReplay(generate_fleet(rl_profile, 0), spec=spec,
+                            model=(rcfg, rparams), device="cuda")
+    steps = _host_timer(replay.learner, "step", torch.cuda.synchronize)
+    _reset_counts(attn)
+    t0 = time.perf_counter()
+    got = replay.run()
+    wall = time.perf_counter() - t0
+    L = rcfg.n_layers
+    n = got["rl"]["batches_consumed"]
+    launches = _read_counts(attn, "[replay] (c) the flywheel day", {
+        "flash_forward": 3 * L * n, "flash_dq": L * n, "flash_dkv": L * n})
+    _same_day("[replay] (c) the flywheel day", got, want,
+              skip=REPLAY_SAMPLED)
+    rl = got["rl"]
+    losses = rl["losses"]
+    if not (len(losses) == n == spec.total_batches
+            and all(math.isfinite(x) for x in losses)
+            and rl["resize_restore_bit_identical"] == 1
+            and rl["elastic_resizes"] == 1
+            and set(rl["serving_versions"].values())
+            == {rl["policy_version"]} and rl["publishes"] == 2):
+        raise AssertionError(f"[replay] (c): {rl}")
+    ticks = [_graph_only(rep.engine, f"[replay] (c) {rep.name}")
+             for rep in replay.fleet.replicas]
+    out["flywheel"] = {"ticks": got["engine_ticks"], "wall_s": wall,
+                       "cpu_s": cpu_s, "launches": launches,
+                       "learner_step_ms": [1e3 * x for x in steps],
+                       "losses": losses, "state_gb": state_gb,
+                       "checkpoint_gb": 6 * state_gb,
+                       "tick_launches": ticks}
+    log(f"[replay] (c) the RL flywheel day, learner "
+        f"{rcfg.num_params / 1e6:.1f} M params bf16 (state {state_gb:.3f} GB, six copies "
+        f"{6 * state_gb:.3f} GB written): {rl['batches_consumed']} batches, "
+        f"{rl['publishes']} publishes rolled over {rl['replicas_rolled']} "
+        f"replica swaps, resize at step {rl['resize_at_step']} bit for bit, "
+        f"versions {rl['serving_versions']}; {got['engine_ticks']} ticks in "
+        f"{wall:.2f} s; learner steps "
+        f"{[round(1e3 * x, 2) for x in steps]} ms; K1-K3 launches "
+        f"{launches} (all sm90); losses {losses}; the CPU day {cpu_s:.2f} s;"
+        f" equal key by key but for the losses")
+    del replay, rparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _reset_counts(attn) -> None:
@@ -5681,9 +5883,22 @@ def _tp_probe(torch, only, timed) -> None:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
 
+def _replay_probe(torch, timed) -> None:
+    """``[replay]`` on its own, on Llama-3-8B from seed 0 (the serving
+    phase's weights)."""
+    from kubedl_tpu_torch.models import llama
+    cfg = llama.llama3_8b()
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    timed("replay", phase_replay, torch, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _probe(torch, argv, timed) -> int:
     """``--phases hf,lifecycle,resnet,moe_timing,dist,tp,tp2,ring,cp2,ep2,
-    pp,pp2,grpo [--layers N]``: the named phases alone after the build,
+    pp,pp2,grpo,replay [--layers N]``: the named phases alone after the build,
     the slice-10 ones on Gemma-2B ``N`` layers deep, ``dist`` after the
     unsharded
     Gemma-2B training it compares with, ``tp`` after the unsharded
@@ -5693,7 +5908,7 @@ def _probe(torch, argv, timed) -> int:
     if len(argv) not in (2, 4) or argv[0] != "--phases" or (
             len(argv) == 4 and argv[2] != "--layers"):
         print("usage: chip_smoke.py [--phases hf,lifecycle,resnet,"
-              "moe_timing,dist,tp,tp2,ring,cp2,ep2,pp,pp2,grpo "
+              "moe_timing,dist,tp,tp2,ring,cp2,ep2,pp,pp2,grpo,replay "
               "[--layers N]]", file=sys.stderr)
         return 2
     only = set(argv[1].split(","))
@@ -5701,6 +5916,8 @@ def _probe(torch, argv, timed) -> int:
     log("[env] " + _card())
     if only & {"tp", "tp2"}:
         _tp_probe(torch, only, timed)
+    if "replay" in only:
+        _replay_probe(torch, timed)
     if "dist" in only:
         gtrain = timed("gemma_training", phase_gemma_training, torch)
         gc.collect()
@@ -5780,6 +5997,8 @@ def main() -> int:
     tp_run = timed("tp", phase_tp, torch, cfg8b, params, cont)
     gc.collect()
     tp2_run = timed("tp2", phase_tp2, torch, cfg8b, params, cont["reqs"])
+    gc.collect()
+    replay_run = timed("replay", phase_replay, torch, cfg8b, params)
     del params, cont
     gc.collect()                 # the 16 GB serving model goes first
     torch.cuda.empty_cache()
@@ -5883,7 +6102,9 @@ def main() -> int:
                                                         name),
                        "grpo": grpo_run["launches"][name],
                        "grpo_learner": grpo_run["flywheel"]["launches"][
-                           name]}
+                           name],
+                       "replay_flywheel": replay_run["flywheel"][
+                           "launches"][name]}
                 for name in ("flash_forward", "flash_dq", "flash_dkv")}
     launches["flash_forward"].update(
         serving=serving_launches,

@@ -60,6 +60,14 @@ class Invalid(ApiError):
     pass
 
 
+class ServerError(ApiError):
+    """Transient 5xx-class failure (API server overloaded, a leader
+    election, a connection reset): callers retry it. The client raises
+    no such error itself (a 5xx answer is an :class:`ApiError`, as in the
+    JAX client); the SLO evaluator catches it from any API object it is
+    handed."""
+
+
 # -- REST mapping ------------------------------------------------------------
 
 _TRAINING = "training.kubedl.io/v1alpha1"

@@ -2,8 +2,11 @@
 
 Copied from ``kubedl_tpu/metrics/registry.py`` (the port imports nothing
 from the JAX package): ``Registry``, ``Counter``, ``Gauge`` and
-``Histogram``, and ``PagedKVMetrics``: the part the predictor server's
-``/metrics`` uses.
+``Histogram``; ``PagedKVMetrics``, the part the predictor server's
+``/metrics`` uses; and the families the replays record into:
+``TraceMetrics`` (the span recorder's health), ``ServingFleetMetrics``
+(replica health, router placements, prefill handoffs) and ``RLMetrics``
+(the RL flywheel's rollout floor, staleness and publishes).
 """
 
 from __future__ import annotations
@@ -24,6 +27,23 @@ class _Metric:
 
     def _key(self, labels: dict) -> tuple:
         return tuple(str(labels.get(ln, "")) for ln in self.label_names)
+
+    def sample(self, **labels):
+        """``value()`` that distinguishes "never written" from a real
+        0.0 — returns None for an absent label series. The SLO engine's
+        ``metric:`` reader uses this so a typo'd family/selector yields
+        no samples instead of a fabricated always-0.0 signal."""
+        with self._lock:
+            return self._values.get(self._key(labels))
+
+    def remove(self, **labels) -> None:
+        """Drop one label series from the exposition entirely. Gauges
+        describing a deleted object (an SLO's budget/burn series) must
+        disappear, not freeze at their last value — dashboards alerting
+        on 'budget < X' would keep acting on an objective that no
+        longer exists."""
+        with self._lock:
+            self._values.pop(self._key(labels), None)
 
 
 class Counter(_Metric):
@@ -68,6 +88,37 @@ class Histogram(_Metric):
                     counts[i] += 1
             counts[-1] += 1  # +Inf
 
+    def count(self, **labels) -> int:
+        k = self._key(labels)
+        return self._counts.get(k, [0])[-1]
+
+    def sum(self, **labels) -> float:
+        return self._sums.get(self._key(labels), 0.0)
+
+    def quantile(self, q: float, **labels):
+        """Estimate the ``q``-quantile from the cumulative bucket counts
+        (the SLO engine's read point for ``metric:`` signals over
+        histograms, docs/slo.md): linear interpolation within the
+        winning bucket, the way ``histogram_quantile`` does it. Samples
+        landing only in the ``+Inf`` bucket clamp to the largest finite
+        bound — a histogram cannot say more. Returns None when no
+        samples were observed."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile must be in [0, 1], got {q}")
+        with self._lock:
+            counts = list(self._counts.get(self._key(labels), ()))
+        if not counts or counts[-1] == 0:
+            return None
+        rank = q * counts[-1]
+        prev_cum, lower = 0, 0.0
+        for i, bound in enumerate(self.buckets):
+            cum = counts[i]
+            if cum >= rank and cum > prev_cum:
+                frac = (rank - prev_cum) / (cum - prev_cum)
+                return lower + (bound - lower) * frac
+            prev_cum, lower = cum, bound
+        return float(self.buckets[-1])      # +Inf bucket: clamp
+
 
 class Registry:
     def __init__(self):
@@ -91,6 +142,15 @@ class Registry:
         with self._lock:
             self._metrics.append(mt)
         return mt
+
+    def find(self, name: str):
+        """The registered metric with this exposition name, or None (the
+        SLO engine resolves ``metric:<family>`` signals through this)."""
+        with self._lock:
+            for mt in self._metrics:
+                if mt.name == name:
+                    return mt
+        return None
 
     def expose(self) -> str:
         """Prometheus text exposition format. Snapshots each metric under
@@ -118,6 +178,27 @@ class Registry:
                 for k, v in values_snap.items():
                     out.append(f"{mt.name}{_wrap(_fmt_labels(mt.label_names, k))} {v}")
         return "\n".join(out) + "\n"
+
+
+def _escape_label(value: str) -> str:
+    """Prometheus text-format label-value escaping: backslash, double
+    quote, and newline must be escaped or the exposition line is
+    unparseable (label values are user-influenced — queue names, kinds)."""
+    return (str(value).replace("\\", r"\\").replace('"', r'\"')
+            .replace("\n", r"\n"))
+
+
+def _fmt_labels(names: tuple, values: tuple) -> str:
+    return ",".join(f'{n}="{_escape_label(v)}"'
+                    for n, v in zip(names, values) if v != "")
+
+
+def _wrap(lbl: str) -> str:
+    return f"{{{lbl}}}" if lbl else ""
+
+
+def _merge(lbl: str, extra: str) -> str:
+    return f"{{{lbl},{extra}}}" if lbl else f"{{{extra}}}"
 
 
 class PagedKVMetrics:
@@ -171,22 +252,204 @@ class PagedKVMetrics:
             self._preempt_seen = stats["preempted"]
 
 
-def _escape_label(value: str) -> str:
-    """Prometheus text-format label-value escaping: backslash, double
-    quote, and newline must be escaped or the exposition line is
-    unparseable (label values are user-influenced — queue names, kinds)."""
-    return (str(value).replace("\\", r"\\").replace('"', r'\"')
-            .replace("\n", r"\n"))
+class ServingFleetMetrics:
+    """Serving-fleet families (docs/serving_fleet.md): the per-replica
+    engine health gauges the ServingAutoscaler consumes (free pool
+    blocks, queue depth, active lanes), fleet size / scale events, the
+    router's placement counters, and prefill→decode block-table
+    handoffs. Constructed only when the ServingFleet gate is on — the
+    disabled exposition carries none of these families (the
+    byte-identical-disabled convention). ``multi_model=True`` (the
+    MultiModelServing gate, docs/multimodel.md) adds the adapter
+    families; off, not one ``kubedl_serving_adapter_*`` family exists —
+    the same convention, one gate deeper."""
+
+    def __init__(self, registry: Optional[Registry] = None,
+                 multi_model: bool = False):
+        self.registry = registry or Registry()
+        self.multi_model = bool(multi_model)
+        r = self.registry
+        self.free_blocks = r.gauge(
+            "kubedl_serving_free_blocks",
+            "Unreferenced KV pool blocks per serving replica (the "
+            "autoscaler's memory-pressure signal)", ("replica",))
+        self.queue_depth = r.gauge(
+            "kubedl_serving_queue_depth",
+            "Requests queued per serving replica (admitted to no lane "
+            "yet)", ("replica",))
+        self.active_lanes = r.gauge(
+            "kubedl_serving_active_lanes",
+            "Lanes holding an in-flight request per serving replica "
+            "(parked prefill lanes included)", ("replica",))
+        self.replicas = r.gauge(
+            "kubedl_serving_fleet_replicas",
+            "Live serving replicas (draining replicas included until "
+            "reaped)")
+        self.draining = r.gauge(
+            "kubedl_serving_fleet_draining",
+            "Replicas currently draining (no new placements; in-flight "
+            "streams finishing)")
+        self.scale_events = r.counter(
+            "kubedl_serving_fleet_scale_events_total",
+            "Autoscaler actions by direction (up = replica added, "
+            "drain = scale-down began, reap = drained replica removed)",
+            ("direction",))
+        self.router_prefix_hits = r.counter(
+            "kubedl_serving_router_prefix_hits_total",
+            "Requests placed on a replica already holding their shared "
+            "prefix blocks")
+        self.router_prefix_misses = r.counter(
+            "kubedl_serving_router_prefix_misses_total",
+            "Prefix-bearing requests placed on a replica without their "
+            "prefix resident")
+        self.router_tenant_spills = r.counter(
+            "kubedl_serving_router_tenant_spills_total",
+            "Placements diverted off the preferred replica because the "
+            "tenant's queue already held its fair share there",
+            ("queue",))
+        self.handoffs = r.counter(
+            "kubedl_serving_prefill_handoffs_total",
+            "Prefill→decode block-table handoffs per replica "
+            "(disaggregated lanes only)", ("replica",))
+        if self.multi_model:
+            self.adapter_faults = r.counter(
+                "kubedl_serving_adapter_faults_total",
+                "Cold adapter fault-ins through the paged pool by model "
+                "(a resident adapter costs none; the router-quality "
+                "signal)", ("model",))
+            self.adapter_resident = r.gauge(
+                "kubedl_serving_adapter_resident",
+                "Adapters currently resident per serving replica",
+                ("replica",))
+            self.adapter_pages = r.gauge(
+                "kubedl_serving_adapter_pages",
+                "Pool blocks pinned by resident adapter weights per "
+                "serving replica (HBM shared with KV blocks)",
+                ("replica",))
+        self._handoffs_seen: dict = {}
+        self._adapter_faults_seen: dict = {}
+        self._replicas_seen: set = set()
+
+    def note_reaped(self, replica: str, handoffs_total: int,
+                    adapter_faults: Optional[dict] = None) -> None:
+        """Flush a reaped replica's final handoff delta into the counter
+        BEFORE its engine disappears from ``fleet.health()`` — without
+        this, handoffs performed between the last refresh and the reap
+        would vanish from the exposition (the bench's fleet-lifetime
+        rollup keeps them, and the two must agree). ``adapter_faults``
+        (a per-model dict) does the same for a multi-model replica's
+        fault counters."""
+        delta = handoffs_total - self._handoffs_seen.pop(replica, 0)
+        if delta > 0:
+            self.handoffs.inc(delta, replica=replica)
+        if self.multi_model:
+            for model, total in (adapter_faults or {}).items():
+                d = total - self._adapter_faults_seen.pop(
+                    (replica, model), 0)
+                if d > 0:
+                    self.adapter_faults.inc(d, model=model)
+            self._adapter_faults_seen = {
+                k: v for k, v in self._adapter_faults_seen.items()
+                if k[0] != replica}
+
+    def refresh(self, fleet) -> None:
+        """Push one fleet health snapshot (gauges per live replica;
+        series of reaped replicas are removed, not frozen)."""
+        live = set()
+        draining = 0
+        for h in fleet.health():
+            name = h["replica"]
+            live.add(name)
+            if h.get("draining"):
+                draining += 1
+            self.free_blocks.set(h.get("free_blocks") or 0, replica=name)
+            self.queue_depth.set(h["queue_depth"], replica=name)
+            self.active_lanes.set(h["active_lanes"], replica=name)
+            delta = h["handoffs"] - self._handoffs_seen.get(name, 0)
+            if delta > 0:
+                self.handoffs.inc(delta, replica=name)
+                self._handoffs_seen[name] = h["handoffs"]
+            if self.multi_model and "resident_adapters" in h:
+                self.adapter_resident.set(
+                    h["resident_adapters"], replica=name)
+                self.adapter_pages.set(h["adapter_pages"], replica=name)
+                for model, total in (h.get("adapter_faults")
+                                     or {}).items():
+                    d = total - self._adapter_faults_seen.get(
+                        (name, model), 0)
+                    if d > 0:
+                        self.adapter_faults.inc(d, model=model)
+                        self._adapter_faults_seen[(name, model)] = total
+        for name in self._replicas_seen - live:
+            self.free_blocks.remove(replica=name)
+            self.queue_depth.remove(replica=name)
+            self.active_lanes.remove(replica=name)
+            self._handoffs_seen.pop(name, None)
+            if self.multi_model:
+                # a reaped replica's per-replica adapter series go with
+                # it (fault totals were flushed by note_reaped)
+                self.adapter_resident.remove(replica=name)
+                self.adapter_pages.remove(replica=name)
+                self._adapter_faults_seen = {
+                    k: v for k, v in self._adapter_faults_seen.items()
+                    if k[0] != name}
+        self._replicas_seen = live
+        self.replicas.set(len(live))
+        self.draining.set(draining)
 
 
-def _fmt_labels(names: tuple, values: tuple) -> str:
-    return ",".join(f'{n}="{_escape_label(v)}"'
-                    for n, v in zip(names, values) if v != "")
+class RLMetrics:
+    """RL post-training flywheel families (docs/rl.md): rollout-tenant
+    throughput against its declared floor, rollout batches consumed by
+    the learner, the off-policy staleness gap, weight publishes rolled
+    across the fleet, and floor violations. Constructed only when the
+    RLFlywheel gate is on — the disabled operator's exposition carries
+    no ``kubedl_rl_*`` family at all (the byte-identical-disabled
+    convention)."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.rollout_tokens_per_s = r.gauge(
+            "kubedl_rl_rollout_tokens_per_s",
+            "Rollout generation throughput per RLJob (decode tokens "
+            "completed through the fleet, windowed)", ("job",))
+        self.batches_consumed = r.counter(
+            "kubedl_rl_batches_consumed_total",
+            "Versioned rollout batches the learner has stepped on",
+            ("job",))
+        self.staleness = r.gauge(
+            "kubedl_rl_staleness",
+            "Off-policy gap per RLJob: learner policy version minus the "
+            "version that generated the batch being consumed", ("job",))
+        self.publishes = r.counter(
+            "kubedl_rl_publishes_total",
+            "Policy weight versions rolled across the serving fleet "
+            "(publish-between-drains; never a torn version)", ("job",))
+        self.floor_violations = r.counter(
+            "kubedl_rl_floor_violations_total",
+            "Observation windows where rollout throughput fell below "
+            "the RLJob's declared floor (flash crowds squeezing the "
+            "rollout tenant)", ("job",))
 
 
-def _wrap(lbl: str) -> str:
-    return f"{{{lbl}}}" if lbl else ""
+class TraceMetrics:
+    """Span-recorder health (docs/tracing.md): recorded-span throughput
+    per component, ring-buffer occupancy, and the overflow-drop counter
+    (a rising drop rate means the buffer is undersized for the span
+    volume — raise ``--trace-buffer`` capacity or narrow what's traced).
+    Maintained by :class:`kubedl_tpu_torch.trace.Tracer` only while tracing is
+    enabled; with the gate off the families exist but stay at zero."""
 
-
-def _merge(lbl: str, extra: str) -> str:
-    return f"{{{lbl},{extra}}}" if lbl else f"{{{extra}}}"
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.spans = r.counter(
+            "kubedl_trace_spans_total",
+            "Spans recorded, by instrumented component", ("component",))
+        self.dropped = r.counter(
+            "kubedl_trace_spans_dropped_total",
+            "Spans evicted from the ring buffer on overflow")
+        self.buffered = r.gauge(
+            "kubedl_trace_buffer_spans",
+            "Spans currently held in the ring buffer")

@@ -965,14 +965,16 @@ class ContinuousBatchingEngine:
             pos0 += n
         return logits
 
-    def _fill_prefix(self, tokens: list) -> int:
+    def _fill_prefix(self, tokens: list, sid: Optional[int] = None) -> int:
         """Dense mode: prefill a prefix into its own stored KV (the
-        ``store_prefix`` step); returns the id it is stored under."""
+        ``store_prefix`` step), under a new id or over the stored ``sid``;
+        returns the id it is stored under."""
         plen = len(tokens)
         bucket = min(_bucket(plen), self.max_len)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :plen] = tokens
-        sid = next(self._stored_ids)
+        if sid is None:
+            sid = next(self._stored_ids)
         self._dev("store_prefix", sid=sid, toks=toks, n=plen)
         return sid
 
@@ -995,10 +997,13 @@ class ContinuousBatchingEngine:
         the tensors the engine holds: every decode tick's CUDA graph
         holds those tensors' addresses, so it replays on the new weights
         (a new tree would leave the graphs reading the old ones). Only an
-        idle engine refreshes. Registered prefixes hold K/V of the old
-        weights, so they are dropped. A tensor-parallel engine's
-        followers repeat device steps only, so it refreshes by a
-        restart."""
+        idle engine refreshes. Every registered prefix stays registered,
+        with its pool blocks (or its dense store), its hit clock and the
+        residency epoch as they were; its K/V is prefilled again in place
+        under the new weights, as a registration would fill it now. That
+        refill is no request's prefill: ``prefill_tokens_*`` do not count
+        it. A tensor-parallel engine's followers repeat device steps only,
+        so it refreshes by a restart."""
         if self._channel is not None:
             raise ValueError("a tensor-parallel engine cannot refresh its "
                              "weights in place: its followers hold theirs")
@@ -1008,8 +1013,12 @@ class ContinuousBatchingEngine:
                                    "requests are in flight")
             load_into(self.params, init_mesh_serving(
                 self.config, params, self.quantize, self.mesh, self.device))
-        if self._prefixes:
-            self.clear_prefixes()
+            for p in self._prefixes:
+                if self.kv_mode == "dense":
+                    self._fill_prefix(list(p.key), sid=p.stored)
+                elif p.blocks:
+                    self._fill_prefix_blocks(
+                        p.blocks, list(p.key[:len(p.blocks) * self.kv_block]))
 
     @property
     def prefix_count(self) -> int:
@@ -1946,7 +1955,9 @@ class ContinuousBatchingEngine:
                 component="serving",
                 attributes={"tokens": plen - prefill_from,
                             "lane": lane_idx,
-                            "sharedBlocks": len(shared)})
+                            "sharedBlocks": len(shared),
+                            **({"model": req.model} if req.model
+                               else {})})
             req._t_decode = now_t
         if lane.remaining <= 0 or hit_stop(req.tokens, gen):
             self._free_lane(lane_idx)    # finished in prefill

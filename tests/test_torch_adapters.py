@@ -369,3 +369,25 @@ def test_engine_refuses_adapters_it_cannot_page(models):
         side.engine(lanes=2, max_adapters=2)
     assert np.array_equal(side.engine(lanes=2, adapters=side.catalog())
                           ._tables, np.zeros((2, 8), np.int64))
+
+
+def test_an_adapter_requests_spans_carry_its_model(models):
+    """Every span of a request under an adapter carries the same
+    attributes on both engines: ``request.prefill`` names the model as
+    ``serving.request`` does (a base-model request names none)."""
+    from kubedl_tpu.trace import Tracer as JTracer
+    from kubedl_tpu_torch.trace import Tracer as TTracer
+    got = {}
+    for name, tracer_cls in (("jax", JTracer), ("port", TTracer)):
+        side = Side(name, models)
+        tracer = tracer_cls(enabled=True, clock=lambda: 0.0)
+        eng = side.engine(adapters=side.catalog(), max_adapters=2,
+                          tracer=tracer)
+        eng.submit([5, 6, 7, 8], 3, model="m-a")
+        eng.submit([9, 10, 11], 2)
+        _drain(eng)
+        got[name] = sorted((s.name, sorted(s.attributes.items()))
+                           for s in tracer.spans())
+    assert got["port"] == got["jax"]
+    prefills = [dict(a) for n, a in got["port"] if n == "request.prefill"]
+    assert sorted(p.get("model", "") for p in prefills) == ["", "m-a"]

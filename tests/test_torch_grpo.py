@@ -385,18 +385,43 @@ def test_a_weight_refresh_keeps_the_served_tensors(llama_model, surface):
 
 
 def test_the_continuous_engine_refreshes_only_when_idle(llama_model):
+    from kubedl_tpu_torch.serving import ContinuousBatchingEngine
     _, _, path = llama_model
     tcfg, tparams = tio.load_model(path, device="cpu")
-    engine = _engines(tcfg, tparams)["continuous"]
+
+    def make(params):
+        # blocks of 2: the prefix below pins 2 full pool blocks
+        return ContinuousBatchingEngine(tcfg, params, lanes=4, max_len=64,
+                                        kv_block=2, device="cpu")
+
+    engine = make(tparams)
     engine.register_prefix([1, 7, 3, 2])
     engine.submit([1, 2, 3], 4)
     with pytest.raises(RuntimeError, match="idle engine"):
         engine.load_weights(tparams)
     while engine.step():
         pass
-    engine.load_weights(_moved(tparams))
-    # the registered prefix held K/V of the old weights: dropped
-    assert engine.prefix_count == 0
+    blocks = engine._prefixes[0].blocks
+    new = _moved(tparams)
+    engine.load_weights(new)
+    # the registered prefix stays in its blocks, its K/V prefilled again
+    # under the new weights: what a fresh registration fills
+    fresh = make(new)
+    fresh.register_prefix([1, 7, 3, 2])
+    assert engine.prefix_count == 1 and len(blocks) == 2
+    assert engine._prefixes[0].blocks == blocks
+    for k in ("k", "v"):
+        torch.testing.assert_close(
+            engine._pool[k][:, list(blocks)],
+            fresh._pool[k][:, list(fresh._prefixes[0].blocks)],
+            rtol=0, atol=0)
+    outs = []
+    for eng in (engine, fresh):
+        req = eng.submit([1, 7, 3, 2, 9, 4], 4, logprobs=True)
+        while eng.step():
+            pass
+        outs.append((req.result(), req.logprobs))
+    assert outs[0] == outs[1]
 
 
 @pytest.mark.cuda

@@ -103,12 +103,43 @@ def test_the_in_cluster_runtime_modules_are_checked():
             "kubedl_tpu_torch.runtime.bootstrap"} <= set(MODULES)
 
 
+def test_the_replay_slice_modules_are_checked():
+    """...and so are the engine-driven replays, with the framework-free
+    modules they need, which the port keeps as copies: the sim clock, the
+    object helpers and event types, SLO objects and the SLO engine, the
+    Queue API, descriptive statistics, the workload generators, the
+    serving fleet, its router and autoscaler, and the RL flywheel's
+    rollout client, weight publisher and loop."""
+    assert {"kubedl_tpu_torch.replay", "kubedl_tpu_torch.replay.serving",
+            "kubedl_tpu_torch.replay.rl", "kubedl_tpu_torch.replay.fleet",
+            "kubedl_tpu_torch.replay.workload", "kubedl_tpu_torch.api",
+            "kubedl_tpu_torch.api.slo", "kubedl_tpu_torch.api.queue",
+            "kubedl_tpu_torch.core.clock", "kubedl_tpu_torch.core.meta",
+            "kubedl_tpu_torch.core.events", "kubedl_tpu_torch.telemetry",
+            "kubedl_tpu_torch.telemetry.slo", "kubedl_tpu_torch.utils",
+            "kubedl_tpu_torch.utils.stats",
+            "kubedl_tpu_torch.serving.fleet",
+            "kubedl_tpu_torch.serving.router",
+            "kubedl_tpu_torch.controllers",
+            "kubedl_tpu_torch.controllers.servingfleet",
+            "kubedl_tpu_torch.rl.flywheel", "kubedl_tpu_torch.rl.rollout",
+            "kubedl_tpu_torch.rl.publisher"} <= set(MODULES)
+
+
+#: the replays' twins and the modules the port copies for them
+REPLAY_TWINS = ("replay/serving", "replay/rl")
+REPLAY_COPIES = ("core/clock", "api/slo", "core/meta", "telemetry/slo",
+                 "replay/workload", "replay/fleet", "utils/stats",
+                 "api/queue", "serving/fleet", "serving/router",
+                 "controllers/servingfleet", "rl/flywheel", "rl/rollout",
+                 "rl/publisher")
 #: JAX modules -> their twins, whose public functions and classes (and the
 #: classes' public methods) the twin has too
 TWINS = {f"kubedl_tpu/{path}.py": f"kubedl_tpu_torch.{path.replace('/', '.')}"
          for path in ("parallel/pipeline", "train/grpo", "rl/learner",
                       "train/__main__", "train/trainer", "core/kubeclient",
-                      "runtime/restart_agent")}
+                      "runtime/restart_agent") + REPLAY_TWINS
+         + REPLAY_COPIES}
 #: public names a twin leaves out on purpose: the in-cluster job reads and
 #: patches its own job object, so the client keeps ``get``/``try_get``/
 #: ``patch_merge`` and the job kinds' mapping (kubeconfig files need
@@ -153,6 +184,86 @@ def test_the_twins_have_the_jax_modules_public_names(source):
 def _params(fn) -> list:
     import inspect
     return list(inspect.signature(fn).parameters)
+
+
+#: parameters the replays' port takes beyond the JAX ones: the device
+#: (the card unless the caller names the CPU) everywhere a replay is
+#: built, and the RL replay's model (the JAX one always trains its tiny
+#: model; the port's also runs at a width the card is measured at)
+PORT_PARAMS = {
+    "_tiny_model": ["device"], "ServingReplay.__init__": ["device"],
+    "ServingFleetReplay.__init__": ["device"],
+    "run_routing_comparison": ["device"], "run_disagg_comparison": ["device"],
+    "run_autoscaler_leg": ["device"], "run_fleet_comparison": ["device"],
+    "FlywheelReplay.__init__": ["model", "device"],
+    "run_flywheel_leg": ["device"]}
+
+
+@pytest.mark.parametrize("path", REPLAY_TWINS + REPLAY_COPIES)
+def test_the_replay_modules_take_the_jax_ones_parameters(path):
+    """Every function of the JAX source (and every method of its classes,
+    ``__init__`` included) takes the same parameters, in order, in the
+    port, with only ``PORT_PARAMS`` added at the end. Read from the JAX
+    source as an AST, held against the imported port module."""
+    import ast
+    import importlib
+    mod = importlib.import_module(
+        f"kubedl_tpu_torch.{path.replace('/', '.')}")
+    checked = 0
+    for node in ast.parse((ROOT / f"kubedl_tpu/{path}.py").read_text()).body:
+        fns = ([(node.name, node)] if isinstance(node, ast.FunctionDef)
+               else [(f"{node.name}.{m.name}", m) for m in node.body
+                     if isinstance(m, ast.FunctionDef)]
+               if isinstance(node, ast.ClassDef) else [])
+        for name, fn in fns:
+            if isinstance(node, ast.FunctionDef):
+                obj = getattr(mod, name)
+            else:
+                # the function as the class body holds it (``self``
+                # included), unwrapped from a property or descriptor
+                obj = vars(getattr(mod, node.name))[fn.name]
+                obj = getattr(obj, "fget", None) or getattr(
+                    obj, "__func__", obj)
+            args = fn.args
+            want = [a.arg for a in args.posonlyargs + args.args]
+            want += [args.vararg.arg] if args.vararg else []
+            want += [a.arg for a in args.kwonlyargs]
+            want += [args.kwarg.arg] if args.kwarg else []
+            assert _params(obj) == want + PORT_PARAMS.get(name, []), name
+            checked += 1
+    assert checked > 0
+
+
+def _without_docs_and_imports(source: str) -> str:
+    """The AST of a module with its docstrings and its top-level imports
+    taken out."""
+    import ast
+    tree = ast.parse(source)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        first = body[0] if isinstance(body, list) and body else None
+        if isinstance(first, ast.Expr) and isinstance(
+                first.value, ast.Constant) and isinstance(
+                first.value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+    tree.body = [n for n in tree.body
+                 if not isinstance(n, (ast.Import, ast.ImportFrom))]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("path", [p for p in REPLAY_COPIES if p not in (
+    "replay/fleet", "rl/publisher")])
+def test_the_copied_modules_are_the_jax_ones_to_the_statement(path):
+    """A copy differs from its JAX source only in imports and docstrings
+    (and in naming the port's package where it names its own, as its
+    logger does). ``replay/fleet`` (the ``device`` and the per-replica
+    weights seam) and ``rl/publisher`` (the install through
+    ``load_weights``) differ on purpose and are checked by name and
+    parameter above."""
+    want = (ROOT / f"kubedl_tpu/{path}.py").read_text().replace(
+        '"kubedl_tpu.', '"kubedl_tpu_torch.')
+    got = (PKG / f"{path}.py").read_text()
+    assert _without_docs_and_imports(got) == _without_docs_and_imports(want)
 
 
 def test_the_entry_points_take_the_jax_ones_parameters():
