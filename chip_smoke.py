@@ -194,6 +194,21 @@ save at step 4, of plain tensors, is read back bit for bit. The phase
 prints the poll's host time per step, the step time with the agent
 ((b)) beside the step time without it ((c)), and the elastic save's copy
 and write, each with the card's name and power limit.
+
+Since slice 16, after ``tp2``, ``replay`` runs the replays' request days
+on the port's engines (``--phases replay``). Since slice 17, after it,
+``spec`` decodes the serving phases' Llama-3-8B with the standalone
+speculative engine (a draft cut to its first layers, then itself): its
+tokens held to the static engine's greedy decode by the near-tie rule in
+bf16 and exactly in float32 on the same weights cut to 2 layers, where a
+self-draft must accept everything; then its adapter behind
+``InferenceServer`` (``:predict``, the spec gauges on ``/metrics``,
+``/v1/embeddings`` on the target's weights with K1 on ``sm90``).
+``cp2`` also runs ``mode: evaluate`` (perplexity, multiple-choice
+choices) and ``mode: dpo`` in the same two ranks, ring and Ulysses,
+against the same jobs unsharded; ``ep2`` also serves Mixtral width over
+``ep=2`` in two processes, its tokens equal to one process's
+(``--phases spec,cp2,ep2``).
 """
 
 from __future__ import annotations
@@ -876,7 +891,8 @@ def _hold(torch, cfg, params, reqs, outs, label, want=None,
             diverge.append((i, next(j for j, (a, b) in
                                      enumerate(zip(toks, want[i]))
                                      if a != b)))
-    msg = f"[cont] {label}: {len(outs)} requests, {_describe(r)}"
+    msg = (f"{label}: " if label.startswith("[") else f"[cont] {label}: ") \
+        + f"{len(outs)} requests, {_describe(r)}"
     if want is not None:
         msg += (f"; identical to {want_label}: {same}/{len(outs)} requests"
                 + (f", first divergence (request, token) {diverge}"
@@ -3425,8 +3441,15 @@ CP2_LAYERS, CP2_SEQ, CP2_STEPS = 2, 4096, 3
 #: hidden 0.0395, gradients 0.0549, where the router flipped 16 near-tie
 #: choices of 8,192. A ring without its K/V shift read 1.12 / 0.878 /
 #: 0.845, an ep run without ``ep_sum`` 0.533 / 0.968 / 0.846
+#: [cp2]'s ``logp_gap`` holds a multiple-choice option's log-probability
+#: per token of the option against the same job unsharded (the NLL of
+#: ``mode: evaluate`` over 8,192 tokens and DPO's losses take
+#: ``loss_gap``): an option sums 3-12 tokens, whose bf16 rounding does
+#: not average out as the perplexity's does. Set at ~3x the ring's first
+#: reading on an H100 80GB HBM3 at 700 W (PERF.md §6), 6.875e-3 (Ulysses
+#: 1.3e-6), the scale of the ring's hidden states (7.1e-3)
 MESH_BOUNDS = {"cp2": {"loss_gap": 1e-3, "hidden_rel": 2e-2,
-                       "grad_rel": 3e-2},
+                       "grad_rel": 3e-2, "logp_gap": 2e-2},
                "ep2": {"loss_gap": 0.1, "hidden_rel": 0.1,
                        "grad_rel": 0.15},
                # set before the first reading: the stages run the
@@ -3797,6 +3820,71 @@ def _first_step(torch, path) -> dict:
     return out
 
 
+def _first_step_dpo(torch, path) -> dict:
+    """The first step of the DPO job at ``path`` as its sharded path
+    decides it, against the same step unsharded: the weights
+    ``init_params`` makes from the job's seed, both the policy and the
+    frozen reference (as at ``main``'s first step), and the job's first
+    ``batch`` pairs. On the rank's mesh: the reference log-probabilities
+    without autograd, the loss (``make_dpo_loss_fn``), and the gradient
+    of every leaf's local piece for the rank's share; then the same step
+    on one process; per leaf the squared distance and squared norm
+    against the same piece of the unsharded gradient (``_grad_rel``)."""
+    from kubedl_tpu_torch.models import io
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.parallel import collectives, sharding
+    from kubedl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from kubedl_tpu_torch.train import __main__ as train_main
+    from kubedl_tpu_torch.train import data as tdata
+    from kubedl_tpu_torch.train import dpo
+    from kubedl_tpu_torch.train.trainer import tree_leaves
+
+    cfg = json.loads(Path(path).read_text())
+    config, _ = train_main.resolve_model(cfg, device="cuda")
+    fam = io.family_of(config)
+    mesh = build_mesh(MeshConfig(**cfg["mesh"]), device="cuda")
+    params = fam.init_params(config, torch.Generator(
+        device="cuda").manual_seed(int(cfg["seed"])), device="cuda")
+    rows = [json.loads(line) for line in Path(
+        cfg["data"]["path"]).read_text().splitlines()][:cfg["batch"]]
+    host = dpo.preference_batch([r["chosen"] for r in rows],
+                                [r["rejected"] for r in rows],
+                                [r["prompt_len"] for r in rows])
+    dcfg = dpo.DPOConfig(**cfg.get("dpo", {}))
+
+    def share(p, batch, m):
+        local = {k: sharding.local_of(v) for k, v in batch.items()}
+        local["ref_chosen_logps"], local["ref_rejected_logps"] = \
+            dpo.reference_logps_fn(config, p, m)(local)   # no autograd
+        return dpo.make_dpo_loss_fn(config, dcfg, mesh=m)(p, local)
+
+    placed = sharding.shard_tree(params, mesh, fam.param_specs(config))
+    specs = {k: sharding.spec_of(p.placements)
+             for k, p in tree_leaves(placed)}
+    view = sharding.views(placed, mesh, requires_grad=True)
+    leaves = tree_leaves(view)
+    mine = share(view, tdata.shard_batch(host, mesh), mesh)
+    grads = torch.autograd.grad(mine, [getattr(p, "local", p)
+                                       for _, p in leaves])
+    loss = float(collectives.world_sum(mine.detach()))
+    local = {k: g for (k, _), g in zip(leaves, grads)}
+    del view, leaves, grads, placed, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_leaves = [(k, t.requires_grad_()) for k, t in tree_leaves(params)]
+    ref_loss = share(params, tdata.to_device(host, torch.device("cuda")),
+                     None)
+    ref_grads = torch.autograd.grad(ref_loss, [t for _, t in ref_leaves])
+    _reset_counts(attn)            # the checks launched K1-K3 too
+    out = {"loss": loss, "ref_loss": float(ref_loss.detach()), "leaves": {}}
+    for (k, _), g in zip(ref_leaves, ref_grads):
+        want = sharding.local_shard(g, mesh, specs[k])
+        out["leaves"][k] = (_sq_dist(torch, local[k], want),
+                            _sq_dist(torch, want),
+                            tuple(want.shape) != tuple(g.shape))
+    return out
+
+
 def _grad_rel(readings) -> tuple:
     """(norm-wise relative error of the whole gradient tree, worst leaf,
     its error) from the ranks' ``_first_step`` pieces: a sharded leaf's
@@ -3814,23 +3902,71 @@ def _grad_rel(readings) -> tuple:
     return math.sqrt(num / den), worst[0], worst[1]
 
 
+def _main_readings(torch, path) -> dict:
+    """``python -m kubedl_tpu_torch.train``'s ``main`` on the config at
+    ``path`` in this process, the kernels' counts set to 0 just before
+    the run and read just after: rc, the losses by step, the launches by
+    kernel and route, what ``evaluate.perplexity`` and
+    ``evaluate.loglikelihood_ranks`` returned (``mode: evaluate``), the
+    exchanges staged through the host, peak memory and step times."""
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.parallel import collectives
+    from kubedl_tpu_torch.train import __main__ as train_main
+    from kubedl_tpu_torch.train import evaluate
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    marks, results = [], {}
+
+    def recording(name, fn):
+        def run(*a, **kw):
+            results[name] = fn(*a, **kw)
+            return results[name]
+        return run
+    _reset_counts(attn)
+    collectives.ring_shift.host_staged = 0
+    collectives.pp_shift.host_staged = 0
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(
+            evaluate, "perplexity",
+            recording("perplexity", evaluate.perplexity)), \
+            unittest.mock.patch.object(
+                evaluate, "loglikelihood_ranks",
+                recording("choices", evaluate.loglikelihood_ranks)):
+        rc = train_main.main(["--config", path],
+                             on_step=lambda step, loss: marks.append(
+                                 (time.perf_counter(), step, loss)))
+    torch.cuda.synchronize()
+    steady = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+    return {
+        "rc": rc, "losses": [m[2] for m in marks], "results": results,
+        "launches": {fn.__name__: fn.launches for fn in (
+            attn.flash_forward, attn.flash_dq, attn.flash_dkv)},
+        "by_route": {fn.__name__: dict(fn.launches_by_route)
+                     for fn in (attn.flash_forward, attn.flash_dq,
+                                attn.flash_dkv)},
+        "host_staged": collectives.ring_shift.host_staged,
+        "pp_staged": collectives.pp_shift.host_staged,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "first_step_s": marks[0][0] - t0 if marks else None,
+        "step_s": sum(steady) / len(steady) if steady else None,
+        "step_times": [round(x, 4) for x in steady]}
+
+
 def _mesh_rank(rank, port, jobs, queue):
     """One of two ranks on ``cuda:0`` under a gloo group (NCCL refuses two
     ranks on one device): ``python -m kubedl_tpu_torch.train``'s ``main``
-    on each ``(tag, config path)`` of ``jobs`` over the open group, the
-    kernels' counts set to 0 just before each run and read just after.
-    Puts ``(rank, {tag: readings})`` or ``(rank, traceback)`` on
-    ``queue``."""
+    on each ``(tag, config path)`` of ``jobs`` over the open group
+    (``_main_readings``), and for a training or DPO job its first step
+    against the same step unsharded. Puts ``(rank, {tag: readings})`` or
+    ``(rank, traceback)`` on ``queue``."""
     import traceback
     from datetime import timedelta
 
     try:
         import torch
         import torch.distributed as dist
-
-        from kubedl_tpu_torch.ops import attention as attn
-        from kubedl_tpu_torch.parallel import collectives
-        from kubedl_tpu_torch.train import __main__ as train_main
 
         torch.cuda.set_device(0)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3839,38 +3975,17 @@ def _mesh_rank(rank, port, jobs, queue):
                                 timeout=timedelta(seconds=MESH_TIMEOUT_S))
         res = {}
         for tag, path in jobs:
+            res[tag] = _main_readings(torch, path)
             gc.collect()
             torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            marks = []
-            _reset_counts(attn)
-            collectives.ring_shift.host_staged = 0
-            collectives.pp_shift.host_staged = 0
-            t0 = time.perf_counter()
-            rc = train_main.main(["--config", path],
-                                 on_step=lambda step, loss: marks.append(
-                                     (time.perf_counter(), step, loss)))
-            torch.cuda.synchronize()
-            steady = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
-            res[tag] = {
-                "rc": rc, "losses": [m[2] for m in marks],
-                "launches": {fn.__name__: fn.launches for fn in (
-                    attn.flash_forward, attn.flash_dq, attn.flash_dkv)},
-                "by_route": {fn.__name__: dict(fn.launches_by_route)
-                             for fn in (attn.flash_forward, attn.flash_dq,
-                                        attn.flash_dkv)},
-                "host_staged": collectives.ring_shift.host_staged,
-                "pp_staged": collectives.pp_shift.host_staged,
-                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                "first_step_s": marks[0][0] - t0 if marks else None,
-                "step_s": sum(steady) / len(steady) if steady else None,
-                "step_times": [round(x, 4) for x in steady]}
-            gc.collect()
-            torch.cuda.empty_cache()
-            pipelined = json.loads(Path(path).read_text())["mesh"].get(
-                "pp", 1) > 1
-            res[tag]["first_step"] = (_first_step_pp if pipelined
-                                      else _first_step)(torch, path)
+            cfg = json.loads(Path(path).read_text())
+            mode = cfg.get("mode", "pretrain")
+            if mode == "evaluate":
+                continue
+            pipelined = cfg["mesh"].get("pp", 1) > 1
+            res[tag]["first_step"] = (
+                _first_step_dpo if mode == "dpo" else _first_step_pp
+                if pipelined else _first_step)(torch, path)
             gc.collect()
             torch.cuda.empty_cache()
         dist.destroy_process_group()
@@ -3982,6 +4097,145 @@ def _hold_mesh_run(tag, job, res, ref, n_layers, cp) -> tuple:
         [f"[{tag}] {job}: {b}" for b in bad]
 
 
+#: [cp2]'s evaluate and DPO jobs at Llama-3-8B width, CP2_LAYERS deep:
+#: perplexity over the training job's 2 x 4096 tokens; CP2_MC_ROWS
+#: multiple-choice questions of a 100-token prompt and 4 options of 3-12
+#: tokens (padded to 128, so 64 columns a rank); CP2_DPO_PAIRS pairs of a
+#: 120-token prompt and 80 / 60 completion tokens (padded to 256),
+#: CP2_DPO_STEPS steps (the first at the warmup's learning rate 0)
+CP2_MC_ROWS, CP2_DPO_PAIRS, CP2_DPO_STEPS = 4, 2, 3
+
+
+def _cp2_mode_configs(tokens) -> dict:
+    """{(mode tag, impl or None): config path} of [cp2]'s evaluate and DPO
+    jobs, unsharded (impl None) and over ``cp=2`` with each ``cp_impl``;
+    the data files they read (a few KB) under ``BUILD_OUT``."""
+    import numpy as np
+    rng = np.random.default_rng(23)
+    mc = BUILD_OUT / "cp2_choices.jsonl"
+    mc.write_text("\n".join(json.dumps({
+        "prompt": rng.integers(3, 128256, 100).tolist(),
+        "options": [rng.integers(3, 128256, int(n)).tolist()
+                    for n in rng.integers(3, 13, 4)]})
+        for _ in range(CP2_MC_ROWS)))
+    pairs = BUILD_OUT / "cp2_pairs.jsonl"
+    rows = []
+    for _ in range(CP2_DPO_PAIRS):
+        prompt = rng.integers(3, 128256, 120).tolist()
+        rows.append({"chosen": prompt + rng.integers(3, 128256, 80).tolist(),
+                     "rejected": prompt + rng.integers(3, 128256,
+                                                       60).tolist(),
+                     "prompt_len": 120})
+    pairs.write_text("\n".join(json.dumps(r) for r in rows))
+    jobs = {"evaluate": {"mode": "evaluate", "batch": 2, "seq": CP2_SEQ,
+                         "steps": 1,
+                         "data": {"kind": "tokens", "path": tokens}},
+            "choices": {"mode": "evaluate",
+                        "data": {"kind": "eval_jsonl", "path": str(mc)}},
+            "dpo": {"mode": "dpo", "batch": CP2_DPO_PAIRS,
+                    "steps": CP2_DPO_STEPS,
+                    "data": {"kind": "dpo_jsonl", "path": str(pairs)}}}
+    out = {}
+    for tag, job in jobs.items():
+        for impl in (None, "ring", "ulysses"):
+            over = {"n_layers": CP2_LAYERS}
+            extra = {}
+            if impl:
+                over["cp_impl"] = impl
+                extra["mesh"] = {"cp": 2}
+            name = f"cp2_{tag}_{impl or 'ref'}"
+            cfg = {"model": "llama.llama3_8b", "model_overrides": over,
+                   "seed": 0, "optimizer": {"warmup_steps": 1},
+                   "log_every": 1, **job, **extra}
+            path = BUILD_OUT / f"{name}.json"
+            path.write_text(json.dumps(cfg))
+            out[(tag, impl)] = str(path)
+    return out
+
+
+def _hold_mesh_mode(tag, job, res, ref, factor) -> tuple:
+    """Both ranks' ``evaluate`` or ``dpo`` run of ``job`` over ``cp=2``
+    against the same job unsharded (``ref``): rc 0; every K1-K3 launch on
+    ``sm90``, ``factor`` times the unsharded run's (``cp`` on the ring,
+    where every block of keys is one launch; 1 through Ulysses); both
+    ranks alike; and within ``MESH_BOUNDS[tag]``: perplexity's NLL and
+    DPO's losses (the first ln 2: the policy starts as its reference) by
+    ``loss_gap``, each option's log-probability per token of the option
+    by ``logp_gap`` (the choices are reported); DPO's first-step
+    gradients (``_first_step_dpo``) by ``grad_rel``. Returns (readings,
+    failures)."""
+    runs = [res[r][job] for r in (0, 1)]
+    bound = MESH_BOUNDS[tag]["logp_gap" if "choices" in ref["results"]
+                             else "loss_gap"]
+    want = {k: n * factor for k, n in ref["launches"].items()}
+    bad = []
+    for r, run in enumerate(runs):
+        if run["rc"] != 0:
+            bad.append(f"rank {r}: rc {run['rc']}")
+        if run["launches"] != want or any(
+                c["simt"] for c in run["by_route"].values()):
+            bad.append(f"rank {r}: launched {run['by_route']}, want {want} "
+                       f"on sm90")
+    got, base = runs[0]["results"], ref["results"]
+    out = {"launches": runs[0]["launches"],
+           "launches_by_rank": [run["launches"] for run in runs]}
+    if "perplexity" in base:
+        g, w = got["perplexity"], base["perplexity"]
+        out.update(nll=g["nll"], ref_nll=w["nll"], tokens=g["tokens"],
+                   gap=abs(g["nll"] - w["nll"]))
+        if g["tokens"] != w["tokens"] or \
+                runs[1]["results"]["perplexity"] != g:
+            bad.append(f"tokens {g['tokens']} / {w['tokens']}, or the ranks "
+                       "differ")
+        what = (f"perplexity NLL {g['nll']:.6f} against the unsharded "
+                f"{w['nll']:.6f} over {g['tokens']} tokens")
+    elif "choices" in base:
+        rows = [json.loads(line) for line in Path(json.loads(Path(
+            res[0][job]["path"]).read_text())["data"]["path"])
+            .read_text().splitlines()]
+        lens = [len(o) for row in rows for o in row["options"]]
+        g = [x for q in got["choices"] for x in q["logps"]]
+        w = [x for q in base["choices"] for x in q["logps"]]
+        out.update(logps=g, ref_logps=w,
+                   gap=max(abs(a - b) / n for a, b, n in zip(g, w, lens)),
+                   same_choices=sum(a["choice"] == b["choice"] for a, b in
+                                    zip(got["choices"], base["choices"])))
+        if runs[1]["results"]["choices"] != got["choices"]:
+            bad.append("the ranks' choices differ")
+        what = (f"{len(g)} option log-probabilities, largest gap per option "
+                f"token {out['gap']:.3e}; choices equal to the unsharded "
+                f"run's for {out['same_choices']}/{len(rows)} questions")
+    else:
+        g, w = runs[0]["losses"], ref["losses"]
+        first = runs[0]["first_step"]
+        grad_rel, worst, worst_rel = _grad_rel([run["first_step"]
+                                                for run in runs])
+        out.update(losses=g, ref_losses=w,
+                   gap=max(abs(a - b) for a, b in zip(g, w)),
+                   grad_rel=grad_rel, worst_leaf=worst,
+                   worst_leaf_rel=worst_rel)
+        if len(g) != len(w) or runs[1]["losses"] != g or \
+                abs(g[0] - math.log(2)) > 1e-6 or \
+                abs(first["loss"] - math.log(2)) > 1e-6:
+            bad.append(f"losses {g} / {runs[1]['losses']}, first step "
+                       f"{first['loss']}, want {len(w)} alike on both "
+                       "ranks, the first ln 2")
+        if not grad_rel <= MESH_BOUNDS[tag]["grad_rel"]:
+            bad.append(f"grad_rel {grad_rel} > "
+                       f"{MESH_BOUNDS[tag]['grad_rel']}")
+        what = (f"losses {[round(x, 6) for x in g]} against the unsharded "
+                f"{[round(x, 6) for x in w]}; the first step's gradients "
+                f"norm-wise {grad_rel:.4e} (limit "
+                f"{MESH_BOUNDS[tag]['grad_rel']}), worst leaf {worst} "
+                f"{worst_rel:.4e}")
+    if not out["gap"] <= bound:
+        bad.append(f"gap {out['gap']} > {bound}")
+    log(f"[{tag}] {job}: {what} (gap {out['gap']:.3e}, limit {bound}); "
+        f"K1-K3 launches per rank {runs[0]['launches']} ({factor}x the "
+        f"unsharded run's {ref['launches']}), all sm90")
+    return out, [f"[{tag}] {job}: {b}" for b in bad]
+
+
 def phase_cp2(torch) -> dict:
     """Context parallelism at cp=2 on the one card: ``python -m
     kubedl_tpu_torch.train``'s ``main`` on Llama-3-8B at full width, 2
@@ -3995,8 +4249,8 @@ def phase_cp2(torch) -> dict:
     hidden states and gradients (``_hold_mesh_run``); each rank's step
     time and peak memory. Both runs are read before either fails."""
     over = {"n_layers": CP2_LAYERS}
-    path, _, cfg = _train_config("cp2_ref", overrides=over, batch=2,
-                                 steps=CP2_STEPS, seq=CP2_SEQ)
+    path, tokens, cfg = _train_config("cp2_ref", overrides=over, batch=2,
+                                      steps=CP2_STEPS, seq=CP2_SEQ)
     ref = _train_run(torch, "cp2_ref", path, cfg, ALL_SM90)
     jobs = []
     for impl in ("ring", "ulysses"):
@@ -4004,8 +4258,16 @@ def phase_cp2(torch) -> dict:
             **over, "cp_impl": impl}, batch=2, steps=CP2_STEPS, seq=CP2_SEQ,
             mesh={"cp": 2})
         jobs.append((impl, p))
+    modes = _cp2_mode_configs(tokens)
+    jobs += [(f"{tag}_{impl}", p) for (tag, impl), p in modes.items()
+             if impl]
+    mode_refs = {tag: _main_readings(torch, p)
+                 for (tag, impl), p in modes.items() if impl is None}
     t0 = time.perf_counter()
     res = _two_ranks(torch, "cp2", jobs)
+    for r in (0, 1):
+        for tag, p in jobs:
+            res[r][tag]["path"] = p
     out = {"unsharded": {k: ref[k] for k in ("losses", "step_s", "peak_gib",
                                               "launches")},
            "seconds": time.perf_counter() - t0}
@@ -4014,11 +4276,158 @@ def phase_cp2(torch) -> dict:
                                            CP2_LAYERS, 1)
     if min(out["ring"]["host_staged"]) == 0:
         bad.append("[cp2] the ring shifted no block")
+    for tag, mode_ref in mode_refs.items():
+        if mode_ref["rc"] != 0:
+            bad.append(f"[cp2] the unsharded {tag} job returned "
+                       f"{mode_ref['rc']}")
+        for impl, factor in (("ring", 2), ("ulysses", 1)):
+            out[f"{tag}_{impl}"], more = _hold_mesh_mode(
+                "cp2", f"{tag}_{impl}", res, mode_ref, factor)
+            bad += more
     log(f"[cp2] unsharded: step {ref['step_s']:.4f} s, peak "
         f"{ref['peak_gib']:.2f} GiB; the two ranks ran in "
-        f"{out['seconds']:.1f} s")
+        f"{out['seconds']:.1f} s ({_card()})")
     if bad + bad_u:
         raise AssertionError("; ".join(bad + bad_u))
+    return out
+
+
+#: [ep2]'s serving run: Mixtral width at MOE_TRAIN_LAYERS layers in
+#: float32 (seed 0), 4 greedy requests of these prompt lengths (seed 29),
+#: EP2_NEW tokens each, on one lane each
+EP2_LENS, EP2_NEW, EP2_MAX_LEN = (31, 97, 128, 64), 16, 256
+
+
+def _ep2_serve_rank(rank, port, model, queue):
+    """One rank of ``[ep2]``'s serving run on ``cuda:0``: a gloo group over
+    the two processes, the serving mesh at ep=2, and
+    ``ContinuousBatchingEngine(mesh=...)`` over the parent's weights
+    (CUDA IPC; each rank copies its 4 of the 8 experts of every stack):
+    rank 0 schedules the requests, rank 1 follows. Puts ``(rank, row)``
+    or ``(rank, traceback)`` on ``queue``."""
+    import traceback
+    from datetime import timedelta
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from kubedl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+        from kubedl_tpu_torch.serving import ContinuousBatchingEngine
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=2, rank=rank,
+                                timeout=timedelta(seconds=MESH_TIMEOUT_S))
+        mesh = build_mesh(MeshConfig(fsdp=1, ep=2), device="cuda:0")
+        cfg, params, reqs = model.pop("moe")
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        eng = ContinuousBatchingEngine(cfg, params, lanes=len(reqs),
+                                       max_len=EP2_MAX_LEN, mesh=mesh,
+                                       device="cuda:0")
+        del params
+        row = {"route": eng._tick_p.route,
+               "experts": tuple(eng.params["layers"]["w_gate"].shape)}
+        if eng._channel.leader:
+            t0 = time.perf_counter()
+            row["tokens"] = eng.run(reqs)
+            row["seconds"] = time.perf_counter() - t0
+            row["ticks"] = eng.tick_launches
+            eng.stop()
+        else:
+            row["followed"] = eng.follow()
+        torch.cuda.synchronize()
+        row["peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+        del eng
+        gc.collect()
+        dist.destroy_process_group()
+        queue.put((rank, row))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        queue.put((rank, traceback.format_exc()))
+
+
+def _ep2_serving(torch) -> dict:
+    """The continuous engine over ``ep=2`` on the one card: Mixtral width
+    at ``MOE_TRAIN_LAYERS`` layers in float32, served by one process, then
+    by two gloo processes on ``cuda:0`` sharing the weights (the tick's
+    ``ep_sum`` runs eagerly on gloo); the two-rank tokens must equal the
+    one-process engine's (float32: only the order of the experts' partial
+    sums differs), each rank must hold 4 of the 8 experts."""
+    import dataclasses
+
+    import numpy as np
+    import torch.multiprocessing as tmp
+
+    from kubedl_tpu_torch.models import moe
+    from kubedl_tpu_torch.serving import ContinuousBatchingEngine
+
+    cfg = dataclasses.replace(moe.mixtral_8x7b(), n_layers=MOE_TRAIN_LAYERS,
+                              dtype=torch.float32)
+    params = moe.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), device="cuda")
+    rng = np.random.default_rng(29)
+    reqs = [(rng.integers(3, cfg.vocab_size, n).tolist(), EP2_NEW)
+            for n in EP2_LENS]
+    one = ContinuousBatchingEngine(cfg, params, lanes=len(reqs),
+                                   max_len=EP2_MAX_LEN, device="cuda")
+    t0 = time.perf_counter()
+    want = one.run(reqs)
+    one_s = time.perf_counter() - t0
+    one.stop()
+    del one
+    gc.collect()
+    ctx = tmp.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    t0 = time.perf_counter()
+    model = {"moe": (cfg, params, reqs)}
+    procs = [ctx.Process(target=_ep2_serve_rank, daemon=True,
+                         args=(r, port, model, queue)) for r in range(2)]
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        while len(res) < 2:
+            rank, value = queue.get(timeout=MESH_TIMEOUT_S)
+            res[rank] = value
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        del model, params
+        gc.collect()
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    for rank, value in res.items():
+        if isinstance(value, str):
+            raise AssertionError(f"[ep2] serving rank {rank} failed:\n"
+                                 f"{value}")
+    lead = res[0]
+    out = {"seconds": wall, "one_process_s": one_s,
+           "served_s": lead["seconds"], "ticks": lead["ticks"],
+           "followed": res[1]["followed"],
+           "experts_by_rank": [res[r]["experts"][1] for r in (0, 1)],
+           "peak_gib": [res[r]["peak_gib"] for r in (0, 1)],
+           "identical": sum(a == b for a, b in zip(lead["tokens"], want))}
+    log(f"[ep2] serving Mixtral width, {MOE_TRAIN_LAYERS} layers float32, "
+        f"{len(reqs)} requests of {EP2_NEW} tokens over ep=2: "
+        f"{out['identical']}/{len(reqs)} identical to the one-process "
+        f"engine's; {lead['seconds']:.2f} s on 2 ranks (ticks "
+        f"{lead['ticks']}, rank 1 followed {out['followed']} steps) "
+        f"against {one_s:.2f} s on one; experts a rank "
+        f"{out['experts_by_rank']} of {cfg.n_experts}; peak "
+        f"{[round(x, 2) for x in out['peak_gib']]} GiB by rank; phase "
+        f"part {wall:.1f} s")
+    if lead["tokens"] != want or out["experts_by_rank"] != [
+            cfg.n_experts // 2] * 2 or {res[r]["route"] for r in (0, 1)} \
+            != {"eager"} or not out["followed"]:
+        raise AssertionError(f"[ep2] serving over ep=2: {out}, routes "
+                             f"{[res[r]['route'] for r in (0, 1)]}")
     return out
 
 
@@ -4051,6 +4460,7 @@ def phase_ep2(torch, mtrain) -> dict:
         f"{out['seconds']:.1f} s")
     if bad:
         raise AssertionError("; ".join(bad))
+    out["serving"] = _ep2_serving(torch)
     return out
 
 
@@ -4974,6 +5384,196 @@ def phase_replay(torch, cfg, params) -> dict:
     return out
 
 
+# -- slice 17: standalone speculative decoding behind the predictor ----------
+
+#: [spec]: the draft lookahead, the drafts' depth (the target's first
+#: layers, sharing its embedding, head and weights), and the requests:
+#: 3 prompts of these lengths (seed 17), SPEC_NEW greedy tokens each
+SPEC_K, SPEC_DRAFT_LAYERS = 4, 2
+SPEC_LENS, SPEC_NEW, SPEC_MAX_LEN = (31, 97, 200), 32, 512
+
+
+def _first_layers(params, n) -> dict:
+    """A model cut from ``params`` to its first ``n`` layers (views of the
+    stacked layers) with the same embedding, final norm and head: a draft
+    that needs no new weights."""
+    return {**{k: v for k, v in params.items() if k != "layers"},
+            "layers": {k: v[:n] for k, v in params["layers"].items()}}
+
+
+def _timed_generate(torch, fn, reqs) -> tuple:
+    """(outputs, ms per emitted token) of ``fn(prompt, n)`` over ``reqs``
+    (each output ends on the host, so the card is done)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [fn(p, n) for p, n in reqs]
+    ms = 1e3 * (time.perf_counter() - t0)
+    return outs, ms / max(sum(len(o) for o in outs), 1)
+
+
+def phase_spec(torch, cfg, params) -> dict:
+    """The standalone speculative engine (``serving/speculative.py``) on
+    the serving phases' Llama-3-8B (full width, bf16, seed 0), k=SPEC_K:
+
+    (a) with a draft cut to the target's first SPEC_DRAFT_LAYERS layers,
+    3 greedy requests of SPEC_NEW tokens held to the target's own greedy
+    decode through ``InferenceEngine``: identical requests counted, and
+    every token held to the teacher-forced reference within the near-tie
+    limits (``_hold``; the verify pass multiplies [1, k+1] rows where the
+    static engine multiplies one, so bf16 rounds otherwise and a near-tie
+    may go either way); then the target as its own draft, whose
+    acceptance is read. Rounds, acceptance and ms per emitted token
+    beside the static engine's.
+    (b) float32, on the target cut to 2 layers (the same weights
+    widened): with a 1-layer draft the tokens must equal the static
+    engine's exactly, and as its own draft every proposal must be
+    accepted (acceptance 1.0).
+    (c) ``SpeculativeServingAdapter`` behind ``InferenceServer``: one
+    ``:predict`` (the engine's tokens), one ``/metrics`` carrying the spec
+    gauges, one ``/v1/embeddings`` on the target's weights, whose vectors
+    must equal a static engine's server's bit for bit with its K1 launches
+    (one a layer) all on ``sm90``."""
+    import dataclasses
+
+    import numpy as np
+
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.serving import (GenerateConfig, InferenceEngine,
+                                          InferenceServer, ServerConfig)
+    from kubedl_tpu_torch.serving.speculative import (
+        SpecStats, SpeculativeEngine, SpeculativeServingAdapter)
+    from kubedl_tpu_torch.tokenizer import ByteTokenizer
+
+    rng = np.random.default_rng(17)
+    reqs = [(rng.integers(3, cfg.vocab_size, n).tolist(), SPEC_NEW)
+            for n in SPEC_LENS]
+    gen = GenerateConfig(max_len=SPEC_MAX_LEN)
+    out = {}
+
+    # (a) the full-width target in bf16
+    static = InferenceEngine(cfg, params, gen, device="cuda")
+    spec = SpeculativeEngine(
+        cfg, params, dataclasses.replace(cfg, n_layers=SPEC_DRAFT_LAYERS),
+        _first_layers(params, SPEC_DRAFT_LAYERS), k=SPEC_K,
+        max_len=SPEC_MAX_LEN, device="cuda")
+    static.generate([reqs[0][0]], 4)               # first shapes
+    spec.generate(reqs[0][0], 4)
+    want, static_ms = _timed_generate(
+        torch, lambda p, n: static.generate([p], n)[0], reqs)
+    stats = SpecStats()
+    got, spec_ms = _timed_generate(
+        torch, lambda p, n: spec.generate(p, n, stats=stats), reqs)
+    held = _hold(torch, cfg, params, reqs, got,
+                 f"[spec] (a) Llama-3-8B bf16, {SPEC_DRAFT_LAYERS}-layer "
+                 f"draft, k={SPEC_K}", want=want,
+                 want_label="the static engine's greedy decode")
+    self_spec = SpeculativeEngine(cfg, params, cfg, params, k=SPEC_K,
+                                  max_len=SPEC_MAX_LEN, device="cuda")
+    self_stats = SpecStats()
+    self_got, self_ms = _timed_generate(
+        torch, lambda p, n: self_spec.generate(p, n, stats=self_stats),
+        reqs[:1])
+    out["bf16"] = {"identical": held["identical"], "requests": len(reqs),
+                   "rounds": stats.proposed // SPEC_K,
+                   "acceptance": stats.acceptance_rate,
+                   "ms_per_token": spec_ms, "static_ms_per_token": static_ms,
+                   "self_acceptance": self_stats.acceptance_rate,
+                   "self_rounds": self_stats.proposed // SPEC_K,
+                   "self_ms_per_token": self_ms,
+                   "self_identical": self_got[0] == want[0]}
+    del static, spec, self_spec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) float32 on the target cut to 2 layers: exact
+    c32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    p32 = {k: ({n: t[:2].float() for n, t in v.items()}
+               if k == "layers" else v.float()) for k, v in params.items()}
+    static32 = InferenceEngine(c32, p32, gen, device="cuda")
+    want32 = [static32.generate([p], n)[0] for p, n in reqs[:2]]
+    spec32 = SpeculativeEngine(c32, p32, dataclasses.replace(c32, n_layers=1),
+                               _first_layers(p32, 1), k=SPEC_K,
+                               max_len=SPEC_MAX_LEN, device="cuda")
+    got32 = [spec32.generate(p, n) for p, n in reqs[:2]]
+    st32 = SpecStats()
+    self32 = SpeculativeEngine(c32, p32, c32, p32, k=SPEC_K,
+                               max_len=SPEC_MAX_LEN, device="cuda")
+    got_self32 = self32.generate(reqs[0][0], SPEC_NEW, stats=st32)
+    out["f32"] = {"identical": got32 == want32,
+                  "self_identical": got_self32 == want32[0],
+                  "self_acceptance": st32.acceptance_rate}
+    if got32 != want32 or got_self32 != want32[0] or \
+            st32.acceptance_rate != 1.0:
+        raise AssertionError(f"[spec] (b) float32: {out['f32']}")
+    del p32, static32, spec32, self32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the adapter behind the server
+    adapter = SpeculativeServingAdapter(
+        SpeculativeEngine(cfg, params, dataclasses.replace(
+            cfg, n_layers=SPEC_DRAFT_LAYERS),
+            _first_layers(params, SPEC_DRAFT_LAYERS), k=SPEC_K,
+            max_len=SPEC_MAX_LEN, device="cuda"), gen=gen)
+    vecs = {}
+    for tag, eng in (("spec", adapter),
+                     ("static", InferenceEngine(cfg, params, gen,
+                                                device="cuda"))):
+        srv = InferenceServer(eng, ServerConfig(
+            model_name="spec", host="127.0.0.1", port=0,
+            tokenizer=ByteTokenizer())).start()
+        try:
+            if tag == "spec":
+                pred = json.loads(_post(srv.url, "/v1/models/spec:predict", {
+                    "instances": [{"prompt_tokens": reqs[1][0],
+                                   "max_tokens": SPEC_NEW}]}))
+                page = urllib.request.urlopen(srv.url + "/metrics",
+                                              timeout=60).read().decode()
+                _reset_counts(attn)
+            emb = json.loads(_post(srv.url, "/v1/embeddings",
+                                   {"input": list(EMBED_TEXTS)}))
+            if tag == "spec":
+                out["embeddings_launches"] = _read_counts(
+                    attn, "[spec] (c) /v1/embeddings")["flash_forward"]
+        finally:
+            srv.stop()
+        vecs[tag] = np.asarray([d["embedding"] for d in emb["data"]])
+    adapter.stop()
+    if pred["predictions"][0]["tokens"] != got[1]:
+        raise AssertionError("[spec] (c) :predict through the adapter gave "
+                             "other tokens than the engine")
+    if "kubedl_serving_spec_proposed_total" not in page or \
+            "kubedl_serving_spec_acceptance_rate" not in page:
+        raise AssertionError("[spec] (c) /metrics lacks the spec gauges")
+    if out["embeddings_launches"] != cfg.n_layers or not np.array_equal(
+            vecs["spec"], vecs["static"]):
+        raise AssertionError(
+            f"[spec] (c) /v1/embeddings: K1 {out['embeddings_launches']} "
+            f"times, want {cfg.n_layers}; max abs diff from the static "
+            f"server's {np.abs(vecs['spec'] - vecs['static']).max()}")
+    gauge = next(line for line in page.splitlines() if line.startswith(
+        "kubedl_serving_spec_acceptance_rate"))
+    b = out["bf16"]
+    smi = _card()
+    log(f"[spec] (a) Llama-3-8B bf16, draft = its first "
+        f"{SPEC_DRAFT_LAYERS} layers, k={SPEC_K}: {b['rounds']} rounds, "
+        f"acceptance {b['acceptance']:.4f}, {b['ms_per_token']:.3f} ms per "
+        f"emitted token against the static engine's "
+        f"{b['static_ms_per_token']:.3f}; {b['identical']}/{b['requests']} "
+        f"requests identical to its greedy decode; self-draft: "
+        f"{b['self_rounds']} rounds, acceptance {b['self_acceptance']:.4f}, "
+        f"{b['self_ms_per_token']:.3f} ms per token, identical "
+        f"{b['self_identical']} ({smi})")
+    log(f"[spec] (b) float32, 2 layers: 1-layer draft tokens equal the "
+        f"static engine's, self-draft acceptance "
+        f"{out['f32']['self_acceptance']}")
+    log(f"[spec] (c) the adapter behind InferenceServer: :predict tokens "
+        f"equal the engine's; /metrics '{gauge}'; /v1/embeddings "
+        f"{out['embeddings_launches']} K1 launches, all sm90, vectors equal "
+        f"bit for bit to the static engine's server's")
+    return out
+
+
 def _reset_counts(attn) -> None:
     for fn in (attn.flash_forward, attn.flash_dq, attn.flash_dkv):
         fn.launches = 0
@@ -5883,14 +6483,16 @@ def _tp_probe(torch, only, timed) -> None:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
 
-def _replay_probe(torch, timed) -> None:
-    """``[replay]`` on its own, on Llama-3-8B from seed 0 (the serving
-    phase's weights)."""
+def _replay_probe(torch, only, timed) -> None:
+    """``[replay]`` and ``[spec]`` on their own, on Llama-3-8B from seed 0
+    (the serving phase's weights)."""
     from kubedl_tpu_torch.models import llama
     cfg = llama.llama3_8b()
     params = llama.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    timed("replay", phase_replay, torch, cfg, params)
+    for name, fn in (("replay", phase_replay), ("spec", phase_spec)):
+        if name in only:
+            timed(name, fn, torch, cfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5898,7 +6500,8 @@ def _replay_probe(torch, timed) -> None:
 
 def _probe(torch, argv, timed) -> int:
     """``--phases hf,lifecycle,resnet,moe_timing,dist,tp,tp2,ring,cp2,ep2,
-    pp,pp2,grpo,replay [--layers N]``: the named phases alone after the build,
+    pp,pp2,grpo,replay,spec [--layers N]``: the named phases alone after the
+    build,
     the slice-10 ones on Gemma-2B ``N`` layers deep, ``dist`` after the
     unsharded
     Gemma-2B training it compares with, ``tp`` after the unsharded
@@ -5908,7 +6511,7 @@ def _probe(torch, argv, timed) -> int:
     if len(argv) not in (2, 4) or argv[0] != "--phases" or (
             len(argv) == 4 and argv[2] != "--layers"):
         print("usage: chip_smoke.py [--phases hf,lifecycle,resnet,"
-              "moe_timing,dist,tp,tp2,ring,cp2,ep2,pp,pp2,grpo,replay "
+              "moe_timing,dist,tp,tp2,ring,cp2,ep2,pp,pp2,grpo,replay,spec "
               "[--layers N]]", file=sys.stderr)
         return 2
     only = set(argv[1].split(","))
@@ -5916,8 +6519,8 @@ def _probe(torch, argv, timed) -> int:
     log("[env] " + _card())
     if only & {"tp", "tp2"}:
         _tp_probe(torch, only, timed)
-    if "replay" in only:
-        _replay_probe(torch, timed)
+    if only & {"replay", "spec"}:
+        _replay_probe(torch, only, timed)
     if "dist" in only:
         gtrain = timed("gemma_training", phase_gemma_training, torch)
         gc.collect()
@@ -5999,6 +6602,7 @@ def main() -> int:
     tp2_run = timed("tp2", phase_tp2, torch, cfg8b, params, cont["reqs"])
     gc.collect()
     replay_run = timed("replay", phase_replay, torch, cfg8b, params)
+    spec_run = timed("spec", phase_spec, torch, cfg8b, params)
     del params, cont
     gc.collect()                 # the 16 GB serving model goes first
     torch.cuda.empty_cache()
@@ -6104,13 +6708,18 @@ def main() -> int:
                        "grpo_learner": grpo_run["flywheel"]["launches"][
                            name],
                        "replay_flywheel": replay_run["flywheel"][
-                           "launches"][name]}
+                           "launches"][name],
+                       **{f"cp2_{impl}_{mode}": both_ranks(
+                           cp2_run[f"{mode}_{impl}"], name)
+                          for impl in ("ring", "ulysses")
+                          for mode in ("evaluate", "choices", "dpo")}}
                 for name in ("flash_forward", "flash_dq", "flash_dkv")}
     launches["flash_forward"].update(
         serving=serving_launches,
         gemma_embeddings=gemma["embeddings_launches"],
         moe_embeddings=moe_out["embeddings_launches"],
         tp_embeddings=tp_run["embeddings_launches"],
+        spec_embeddings=spec_run["embeddings_launches"],
         tp2_embeddings=sum(tp2_run["llama"]["k1"] + tp2_run["gemma"]["k1"]))
     new_paths = {**hf["launches"], **life["launches"]}
     for name in launches:

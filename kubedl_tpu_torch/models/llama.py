@@ -477,6 +477,15 @@ def _cp_columns(x, mesh):
     return x[:, i * s:(i + 1) * s]
 
 
+def _rank_mask(mask, targets, mesh):
+    """``mask`` over this rank's target positions: under ``cp`` a ``[b,
+    S]`` mask held whole over the sequence is cut to the columns of the
+    rank's ``targets``; otherwise ``mask`` itself."""
+    if mask is not None and mask.shape[1] != targets.shape[1]:
+        return _cp_columns(mask, mesh)
+    return mask
+
+
 def _tp(mesh) -> int:
     return mesh.size("tp") if is_sharded(mesh) else 1
 
@@ -948,8 +957,7 @@ def lm_loss(config: LlamaConfig, x, params: dict, targets, mask=None,
     never materialized. Under a sharded ``mesh`` it is this rank's share
     of the global mean (``parallel.collectives.loss_share``); under ``cp``
     a ``mask`` held whole over the sequence is cut to the rank's columns."""
-    if mask is not None and mask.shape[1] != targets.shape[1]:
-        mask = _cp_columns(mask, mesh)
+    mask = _rank_mask(mask, targets, mesh)
     head = to_dense(_lm_head(config, params), config.dtype)
     if config.loss_chunk > 0:
         total = chunked_token_nll(x, head, targets, mask=mask,

@@ -29,6 +29,8 @@ Context and expert parallelism move activations:
 * :func:`ep_sum` sums the ``ep`` ranks' partial expert outputs as
   ``tp_sum`` sums ``tp``'s, and expert stacks sharded on ``ep`` stay
   local in :func:`gather` as a ``tp`` shard does;
+* :func:`cp_sum` adds per-row sums over the ``cp`` ranks' slices of the
+  sequence (evaluation's row NLL, DPO's sequence log-probabilities);
 * :func:`pp_shift` is the pipeline's neighbor exchange (stage ``s`` to
   ``s + 1`` for activations, back for cotangents), outside autograd: the
   pipeline writes its backward out (``parallel/pipeline.py``). A stage
@@ -164,6 +166,15 @@ def ep_sum(x, mesh):
     """Sum the ``ep`` ranks' partial expert outputs (each rank's experts'
     share of the combine), as :func:`tp_sum` sums ``tp``'s."""
     return _sum_over(x, mesh, "ep")
+
+
+def cp_sum(x, mesh):
+    """Sum per-row partial sums over the ``cp`` ranks, each of which holds
+    a slice of every row's sequence (a row's summed log-probability or
+    NLL), as :func:`tp_sum` sums ``tp``'s; the backward all-reduces the
+    gradient, so a loss every ``cp`` rank takes a share of reaches each
+    rank's own positions."""
+    return _sum_over(x, mesh, "cp")
 
 
 def _shift(x, group, n: int, step: int, counter=None, ring: bool = True):
@@ -325,15 +336,17 @@ def vocab_gather(logits, mesh):
 
 
 @torch.no_grad()
-def data_sum(x, mesh):
+def data_sum(x, mesh, axes=("cp", "fsdp", "dp")):
     """``x`` summed over the axes whose ranks hold different tokens: the
     data axes (``dp``, ``fsdp``) and ``cp`` (each rank a slice of the
-    sequence). No gradient: the global counts the loss shares divide by
-    (``x`` itself, detached, off a sharded mesh)."""
+    sequence); ``axes`` names fewer (a value :func:`cp_sum` already
+    summed over ``cp`` takes the data axes only). No gradient: the global
+    counts the loss shares divide by (``x`` itself, detached, off a
+    sharded mesh)."""
     if not is_sharded(mesh):
         return x.detach()
     x = x.detach().clone()
-    for axis in ("cp", "fsdp", "dp"):
+    for axis in axes:
         if mesh.size(axis) > 1:
             dist.all_reduce(x, group=mesh.group(axis))
     return x

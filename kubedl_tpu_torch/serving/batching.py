@@ -46,17 +46,19 @@ the adapter's weight pages allocate from the same refcounted pool as KV
 blocks (``serving/adapters.py``); residency is host accounting, so greedy
 tokens under an adapter equal the base model's, as in the JAX engine.
 
-**Tensor-parallel serving** (``mesh=`` a serving mesh of ``tp`` ranks,
-one process per card): every rank builds the engine with the same
-arguments and holds its shard of the weights and its KV heads
-(``engine.init_mesh_serving``). Rank 0 runs the scheduler, and every
+**Serving over a mesh** (``mesh=`` a serving mesh of ``tp``, ``ep`` and
+``cp`` ranks, one process per card): every rank builds the engine with
+the same arguments and holds its shard of the weights (``tp`` columns,
+``ep`` experts) and its KV heads (``engine.init_mesh_serving``); over
+``cp`` it holds everything and runs the whole step
+(``engine.serving_mesh``). Rank 0 runs the scheduler, and every
 device step goes through :meth:`ContinuousBatchingEngine._dev`, which
 posts the step and its host arguments on the step channel
 (``serving/tp.py``) before running it; the other ranks call
 :meth:`ContinuousBatchingEngine.follow` and repeat each step. The tick's
 route is stated, never chosen silently: ``graph`` on a card when its
-collectives can be captured (NCCL, or one rank), ``eager`` under a gloo
-group (:func:`decode_tick_route`).
+collectives can be captured (NCCL, or none in the step), ``eager`` under
+a gloo group (:func:`decode_tick_route`).
 """
 
 from __future__ import annotations
@@ -73,12 +75,12 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..parallel.collectives import is_sharded
 from ..trace import NOOP_TRACER
 from .engine import (GenerateConfig, SpecStats, filtered_probs, hit_stop,
                      init_mesh_serving, load_into, resolve_family,
-                     sample_logits,
-                     sample_logits_many, serving_tp, spec_accept,
-                     token_logprobs)
+                     sample_logits, sample_logits_many, serving_mesh,
+                     serving_tp, spec_accept, token_logprobs)
 
 log = logging.getLogger("kubedl_tpu_torch.serving")
 
@@ -336,14 +338,17 @@ def decode_tick_route(device, mesh=None) -> str:
     """How a decode tick runs on ``device``: ``graph`` on a CUDA device
     (a captured CUDA graph, replayed every tick; a capture that fails
     raises, there is no eager fallback) when the tick's collectives can
-    be captured (NCCL, or a serving mesh of one rank), ``eager`` under a
-    gloo ``tp`` group and off the card."""
+    be captured (NCCL, or a step that runs none: one rank, or ``cp``
+    alone), ``eager`` under a gloo ``tp`` or ``ep`` group and off the
+    card."""
     if torch.device(device).type != "cuda":
         return "eager"
-    if serving_tp(mesh) > 1:
-        import torch.distributed as dist
-        if dist.get_backend(mesh.group("tp")) != "nccl":
-            return "eager"
+    mesh = serving_mesh(mesh)
+    for axis in ("tp", "ep"):
+        if is_sharded(mesh) and mesh.size(axis) > 1:
+            import torch.distributed as dist
+            if dist.get_backend(mesh.group(axis)) != "nccl":
+                return "eager"
     return "graph"
 
 
@@ -456,6 +461,7 @@ class ContinuousBatchingEngine:
                  prefill_lanes: int = 0, adapters=None,
                  max_adapters: Optional[int] = None, device=None):
         tp = serving_tp(mesh)
+        mesh = serving_mesh(mesh)
         if max_adapters is not None and adapters is None:
             # the JAX engine ignores the cap without a catalog; a cap that
             # would silently do nothing is refused here
@@ -537,8 +543,9 @@ class ContinuousBatchingEngine:
         self.launcher = None
         route = decode_tick_route(dev, mesh)
         if mesh is not None:
-            log.info("tensor-parallel serving, rank %d of tp=%d: decode tick "
-                     "route %s", self._channel.rank, tp, route)
+            log.info("serving over a mesh, rank %d of %d (tp=%d): decode "
+                     "tick route %s", self._channel.rank,
+                     self._channel.world, tp, route)
 
         # -- speculative decoding per lane: the draft proposes spec_k
         # tokens for EVERY lane, the target verifies all lanes' chunks in

@@ -10,21 +10,24 @@
   per-request stop handling on the host;
 * weight-only int8/int4 quantization (``quantize=``, :func:`maybe_quantize`)
   applied as the weights move to the device, leaf by leaf;
-* tensor-parallel serving over a ``mesh`` of one host's cards
-  (:func:`shard_for_serving`, :func:`init_mesh_serving`): each rank holds
-  its shard of every weight as a plain tensor and its KV heads of the
-  cache, and the model runs the ``tp`` collectives inside each step. In
-  torch every card is its own process, so :class:`InferenceEngine` under
-  a mesh is driven SPMD: every rank calls ``generate`` with the same
-  prompts. (The continuous engine, which the predictor serves, drives
-  its followers through one step channel instead: ``serving/tp.py``.)
+* serving over a ``mesh`` of one host's cards (:func:`shard_for_serving`,
+  :func:`init_mesh_serving`): under ``tp`` each rank holds its shard of
+  every weight as a plain tensor and its KV heads of the cache, and the
+  model runs the ``tp`` collectives inside each step; under ``ep`` it
+  holds its experts of every MoE stack and the experts' outputs are
+  summed over ``ep``; over ``cp`` everything is replicated and every rank
+  runs the whole step (:func:`serving_mesh`). In torch every card is its
+  own process, so :class:`InferenceEngine` under a mesh is driven SPMD:
+  every rank calls ``generate`` with the same prompts. (The continuous
+  engine, which the predictor serves, drives its followers through one
+  step channel instead: ``serving/tp.py``.)
 """
 
 from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Sequence
 
 import numpy as np
@@ -227,32 +230,48 @@ def local_device_count(device) -> int:
     return os.cpu_count() or 1
 
 
+#: the axes a serving mesh may shard over (one host's cards): ``tp``
+#: splits the heads, the MLP and the vocabulary, ``ep`` the MoE experts,
+#: and ``cp`` replicates (every ``cp`` rank runs the whole step)
+SERVING_AXES = ("ep", "cp", "tp")
+
+
 def serving_tp(mesh) -> int:
     """The ``tp`` size of a serving mesh (1 for None or one rank), after
-    refusing axes that serving does not shard over: the port's serving
-    mesh is one host's ``tp`` group, as the JAX predictor's. ``cp`` and
-    ``ep`` train (``parallel/ring.py``, ``parallel/ulysses.py``,
-    ``models/moe.py``) but no JAX entry point serves over them; they
-    raise by their ROADMAP item first, and a mesh without a group behind
-    it raises (``llama._check_mesh``)."""
+    refusing a mesh without a process group behind it
+    (``llama._check_mesh``) and axes that serving does not shard over:
+    the JAX engines take any local mesh and place the params by the
+    family's specs, which name ``tp`` and ``ep`` (the expert stacks);
+    nothing names ``cp``, so the params and the cache are replicated
+    over it."""
     if mesh is None:
         return 1
-    for axis in ("cp", "ep"):
-        if mesh.size(axis) > 1:
-            raise NotImplementedError(
-                f"serving over a mesh with {axis}={mesh.size(axis)} is not "
-                "ported: ROADMAP A5e (serving over a cp/ep mesh, which no "
-                "JAX entry point builds)")
     llama._check_mesh(mesh)
-    other = {a: n for a, n in mesh.shape.items() if a != "tp" and n > 1}
+    other = {a: n for a, n in mesh.shape.items()
+             if a not in SERVING_AXES and n > 1}
     if other:
-        raise ValueError(f"a serving mesh shards over tp only, got {other}")
+        raise ValueError(f"a serving mesh shards over tp, ep or cp only, "
+                         f"got {other}")
     return mesh.size("tp") if is_sharded(mesh) else 1
 
 
-def check_serving_split(config, tp: int) -> None:
+def serving_mesh(mesh):
+    """The mesh a serving step runs the model on: ``mesh`` with ``cp``
+    shown as 1. Serving replicates the params and the cache over ``cp``
+    (JAX's placement), and every ``cp`` rank runs the whole step on the
+    whole sequence, so the model must not take its training split of the
+    sequence (``models.llama`` reads a ``cp`` axis as a sharded
+    sequence). Its process groups stay whole: the step channel still
+    spans every rank (``serving/tp.py``)."""
+    if mesh is None or mesh.size("cp") == 1:
+        return mesh
+    return replace(mesh, shape={**mesh.shape, "cp": 1})
+
+
+def check_serving_split(config, tp: int, ep: int = 1) -> None:
     """Refuse a ``tp`` that does not split the heads, the MLP (or each
-    expert's) hidden dim or the vocabulary into equal shards, naming the
+    expert's) hidden dim or the vocabulary into equal shards, or an
+    ``ep`` that does not split an MoE model's experts, naming the
     dimension. The JAX package pads an uneven split (GSPMD); the port's
     shards are equal (``parallel/sharding.py``). ``n_kv_heads`` need not
     divide: the KV heads are then held whole on every rank."""
@@ -263,16 +282,24 @@ def check_serving_split(config, tp: int) -> None:
                 f"tensor-parallel serving over tp={tp} needs {name} "
                 f"divisible by {tp}, got {name}={n}: the port's shards are "
                 "equal")
+    experts = getattr(config, "n_experts", None)
+    if ep > 1 and experts is not None and experts % ep:
+        raise ValueError(
+            f"expert-parallel serving over ep={ep} needs n_experts "
+            f"divisible by {ep}, got n_experts={experts}: the port's "
+            "shards are equal")
 
 
 def serving_cut(config, mesh):
     """``cut(name, leaf)``: this rank's shard of a whole leaf (named as
-    ``layers/wq``) under the family's specs; a leaf already of the
-    shard's shape as it is; ``wk``/``wv`` (and their biases) whole where
-    ``tp`` does not divide the KV heads."""
+    ``layers/wq``) under the family's specs (its ``tp`` columns, and
+    under ``ep`` its ``E/ep`` experts of every MoE stack); a leaf already
+    of the shard's shape as it is; ``wk``/``wv`` (and their biases) whole
+    where ``tp`` does not divide the KV heads."""
     from ..parallel.sharding import local_shard, spec_leaves
     tp = serving_tp(mesh)
-    check_serving_split(config, tp)
+    ep = mesh.size("ep") if is_sharded(mesh) else 1
+    check_serving_split(config, tp, ep)
     family = resolve_family(config)
     specs = spec_leaves(family.param_specs(config))
     shapes = {}
@@ -286,7 +313,7 @@ def serving_cut(config, mesh):
              if config.n_kv_heads % tp else set())
 
     def cut(name, leaf):
-        if name in whole or tp == 1:
+        if name in whole or tp * ep == 1:
             return leaf
         if tuple(leaf.shape) == tuple(shapes[name]):
             return local_shard(leaf, mesh, specs[name])
@@ -296,15 +323,17 @@ def serving_cut(config, mesh):
 
 def shard_for_serving(config, params, cache, mesh):
     """This rank's local tree for model-parallel serving over a local
-    mesh (``tp`` over the cards of ONE host, as the JAX function's):
-    params by the family's logical specs (heads, ``mlp`` and the vocab on
-    ``tp``), each leaf a plain tensor on the mesh's device, cut once; the
-    cache by KV heads when ``tp`` divides them, else whole on every rank
-    (MQA). Either tree may be None. ``params`` may be whole or already
-    this rank's shard (``models.io.load_model(select=)``). Both cache
-    layouts carry the KV heads on axis 3, so one rule cuts the dense slab
-    and the paged pool (the pool's block axis stays whole on every rank).
-    Refuses a split that is not even (:func:`check_serving_split`)."""
+    mesh (the cards of ONE host, as the JAX function's): params by the
+    family's logical specs (heads, ``mlp`` and the vocab on ``tp``, the
+    MoE experts on ``ep``; replicated over ``cp``), each leaf a plain
+    tensor on the mesh's device, cut once; the cache by KV heads when
+    ``tp`` divides them, else whole on every rank (MQA), and whole over
+    ``ep`` and ``cp``. Either tree may be None. ``params`` may be whole
+    or already this rank's shard (``models.io.load_model(select=)``).
+    Both cache layouts carry the KV heads on axis 3, so one rule cuts the
+    dense slab and the paged pool (the pool's block axis stays whole on
+    every rank). Refuses a split that is not even
+    (:func:`check_serving_split`)."""
     cut = serving_cut(config, mesh)
     dev = mesh.device
     if params is not None:
@@ -386,16 +415,18 @@ class InferenceEngine:
     """One loaded model and its prefill/decode steps on ``device``
     (``None``: the card; ``"cpu"`` only when asked). Parameters are moved
     to the device once, quantized on the way with ``quantize``. Under a
-    serving ``mesh`` (the mesh's device) each rank holds its shard
-    (:func:`init_mesh_serving`) and every rank calls :meth:`generate`
-    with the same arguments."""
+    serving ``mesh`` (the mesh's device; ``tp``, ``ep`` and ``cp``) each
+    rank holds its shard (:func:`init_mesh_serving`) and every rank calls
+    :meth:`generate` with the same arguments; :attr:`mesh` is the one the
+    model runs on (:func:`serving_mesh`)."""
 
     def __init__(self, config: llama.LlamaConfig, params: dict,
                  gen: Optional[GenerateConfig] = None,
                  quantize: Optional[str] = None, mesh=None, tracer=None,
                  device=None):
         from ..trace import NOOP_TRACER
-        self.mesh = mesh
+        serving_tp(mesh)
+        self.mesh = mesh = serving_mesh(mesh)
         self.device = mesh.device if mesh is not None \
             else resolve_device(device)
         self.config = config

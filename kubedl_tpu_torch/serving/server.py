@@ -102,9 +102,11 @@ class InferenceServer:
             # page (dense mode still reports peak active lanes)
             self._m_kv = PagedKVMetrics(self.metrics)
         self._m_spec = self._m_spec_lane = None
-        if getattr(engine, "spec_k", 0):
-            # speculative lanes: draft quality on the scrape page, in
-            # aggregate and per lane
+        if hasattr(engine, "stats") and \
+                hasattr(engine.stats, "acceptance_rate"):
+            # speculative predictors (the continuous engine's speculative
+            # lanes, or the standalone engine's adapter): draft quality on
+            # the scrape page
             self._m_spec = (
                 self.metrics.gauge("kubedl_serving_spec_proposed_total",
                                    "Draft tokens proposed"),
@@ -112,10 +114,12 @@ class InferenceServer:
                                    "Draft tokens accepted"),
                 self.metrics.gauge("kubedl_serving_spec_acceptance_rate",
                                    "Lifetime draft acceptance rate"))
-            self._m_spec_lane = self.metrics.gauge(
-                "kubedl_serving_spec_lane_acceptance_rate",
-                "Draft acceptance rate per continuous-batching lane",
-                labels=("lane",))
+            if hasattr(engine, "lane_stats"):
+                # the continuous engine's acceptance per lane
+                self._m_spec_lane = self.metrics.gauge(
+                    "kubedl_serving_spec_lane_acceptance_rate",
+                    "Draft acceptance rate per continuous-batching lane",
+                    labels=("lane",))
         server = self
 
         class Handler(_Handler):
@@ -156,6 +160,7 @@ class InferenceServer:
             self._m_spec[0].set(st.proposed)
             self._m_spec[1].set(st.accepted)
             self._m_spec[2].set(st.acceptance_rate)
+        if self._m_spec_lane is not None:
             for i, ls in enumerate(self.engine.lane_stats):
                 self._m_spec_lane.set(ls.acceptance_rate, lane=str(i))
 

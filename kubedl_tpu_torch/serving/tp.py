@@ -1,8 +1,9 @@
-"""Tensor-parallel serving across processes: the step channel, the
-follower loop and the follower process's entry point. Port-only (no JAX
-twin, like ``parallel/collectives.py``).
+"""Serving over a mesh across processes (``tp``, and the engines' ``ep``
+and ``cp``): the step channel, the follower loop and the follower
+process's entry point. Port-only (no JAX twin, like
+``parallel/collectives.py``).
 
-The JAX predictor serves ``tp`` from one process: GSPMD puts the
+The JAX predictor serves a mesh from one process: GSPMD puts the
 collectives inside each jitted step. In torch every card is its own
 process, so the predictor (rank 0) runs the HTTP front, the tokenizer,
 the host scheduler and sampling, and every other rank follows:
@@ -59,21 +60,21 @@ log = logging.getLogger("kubedl_tpu_torch.serving.tp")
 
 
 class StepChannel:
-    """Rank 0's device steps, posted to the other ranks of a serving
-    mesh's ``tp`` group over a gloo group of the same ranks (none on one
-    rank). ``posts`` counts the steps posted."""
+    """Rank 0's device steps, posted to the other ranks of a serving mesh
+    (every rank of its ``tp``, ``ep`` and ``cp`` axes) over a gloo group
+    of the same ranks (none on one rank). ``posts`` counts the steps
+    posted."""
 
     def __init__(self, mesh):
         from datetime import timedelta
-
-        from ..parallel.collectives import is_sharded
-        self.world = mesh.size("tp") if is_sharded(mesh) else 1
+        dm = getattr(mesh, "device_mesh", None)
+        ranks = dm.mesh.flatten().tolist() if dm is not None else [0]
+        self.world = len(ranks)
         self.group = None
         self.rank = 0
         self.src = 0
         self.posts = 0
         if self.world > 1:
-            ranks = dist.get_process_group_ranks(mesh.group("tp"))
             self.group = dist.new_group(
                 ranks, backend="gloo",
                 timeout=timedelta(seconds=TIMEOUT_S))

@@ -2,8 +2,12 @@
 
 Copied from ``kubedl_tpu/tokenizer.py`` (the port imports nothing from the
 JAX package): the serving half of it, ``text_documents`` for the
-training data path, and the asset copier that ships a HuggingFace
-checkpoint's tokenizer with a converted artifact.
+training data path, the asset copier that ships a HuggingFace
+checkpoint's tokenizer with a converted artifact, and the corpus CLI
+(``train_tokenizer``, ``encode_corpus``, ``main``):
+``python -m kubedl_tpu_torch.tokenizer CORPUS OUT_DIR`` trains a BPE
+tokenizer, and ``--encode TOK_SPEC CORPUS OUT_FILE`` writes the flat
+int32 token file of the trainer's ``tokens`` data kind.
 
 * ``ByteTokenizer`` — zero-dependency UTF-8 byte fallback (256 byte ids
   + pad/bos/eos).
@@ -234,6 +238,123 @@ def text_documents(path: str, tokenizer, add_bos: bool = True,
             yield tokenizer.encode(text, add_bos=add_bos, add_eos=add_eos)
 
 
+def train_tokenizer(corpus_paths, out_dir: str, vocab_size: int = 8192,
+                    min_frequency: int = 2) -> "HFTokenizer":
+    """Train a byte-level BPE tokenizer on raw corpora and save it as a
+    standard HuggingFace asset directory — loadable by
+    ``load_tokenizer``/``AutoTokenizer`` and shippable with ModelVersion
+    artifacts. Closes the from-scratch loop: corpus → tokenizer →
+    ``data.kind='text'`` pretrain → text serving, all in-tree.
+
+    ``corpus_paths``: plain-text or ``.jsonl`` (``{"text": ...}`` rows)
+    files. Specials are pinned to the ByteTokenizer convention
+    (pad=0 / bos=1 / eos=2) so configs transfer between the two.
+    """
+    import json as _json
+
+    from tokenizers import Tokenizer as _Tok
+    from tokenizers.decoders import ByteLevel as _BLDec
+    from tokenizers.models import BPE
+    from tokenizers.pre_tokenizers import ByteLevel as _BL
+    from tokenizers.trainers import BpeTrainer
+
+    if isinstance(corpus_paths, str):
+        corpus_paths = [corpus_paths]
+
+    def lines():
+        for p in corpus_paths:
+            is_jsonl = p.endswith(".jsonl")
+            with open(p, encoding="utf-8") as f:
+                for line in f:
+                    line = line.rstrip("\n")
+                    if not line.strip():
+                        continue
+                    yield (_json.loads(line)["text"] if is_jsonl
+                           else line)
+
+    tk = _Tok(BPE(unk_token=None))
+    tk.pre_tokenizer = _BL(add_prefix_space=False)
+    tk.decoder = _BLDec()
+    trainer = BpeTrainer(
+        vocab_size=vocab_size, min_frequency=min_frequency,
+        special_tokens=["<pad>", "<bos>", "<eos>"],
+        initial_alphabet=_BL.alphabet(),
+        show_progress=False)
+    tk.train_from_iterator(lines(), trainer=trainer)
+
+    os.makedirs(out_dir, exist_ok=True)
+    tk.save(os.path.join(out_dir, "tokenizer.json"))
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w") as f:
+        _json.dump({"tokenizer_class": "PreTrainedTokenizerFast",
+                    "pad_token": "<pad>", "bos_token": "<bos>",
+                    "eos_token": "<eos>"}, f, indent=1)
+    return HFTokenizer(out_dir)
+
+
+def encode_corpus(corpus_paths, tokenizer, out_path: str) -> int:
+    """Tokenize raw corpora into the flat int32 token file that
+    ``train.data.TokenFileDataset`` memory-maps (the ``tokens`` data
+    kind): documents separated by bos/eos, streamed — a corpus is never
+    fully resident. Returns the token count."""
+    import numpy as np
+
+    if isinstance(corpus_paths, str):
+        corpus_paths = [corpus_paths]
+    n = 0
+    with open(out_path, "wb") as f:
+        for path in corpus_paths:
+            buf = []
+            for doc in text_documents(path, tokenizer):
+                buf.extend(doc)
+                if len(buf) >= 1 << 20:
+                    np.asarray(buf, np.int32).tofile(f)
+                    n += len(buf)
+                    buf = []
+            if buf:
+                np.asarray(buf, np.int32).tofile(f)
+                n += len(buf)
+    return n
+
+
+def main(argv=None) -> int:
+    """``python -m kubedl_tpu_torch.tokenizer CORPUS [CORPUS...] OUT_DIR``
+    trains a BPE tokenizer; with ``--encode TOK_SPEC`` it instead
+    tokenizes the corpora into a flat int32 token file (the ``tokens``
+    training-data kind), so corpus prep is one command either way."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m kubedl_tpu_torch.tokenizer")
+    p.add_argument("corpus", nargs="+",
+                   help="text/.jsonl corpus file(s), then the output "
+                        "dir (train) or file (--encode)")
+    p.add_argument("--vocab", type=int, default=8192)
+    p.add_argument("--min-frequency", type=int, default=2)
+    p.add_argument("--encode", metavar="TOK_SPEC",
+                   help="skip training: tokenize the corpora with this "
+                        "tokenizer ('byte' or a local dir) into a flat "
+                        "int32 token file at the output path")
+    args = p.parse_args(argv)
+    if len(args.corpus) < 2:
+        p.error("need at least one corpus file and an output path")
+    *paths, out = args.corpus
+    if args.encode:
+        tok = load_tokenizer(args.encode)
+        if tok is None:
+            p.error("--encode needs a tokenizer spec")
+        n = encode_corpus(paths, tok, out)
+        print(f"encoded {n} tokens -> {out}")
+        return 0
+    tok = train_tokenizer(paths, out, vocab_size=args.vocab,
+                          min_frequency=args.min_frequency)
+    print(f"trained tokenizer: vocab {tok.vocab_size} -> {out}")
+    return 0
+
+
 __all__ = ["ByteTokenizer", "HFTokenizer", "StreamDecoder",
            "load_tokenizer", "encode_prompt", "render_chat",
-           "has_tokenizer_assets", "text_documents"]
+           "has_tokenizer_assets", "text_documents", "train_tokenizer",
+           "encode_corpus"]
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(main())

@@ -90,8 +90,10 @@ kubedl_tpu_torch.runtime.restart_agent --``, which ends the trainer when
 the operator asks for an in-place restart; the restarted trainer reads
 the new ``WORLD_SIZE`` and resumes from the agent's checkpoint.
 
-Not ported yet, and refused by name: the modes ``evaluate`` and ``dpo``
-and in-training eval over ``cp`` above 1 (ROADMAP A5f).
+Every mode runs over every mesh axis the JAX entry point takes; under
+``cp`` the per-row sums of ``evaluate``, ``dpo`` and in-training eval
+are added over the ranks' slices of the sequence
+(``parallel.collectives.cp_sum``).
 """
 
 from __future__ import annotations
@@ -756,10 +758,10 @@ def _family(cfg: dict) -> str:
 
 
 def _refuse_unported(cfg: dict, env) -> None:
-    """Up-front refusals, before any process group opens: config
-    sections whose slice has not landed (each names its ROADMAP item),
-    and an incomplete rendezvous contract (``ValueError``, naming what
-    is missing). An ``export_hf_path`` for an MoE model raises
+    """Up-front refusals, before any process group opens: the JAX
+    entrypoint's (an unknown mode, ``lora`` outside pretrain/sft) and an
+    incomplete rendezvous contract (``ValueError``, naming what is
+    missing). An ``export_hf_path`` for an MoE model raises
     ``ValueError`` first, as the JAX entrypoint's up-front check does: no
     HF format holds it."""
     if cfg.get("export_hf_path") and _family(cfg) == "moe":
@@ -792,13 +794,6 @@ def _refuse_unported(cfg: dict, env) -> None:
                 f"TPU_WORKER_HOSTNAMES lists {len(hosts)} hosts but "
                 "TPU_WORKER_ID is missing: an incomplete rendezvous "
                 "contract")
-    if cfg.get("mesh", {}).get("cp", 1) > 1 and (
-            mode in ("evaluate", "dpo") or cfg.get("eval")):
-        # their per-row sums span the sequence, which cp splits
-        raise NotImplementedError(
-            f"mode {mode!r}{' with in-training eval' if cfg.get('eval') else ''}"
-            " over a cp mesh is not ported yet: ROADMAP A5f (per-row "
-            "sums of a sequence split over cp)")
 
 
 def _maybe_elastic_agent(manager, env, api=None):

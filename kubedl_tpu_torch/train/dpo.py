@@ -14,7 +14,11 @@ rank chosen above rejected (Rafailov et al. 2023).
 * the frozen reference is optional at step time: pass
   ``ref_chosen_logps``/``ref_rejected_logps`` in the batch (precomputed
   once, halving the step's work) or let the step compute them without
-  autograd from a second parameter tree.
+  autograd from a second parameter tree;
+* under ``cp`` (each rank a slice of every row's sequence) the
+  sequences' sums are added over ``cp`` with their gradient
+  (``collectives.cp_sum``), so the loss and its gradients are the
+  global ones.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..models.llama import _rank_mask
 from ..ops.loss import chunked_token_nll
+from ..parallel.collectives import cp_sum
 from .scoring import hidden_and_head, render_rows
 
 
@@ -55,10 +61,15 @@ def sequence_logprobs(config, params, tokens, targets, mask=None,
                       mesh=None, chunk: int = 512, with_aux: bool = False):
     """Summed log P(targets | tokens) per row: [b, s] -> [b] float32.
     ``mask`` selects the completion positions. ``with_aux=True`` also
-    returns the MoE load-balancing aux loss (0 for dense families)."""
+    returns the MoE load-balancing aux loss (0 for dense families). Under
+    ``cp`` each rank holds a slice of every row: its partial sums are
+    added over ``cp`` (with their gradient), so every rank holds the
+    rows' whole sums."""
     x, head, aux = hidden_and_head(config, params, tokens, mesh)
-    lp = -chunked_token_nll(x, head, targets, mask=mask, chunk=chunk,
+    lp = -chunked_token_nll(x, head, targets,
+                            mask=_rank_mask(mask, targets, mesh), chunk=chunk,
                             logit_softcap=config.logit_softcap)
+    lp = cp_sum(lp, mesh)
     return (lp, aux) if with_aux else lp
 
 

@@ -15,7 +15,9 @@ Scoring runs without autograd; on the card every layer's attention is
 the flash forward kernel. Under a sharded mesh the params are
 ``ShardedTensor`` views, a corpus batch holds each rank's rows and the
 totals are summed over the data axes; every rank scores every
-multiple-choice question.
+multiple-choice question. Under ``cp`` each rank holds a slice of every
+row's sequence: the per-row sums are added over ``cp`` before anything
+else reads them.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from typing import Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models.llama import _cp_columns, _rank_mask
 from ..ops.loss import chunked_token_nll
+from ..parallel.collectives import cp_sum, is_sharded
 from .scoring import hidden_and_head, render_rows
 from .trainer import tree_leaves
 
@@ -42,9 +46,12 @@ def make_row_nll_fn(config, mesh=None, chunk: int = 512):
     def rows(params, batch):
         batch = {k: local_of(v) for k, v in batch.items()}
         x, head, _ = hidden_and_head(config, params, batch["tokens"], mesh)
-        return chunked_token_nll(x, head, batch["targets"],
-                                 mask=batch.get("mask"), chunk=chunk,
-                                 logit_softcap=config.logit_softcap)
+        nll = chunked_token_nll(
+            x, head, batch["targets"],
+            mask=_rank_mask(batch.get("mask"), batch["targets"], mesh),
+            chunk=chunk, logit_softcap=config.logit_softcap)
+        # under cp: the rank's slice of each row, added over cp
+        return cp_sum(nll, mesh)
 
     return rows
 
@@ -74,17 +81,19 @@ def perplexity(config, params, batches: Iterable[dict], mesh=None,
 
 def batch_totals(row_nll, params, batch, mesh=None) -> tuple:
     """(summed NLL, target count) of one batch as floats: over the
-    global batch under a sharded mesh (this rank's rows, summed over the
-    data axes)."""
+    global batch under a sharded mesh. ``row_nll``'s rows are whole
+    (summed over ``cp`` already), so the total adds the data axes only;
+    the count adds this rank's positions over ``cp`` and the data
+    axes."""
     from ..parallel.collectives import data_sum
     from ..parallel.sharding import local_of
     local = {k: local_of(v) for k, v in batch.items()}
     total = row_nll(params, local).sum()
-    mask = local.get("mask")
+    mask = _rank_mask(local.get("mask"), local["targets"], mesh)
     count = (mask.float().sum() if mask is not None
-             else torch.tensor(float(local["tokens"].numel()),
+             else torch.tensor(float(local["targets"].numel()),
                                device=total.device))
-    return (float(data_sum(total, mesh)),
+    return (float(data_sum(total, mesh, axes=("fsdp", "dp"))),
             float(data_sum(count.to(total.device), mesh)))
 
 
@@ -117,6 +126,11 @@ def loglikelihood_ranks(config, params, questions: Sequence[dict],
     longest = max(len(q["prompt"]) + len(o)
                   for q in questions for o in q["options"])
     pad_to = -(-longest // 128) * 128
+    cp = mesh.size("cp") if is_sharded(mesh) else 1
+    if pad_to % cp:
+        raise ValueError(
+            f"options pad to {pad_to} tokens (128-aligned), which cp={cp} "
+            "does not split into equal slices of the sequence")
     row_nll = make_row_nll_fn(config, mesh, chunk)
     dev = tree_leaves(params)[0][1].device
 
@@ -124,6 +138,11 @@ def loglikelihood_ranks(config, params, questions: Sequence[dict],
     for q in questions:
         batch = _render_options(q["prompt"], q["options"], pad_to, pad_id,
                                 dev)
+        if cp > 1:
+            # this rank's slice of the sequence, as shard_batch lays out
+            # the corpus's ids (the mask stays whole)
+            for k in ("tokens", "targets"):
+                batch[k] = _cp_columns(batch[k], mesh)
         logps = -row_nll(params, batch).cpu().numpy().astype(np.float32)
         if length_normalize:
             logps = logps / np.array([len(o) for o in q["options"]],

@@ -475,18 +475,26 @@ def test_unported_options_are_refused_by_name(models, name):
 
 
 def test_moe_and_standalone_speculative_engine_are_refused():
-    """The MoE family serves (``test_torch_moe_serving.py``), over a
-    ``tp`` mesh too (``test_torch_serving_tp.py``), but not over its
-    expert-parallel ``ep`` axis: ``ep`` trains
-    (``test_torch_cp_ep_train.py``), and serving over it waits for
-    ROADMAP A5e. The standalone speculative engine waits for its own
-    item."""
+    """Since slice 17 the MoE family serves over its expert-parallel
+    ``ep`` axis (``test_torch_serving_ep_cp.py``) and the standalone
+    speculative engine runs (``test_torch_speculative.py``). What either
+    still refuses: an ``ep`` mesh with no process group behind it, and a
+    draft over another vocabulary (the JAX engine's guard)."""
+    from kubedl_tpu_torch.models import llama as tllama
     from kubedl_tpu_torch.models import moe as tmoe
     from kubedl_tpu_torch.serving.speculative import SpeculativeEngine
     ep_mesh = tmesh.Mesh(device=torch.device("cpu"),
                          shape={a: 2 if a == "ep" else 1 for a in tmesh.AXES})
-    with pytest.raises(NotImplementedError, match="ROADMAP A5e"):
+    with pytest.raises(ValueError, match="has no process group"):
         tbatching.ContinuousBatchingEngine(tmoe.tiny(), {}, mesh=ep_mesh,
                                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        SpeculativeEngine()
+    cfg = dataclasses.replace(tllama.tiny(vocab=64), n_layers=1)
+    params = tllama.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    spec = SpeculativeEngine(cfg, params, cfg, params, k=2, max_len=32,
+                             device="cpu")
+    assert len(spec.generate([3, 5], 4)) == 4
+    with pytest.raises(ValueError, match="share a vocabulary"):
+        SpeculativeEngine(cfg, params,
+                          dataclasses.replace(cfg, vocab_size=32), params,
+                          device="cpu")

@@ -559,7 +559,9 @@ def test_refusals_name_the_reason(tmp_path):
                               attn_logit_softcap=50.0)
     with pytest.raises(ValueError, match="set cp_impl='ulysses'"):
         llama._cp_attention(cfg, q, q, q, None, _stub_mesh(cp=2), None)
-    # the engines refuse a cp or ep mesh, naming the serving sub-item
+    # the engines serve over cp and ep meshes since slice 17
+    # (test_torch_serving_ep_cp.py); a mesh of more than one rank with no
+    # process group behind it is still refused
     for axis in ("cp", "ep"):
         mesh = tmesh.Mesh(device=torch.device("cpu"),
                           shape={a: 2 if a == axis else 1
@@ -568,11 +570,15 @@ def test_refusals_name_the_reason(tmp_path):
                          tmoe.tiny(), {}, mesh=m, device="cpu"),
                      lambda m: engine.InferenceEngine(
                          llama.tiny(), {}, mesh=m, device="cpu")):
-            with pytest.raises(NotImplementedError, match="ROADMAP A5e"):
+            with pytest.raises(ValueError, match="has no process group"):
                 make(mesh)
-    # evaluate and dpo over cp wait for their own sub-item
+    # evaluate and dpo run over cp since slice 17
+    # (test_torch_cp_eval_dpo.py): one process holds no cp=2 mesh, and
+    # the JAX entrypoint's refusal of cp inside pipeline stages stands
     for mode in ("evaluate", "dpo"):
         path = tmp_path / f"{mode}.json"
         path.write_text(json.dumps({"mode": mode, "mesh": {"cp": 2}}))
-        with pytest.raises(NotImplementedError, match="ROADMAP A5f"):
+        with pytest.raises(ValueError, match="devices, have 1"):
             tmain.main(["--config", str(path)], device="cpu")
+    with pytest.raises(ValueError, match="set cp=1 and tp=1"):
+        tmain.pp_num_micro({}, llama.tiny(), _stub_mesh(pp=2, cp=2), 8)

@@ -126,6 +126,23 @@ def test_the_replay_slice_modules_are_checked():
             "kubedl_tpu_torch.rl.publisher"} <= set(MODULES)
 
 
+def test_the_last_refusals_modules_are_checked():
+    """...and so are the modules slice 17 ported or touched: the
+    standalone speculative engine behind the predictor, evaluate/DPO
+    over ``cp``, and the serving engines over an ``ep`` or ``cp``
+    mesh."""
+    assert {"kubedl_tpu_torch.serving.speculative",
+            "kubedl_tpu_torch.serving.server",
+            "kubedl_tpu_torch.serving.__main__",
+            "kubedl_tpu_torch.serving.engine",
+            "kubedl_tpu_torch.serving.batching",
+            "kubedl_tpu_torch.serving.tp",
+            "kubedl_tpu_torch.train.evaluate", "kubedl_tpu_torch.train.dpo",
+            "kubedl_tpu_torch.train.scoring",
+            "kubedl_tpu_torch.parallel.collectives",
+            "kubedl_tpu_torch.tokenizer"} <= set(MODULES)
+
+
 #: the replays' twins and the modules the port copies for them
 REPLAY_TWINS = ("replay/serving", "replay/rl")
 REPLAY_COPIES = ("core/clock", "api/slo", "core/meta", "telemetry/slo",
@@ -138,7 +155,11 @@ REPLAY_COPIES = ("core/clock", "api/slo", "core/meta", "telemetry/slo",
 TWINS = {f"kubedl_tpu/{path}.py": f"kubedl_tpu_torch.{path.replace('/', '.')}"
          for path in ("parallel/pipeline", "train/grpo", "rl/learner",
                       "train/__main__", "train/trainer", "core/kubeclient",
-                      "runtime/restart_agent") + REPLAY_TWINS
+                      "runtime/restart_agent", "serving/speculative",
+                      "serving/server", "serving/__main__",
+                      "serving/engine", "serving/batching",
+                      "train/evaluate", "train/dpo", "train/scoring",
+                      "models/llama", "tokenizer") + REPLAY_TWINS
          + REPLAY_COPIES}
 #: public names a twin leaves out on purpose: the in-cluster job reads and
 #: patches its own job object, so the client keeps ``get``/``try_get``/
@@ -196,7 +217,8 @@ PORT_PARAMS = {
     "run_routing_comparison": ["device"], "run_disagg_comparison": ["device"],
     "run_autoscaler_leg": ["device"], "run_fleet_comparison": ["device"],
     "FlywheelReplay.__init__": ["model", "device"],
-    "run_flywheel_leg": ["device"]}
+    "run_flywheel_leg": ["device"],
+    "SpeculativeEngine.__init__": ["device"]}
 
 
 @pytest.mark.parametrize("path", REPLAY_TWINS + REPLAY_COPIES)
@@ -205,6 +227,16 @@ def test_the_replay_modules_take_the_jax_ones_parameters(path):
     ``__init__`` included) takes the same parameters, in order, in the
     port, with only ``PORT_PARAMS`` added at the end. Read from the JAX
     source as an AST, held against the imported port module."""
+    _check_parameters(path)
+
+
+def test_the_speculative_module_takes_the_jax_ones_parameters():
+    """The standalone speculative engine and its adapter (slice 17), the
+    private round loops included; the engine adds only the device."""
+    _check_parameters("serving/speculative")
+
+
+def _check_parameters(path):
     import ast
     import importlib
     mod = importlib.import_module(
@@ -264,6 +296,22 @@ def test_the_copied_modules_are_the_jax_ones_to_the_statement(path):
         '"kubedl_tpu.', '"kubedl_tpu_torch.')
     got = (PKG / f"{path}.py").read_text()
     assert _without_docs_and_imports(got) == _without_docs_and_imports(want)
+
+
+@pytest.mark.parametrize("name", ["train_tokenizer", "encode_corpus",
+                                  "main"])
+def test_the_tokenizer_cli_is_the_jax_ones_to_the_statement(name):
+    """The corpus CLI of the port's ``tokenizer.py`` (slice 17) is JAX's,
+    statement for statement, but for docstrings and the program name."""
+    import ast
+
+    def body(text):
+        text = text.replace("kubedl_tpu.", "kubedl_tpu_torch.")
+        fn = next(n for n in ast.parse(text).body
+                  if isinstance(n, ast.FunctionDef) and n.name == name)
+        return _without_docs_and_imports(ast.unparse(fn))
+    assert body((PKG / "tokenizer.py").read_text()) == \
+        body((ROOT / "kubedl_tpu/tokenizer.py").read_text())
 
 
 def test_the_entry_points_take_the_jax_ones_parameters():

@@ -376,9 +376,11 @@ def test_main_sft_masks_the_prompt(tmp_path):
     ({"model": "moe.mixtral_8x7b", "mesh": {"pp": 2}}, ValueError,
      "devices, have 1"),
     # dp/fsdp/tp/cp train across processes (test_torch_sharded_*.py,
-    # test_torch_cp_ep_train.py); evaluation over cp waits
-    ({"mode": "evaluate", "mesh": {"cp": 2}}, NotImplementedError,
-     "ROADMAP A5f"),
+    # test_torch_cp_ep_train.py), and evaluate/dpo run over cp too since
+    # slice 17 (test_torch_cp_eval_dpo.py); the JAX entrypoint's own
+    # refusals stand: adapters with a preference loss
+    ({"mode": "dpo", "lora": {"rank": 4}}, ValueError,
+     "lora applies to mode pretrain/sft"),
 ])
 def test_main_refuses_what_is_not_ported(tmp_path, over, error, match):
     with pytest.raises(error, match=match):
