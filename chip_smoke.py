@@ -69,8 +69,8 @@ writes failing the check; ``/v1/embeddings`` with its 8 K1 launches on
 ``sm90``; the tick; the graph route's tokens equal to the eager route's,
 dropless and at the preset's capacity factor 1.25), the predictor
 subprocess on a 1-layer artifact, the same 8 layers widened to float32
-(held with no router excuse), all 32 layers in int8 built one layer at a
-time on the card (the tick with bf16 activations; the 16 requests with
+(held with no router excuse), 8 layers in int8 (32 until slice 18) built
+one layer at a time on the card (the tick with bf16 activations; the 16 requests with
 bf16 and with float32 activations through the near-tie check), and
 after the LoRA run Mixtral width 2 layers deep through ``python -m
 kubedl_tpu_torch.train`` (3 steps, every K1-K3 launch on ``sm90``, MFU
@@ -209,6 +209,19 @@ choices) and ``mode: dpo`` in the same two ranks, ring and Ulysses,
 against the same jobs unsharded; ``ep2`` also serves Mixtral width over
 ``ep=2`` in two processes, its tokens equal to one process's
 (``--phases spec,cp2,ep2``).
+
+Since slice 18 ``moe_int8`` runs Mixtral at 8 of its 32 layers
+(``MOE_INT8_LAYERS``) to keep the script inside its time limit, and three
+phases join: ``auto``, after ``spec``, runs the serving auto-configurator's
+search (``autoconfigure_multi``: batch 1 and 8, bf16 and int8, k 0 and 4)
+on the serving phases' Llama-3-8B, checks ``kv_cache_bytes`` against the
+engine's pool and serves [cont]'s first 4 requests through the winner's
+env and the predictor's ``build_engine``; ``replay`` gains (d), both arms
+of the multi-model fleet day held to the CPU's; ``native``, after the
+gradient check, trains through ``data.kind: text`` on a 16.9 MB corpus
+with every pack on the C++ packer (K1-K3 counted), then holds the packer
+to the Python loop bit for bit with each one's tokens/s
+(``--phases native,auto,replay``).
 """
 
 from __future__ import annotations
@@ -2463,10 +2476,11 @@ def model_flops_per_token(cfg, seq: int) -> float:
 ALL_SM90 = {"flash_forward": "sm90", "flash_dq": "sm90", "flash_dkv": "sm90"}
 
 
-def _train_run(torch, tag, cfg_path, cfg, routes, mfu=True) -> dict:
+def _train_run(torch, tag, cfg_path, cfg, routes, mfu=True,
+               falling=True) -> dict:
     """``python -m kubedl_tpu_torch.train``'s main, in-process, on the
-    config at ``cfg_path``: the loss finite and falling over the repeated
-    batch, and every launch of each of K1-K3 on its route in ``routes``
+    config at ``cfg_path``: the loss finite and, with ``falling``, falling
+    over the repeated batch, and every launch of each of K1-K3 on its route in ``routes``
     (K1 2*L per step with remat, K2/K3 L). The kernels' counts go to 0
     just before the run and are read just after. Returns the readings."""
     from kubedl_tpu_torch.ops import attention as attn
@@ -2499,7 +2513,8 @@ def _train_run(torch, tag, cfg_path, cfg, routes, mfu=True) -> dict:
     if rc != 0 or len(marks) != steps:
         raise AssertionError(f"{tag}: training returned {rc} after "
                              f"{len(marks)} steps")
-    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+    if not all(math.isfinite(x) for x in losses) or (
+            falling and losses[-1] >= losses[0]):
         raise AssertionError(f"{tag}: training loss not finite and falling: "
                              f"{losses}")
     want = {"flash_forward": 2 * n_layers * steps,
@@ -2943,7 +2958,7 @@ def phase_gemma_grad_check(torch):
 #: (11.87 B params, 23.7 GB of bf16 weights; 32 would be 93.4 GB), the
 #: predictor's artifact 1 layer (~6.9 GB of float32), training and its
 #: gradient check 2 layers (3.165 B params, ~32 GB of training state).
-#: The int8 phase keeps all 32 layers (~46.9 GB of weights).
+#: The int8 phase cuts to ``MOE_INT8_LAYERS`` (8; all 32 until slice 18).
 MOE_LAYERS, MOE_PRED_LAYERS, MOE_TRAIN_LAYERS = 8, 1, 2
 
 
@@ -3318,10 +3333,16 @@ def _moe_ticks(torch, cfg, params, prompt, tag, reps=5) -> dict:
     return rows
 
 
+#: [moe8]'s depth: Mixtral-8x7B at full width, cut to 8 of its 32 layers
+#: (~12.0 GB in int8) so the script's later phases fit its time limit; the
+#: 32-layer int8 run (46.87 GB) is an earlier slice's reading in PERF.md
+MOE_INT8_LAYERS = 8
+
+
 def phase_moe_int8(torch) -> dict:
-    """Mixtral-8x7B at full width and depth (32 layers), int8, built one
-    layer at a time on the card (~46.9 GB of weights; the 93.4 GB bf16
-    tree never exists): the graph tick at 1, 4 and 8 lanes with bf16
+    """Mixtral-8x7B at full width, ``MOE_INT8_LAYERS`` of its 32 layers
+    deep, int8, built one layer at a time on the card (the bf16 tree never
+    exists): the graph tick at 1, 4 and 8 lanes with bf16
     activations (the serving configuration); then the continuous phase's
     16 requests on 8 paged lanes, dropless, with bf16 activations and
     again with float32 activations, every token and its log-probability
@@ -3334,7 +3355,8 @@ def phase_moe_int8(torch) -> dict:
     from kubedl_tpu_torch.ops import quant
     from kubedl_tpu_torch.serving import ContinuousBatchingEngine
 
-    cfg = _moe_dropless(moe.mixtral_8x7b())
+    cfg = _moe_dropless(dataclasses.replace(moe.mixtral_8x7b(),
+                                            n_layers=MOE_INT8_LAYERS))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4512,6 +4534,15 @@ REPLAY_RL_SPEC = dict(total_batches=4, publish_every=2,
                       max_new_tokens=4)
 #: the ``rl`` fields that depend on the sampled tokens
 REPLAY_SAMPLED = ("losses",)
+#: the multi-model smoke profile of the JAX package's multi-model tests at
+#: its determinism test's 60-request, 120 s day: 2 replicas of 4 decode
+#: lanes (its 1 prefill lane is reserved only when disaggregated), 64-block
+#: pools, 6 adapters of 2 pages, at most 2 resident a replica
+REPLAY_MM = dict(sim_seconds=120.0, requests=60, bursts=6, replicas=2,
+                 max_replicas=2, decode_lanes=4, prefill_lanes=1,
+                 pool_blocks=64, prefixes=6, max_prefixes_per_replica=4,
+                 zipf_s=0.7, adapters=6, adapter_pages=2, adapter_share=0.7,
+                 max_adapters_per_replica=2, adapter_fault_page_s=0.03)
 
 
 def _nested(pairs) -> dict:
@@ -5254,7 +5285,10 @@ def phase_replay(torch, cfg, params) -> dict:
     learner's four GRPO steps launch K1-K3 on ``sm90`` (counted here),
     the resize restores bit for bit, every replica ends on the published
     version, and only the losses (sampled rollouts) are held to
-    themselves (finite)."""
+    themselves (finite); (d) ``MultiModelReplay`` of the multi-model smoke
+    day (``REPLAY_MM``), adapter-aware and adapter-blind, its two
+    replicas sharing the Llama-3-8B weights, each arm held to its CPU
+    day, with adapter faults, evictions and per-model TTFT p99."""
     import dataclasses
 
     from kubedl_tpu_torch.models import llama
@@ -5381,6 +5415,65 @@ def phase_replay(torch, cfg, params) -> dict:
     del replay, rparams
     gc.collect()
     torch.cuda.empty_cache()
+    out["multimodel"] = _multimodel_days(torch, cfg, params)
+    return out
+
+
+def _multimodel_days(torch, cfg, params) -> dict:
+    """[replay] (d): both arms of the multi-model day on the card, each
+    held to the same arm's day on the CPU key by key."""
+    from kubedl_tpu_torch.replay.multimodel import (MultiModelProfile,
+                                                    MultiModelReplay,
+                                                    generate_multimodel)
+    profile = MultiModelProfile(name="mm-smoke", **REPLAY_MM)
+    out = {}
+    for arm, affinity in (("adapter_aware", True), ("adapter_blind", False)):
+        tag = f"[replay] (d) the multi-model day, {arm}"
+        t0 = time.perf_counter()
+        want = MultiModelReplay(generate_multimodel(profile, 1),
+                                adapter_affinity=affinity,
+                                device="cpu").run()
+        cpu_s = time.perf_counter() - t0
+        replay = MultiModelReplay(generate_multimodel(profile, 1),
+                                  adapter_affinity=affinity,
+                                  model=(cfg, params), device="cuda")
+        host = [_host_timer(rep.engine, "step")
+                for rep in replay.fleet.replicas]
+        t0 = time.perf_counter()
+        got = replay.run()
+        wall = time.perf_counter() - t0
+        _same_day(tag, got, want)
+        ticks = [_graph_only(rep.engine, f"{tag} {rep.name}")
+                 for rep in replay.fleet.replicas]
+        mm = got["multi_model"]
+        if not (mm["models_reported"] == mm["models"] == 6
+                and got["requests_completed"] == got["requests_submitted"]
+                and mm["adapter_faults"] > 0):
+            raise AssertionError(f"{tag}: {mm}")
+        out[arm] = {"ticks": got["engine_ticks"], "wall_s": wall,
+                    "cpu_s": cpu_s,
+                    "host_ms_median": _median_ms([x for h in host
+                                                  for x in h]),
+                    "tick_launches": ticks,
+                    "adapter_faults": mm["adapter_faults"],
+                    "adapter_evictions": mm["adapter_evictions"],
+                    "fault_rate": mm["fault_rate"],
+                    "model_ttft_p99_s": mm["model_ttft_s"]["p99"],
+                    "per_model_ttft_p99_s": {
+                        m: v["ttft_s"].get("p99")
+                        for m, v in mm["per_model"].items()}}
+        log(f"{tag} on Llama-3-8B bf16, 2 replicas sharing the weights: "
+            f"{got['requests_completed']} requests, {got['engine_ticks']} "
+            f"ticks in {wall:.2f} s (median host "
+            f"{out[arm]['host_ms_median']:.3f} ms a replica step; decode "
+            f"ticks {ticks}); adapter faults {mm['adapter_faults']}, "
+            f"evictions {mm['adapter_evictions']}, model TTFT p99 "
+            f"{mm['model_ttft_s']['p99']} s, per model "
+            f"{out[arm]['per_model_ttft_p99_s']}; the CPU day "
+            f"{cpu_s:.2f} s; equal key by key ({_card()})")
+        del replay
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5572,6 +5665,288 @@ def phase_spec(torch, cfg, params) -> dict:
         f"{out['embeddings_launches']} K1 launches, all sm90, vectors equal "
         f"bit for bit to the static engine's server's")
     return out
+
+
+# -- slice 18: the native packer, the serving auto-configurator and the
+#    multi-model fleet day ---------------------------------------------------
+
+#: [native]: the text corpus (seed 0), NATIVE_DOCS documents of 1 to
+#: NATIVE_MAX_BYTES printable ASCII bytes (~16.9 MB of text, ~17.3 MB of
+#: jsonl), byte-tokenized, and the job that trains on it: Llama-3-8B width,
+#: NATIVE_LAYERS layers, b=4 x 2048, NATIVE_STEPS steps
+NATIVE_DOCS, NATIVE_MAX_BYTES = 4096, 8192
+NATIVE_LAYERS, NATIVE_STEPS = 2, 2
+
+
+def _host_cpu() -> str:
+    """The host CPU's model name, architecture and core count (the
+    packer's rates are the host's, not the card's): ``lscpu``'s model
+    name, else ``/proc/cpuinfo``'s."""
+    import os
+    import platform
+    name = ""
+    try:
+        res = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30)
+        name = next((line.split(":", 1)[1].strip()
+                     for line in res.stdout.splitlines()
+                     if line.strip().lower().startswith("model name")), "")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if not name:
+        try:
+            with open("/proc/cpuinfo") as f:
+                name = next((line.split(":", 1)[1].strip() for line in f
+                             if line.lower().startswith(("model name",
+                                                         "cpu model"))),
+                            "")
+        except OSError:
+            pass
+    return (f"{name or 'CPU model not reported'}, {platform.machine()}, "
+            f"{os.cpu_count()} cores")
+
+
+def _same_batches(got, want) -> bool:
+    """Two lists of packed batches equal bit for bit, dtypes included."""
+    import numpy as np
+    return len(got) == len(want) and all(
+        g.keys() == w.keys() and all(
+            g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k])
+            for k in g) for g, w in zip(got, want))
+
+
+def phase_native(torch) -> dict:
+    """The C++ document packer (``kubedl_tpu_torch.native``) on the
+    trainer's main path. A jsonl corpus from seed 0 trains through
+    ``python -m kubedl_tpu_torch.train``'s ``main`` with ``data.kind:
+    text`` (the byte tokenizer): every call of ``pack_rows_native`` is
+    counted here by wrapping it (the package counts nothing), and each
+    must have taken the native route; K1-K3 launch on ``sm90`` (counted
+    from 0 just before ``main``). Then the whole corpus's token lists are
+    packed through ``pack_documents`` by the packer (a list) and by the
+    Python loop (a generator, the plain version): bit for bit equal, with
+    each one's tokens/s on the host."""
+    import numpy as np
+
+    from kubedl_tpu_torch import native
+    from kubedl_tpu_torch.tokenizer import ByteTokenizer, text_documents
+    from kubedl_tpu_torch.train.data import pack_documents
+
+    out_dir = BUILD_OUT / "native"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    so = native.ensure_built()
+    build_s = time.perf_counter() - t0
+    if so is None:
+        raise AssertionError("[native] no C++ compiler on PATH")
+    rng = np.random.default_rng(0)
+    corpus = out_dir / "corpus.jsonl"
+    text_bytes = 0
+    with open(corpus, "w") as f:
+        for n in rng.integers(1, NATIVE_MAX_BYTES + 1, NATIVE_DOCS):
+            text = rng.integers(32, 127, n, dtype=np.uint8).tobytes()
+            text_bytes += len(text)
+            f.write(json.dumps({"text": text.decode()}) + "\n")
+    cfg = {"model": "llama.llama3_8b",
+           "model_overrides": {"n_layers": NATIVE_LAYERS},
+           "mode": "pretrain",
+           "data": {"kind": "text", "path": str(corpus),
+                    "tokenizer": "byte"},
+           "batch": 4, "seq": 2048, "steps": NATIVE_STEPS, "seed": 0,
+           "optimizer": {"warmup_steps": 1}, "log_every": 1}
+    cfg_path = out_dir / "train.json"
+    cfg_path.write_text(json.dumps(cfg))
+    calls = []
+    real = native.pack_rows_native
+
+    def counted(docs, seq_len, pad_id=0):
+        t0 = time.perf_counter()
+        res = real(docs, seq_len, pad_id)
+        calls.append({"native": res is not None, "docs": len(docs),
+                      "s": time.perf_counter() - t0})
+        return res
+    native.pack_rows_native = counted
+    try:
+        # the batches differ from step to step, so the loss need not fall
+        run = _train_run(torch, "native", str(cfg_path), cfg, ALL_SM90,
+                         falling=False)
+    finally:
+        native.pack_rows_native = real
+    if not calls or not all(c["native"] for c in calls):
+        raise AssertionError(f"[native] pack_documents did not take the "
+                             f"native route in the job: {calls}")
+    tok = ByteTokenizer()
+    docs = list(text_documents(str(corpus), tok))
+    n_tokens = sum(map(len, docs))
+    t0 = time.perf_counter()
+    got = list(pack_documents(docs, cfg["seq"], cfg["batch"],
+                              pad_id=tok.pad_id))
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = list(pack_documents(iter(docs), cfg["seq"], cfg["batch"],
+                               pad_id=tok.pad_id))
+    loop_s = time.perf_counter() - t0
+    if not got or not _same_batches(got, want):
+        raise AssertionError(f"[native] the packer's {len(got)} batches "
+                             f"differ from the Python loop's {len(want)}")
+    out = {"build_s": build_s, "library": so.name,
+           "corpus_bytes": corpus.stat().st_size, "text_bytes": text_bytes,
+           "tokens": n_tokens, "batches": len(got), "calls": calls,
+           "native_s": native_s, "loop_s": loop_s,
+           "native_tokens_per_s": n_tokens / native_s,
+           "loop_tokens_per_s": n_tokens / loop_s,
+           "ratio": loop_s / native_s, "host": _host_cpu(),
+           "launches": run["launches"], "by_route": run["by_route"],
+           "step_s": run["step_s"], "losses": run["losses"]}
+    corpus.unlink()
+    log(f"[native] {so.name} built in {build_s:.2f} s; the job packed its "
+        f"corpus ({NATIVE_DOCS} documents, {text_bytes} bytes of text, "
+        f"{out['corpus_bytes']} bytes of jsonl) through the native route "
+        f"{len(calls)} time(s) ({[round(c['s'], 3) for c in calls]} s); "
+        f"K1-K3 {run['launches']} on {run['by_route']}; losses "
+        f"{[round(x, 4) for x in run['losses']]}")
+    log(f"[native] the whole corpus, {n_tokens} tokens into {len(got)} "
+        f"batches of 4 x 2048: packer {native_s:.3f} s "
+        f"({out['native_tokens_per_s']:.4e} tokens/s), Python loop "
+        f"{loop_s:.3f} s ({out['loop_tokens_per_s']:.4e} tokens/s), "
+        f"{out['ratio']:.2f}x; bit for bit equal (host {out['host']}; "
+        f"card {_card()})")
+    return out
+
+
+#: [auto]: the serving auto-configurator's search over
+#: Llama-3-8B (bf16, seed 0) with its first AUTO_DRAFT_LAYERS layers as the
+#: draft, and the requests of [cont] its winner serves
+AUTO_SEARCH = dict(batches=(1, 8), quantize_opts=(None, "int8"),
+                   spec_ks=(0, 4), kv_blocks=(0,), prompt_len=64,
+                   new_tokens=16)
+AUTO_SLO = dict(p99_latency_ms=25.0, ttft_ms=100.0)
+AUTO_DRAFT_LAYERS, AUTO_SERVED = 2, 4
+
+
+def _config_only(cfg, path: Path) -> str:
+    """A model directory holding ``cfg``'s ``config.json`` and no weights
+    (``_loading`` hands the weights over): the predictor reads its config
+    from there without the phase writing an 8B artifact to disk."""
+    from kubedl_tpu_torch.models import io
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(
+        {"family": io.family_name(cfg), "config": cfg.to_dict()}))
+    return str(path)
+
+
+def _loading(models: dict):
+    """``models.io.load_model`` answering each path of ``models`` with its
+    ``(config, params)`` already on the card."""
+    from kubedl_tpu_torch.models import io
+    return unittest.mock.patch.object(
+        io, "load_model", lambda path, device=None, select=None:
+        models[path])
+
+
+def phase_auto(torch, cfg, params) -> dict:
+    """The serving auto-configurator (``serving/autoconfig.py``) on the
+    card: ``autoconfigure_multi`` over the serving phases' Llama-3-8B
+    (full width, bf16, seed 0) with its first layers as the draft, every
+    probe printed (each probe's seconds read by wrapping
+    ``probe_candidate``); the winner must meet the SLO or be the
+    least-violating probe; ``kv_cache_bytes`` of ``Candidate(batch=8)`` at
+    max_len 1024 must equal the bytes of the KV pool the engine allocates;
+    then the winner's ``to_env()`` goes through the predictor's env reader
+    (``serving.__main__.engine_settings``) into ``build_engine``, whose
+    engine serves [cont]'s first requests, held to the teacher-forced
+    reference by the near-tie rule."""
+    import dataclasses
+
+    from kubedl_tpu_torch.serving import (Candidate, ContinuousBatchingEngine,
+                                          ServingSLO, autoconfig,
+                                          autoconfigure_multi)
+    from kubedl_tpu_torch.serving import __main__ as serve_main
+
+    draft = (dataclasses.replace(cfg, n_layers=AUTO_DRAFT_LAYERS),
+             _first_layers(params, AUTO_DRAFT_LAYERS))
+    free, _ = torch.cuda.mem_get_info()
+    slo = ServingSLO(**AUTO_SLO)
+    probes = []
+    real = autoconfig.probe_candidate
+
+    def timed_probe(model, cand, **kw):
+        t0 = time.perf_counter()
+        probe = real(model, cand, **kw)
+        probes.append((cand, time.perf_counter() - t0))
+        log(f"[auto] probe {cand}: {probe} in {probes[-1][1]:.2f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return probe
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(autoconfig, "probe_candidate",
+                                    timed_probe):
+        res = autoconfigure_multi((cfg, params), draft, slo=slo,
+                                  hbm_budget_bytes=free, device="cuda",
+                                  **AUTO_SEARCH)
+    search_s = time.perf_counter() - t0
+    best = res.best_probe
+    least = min(res.measurements, key=slo.violation)
+    if not (slo.met_by(best) or slo.violation(best)
+            == slo.violation(least)):
+        raise AssertionError(f"[auto] the winner {res.best} neither meets "
+                             f"{slo} nor violates it least: {best}")
+    smi = _card()
+    log(f"[auto] {len(res.measurements)} probes in {search_s:.1f} s under "
+        f"{slo} (budget {free / 2**30:.2f} GiB free after the weights); "
+        f"winner {res.best}, probe {best}, meets the SLO "
+        f"{slo.met_by(best)} ({smi})")
+
+    # the pool the engine allocates, against the auto-configurator's price
+    eng = ContinuousBatchingEngine(cfg, params, lanes=8, max_len=1024,
+                                   device="cuda")
+    pool = sum(t.numel() * t.element_size() for t in eng._pool.values())
+    priced = autoconfig.kv_cache_bytes(cfg, Candidate(batch=8), 1024)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if pool != priced:
+        raise AssertionError(f"[auto] kv_cache_bytes {priced} != the "
+                             f"engine's pool {pool} bytes")
+    log(f"[auto] kv_cache_bytes(Candidate(batch=8), max_len 1024) = "
+        f"{priced} bytes = the engine's paged pool")
+
+    # the winner's env through the predictor's reader into its engine
+    out_dir = BUILD_OUT / "auto"
+    env = res.to_env()
+    paths = {_config_only(cfg, out_dir / "model"): (cfg, params)}
+    if res.best.speculative_k:
+        env["KUBEDL_SERVING_DRAFT_PATH"] = _config_only(draft[0],
+                                                        out_dir / "draft")
+        paths[env["KUBEDL_SERVING_DRAFT_PATH"]] = draft
+    settings = serve_main.engine_settings(env)
+    with _loading(paths):
+        eng = serve_main.build_engine(next(iter(paths)), **settings,
+                                      device="cuda")
+    _, reqs = _cont_requests(cfg)
+    reqs = reqs[:AUTO_SERVED]
+    try:
+        t0 = time.perf_counter()
+        got, lps = _run(eng, reqs)
+        serve_s = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    # the reference runs the weights the engine served (int8 ones, if the
+    # winner quantizes)
+    held = _hold(torch, cfg, eng.params, reqs, got,
+                 f"[auto] the winner's env {env} through build_engine",
+                 lps=lps)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    import shutil
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"measurements": res.measurements,
+            "probe_s": [(str(c), s) for c, s in probes],
+            "search_s": search_s, "best": dataclasses.asdict(res.best),
+            "best_probe": best, "meets_slo": slo.met_by(best),
+            "env": env, "settings": settings, "pool_bytes": pool,
+            "serve_s": serve_s, "served": held}
 
 
 def _reset_counts(attn) -> None:
@@ -6484,13 +6859,14 @@ def _tp_probe(torch, only, timed) -> None:
 
 
 def _replay_probe(torch, only, timed) -> None:
-    """``[replay]`` and ``[spec]`` on their own, on Llama-3-8B from seed 0
-    (the serving phase's weights)."""
+    """``[replay]``, ``[spec]`` and ``[auto]`` on their own, on
+    Llama-3-8B from seed 0 (the serving phase's weights)."""
     from kubedl_tpu_torch.models import llama
     cfg = llama.llama3_8b()
     params = llama.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    for name, fn in (("replay", phase_replay), ("spec", phase_spec)):
+    for name, fn in (("replay", phase_replay), ("spec", phase_spec),
+                     ("auto", phase_auto)):
         if name in only:
             timed(name, fn, torch, cfg, params)
     del params
@@ -6500,7 +6876,8 @@ def _replay_probe(torch, only, timed) -> None:
 
 def _probe(torch, argv, timed) -> int:
     """``--phases hf,lifecycle,resnet,moe_timing,dist,tp,tp2,ring,cp2,ep2,
-    pp,pp2,grpo,replay,spec [--layers N]``: the named phases alone after the
+    pp,pp2,grpo,replay,spec,auto,native,moe_int8 [--layers N]``: the named
+    phases alone after the
     build,
     the slice-10 ones on Gemma-2B ``N`` layers deep, ``dist`` after the
     unsharded
@@ -6511,16 +6888,20 @@ def _probe(torch, argv, timed) -> int:
     if len(argv) not in (2, 4) or argv[0] != "--phases" or (
             len(argv) == 4 and argv[2] != "--layers"):
         print("usage: chip_smoke.py [--phases hf,lifecycle,resnet,"
-              "moe_timing,dist,tp,tp2,ring,cp2,ep2,pp,pp2,grpo,replay,spec "
-              "[--layers N]]", file=sys.stderr)
+              "moe_timing,dist,tp,tp2,ring,cp2,ep2,pp,pp2,grpo,replay,spec,"
+              "auto,native,moe_int8 [--layers N]]", file=sys.stderr)
         return 2
     only = set(argv[1].split(","))
     layers = int(argv[3]) if len(argv) == 4 else None
     log("[env] " + _card())
     if only & {"tp", "tp2"}:
         _tp_probe(torch, only, timed)
-    if only & {"replay", "spec"}:
+    if only & {"replay", "spec", "auto"}:
         _replay_probe(torch, only, timed)
+    if "native" in only:
+        timed("native", phase_native, torch)
+    if "moe_int8" in only:
+        timed("moe_int8", phase_moe_int8, torch)
     if "dist" in only:
         gtrain = timed("gemma_training", phase_gemma_training, torch)
         gc.collect()
@@ -6603,6 +6984,7 @@ def main() -> int:
     gc.collect()
     replay_run = timed("replay", phase_replay, torch, cfg8b, params)
     spec_run = timed("spec", phase_spec, torch, cfg8b, params)
+    timed("auto", phase_auto, torch, cfg8b, params)
     del params, cont
     gc.collect()                 # the 16 GB serving model goes first
     torch.cuda.empty_cache()
@@ -6629,6 +7011,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     timed("grad_check", phase_grad_check, torch, cfg, tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    native_run = timed("native", phase_native, torch)
     gc.collect()
     torch.cuda.empty_cache()
     timed("gemma_grad_check", phase_gemma_grad_check, torch)
@@ -6709,6 +7094,7 @@ def main() -> int:
                            name],
                        "replay_flywheel": replay_run["flywheel"][
                            "launches"][name],
+                       "native_training": native_run["launches"][name],
                        **{f"cp2_{impl}_{mode}": both_ranks(
                            cp2_run[f"{mode}_{impl}"], name)
                           for impl in ("ring", "ulysses")

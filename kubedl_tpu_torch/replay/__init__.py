@@ -10,7 +10,10 @@ package's ``kubedl_tpu/replay`` modules that drive an engine):
   the autoscaler through a tenant-labelled day (``replay/fleet.py``);
 * :class:`FlywheelReplay` — the fleet day with one RLJob riding it: the
   rollout tenant, the GRPO learner with its elastic resize, and weight
-  publishes rolled across the replicas (``replay/rl.py``).
+  publishes rolled across the replicas (``replay/rl.py``);
+* :class:`~kubedl_tpu_torch.replay.multimodel.MultiModelReplay` — the
+  fleet day with a Zipf adapter catalog, adapter-aware against
+  adapter-blind routing (``replay/multimodel.py``).
 
 Each runs on the card unless the caller passes ``device="cpu"``. The
 cluster replay of the control plane and its scorecards stay with the JAX

@@ -56,6 +56,23 @@ import sys
 import threading
 
 
+def engine_settings(env) -> dict:
+    """The engine's settings from the predictor's environment contract
+    (the module docstring): ``build_engine``'s keyword arguments but the
+    model path and the tokenizer's. ``Candidate.to_env()`` of the serving
+    auto-configurator writes these names."""
+    return {
+        "lanes": int(env.get("KUBEDL_SERVING_LANES", "4") or 4),
+        "quantize": env.get("KUBEDL_SERVING_QUANTIZE", ""),
+        "spec_k": int(env.get("KUBEDL_SERVING_SPEC_K", "0") or 0),
+        "draft_path": env.get("KUBEDL_SERVING_DRAFT_PATH", ""),
+        "max_len": int(env.get("KUBEDL_SERVING_MAX_LEN", "1024") or 1024),
+        "tp": int(env.get("KUBEDL_SERVING_TP", "1") or 1),
+        "kv_block": int(env.get("KUBEDL_SERVING_KV_BLOCK", "0") or 0),
+        "pool_blocks": int(env.get("KUBEDL_SERVING_POOL_BLOCKS", "0") or 0),
+    }
+
+
 def build_engine(model_path: str, lanes: int, quantize: str, spec_k: int,
                  draft_path: str = "", max_len: int = 1024, tp: int = 1,
                  eos_id: int = -1, tokenizer_vocab: int = 0,
@@ -233,14 +250,7 @@ def main(argv=None, device=None) -> int:
     if not model_path:
         log.error("KUBEDL_MODEL_PATH is required")
         return 2
-    lanes = int(env.get("KUBEDL_SERVING_LANES", "4") or 4)
-    quantize = env.get("KUBEDL_SERVING_QUANTIZE", "")
-    spec_k = int(env.get("KUBEDL_SERVING_SPEC_K", "0") or 0)
-    draft = env.get("KUBEDL_SERVING_DRAFT_PATH", "")
-    max_len = int(env.get("KUBEDL_SERVING_MAX_LEN", "1024") or 1024)
-    tp = int(env.get("KUBEDL_SERVING_TP", "1") or 1)
-    kv_block = int(env.get("KUBEDL_SERVING_KV_BLOCK", "0") or 0)
-    pool_blocks = int(env.get("KUBEDL_SERVING_POOL_BLOCKS", "0") or 0)
+    settings = engine_settings(env)
     from ..tokenizer import has_tokenizer_assets, load_tokenizer
     tok_spec = env.get("KUBEDL_TOKENIZER", "")
     if not tok_spec and has_tokenizer_assets(model_path):
@@ -249,13 +259,11 @@ def main(argv=None, device=None) -> int:
         tok_spec = model_path
     tokenizer = None if tok_spec == "off" else load_tokenizer(tok_spec)
 
-    engine = build_engine(model_path, lanes, quantize, spec_k, draft,
-                          max_len, tp=tp,
+    engine = build_engine(model_path, **settings,
                           eos_id=(tokenizer.eos_id if tokenizer is not None
                                   else -1),
                           tokenizer_vocab=(tokenizer.vocab_size
                                            if tokenizer is not None else 0),
-                          kv_block=kv_block, pool_blocks=pool_blocks,
                           device=device)
     if args.batch_input:
         try:
@@ -284,8 +292,9 @@ def main(argv=None, device=None) -> int:
         tokenizer=tokenizer,
     )).start()
     log.info("serving %s on %s (lanes=%d quantize=%s kv=%s device=%s "
-             "tp=%d tokenizer=%s)", model_path, server.url, lanes,
-             quantize or "off", engine.kv_mode, engine.device, tp,
+             "tp=%d tokenizer=%s)", model_path, server.url,
+             settings["lanes"], settings["quantize"] or "off",
+             engine.kv_mode, engine.device, settings["tp"],
              tok_spec if tokenizer is not None else "off")
 
     done = threading.Event()

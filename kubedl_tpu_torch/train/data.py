@@ -93,8 +93,25 @@ def pack_documents(docs, seq_len: int, batch_size: int,
       document boundary or touches padding.
 
     Leftover documents that don't fill a final batch are dropped (every
-    yielded batch is full). The JAX package routes finite lists through
-    a C++ packer pinned bit-identical to this loop."""
+    yielded batch is full).
+
+    A finite ``docs`` list routes through the C++ packer
+    (``kubedl_tpu_torch.native``, bit-identical output pinned by
+    tests/test_torch_native.py), as the JAX package's does. Generators,
+    streams and ``KUBEDL_NATIVE=0`` take the Python loop below, the
+    packer's plain version."""
+    if isinstance(docs, (list, tuple)) and \
+            all(hasattr(d, "__len__") for d in docs):
+        # lists of generators keep the Python path (it list()s each doc)
+        from .. import native
+        packed = native.pack_rows_native(docs, seq_len, pad_id)
+        if packed is not None:
+            toks, segs, pos = packed
+            for i in range(0, len(toks) - batch_size + 1, batch_size):
+                yield _packed_arrays(toks[i:i + batch_size],
+                                     segs[i:i + batch_size],
+                                     pos[i:i + batch_size])
+            return
     seq1 = seq_len + 1     # pack seq_len+1 then shift for (tokens, targets)
     rows, row, seg_row, pos_row, seg_id = [], [], [], [], 0
 
@@ -131,9 +148,13 @@ def pack_documents(docs, seq_len: int, batch_size: int,
 
 
 def _packed_batch(rows) -> dict:
-    toks = np.asarray([r[0] for r in rows], np.int32)
-    seg = np.asarray([r[1] for r in rows], np.int32)
-    pos = np.asarray([r[2] for r in rows], np.int32)
+    return _packed_arrays(np.asarray([r[0] for r in rows], np.int32),
+                          np.asarray([r[1] for r in rows], np.int32),
+                          np.asarray([r[2] for r in rows], np.int32))
+
+
+def _packed_arrays(toks, seg, pos) -> dict:
+    # toks/seg/pos: [b, seq+1] int32
     mask = (seg[:, :-1] == seg[:, 1:]) & (seg[:, :-1] >= 0)
     return {"tokens": toks[:, :-1], "targets": toks[:, 1:],
             "segment_ids": seg[:, :-1], "positions": pos[:, :-1],

@@ -143,6 +143,15 @@ def test_the_last_refusals_modules_are_checked():
             "kubedl_tpu_torch.tokenizer"} <= set(MODULES)
 
 
+def test_the_modules_the_import_census_missed_are_checked():
+    """...and so are the three modules the census by import closure
+    found (slice 18): the serving auto-configurator, the multi-model
+    fleet day and the native document packer."""
+    assert {"kubedl_tpu_torch.serving.autoconfig",
+            "kubedl_tpu_torch.replay.multimodel",
+            "kubedl_tpu_torch.native"} <= set(MODULES)
+
+
 #: the replays' twins and the modules the port copies for them
 REPLAY_TWINS = ("replay/serving", "replay/rl")
 REPLAY_COPIES = ("core/clock", "api/slo", "core/meta", "telemetry/slo",
@@ -159,8 +168,10 @@ TWINS = {f"kubedl_tpu/{path}.py": f"kubedl_tpu_torch.{path.replace('/', '.')}"
                       "serving/server", "serving/__main__",
                       "serving/engine", "serving/batching",
                       "train/evaluate", "train/dpo", "train/scoring",
-                      "models/llama", "tokenizer") + REPLAY_TWINS
+                      "models/llama", "tokenizer", "serving/autoconfig",
+                      "replay/multimodel") + REPLAY_TWINS
          + REPLAY_COPIES}
+TWINS["kubedl_tpu/native/__init__.py"] = "kubedl_tpu_torch.native"
 #: public names a twin leaves out on purpose: the in-cluster job reads and
 #: patches its own job object, so the client keeps ``get``/``try_get``/
 #: ``patch_merge`` and the job kinds' mapping (kubeconfig files need
@@ -218,7 +229,10 @@ PORT_PARAMS = {
     "run_autoscaler_leg": ["device"], "run_fleet_comparison": ["device"],
     "FlywheelReplay.__init__": ["model", "device"],
     "run_flywheel_leg": ["device"],
-    "SpeculativeEngine.__init__": ["device"]}
+    "SpeculativeEngine.__init__": ["device"],
+    "probe_candidate": ["device"], "autoconfigure_multi": ["device"],
+    "MultiModelReplay.__init__": ["device"],
+    "run_multimodel_comparison": ["model", "device"]}
 
 
 @pytest.mark.parametrize("path", REPLAY_TWINS + REPLAY_COPIES)
@@ -236,11 +250,21 @@ def test_the_speculative_module_takes_the_jax_ones_parameters():
     _check_parameters("serving/speculative")
 
 
+@pytest.mark.parametrize("path", ["serving/autoconfig", "replay/multimodel",
+                                  "native/__init__"])
+def test_the_slice_18_modules_take_the_jax_ones_parameters(path):
+    """The auto-configurator adds the device to what builds engines, the
+    multi-model day the device (and the model to its comparison, as the
+    RL replay has it); the packer's functions are JAX's."""
+    _check_parameters(path)
+
+
 def _check_parameters(path):
     import ast
     import importlib
     mod = importlib.import_module(
-        f"kubedl_tpu_torch.{path.replace('/', '.')}")
+        f"kubedl_tpu_torch.{path.replace('/', '.')}".removesuffix(
+            ".__init__"))
     checked = 0
     for node in ast.parse((ROOT / f"kubedl_tpu/{path}.py").read_text()).body:
         fns = ([(node.name, node)] if isinstance(node, ast.FunctionDef)
@@ -298,6 +322,57 @@ def test_the_copied_modules_are_the_jax_ones_to_the_statement(path):
     assert _without_docs_and_imports(got) == _without_docs_and_imports(want)
 
 
+#: what a twin adds to its JAX source, by function (``*``: every one):
+#: parameters, and the keywords that hand them on
+ADDED = {"serving/autoconfig": {"*": {"device"}},
+         "replay/multimodel": {"*": {"device"},
+                               "run_multimodel_comparison": {"model"}}}
+
+
+def _without_additions(source: str, added: dict) -> str:
+    """``source`` with ``added``'s parameters and keywords taken out."""
+    import ast
+
+    class Strip(ast.NodeTransformer):
+        drop = added.get("*", set())
+
+        def visit_FunctionDef(self, node):
+            outer, self.drop = self.drop, self.drop | added.get(node.name,
+                                                                set())
+            self.generic_visit(node)
+            args = node.args
+            lead = len(args.args) - len(args.defaults)
+            keep = [i for i, a in enumerate(args.args)
+                    if a.arg not in self.drop]
+            args.defaults = [args.defaults[i - lead] for i in keep
+                             if i >= lead]
+            args.args = [args.args[i] for i in keep]
+            self.drop = outer
+            return node
+
+        def visit_Call(self, node):
+            self.generic_visit(node)
+            node.keywords = [k for k in node.keywords
+                             if k.arg not in self.drop]
+            return node
+    return ast.unparse(Strip().visit(ast.parse(source)))
+
+
+@pytest.mark.parametrize("path", sorted(ADDED))
+def test_the_slice_18_twins_are_the_jax_ones_but_for_their_additions(path):
+    """The auto-configurator and the multi-model day are their JAX
+    sources statement for statement once ``ADDED`` is taken out: the
+    selection, the early stop, the pruning, the fallback and the day are
+    JAX's."""
+    import ast
+    want = ast.unparse(ast.parse((ROOT / f"kubedl_tpu/{path}.py")
+                                 .read_text()))
+    got = _without_additions((PKG / f"{path}.py").read_text(), ADDED[path])
+    assert _without_docs_and_imports(got) == \
+        _without_docs_and_imports(want)
+    assert _without_additions(want, ADDED[path]) == want
+
+
 @pytest.mark.parametrize("name", ["train_tokenizer", "encode_corpus",
                                   "main"])
 def test_the_tokenizer_cli_is_the_jax_ones_to_the_statement(name):
@@ -312,6 +387,105 @@ def test_the_tokenizer_cli_is_the_jax_ones_to_the_statement(name):
         return _without_docs_and_imports(ast.unparse(fn))
     assert body((PKG / "tokenizer.py").read_text()) == \
         body((ROOT / "kubedl_tpu/tokenizer.py").read_text())
+
+
+def _cxx_tokens(text: str) -> list:
+    """The C++ tokens of ``text``, comments aside."""
+    text = re.sub(r"/\*.*?\*/", " ", text, flags=re.S)
+    text = re.sub(r"//[^\n]*", " ", text)
+    return re.findall(r"\w+|\S", text)
+
+
+def test_the_packer_is_the_jax_ones_token_for_token():
+    """``native/packer.cc`` is the JAX package's, token for token, but for
+    its comments; its build and loader are the port's own."""
+    got = _cxx_tokens((PKG / "native/packer.cc").read_text())
+    want = _cxx_tokens((ROOT / "kubedl_tpu/native/packer.cc").read_text())
+    assert got == want
+    assert "kubedl_pack_rows" in got and len(got) > 300
+
+
+#: JAX modules whose import closure reaches jax but which have no twin
+#: yet, each with the ROADMAP item that queues it
+QUEUED = {"kubedl_tpu.federation": "A10",
+          "kubedl_tpu.federation.replay": "A10"}
+
+
+def _import_graph(pkg: str) -> tuple:
+    """``({module: modules it imports}, {modules that import jax})`` of
+    ``pkg``, from the sources' static imports, the ones inside functions
+    included. An import statement names a module (``from .x import y``
+    names ``x``, and ``x.y`` where that is a module); the parent packages
+    Python runs on the way are not counted."""
+    import ast
+    paths = {".".join(p.relative_to(ROOT).with_suffix("").parts)
+             .removesuffix(".__init__"): p
+             for p in (ROOT / pkg).rglob("*.py")}
+    graph, jax = {}, set()
+    for name, path in paths.items():
+        base = name.split(".")
+        if path.name != "__init__.py":
+            base = base[:-1]
+        out = graph[name] = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                targets = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                target = node.module or ""
+                if node.level:
+                    target = ".".join(base[:len(base) - node.level + 1]
+                                      + ([node.module] if node.module
+                                         else []))
+                targets = [target] + [f"{target}.{a.name}"
+                                      for a in node.names]
+            else:
+                continue
+            if any(t.split(".")[0] == "jax" for t in targets):
+                jax.add(name)
+            out.update(t for t in targets if t in paths)
+    return graph, jax
+
+
+def test_every_jax_module_that_reaches_jax_has_a_twin():
+    """The census by import closure: every ``kubedl_tpu`` module whose
+    static import closure reaches a module that imports jax has a twin of
+    the same name in the port, but for ``QUEUED``, each by name with its
+    ROADMAP item. (A census of direct ``import jax`` lines alone missed
+    the auto-configurator and the multi-model day.)"""
+    graph, jax = _import_graph("kubedl_tpu")
+
+    def reaches(name):
+        seen, todo = set(), [name]
+        while todo:
+            m = todo.pop()
+            if m not in seen:
+                seen.add(m)
+                todo += graph[m]
+        return bool(seen & jax)
+    twins = {m.replace("kubedl_tpu_torch", "kubedl_tpu", 1)
+             for m in MODULES}
+    reach = sorted(m for m in graph if reaches(m))
+    assert len(jax) >= 31 and len(reach) > len(jax)
+    missing = {m for m in reach if m not in twins}
+    assert missing == set(QUEUED), sorted(missing)
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    for name, item in QUEUED.items():
+        assert f"**{item}" in roadmap and name.split(".", 1)[1].replace(
+            ".", "/") in roadmap, (name, item)
+
+
+def test_the_jax_serving_packages_exports_are_the_ports():
+    """Every name ``kubedl_tpu.serving`` exports, ``kubedl_tpu_torch.serving``
+    exports too (read from the JAX source, not imported)."""
+    import ast
+
+    import kubedl_tpu_torch.serving as serving
+    tree = ast.parse((ROOT / "kubedl_tpu/serving/__init__.py").read_text())
+    want = next(ast.literal_eval(n.value) for n in tree.body
+                if isinstance(n, ast.Assign)
+                and n.targets[0].id == "__all__")
+    assert set(want) <= set(serving.__all__)
+    assert all(hasattr(serving, name) for name in serving.__all__)
 
 
 def test_the_entry_points_take_the_jax_ones_parameters():
