@@ -222,6 +222,19 @@ gradient check, trains through ``data.kind: text`` on a 16.9 MB corpus
 with every pack on the C++ packer (K1-K3 counted), then holds the packer
 to the Python loop bit for bit with each one's tokens/s
 (``--phases native,auto,replay``).
+
+Since slice 19, after ``auto``, ``fed`` runs the federation day
+(``FederationReplay``: three regions in lockstep, each a journaled,
+replicated control plane with its scheduler and a two-replica serving
+fleet, one region evacuated) with its six engines sharing the serving
+phases' Llama-3-8B bf16 weights, held key by key to the same day on the
+CPU on the tiny float32 model, every decode tick on the graph route,
+K1-K3 counted for the kernels line; its journals go to a temporary
+directory under ``build/chip_smoke/``, removed after the day
+(``--phases fed``). To keep the script inside its time limit, ``replay``'s
+days on Llama-3-8B run it cut to its first 8 layers (``REPLAY_LAYERS``)
+and ``gemma_predictor`` serves Gemma-2B cut to its first 4 of 18
+(``GPRED_LAYERS``).
 """
 
 from __future__ import annotations
@@ -1913,12 +1926,20 @@ def phase_gemma(torch) -> tuple:
     return cfg, params, out
 
 
+#: [gpred]'s depth: Gemma-2B at full width cut to its first 4 of 18 layers
+#: since slice 19, to keep the script inside its time limit (the 18-layer
+#: float32 artifact, ~10 GB, took ~75-90 s to write and load twice)
+GPRED_LAYERS = 4
+
+
 def phase_gemma_predictor(torch, cfg, params) -> dict:
-    """``python -m kubedl_tpu_torch.serving`` over a full-size Gemma-2B
-    ``save_model`` artifact (float32 ``params.npz``): ready, ``:predict``
-    held to the in-process engine, SIGTERM → 0; then the batch mode on the
-    same artifact with ``KUBEDL_SERVING_QUANTIZE=int8``, held to the int8
+    """``python -m kubedl_tpu_torch.serving`` over a ``save_model``
+    artifact of Gemma-2B at full width cut to its first ``GPRED_LAYERS``
+    layers (float32 ``params.npz``): ready, ``:predict`` held to the
+    in-process engine, SIGTERM → 0; then the batch mode on the same
+    artifact with ``KUBEDL_SERVING_QUANTIZE=int8``, held to the int8
     model's teacher-forced reference."""
+    import dataclasses
     import os
     import shutil
     import signal
@@ -1929,6 +1950,8 @@ def phase_gemma_predictor(torch, cfg, params) -> dict:
     from kubedl_tpu_torch.ops.quant import quantize_params
     from kubedl_tpu_torch.serving import ContinuousBatchingEngine
 
+    cfg = dataclasses.replace(cfg, n_layers=GPRED_LAYERS)
+    params = _first_layers(params, GPRED_LAYERS)
     path = BUILD_OUT / "gemma_model"
     t0 = time.perf_counter()
     io.save_model(cfg, params, str(path))
@@ -1996,7 +2019,7 @@ def phase_gemma_predictor(torch, cfg, params) -> dict:
     rows = [json.loads(ln) for ln in res.read_text().splitlines()]
     log(f"[gpred] batch mode, KUBEDL_SERVING_QUANTIZE=int8: {len(rows)} rows "
         f"in {out['batch_int8_s']:.1f} s, exit 0")
-    shutil.rmtree(path)                  # ~10 GB of float32 weights
+    shutil.rmtree(path)                  # ~3.9 GB of float32 weights
     qparams = quantize_params(params, mode="int8")
     _hold(torch, cfg, qparams, reqs, [r["tokens"] for r in rows],
           "(gpred) int8 batch mode")
@@ -5269,6 +5292,12 @@ def _median_ms(seconds) -> float:
     return 1e3 * statistics.median(seconds)
 
 
+#: [replay]'s depth for the days on Llama-3-8B ((a), (b), (d)): full width
+#: cut to its first 8 layers since slice 19, to keep the script inside its
+#: time limit (a day observes scheduling, which no layer count changes)
+REPLAY_LAYERS = 8
+
+
 def phase_replay(torch, cfg, params) -> dict:
     """The engine-driven replays on the card, each held to the same day
     run on the CPU on the replays' tiny float32 model: every request has
@@ -5288,7 +5317,9 @@ def phase_replay(torch, cfg, params) -> dict:
     themselves (finite); (d) ``MultiModelReplay`` of the multi-model smoke
     day (``REPLAY_MM``), adapter-aware and adapter-blind, its two
     replicas sharing the Llama-3-8B weights, each arm held to its CPU
-    day, with adapter faults, evictions and per-model TTFT p99."""
+    day, with adapter faults, evictions and per-model TTFT p99. The
+    Llama-3-8B of (a), (b) and (d) is cut to its first ``REPLAY_LAYERS``
+    layers."""
     import dataclasses
 
     from kubedl_tpu_torch.models import llama
@@ -5297,6 +5328,8 @@ def phase_replay(torch, cfg, params) -> dict:
                                          FlywheelReplay, RLJobSpec,
                                          ServingFleetReplay, ServingReplay,
                                          generate, generate_fleet)
+    cfg = dataclasses.replace(cfg, n_layers=REPLAY_LAYERS)
+    params = _first_layers(params, REPLAY_LAYERS)
     out = {}
 
     # (a) the serving smoke day
@@ -5316,7 +5349,8 @@ def phase_replay(torch, cfg, params) -> dict:
                       "tick_launches": ticks,
                       "requests": got["requests_completed"],
                       "tokens": got["tokens_generated"]}
-    log(f"[replay] (a) the smoke serving day on Llama-3-8B bf16: "
+    log(f"[replay] (a) the smoke serving day on Llama-3-8B bf16 "
+        f"({cfg.n_layers} layers): "
         f"{got['requests_completed']} requests, {got['tokens_generated']} "
         f"tokens, {got['engine_ticks']} ticks in {wall:.2f} s (median "
         f"host {out['serving']['host_ms_median']:.3f} ms a tick; decode "
@@ -5349,7 +5383,8 @@ def phase_replay(torch, cfg, params) -> dict:
                     "host_ms_median": _median_ms([x for h in host
                                                   for x in h]),
                     "tick_launches": ticks}
-    log(f"[replay] (b) the disaggregated fleet day on Llama-3-8B bf16, 2 "
+    log(f"[replay] (b) the disaggregated fleet day on Llama-3-8B bf16 "
+        f"({cfg.n_layers} layers), 2 "
         f"replicas sharing the weights: {got['requests_completed']} "
         f"requests, {got['handoffs']} handoffs, {got['engine_ticks']} "
         f"ticks in {wall:.2f} s (median host "
@@ -5462,7 +5497,8 @@ def _multimodel_days(torch, cfg, params) -> dict:
                     "per_model_ttft_p99_s": {
                         m: v["ttft_s"].get("p99")
                         for m, v in mm["per_model"].items()}}
-        log(f"{tag} on Llama-3-8B bf16, 2 replicas sharing the weights: "
+        log(f"{tag} on Llama-3-8B bf16 ({cfg.n_layers} layers), 2 replicas "
+            f"sharing the weights: "
             f"{got['requests_completed']} requests, {got['engine_ticks']} "
             f"ticks in {wall:.2f} s (median host "
             f"{out[arm]['host_ms_median']:.3f} ms a replica step; decode "
@@ -5947,6 +5983,114 @@ def phase_auto(torch, cfg, params) -> dict:
             "best_probe": best, "meets_slo": slo.met_by(best),
             "env": env, "settings": settings, "pool_bytes": pool,
             "serve_s": serve_s, "served": held}
+
+
+# -- slice 19: the federation day -------------------------------------------
+
+#: [fed]: the three-region topology of the JAX package's federation tests
+FED_TOPOLOGY = ("us-east,us-west,eu-west;us-east~us-west=65/0.02;"
+                "us-east~eu-west=140/0.05;us-west~eu-west=150/0.05")
+
+
+def _federation_day(device, model=None, on_engine=None) -> tuple:
+    """(the federation object, its result, its journals' bytes) of one
+    ``FederationReplay`` of ``FED_TOPOLOGY`` at seed 0, its journals in a
+    temporary directory under the build folder, removed after the day;
+    ``on_engine`` is handed every engine the fleets' factory builds (the
+    evacuation may build more)."""
+    import shutil
+    import tempfile
+
+    from kubedl_tpu_torch.federation import FederationReplay, RegionTopology
+    from kubedl_tpu_torch.serving import batching
+
+    real = batching.ContinuousBatchingEngine
+
+    class Recorded(real):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            if on_engine is not None:
+                on_engine(self)
+    BUILD_OUT.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="fed-", dir=BUILD_OUT)
+    try:
+        with unittest.mock.patch.object(batching, "ContinuousBatchingEngine",
+                                        Recorded):
+            fed = FederationReplay(RegionTopology.parse(FED_TOPOLOGY), root,
+                                   seed=0, model=model, device=device)
+            res = fed.run()
+        return fed, res, _dir_bytes(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_fed(torch, cfg, params) -> dict:
+    """The federation day (``federation/replay.py``): three regions in
+    lockstep on one sim clock, each a journaled, replicated control plane
+    with its scheduler and elastic gate and a two-replica serving fleet,
+    one region evacuated mid-day. On the card its six engines share the
+    serving phases' Llama-3-8B bf16 weights (nothing writes them), at full
+    width and depth; the day is held key by key, and its live status
+    document too, to the same day on the CPU on the replays' tiny float32
+    model (every request has a fixed ``max_new`` and no stop token, so
+    what the day observes is scheduling). Every decode tick of every
+    engine takes the graph route; K1-K3 launches are counted (none are
+    expected: the engines decode by einsum over the cache)."""
+    from kubedl_tpu_torch.ops import attention as attn
+    tag = "[fed]"
+    t0 = time.perf_counter()
+    cpu_fed, want, _ = _federation_day("cpu")
+    cpu_s = time.perf_counter() - t0
+    engines, host = [], []
+
+    def built(eng):
+        engines.append(eng)
+        host.append(_host_timer(eng, "step"))
+    _reset_counts(attn)
+    t0 = time.perf_counter()
+    fed, got, journal_bytes = _federation_day("cuda", (cfg, params), built)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts(attn, tag)
+    _same_day(f"{tag} the federation day", got, want)
+    if fed.status() != cpu_fed.status():
+        raise AssertionError(f"{tag}: the live status differs from the "
+                             f"CPU day's: {fed.status()} != "
+                             f"{cpu_fed.status()}")
+    jobs, serving = got["jobs"], got["serving"]
+    lost = [e["ackObjectsLost"] for e in got["evacuations"].values()]
+    if not (len(engines) == 6 and jobs["completed"] == jobs["submitted"]
+            and serving["completed_ok"] == serving["streams"] > 0
+            and lost and not any(lost)
+            and got["slo_health"]["stranded_alerts"] == 0
+            and got["forensics"]["summary"]["pages_unlinked"] == 0):
+        raise AssertionError(f"{tag}: {len(engines)} engines, jobs {jobs}, "
+                             f"serving {serving}, lost {lost}, "
+                             f"{got['slo_health']}")
+    ticks = [_graph_only(eng, f"{tag} engine {i}")
+             for i, eng in enumerate(engines)]
+    steps = [x for h in host for x in h]
+    out = {"wall_s": wall, "cpu_s": cpu_s, "rounds": got["rounds"],
+           "ticks": sum(t["graph"] for t in ticks), "tick_launches": ticks,
+           "replica_steps": len(steps), "host_ms_median": _median_ms(steps),
+           "launches": launches, "journal_bytes": journal_bytes,
+           "jobs": jobs["completed"], "streams": serving["completed_ok"],
+           "rerouted": serving["rerouted"]}
+    log(f"{tag} the federation day on Llama-3-8B bf16, 3 regions x 2 "
+        f"replicas sharing the weights, one region evacuated: "
+        f"{jobs['completed']}/{jobs['submitted']} jobs, "
+        f"{serving['completed_ok']}/{serving['streams']} streams "
+        f"({serving['rerouted']} rerouted), {got['rounds']} rounds, "
+        f"{out['ticks']} decode ticks (all graph, by engine "
+        f"{[t['graph'] for t in ticks]}) in {wall:.2f} s; median host "
+        f"{out['host_ms_median']:.3f} ms over {len(steps)} replica steps; "
+        f"K1-K3 launches {launches}; journals {journal_bytes} bytes "
+        f"(removed); the CPU day {cpu_s:.2f} s; equal key by key "
+        f"({_card()})")
+    del fed, engines, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _reset_counts(attn) -> None:
@@ -6859,14 +7003,14 @@ def _tp_probe(torch, only, timed) -> None:
 
 
 def _replay_probe(torch, only, timed) -> None:
-    """``[replay]``, ``[spec]`` and ``[auto]`` on their own, on
-    Llama-3-8B from seed 0 (the serving phase's weights)."""
+    """``[replay]``, ``[spec]``, ``[auto]`` and ``[fed]`` on their own,
+    on Llama-3-8B from seed 0 (the serving phase's weights)."""
     from kubedl_tpu_torch.models import llama
     cfg = llama.llama3_8b()
     params = llama.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     for name, fn in (("replay", phase_replay), ("spec", phase_spec),
-                     ("auto", phase_auto)):
+                     ("auto", phase_auto), ("fed", phase_fed)):
         if name in only:
             timed(name, fn, torch, cfg, params)
     del params
@@ -6876,7 +7020,8 @@ def _replay_probe(torch, only, timed) -> None:
 
 def _probe(torch, argv, timed) -> int:
     """``--phases hf,lifecycle,resnet,moe_timing,dist,tp,tp2,ring,cp2,ep2,
-    pp,pp2,grpo,replay,spec,auto,native,moe_int8 [--layers N]``: the named
+    pp,pp2,grpo,replay,spec,auto,fed,native,moe_int8 [--layers N]``: the
+    named
     phases alone after the
     build,
     the slice-10 ones on Gemma-2B ``N`` layers deep, ``dist`` after the
@@ -6889,14 +7034,14 @@ def _probe(torch, argv, timed) -> int:
             len(argv) == 4 and argv[2] != "--layers"):
         print("usage: chip_smoke.py [--phases hf,lifecycle,resnet,"
               "moe_timing,dist,tp,tp2,ring,cp2,ep2,pp,pp2,grpo,replay,spec,"
-              "auto,native,moe_int8 [--layers N]]", file=sys.stderr)
+              "auto,fed,native,moe_int8 [--layers N]]", file=sys.stderr)
         return 2
     only = set(argv[1].split(","))
     layers = int(argv[3]) if len(argv) == 4 else None
     log("[env] " + _card())
     if only & {"tp", "tp2"}:
         _tp_probe(torch, only, timed)
-    if only & {"replay", "spec", "auto"}:
+    if only & {"replay", "spec", "auto", "fed"}:
         _replay_probe(torch, only, timed)
     if "native" in only:
         timed("native", phase_native, torch)
@@ -6985,6 +7130,7 @@ def main() -> int:
     replay_run = timed("replay", phase_replay, torch, cfg8b, params)
     spec_run = timed("spec", phase_spec, torch, cfg8b, params)
     timed("auto", phase_auto, torch, cfg8b, params)
+    fed_run = timed("fed", phase_fed, torch, cfg8b, params)
     del params, cont
     gc.collect()                 # the 16 GB serving model goes first
     torch.cuda.empty_cache()
@@ -7094,6 +7240,7 @@ def main() -> int:
                            name],
                        "replay_flywheel": replay_run["flywheel"][
                            "launches"][name],
+                       "fed": fed_run["launches"][name],
                        "native_training": native_run["launches"][name],
                        **{f"cp2_{impl}_{mode}": both_ranks(
                            cp2_run[f"{mode}_{impl}"], name)

@@ -1,5 +1,6 @@
-"""What the port needs of the operator's core: the API-server client of
-an in-cluster job (``kubeclient``) with the error family every caller
-catches, the simulated clock the replays run on (``clock``), the object
-helpers (``meta``) and the event types (``events``) of the SLO
-evaluator."""
+"""Kubernetes substrate: object model, in-memory API server, client, manager.
+
+Copied from ``kubedl_tpu/core/__init__.py`` (the port imports nothing of the JAX package).
+"""
+
+from .clock import SimClock  # noqa: F401  (the shared injectable clock)

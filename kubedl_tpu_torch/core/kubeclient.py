@@ -38,34 +38,12 @@ import urllib.parse
 from dataclasses import dataclass
 from typing import Optional
 
+# the in-memory API server's error family, so one ``except`` catches either
+# server's (``ServerError`` is what the SLO evaluator catches)
+from .apiserver import (ApiError, Conflict, Invalid, NotFound,  # noqa: F401
+                        ServerError)
+
 Obj = dict
-
-
-# -- errors (the JAX package's ``core/apiserver.py`` family) ------------------
-
-class ApiError(Exception):
-    """A failed API-server call; ``code`` is the HTTP status when the
-    server answered."""
-
-
-class NotFound(ApiError):
-    pass
-
-
-class Conflict(ApiError):
-    pass
-
-
-class Invalid(ApiError):
-    pass
-
-
-class ServerError(ApiError):
-    """Transient 5xx-class failure (API server overloaded, a leader
-    election, a connection reset): callers retry it. The client raises
-    no such error itself (a 5xx answer is an :class:`ApiError`, as in the
-    JAX client); the SLO evaluator catches it from any API object it is
-    handed."""
 
 
 # -- REST mapping ------------------------------------------------------------

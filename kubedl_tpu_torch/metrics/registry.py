@@ -1,12 +1,13 @@
 """Metrics registry with Prometheus text exposition.
 
-Copied from ``kubedl_tpu/metrics/registry.py`` (the port imports nothing
-from the JAX package): ``Registry``, ``Counter``, ``Gauge`` and
-``Histogram``; ``PagedKVMetrics``, the part the predictor server's
-``/metrics`` uses; and the families the replays record into:
-``TraceMetrics`` (the span recorder's health), ``ServingFleetMetrics``
-(replica health, router placements, prefill handoffs) and ``RLMetrics``
-(the RL flywheel's rollout floor, staleness and publishes).
+Stdlib-only equivalent of the reference's ``pkg/metrics`` (``job_metrics.go:
+34-62,120-195``, documented in ``docs/metrics.md``). Metric names are kept
+verbatim (``kubedl_jobs_created`` etc.) so existing dashboards keep working;
+the launch-delay histograms gain a TPU-flavored sibling measuring
+gang-schedule-to-all-running — the operator half of the BASELINE
+"gang-schedule-to-first-step" target.
+
+Copied from ``kubedl_tpu/metrics/registry.py`` (the port imports nothing of the JAX package).
 """
 
 from __future__ import annotations
@@ -201,12 +202,47 @@ def _merge(lbl: str, extra: str) -> str:
     return f"{{{lbl},{extra}}}" if lbl else f"{{{extra}}}"
 
 
+#: reconcile latencies are control-plane-fast (sub-ms to seconds), not the
+#: job-launch-delay scale the default buckets cover
+_LATENCY_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+
+
+class ControlPlaneMetrics:
+    """Workqueue + reconcile instrumentation (the controller-runtime
+    workqueue/controller metric set): queue depth and in-flight gauges,
+    queue-wait and reconcile-latency histograms, dispatch counter. The
+    Manager maintains these on its hot path; ``bench_controlplane.py``
+    and the ``/metrics`` endpoint read them."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.queue_depth = r.gauge(
+            "kubedl_workqueue_depth",
+            "Distinct request keys waiting in the controller workqueue")
+        self.queue_inflight = r.gauge(
+            "kubedl_workqueue_inflight",
+            "Request keys being reconciled right now")
+        self.queue_latency = r.histogram(
+            "kubedl_workqueue_duration_seconds",
+            "Time from a request becoming ready to a worker claiming it",
+            buckets=_LATENCY_BUCKETS)
+        self.reconciles = r.counter(
+            "kubedl_reconciles_total",
+            "Reconcile dispatches by primary kind", ("kind",))
+        self.reconcile_latency = r.histogram(
+            "kubedl_reconcile_latency_seconds",
+            "Wall-clock latency of one reconcile dispatch",
+            ("kind",), buckets=_LATENCY_BUCKETS)
+
+
 class PagedKVMetrics:
     """Paged KV-cache pool instrumentation for the serving predictor's
     ``/metrics``: pool occupancy (capacity planning), the shared-block
-    ratio (how much memory prefix copy-on-write sharing is saving), and
-    the preemption counter (a rising rate means the pool is undersized
-    for the offered load). Refreshed from the engine's ``pool_stats()``
+    ratio (how much HBM prefix copy-on-write sharing is saving), and the
+    preemption counter (a rising rate means the pool is undersized for
+    the offered load). Refreshed from the engine's ``pool_stats()``
     snapshot on scrape."""
 
     def __init__(self, registry: Optional[Registry] = None):
@@ -250,6 +286,240 @@ class PagedKVMetrics:
         if delta > 0:
             self.preemptions.inc(delta)
             self._preempt_seen = stats["preempted"]
+
+
+#: queue waits span sub-second test admissions to hours of real quota
+#: starvation; reuse launch-delay-style buckets with a short head
+_QUEUE_WAIT_BUCKETS = (0.1, 0.5, 1, 5, 15, 60, 300, 900, 1800, 3600,
+                       7200, 14400, 43200)
+
+
+class SchedulerMetrics:
+    """Slice-scheduler instrumentation (docs/scheduling.md): pending work
+    per queue, admission/preemption/backfill counters, the queue-wait
+    histogram, and the inventory resync health pair (a rising drift count
+    means watch events are being lost faster than resyncs repair them)."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.pending_gangs = r.gauge(
+            "kubedl_scheduler_pending_gangs",
+            "Complete gangs waiting for admission, per queue", ("queue",))
+        self.held_slices = r.gauge(
+            "kubedl_scheduler_held_slices",
+            "Slices held by admitted gangs, per queue", ("queue",))
+        self.free_slices = r.gauge(
+            "kubedl_scheduler_free_slices",
+            "Unheld slices per pool (pools with known capacity)", ("pool",))
+        self.admitted = r.counter(
+            "kubedl_scheduler_admitted_total",
+            "Gangs admitted, per queue", ("queue",))
+        self.preempted = r.counter(
+            "kubedl_scheduler_preempted_total",
+            "Gangs evicted to reclaim min quota, per victim queue",
+            ("queue",))
+        self.backfills = r.counter(
+            "kubedl_scheduler_backfills_total",
+            "Admissions that jumped a capacity-blocked queue head",
+            ("queue",))
+        self.passes = r.counter(
+            "kubedl_scheduler_passes_total", "Scheduling passes run")
+        self.resyncs = r.counter(
+            "kubedl_scheduler_inventory_resyncs_total",
+            "Full inventory rescans performed")
+        self.drift = r.counter(
+            "kubedl_scheduler_inventory_drift_total",
+            "Rescans that found divergence (lost watch events repaired)")
+        self.queue_wait = r.histogram(
+            "kubedl_scheduler_queue_wait_seconds",
+            "Gang creation to admission, per queue", ("queue",),
+            buckets=_QUEUE_WAIT_BUCKETS)
+        # placement scoring (docs/scheduling.md "Placement scoring");
+        # the families register unconditionally, they only move while
+        # the TPUPlacementScoring gate is on
+        self.scored_placements = r.counter(
+            "kubedl_scheduler_scored_placements_total",
+            "Scored gang placements, per chosen pool", ("pool",))
+        self.ici_straddled = r.counter(
+            "kubedl_scheduler_ici_straddled_total",
+            "Scored placements spanning more than one ICI domain",
+            ("pool",))
+
+
+class TelemetryMetrics:
+    """Fleet goodput / straggler / throughput-profile families
+    (docs/telemetry.md): the operator-facing products distilled from the
+    trace spans and metric registries by ``kubedl_tpu_torch.telemetry``. The
+    families register unconditionally like TraceMetrics; they only move
+    while the FleetTelemetry gate is on (off = all zeroes)."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.fleet_goodput = r.gauge(
+            "kubedl_goodput_fleet_ratio",
+            "Fraction of observed chip wall-clock spent in productive "
+            "train.step time, across all retired jobs")
+        self.goodput_seconds = r.counter(
+            "kubedl_goodput_seconds_total",
+            "Retired-job wall-clock seconds by goodput category "
+            "(productive plus each overhead bucket)", ("category",))
+        self.jobs_observed = r.counter(
+            "kubedl_goodput_jobs_observed_total",
+            "Retired jobs whose traces were folded into the goodput "
+            "accounting")
+        self.slow_slices = r.counter(
+            "kubedl_telemetry_slow_slices_total",
+            "SlowSlice detections (one per skew onset, not per scan)",
+            ("kind",))
+        self.slow_slice_active = r.gauge(
+            "kubedl_telemetry_slow_slice_active",
+            "Jobs currently carrying a True SlowSlice condition")
+        self.profile_tokens_per_s = r.gauge(
+            "kubedl_throughput_profile_tokens_per_s",
+            "Online decayed throughput estimate per (profile, pool)",
+            ("profile", "pool"))
+        self.profile_samples = r.counter(
+            "kubedl_throughput_profile_samples_total",
+            "Observations folded into each throughput profile",
+            ("profile", "pool"))
+
+
+class SLOMetrics:
+    """SLO engine families (docs/slo.md): how much error budget each
+    objective has left, the live burn rates behind the multi-window
+    verdicts, and alert onsets. Constructed only when the SLOEngine gate
+    is on — the disabled operator's exposition carries no ``kubedl_slo_*``
+    family at all (the byte-identical-disabled convention)."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.budget_remaining = r.gauge(
+            "kubedl_slo_budget_remaining_ratio",
+            "Error budget left over the objective's compliance window "
+            "(1.0 = untouched, 0.0 = spent, negative = violated)",
+            ("slo",))
+        self.burn_rate = r.gauge(
+            "kubedl_slo_burn_rate",
+            "Error-budget burn rate per alert window (1.0 = spending "
+            "exactly the budget over the compliance window)",
+            ("slo", "window"))
+        self.alerts = r.counter(
+            "kubedl_slo_alerts_total",
+            "Burn-rate alert onsets (one per onset, not per evaluation)",
+            ("slo", "severity"))
+        self.alerts_active = r.gauge(
+            "kubedl_slo_alerts_active",
+            "Alert severities currently firing per objective", ("slo",))
+
+
+class DurabilityMetrics:
+    """Durable-control-plane families (docs/durability.md): WAL append
+    throughput and fsync group-commit latency, snapshot cadence, watch
+    relists the bookmark ring could not avoid, and the sharded
+    workqueue's per-shard occupancy. Constructed only when the
+    DurableControlPlane gate is on — the disabled operator's exposition
+    carries none of these families (the byte-identical-disabled
+    convention)."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.journal_appends = r.counter(
+            "kubedl_journal_appends_total",
+            "Write-ahead-journal records appended (commits + deletes)")
+        self.journal_fsync = r.histogram(
+            "kubedl_journal_fsync_seconds",
+            "Group-commit fsync latency (one fsync per fsync_every "
+            "appended records)", buckets=_LATENCY_BUCKETS)
+        self.snapshot_writes = r.counter(
+            "kubedl_snapshot_writes_total",
+            "Store snapshots serialized (WAL rotations)")
+        self.watch_relists = r.counter(
+            "kubedl_watch_relists_total",
+            "Bookmark-resumed watches that fell back to a full relist, "
+            "by reason (too_old = ring evicted the bookmark, "
+            "ring_disabled = no event ring on this store)", ("reason",))
+        self.shard_owned_keys = r.gauge(
+            "kubedl_shard_owned_keys",
+            "Live queued request keys per reconcile shard", ("shard",))
+        self.journal_recovered = r.gauge(
+            "kubedl_journal_recovered_info",
+            "Provenance of the last journal recovery (info pattern: "
+            "value 1, labels carry which snapshot generation the world "
+            "came from and how much WAL tail was replayed) — the "
+            "post-crash forensics anchor (docs/forensics.md)",
+            ("snapshot_rv", "snapshot_file", "wal_records",
+             "torn_records", "objects", "rv"))
+
+
+class ReplicationMetrics:
+    """Replicated-control-plane families (docs/replication.md): how far
+    each follower's applied rv trails the leader, the shipping stream's
+    volume, promotion count, and the live stream epoch (the fencing
+    token — a bumped epoch means a failover happened). Constructed only
+    when replication is on (``--replication-followers`` > 0) — the
+    disabled operator's exposition carries none of these families (the
+    byte-identical-disabled convention)."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.follower_lag = r.gauge(
+            "kubedl_replication_follower_lag_rv",
+            "Leader resourceVersion minus the follower's applied rv "
+            "(0 = fully caught up)", ("follower",))
+        self.shipped_batches = r.counter(
+            "kubedl_replication_shipped_batches_total",
+            "Sealed group-commit WAL batches shipped to followers")
+        self.shipped_bytes = r.counter(
+            "kubedl_replication_shipped_bytes_total",
+            "Serialized WAL bytes shipped to followers")
+        self.promotions = r.counter(
+            "kubedl_replication_promotions_total",
+            "Followers promoted to leader after a leader loss")
+        self.epoch = r.gauge(
+            "kubedl_replication_epoch",
+            "Current replication stream epoch (bumped on every "
+            "promotion; a follower rejects frames from older epochs)")
+        self.stale_frames = r.counter(
+            "kubedl_replication_stale_frames_total",
+            "Frames rejected for carrying a deposed leader's epoch "
+            "(the zombie fence)", ("follower",))
+
+
+class ElasticMetrics:
+    """Concurrency-elastic training families (docs/elastic.md "Elastic
+    slices"): restart-free reconfigurations by direction, slices shed by
+    the scheduler's shrink pass / regrown on returning capacity, and the
+    reconfiguration-window histogram (the shrink analog of restart
+    MTTR). Constructed only when the TPUElasticSlices gate is on — the
+    disabled operator's exposition carries no ``kubedl_elastic_*``
+    family at all (the byte-identical-disabled convention)."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.reconfigurations = r.counter(
+            "kubedl_elastic_reconfigurations_total",
+            "Restart-free world reconfigurations driven to completion, "
+            "by direction (shrink / grow)", ("kind", "direction"))
+        self.shrunk_slices = r.counter(
+            "kubedl_elastic_shrunk_slices_total",
+            "Slices shed in place by the scheduler's shrink pass "
+            "(surplus-only preemptions; the job kept Running)", ("pool",))
+        self.regrown_slices = r.counter(
+            "kubedl_elastic_regrown_slices_total",
+            "Slices admitted to an already-running elastic gang "
+            "(regrow after a shrink, or completing a partial-width "
+            "start)", ("pool",))
+        self.reconfigure_seconds = r.histogram(
+            "kubedl_elastic_reconfigure_seconds",
+            "Checkpoint request to reconfigured world (the elastic "
+            "analog of restart MTTR)", ("kind",),
+            buckets=_MTTR_BUCKETS)
 
 
 class ServingFleetMetrics:
@@ -398,6 +668,55 @@ class ServingFleetMetrics:
         self.draining.set(draining)
 
 
+class FederationMetrics:
+    """Multi-region federation families (docs/federation.md): the
+    cross-region WAL shipping stream's retry/exhaustion counters, global
+    queue-routing decisions, evacuation outcomes, and the follower-read
+    path. Constructed only when the Federation gate is on — the disabled
+    operator's exposition carries no ``kubedl_federation_*`` family at
+    all (the byte-identical-disabled convention)."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.ship_retries = r.counter(
+            "kubedl_federation_ship_retries_total",
+            "Cross-region WAL ship attempts retried after a transient "
+            "failure (exponential backoff; bounded)", ("region",))
+        self.ship_frames = r.counter(
+            "kubedl_federation_ship_frames_total",
+            "Cross-region WAL frames delivered to a peer region's "
+            "standby", ("region",))
+        self.ship_exhausted = r.counter(
+            "kubedl_federation_ship_exhausted_total",
+            "Frames abandoned after the retry budget ran out (a Warning "
+            "Event fires; the standby catches up by snapshot resync)",
+            ("region",))
+        self.jobs_routed = r.counter(
+            "kubedl_federation_jobs_routed_total",
+            "Jobs landed by the global router, by chosen region",
+            ("region",))
+        self.jobs_evacuated = r.counter(
+            "kubedl_federation_jobs_evacuated_total",
+            "Jobs emigrated out of a dead region (object-store restore "
+            "in a survivor)", ("region",))
+        self.follower_reads = r.counter(
+            "kubedl_federation_follower_reads_total",
+            "Cross-region reads served from a peer region's standby",
+            ("region",))
+        self.read_redirects = r.counter(
+            "kubedl_federation_read_redirects_total",
+            "Cross-region reads redirected because the standby was "
+            "mid-promotion (never a torn read)", ("region",))
+        self.streams_rerouted = r.counter(
+            "kubedl_federation_streams_rerouted_total",
+            "Serving streams re-homed off a dead region's catalog "
+            "partition", ("region",))
+        self.regions_down = r.gauge(
+            "kubedl_federation_regions_down",
+            "Regions currently evacuated")
+
+
 class RLMetrics:
     """RL post-training flywheel families (docs/rl.md): rollout-tenant
     throughput against its declared floor, rollout batches consumed by
@@ -453,3 +772,55 @@ class TraceMetrics:
         self.buffered = r.gauge(
             "kubedl_trace_buffer_spans",
             "Spans currently held in the ring buffer")
+
+
+#: job launch delays at fleet scale INCLUDE queue wait (the admission
+#: gate holds pod creation until the scheduler admits the gang), so the
+#: distribution runs from sub-second test admissions to hours of quota
+#: starvation. The generic ``_DEFAULT_BUCKETS`` top out at 600s — under
+#: the measured fleet-shape queue delays (BENCH_SCHEDULER.json p50
+#: 295-595s) that clamps most of the mass into +Inf.
+_JOB_DELAY_BUCKETS = (0.5, 1, 2.5, 5, 10, 30, 60, 120, 300, 600,
+                      1200, 1800, 3600, 7200, 14400, 43200)
+
+#: restart MTTR runs from seconds (in-place slice recreation) through
+#: backoff rounds and a re-queue stint to, pathologically, hours
+_MTTR_BUCKETS = (1, 2.5, 5, 10, 20, 40, 60, 120, 300, 600,
+                 1200, 1800, 3600, 7200)
+
+
+class JobMetrics:
+    """The reference's per-kind job metric set (``pkg/metrics/job_metrics.go``)."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.created = r.counter("kubedl_jobs_created", "Counts number of jobs created", ("kind",))
+        self.deleted = r.counter("kubedl_jobs_deleted", "Counts number of jobs deleted", ("kind",))
+        self.successful = r.counter("kubedl_jobs_successful", "Counts number of jobs successfully finished", ("kind",))
+        self.failed = r.counter("kubedl_jobs_failed", "Counts number of jobs failed", ("kind",))
+        self.restarted = r.counter("kubedl_jobs_restarted", "Counts number of jobs restarted", ("kind",))
+        self.running = r.gauge("kubedl_jobs_running", "Counts number of jobs running currently", ("kind",))
+        self.pending = r.gauge("kubedl_jobs_pending", "Counts number of jobs pending currently", ("kind",))
+        self.first_pod_launch_delay = r.histogram(
+            "kubedl_jobs_first_pod_launch_delay_seconds",
+            "Histogram for recording launch delay duration (from job created to first pod running)",
+            ("kind",), buckets=_JOB_DELAY_BUCKETS)
+        self.all_pods_launch_delay = r.histogram(
+            "kubedl_jobs_all_pods_launch_delay_seconds",
+            "Histogram for recording launch delay duration (from job created to all pods running)",
+            ("kind",), buckets=_JOB_DELAY_BUCKETS)
+        # TPU-native: the operator half of gang-schedule-to-first-step
+        self.gang_to_all_running = r.histogram(
+            "kubedl_jobs_gang_schedule_to_all_running_seconds",
+            "Histogram from gang (PodGroup) creation to all slice workers running",
+            ("kind",), buckets=_JOB_DELAY_BUCKETS)
+        # TPU-native: slice disruption -> every replica active again (the
+        # whole outage window: teardown + backoff + re-queue + recreate +
+        # rendezvous). The engine marks the outage start when it stamps a
+        # restart round and observes here on the first all-active
+        # reconcile after it.
+        self.restart_mttr = r.histogram(
+            "kubedl_jobs_restart_mttr_seconds",
+            "Histogram from slice disruption to all replicas active again",
+            ("kind",), buckets=_MTTR_BUCKETS)

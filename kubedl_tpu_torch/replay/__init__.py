@@ -15,12 +15,17 @@ package's ``kubedl_tpu/replay`` modules that drive an engine):
   fleet day with a Zipf adapter catalog, adapter-aware against
   adapter-blind routing (``replay/multimodel.py``).
 
-Each runs on the card unless the caller passes ``device="cpu"``. The
-cluster replay of the control plane and its scorecards stay with the JAX
-operator.
+Each runs on the card unless the caller passes ``device="cpu"``. Beside
+them, :class:`ClusterReplay` drives a job day through the real control
+plane (the journaled, replicated API server, the manager, the slice
+scheduler and the engine, under chaos) and no serving engine
+(``replay/harness.py``, a copy); the federation day runs one per region
+(:mod:`kubedl_tpu_torch.federation`). The scorecards and the elastic
+comparison stay with the JAX operator.
 """
 
 from .workload import PROFILES, Profile, Workload, generate  # noqa: F401
+from .harness import ClusterReplay  # noqa: F401
 from .serving import ServingReplay, default_serving_slos  # noqa: F401
 from .fleet import (FLEET_PROFILES, FleetProfile,  # noqa: F401
                     FleetWorkload, ServingFleetReplay, generate_fleet,

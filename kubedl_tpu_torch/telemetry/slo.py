@@ -34,7 +34,7 @@ runs on the injected clock — sim-clock replays produce bit-for-bit
 identical verdicts.
 
 Copied from ``kubedl_tpu/telemetry/slo.py`` (the port imports nothing of the
-JAX package); the API error family comes from the port's ``core/kubeclient``.
+JAX package).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ from collections import deque
 from typing import Optional
 
 from ..api.slo import SLO_KIND, SLOSpec
-from ..core.kubeclient import ApiError, Conflict, NotFound, ServerError
+from ..core.apiserver import ApiError, Conflict, NotFound, ServerError
 from ..core.events import TYPE_NORMAL, TYPE_WARNING
 from ..core.meta import rfc3339
 

@@ -1,18 +1,32 @@
-"""In-process span recorder (copied from ``kubedl_tpu/trace/tracer.py``;
-the port imports nothing from the JAX package).
+"""In-process span recorder: the operator's end-to-end tracing core.
 
-Spans are ``(trace_id, span_id, parent_id, name, start, end,
-attributes)`` records written once both endpoints are known into a
-bounded ring buffer; overflow drops the oldest span and counts the drop.
-The disabled tracer (the default) returns after one attribute check.
-The serving engine records its prefill/decode spans here, the trainer its
-``train.step`` spans; ``spans()`` reads them back, and the replays drain
-the ring with ``spans()`` then ``clear()``. ``metrics`` is an optional
-:class:`~kubedl_tpu_torch.metrics.registry.TraceMetrics`.
+The aggregate metric families (docs/metrics.md) answer "how is the fleet
+doing"; this subsystem answers "where did THIS job's / THIS request's
+time go". Design (docs/tracing.md):
+
+* **spans** — ``(trace_id, span_id, parent_id, name, start, end,
+  attributes)`` tuples, recorded post-hoc (a span is written once it has
+  both endpoints, so the recorder never holds open handles for the hot
+  paths) into a bounded ring buffer — tracing can never OOM the
+  operator; overflow drops the *oldest* span and counts the drop;
+* **context** — W3C-traceparent-style (``00-<32 hex>-<16 hex>-01``).
+  The job's context is *deterministically derived from its UID*, so
+  every component (engine, scheduler, console, in-pod trainer) computes
+  the same trace without coordination; a client-supplied
+  ``kubedl.io/traceparent`` annotation overrides the derivation, the
+  engine stamps the annotation when absent and injects
+  ``KUBEDL_TRACEPARENT`` into pods so in-container payloads join the
+  same trace;
+* **off by default** — the disabled tracer's every entry point is one
+  attribute check away from a shared no-op (the ``perf``-marked budget
+  test in ``tests/test_trace.py`` holds that path to a fixed op count).
+
+Copied from ``kubedl_tpu/trace/tracer.py`` (the port imports nothing of the JAX package).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import re
 import threading
@@ -21,20 +35,50 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
 
-#: pod env var the operator injects so in-container payloads (the trainer)
-#: attach their spans to the owning job's trace
+#: job annotation carrying the W3C-style trace context (client-suppliable;
+#: the engine stamps it when tracing is on and the job has none)
+ANNOTATION_TRACEPARENT = "kubedl.io/traceparent"
+#: pod env var the engine injects so in-container payloads (trainer,
+#: restart agent) attach their spans to the owning job's trace
 ENV_TRACEPARENT = "KUBEDL_TRACEPARENT"
 
 _TRACEPARENT_RE = re.compile(
     r"^00-([0-9a-f]{32})-([0-9a-f]{16})-[0-9a-f]{2}$")
 
 
+def format_traceparent(trace_id: str, span_id: str) -> str:
+    """``00-<trace_id>-<span_id>-01`` (sampled flag always set: recording
+    is the tracer's on/off switch, not per-context sampling)."""
+    return f"00-{trace_id}-{span_id}-01"
+
+
 def parse_traceparent(value: str) -> Optional[tuple]:
-    """``(trace_id, span_id)`` of a ``00-<trace>-<span>-<flags>`` value,
-    or None for anything malformed (a bad context degrades to a fresh
-    trace, never an error)."""
+    """``(trace_id, span_id)`` or None for anything malformed (a bad
+    client annotation degrades to the derived context, never an error)."""
     mt = _TRACEPARENT_RE.match((value or "").strip().lower())
     return (mt.group(1), mt.group(2)) if mt else None
+
+
+def derive_context(key: str) -> tuple:
+    """Deterministic ``(trace_id, root_span_id)`` for a stable key (job
+    UID). Every component derives the same pair independently, so spans
+    recorded by the engine, the scheduler, and an in-pod trainer land in
+    one trace with one shared root — no context-passing plumbing."""
+    h = hashlib.sha256(f"kubedl-trace:{key}".encode()).hexdigest()
+    return h[:32], h[32:48]
+
+
+def job_trace_context(job: dict) -> tuple:
+    """``(trace_id, root_span_id)`` for a job object: the traceparent
+    annotation when present (client-controlled), else derived from UID
+    (falling back to ns/name for objects that never got one)."""
+    md = job.get("metadata") or {}
+    ctx = parse_traceparent((md.get("annotations") or {}).get(
+        ANNOTATION_TRACEPARENT, ""))
+    if ctx is not None:
+        return ctx
+    key = md.get("uid") or f"{md.get('namespace', '')}/{md.get('name', '')}"
+    return derive_context(key)
 
 
 @dataclass
@@ -121,8 +165,9 @@ class Tracer:
 
     ``enabled=False`` (the default) is the production-off state: every
     public method returns immediately after one attribute check, and the
-    buffers stay empty. ``clock`` is injectable (tests and the replays
-    pass a simulated one); ``metrics`` is an optional ``TraceMetrics``."""
+    buffers stay empty. ``clock`` is injectable so control-plane spans
+    ride the api server's (fake-in-tests) clock; ``metrics`` is an
+    optional :class:`~kubedl_tpu_torch.metrics.registry.TraceMetrics`."""
 
     def __init__(self, enabled: bool = False, capacity: int = 8192,
                  clock=time.time, metrics=None):
@@ -157,7 +202,8 @@ class Tracer:
                parent_id: Optional[str] = None, component: str = "",
                status: str = "ok",
                attributes: Optional[dict] = None) -> Optional[Span]:
-        """Write one completed span with explicit timestamps."""
+        """Write one completed span (explicit timestamps — the scheduler
+        records queue waits whose start predates the call by minutes)."""
         if not self.enabled:
             return None
         span = Span(trace_id=trace_id or self.new_trace_id(),
@@ -193,7 +239,8 @@ class Tracer:
 
     def find_trace_ids(self, **attr_match) -> list:
         """Trace ids of spans whose attributes contain every given
-        key=value pair."""
+        key=value pair (the console resolves ``job=ns/name`` with this
+        when the job object itself is already gone)."""
         seen, out = set(), []
         for s in self.spans():
             if s.trace_id not in seen and all(

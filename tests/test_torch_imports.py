@@ -152,6 +152,22 @@ def test_the_modules_the_import_census_missed_are_checked():
             "kubedl_tpu_torch.native"} <= set(MODULES)
 
 
+def test_the_federation_slice_modules_are_checked():
+    """...and so are the federation day and the control-plane closure it
+    runs (slice 19): the journaled, replicated API server, the manager,
+    the scheduler and its inventory, the controllers, the chaos campaigns,
+    the forensics and the cluster replay."""
+    assert {"kubedl_tpu_torch.federation",
+            "kubedl_tpu_torch.federation.replay",
+            "kubedl_tpu_torch.replay.harness",
+            "kubedl_tpu_torch.core.apiserver",
+            "kubedl_tpu_torch.core.replication",
+            "kubedl_tpu_torch.scheduling.scheduler",
+            "kubedl_tpu_torch.controllers.engine",
+            "kubedl_tpu_torch.chaos.campaign",
+            "kubedl_tpu_torch.forensics"} <= set(MODULES)
+
+
 #: the replays' twins and the modules the port copies for them
 REPLAY_TWINS = ("replay/serving", "replay/rl")
 REPLAY_COPIES = ("core/clock", "api/slo", "core/meta", "telemetry/slo",
@@ -172,6 +188,33 @@ TWINS = {f"kubedl_tpu/{path}.py": f"kubedl_tpu_torch.{path.replace('/', '.')}"
                       "replay/multimodel") + REPLAY_TWINS
          + REPLAY_COPIES}
 TWINS["kubedl_tpu/native/__init__.py"] = "kubedl_tpu_torch.native"
+#: the federation day's control-plane closure, copied (slice 19), and the
+#: modules it completed, which earlier slices had copied in part
+FEDERATION_COPIES = (
+    "api/common", "api/throughputprofile", "chaos/__init__",
+    "chaos/campaign", "controllers/chaos", "controllers/elastic",
+    "controllers/engine", "controllers/expectations",
+    "controllers/hostnetwork", "controllers/interface",
+    "controllers/testing", "core/apiserver", "core/journal",
+    "core/leaderelection", "core/manager", "core/replication",
+    "federation/__init__", "federation/catalog", "federation/routing",
+    "federation/shipping", "federation/topology", "forensics/__init__",
+    "forensics/report", "forensics/timeline", "forensics/worldline",
+    "platform/__init__", "platform/cache", "platform/codesync",
+    "platform/models", "platform/serving", "platform/tensorboard",
+    "replay/harness", "scheduling/__init__", "scheduling/gang",
+    "scheduling/inventory", "scheduling/queue", "scheduling/scheduler",
+    "scheduling/scoring", "telemetry/explainer", "telemetry/goodput",
+    "telemetry/profiles", "telemetry/straggler", "tpu/__init__",
+    "tpu/placement", "tpu/topology", "trace/analysis", "trace/export",
+    "trace/lifecycle", "utils/retry", "utils/status", "utils/tenancy",
+    "utils/train")
+COMPLETED_COPIES = ("core/events", "core/__init__", "metrics/registry",
+                    "metrics/__init__", "trace/tracer", "trace/__init__",
+                    "telemetry/__init__")
+for _path in FEDERATION_COPIES + COMPLETED_COPIES + ("federation/replay",):
+    TWINS[f"kubedl_tpu/{_path}.py"] = "kubedl_tpu_torch." + _path.replace(
+        "/", ".").removesuffix(".__init__")
 #: public names a twin leaves out on purpose: the in-cluster job reads and
 #: patches its own job object, so the client keeps ``get``/``try_get``/
 #: ``patch_merge`` and the job kinds' mapping (kubeconfig files need
@@ -232,7 +275,8 @@ PORT_PARAMS = {
     "SpeculativeEngine.__init__": ["device"],
     "probe_candidate": ["device"], "autoconfigure_multi": ["device"],
     "MultiModelReplay.__init__": ["device"],
-    "run_multimodel_comparison": ["model", "device"]}
+    "run_multimodel_comparison": ["model", "device"],
+    "FederationReplay.__init__": ["model", "device"]}
 
 
 @pytest.mark.parametrize("path", REPLAY_TWINS + REPLAY_COPIES)
@@ -259,7 +303,16 @@ def test_the_slice_18_modules_take_the_jax_ones_parameters(path):
     _check_parameters(path)
 
 
-def _check_parameters(path):
+@pytest.mark.parametrize("path", ("federation/replay",) + FEDERATION_COPIES
+                         + COMPLETED_COPIES)
+def test_the_federation_modules_take_the_jax_ones_parameters(path):
+    """The federation day adds the model and the device; every copy of
+    its closure takes JAX's parameters (a package file with no function
+    of its own checks nothing)."""
+    _check_parameters(path, allow_none=True)
+
+
+def _check_parameters(path, allow_none=False):
     import ast
     import importlib
     mod = importlib.import_module(
@@ -287,7 +340,7 @@ def _check_parameters(path):
             want += [args.kwarg.arg] if args.kwarg else []
             assert _params(obj) == want + PORT_PARAMS.get(name, []), name
             checked += 1
-    assert checked > 0
+    assert checked > 0 or allow_none
 
 
 def _without_docs_and_imports(source: str) -> str:
@@ -308,14 +361,15 @@ def _without_docs_and_imports(source: str) -> str:
 
 
 @pytest.mark.parametrize("path", [p for p in REPLAY_COPIES if p not in (
-    "replay/fleet", "rl/publisher")])
+    "replay/fleet", "rl/publisher")] + list(FEDERATION_COPIES
+                                           + COMPLETED_COPIES))
 def test_the_copied_modules_are_the_jax_ones_to_the_statement(path):
     """A copy differs from its JAX source only in imports and docstrings
     (and in naming the port's package where it names its own, as its
-    logger does). ``replay/fleet`` (the ``device`` and the per-replica
-    weights seam) and ``rl/publisher`` (the install through
-    ``load_weights``) differ on purpose and are checked by name and
-    parameter above."""
+    loggers, the OTLP scope and the predictor's command do).
+    ``replay/fleet`` (the ``device`` and the per-replica weights seam)
+    and ``rl/publisher`` (the install through ``load_weights``) differ on
+    purpose and are checked by name and parameter above."""
     want = (ROOT / f"kubedl_tpu/{path}.py").read_text().replace(
         '"kubedl_tpu.', '"kubedl_tpu_torch.')
     got = (PKG / f"{path}.py").read_text()
@@ -326,15 +380,36 @@ def test_the_copied_modules_are_the_jax_ones_to_the_statement(path):
 #: parameters, and the keywords that hand them on
 ADDED = {"serving/autoconfig": {"*": {"device"}},
          "replay/multimodel": {"*": {"device"},
-                               "run_multimodel_comparison": {"model"}}}
+                               "run_multimodel_comparison": {"model"}},
+         "federation/replay": {"*": {"device", "model"}}}
 
 
 def _without_additions(source: str, added: dict) -> str:
-    """``source`` with ``added``'s parameters and keywords taken out."""
+    """``source`` with ``added``'s parameters and keywords taken out, and
+    with what only they feed: an assignment to one of them, and the
+    branch of a conditional expression whose test reads one (the other
+    branch stays)."""
     import ast
+
+    def reads(node, names):
+        return any(isinstance(n, ast.Name) and n.id in names
+                   for n in ast.walk(node))
 
     class Strip(ast.NodeTransformer):
         drop = added.get("*", set())
+
+        def visit_Assign(self, node):
+            if all(isinstance(t, ast.Name) and t.id in self.drop
+                   for t in node.targets):
+                return None
+            return self.generic_visit(node)
+
+        def visit_IfExp(self, node):
+            self.generic_visit(node)
+            if reads(node.test, self.drop):
+                return node.orelse if reads(node.body, self.drop) \
+                    else node.body
+            return node
 
         def visit_FunctionDef(self, node):
             outer, self.drop = self.drop, self.drop | added.get(node.name,
@@ -360,10 +435,10 @@ def _without_additions(source: str, added: dict) -> str:
 
 @pytest.mark.parametrize("path", sorted(ADDED))
 def test_the_slice_18_twins_are_the_jax_ones_but_for_their_additions(path):
-    """The auto-configurator and the multi-model day are their JAX
-    sources statement for statement once ``ADDED`` is taken out: the
-    selection, the early stop, the pruning, the fallback and the day are
-    JAX's."""
+    """The auto-configurator, the multi-model day and the federation day
+    are their JAX sources statement for statement once ``ADDED`` is taken
+    out: the selection, the early stop, the pruning, the fallback and the
+    days are JAX's."""
     import ast
     want = ast.unparse(ast.parse((ROOT / f"kubedl_tpu/{path}.py")
                                  .read_text()))
@@ -407,8 +482,7 @@ def test_the_packer_is_the_jax_ones_token_for_token():
 
 #: JAX modules whose import closure reaches jax but which have no twin
 #: yet, each with the ROADMAP item that queues it
-QUEUED = {"kubedl_tpu.federation": "A10",
-          "kubedl_tpu.federation.replay": "A10"}
+QUEUED: dict = {}
 
 
 def _import_graph(pkg: str) -> tuple:
@@ -530,6 +604,7 @@ def test_no_import_of_the_jax_package(path):
 
 def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):
     from kubedl_tpu_torch import resolve_device
+    from kubedl_tpu_torch.federation import FederationReplay, RegionTopology
     from kubedl_tpu_torch.models import convert, io, llama, mlp, resnet
     from kubedl_tpu_torch.serving import __main__ as serve_main
     from kubedl_tpu_torch.serving import batching, engine
@@ -571,6 +646,9 @@ def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):
             resnet.tiny(), torch.Generator().manual_seed(0)),
         "mlp.init_params": lambda: mlp.init_params(
             mlp.MLPConfig(), torch.Generator().manual_seed(0)),
+        "FederationReplay": lambda: FederationReplay(
+            RegionTopology.parse("a,b"), str(tmp_path / "fed"),
+            model=(cfg, params)),
     }
     (tmp_path / "hf_in").mkdir()
     (tmp_path / "hf_in" / "config.json").write_text(
@@ -578,6 +656,8 @@ def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    # the federation day refused before any region wrote its journal
+    assert not (tmp_path / "fed").exists()
     monkeypatch.setenv("KUBEDL_MODEL_PATH", str(tmp_path))
     monkeypatch.delenv("KUBEDL_TOKENIZER", raising=False)
     with pytest.raises(RuntimeError, match="CUDA"):
