@@ -235,6 +235,23 @@ directory under ``build/chip_smoke/``, removed after the day
 days on Llama-3-8B run it cut to its first 8 layers (``REPLAY_LAYERS``)
 and ``gemma_predictor`` serves Gemma-2B cut to its first 4 of 18
 (``GPRED_LAYERS``).
+
+Since slice 20, inside ``predictor``, after its batch mode and on the
+same 2-layer artifact, ``op`` runs the port's operator in process as
+``python -m kubedl_tpu_torch`` builds it (``parse_args``,
+``config_from_args``, ``build_operator``, ``run``; SQLite storage under
+``build/chip_smoke/``, tracing on): an ``Inference`` submitted through
+the clientset becomes a Deployment and a pod, whose rendered container
+command (``python -m kubedl_tpu_torch.serving``) the script runs as
+kubelet would, with the rendered env (only the model path, the port and
+``PYTHONPATH`` rewritten); then the console (``ConsoleServer`` over a
+``DataProxy`` of the operator) lists it, proxies ``/v1/completions``
+(the same answer as a direct call), ``:predict`` serves ``predictor``'s
+tokens, ``InferenceClient.embed`` equals a raw ``/v1/embeddings`` bit
+for bit, deleting the ``Inference`` takes the pod away and the
+predictor exits 0 on SIGTERM, and the store and the console keep the
+pod's record and the operator's events (``--phases op``: ``predictor``
+and ``op`` alone).
 """
 
 from __future__ import annotations
@@ -2176,7 +2193,275 @@ def phase_predictor(torch, cfg, params) -> dict:
     _hold(torch, cfg2, params2, reqs[:2], [r["tokens"] for r in rows],
           "(f) batch mode", want=want[:2],
           want_label="the in-process engine")
-    shutil.rmtree(path)                  # ~6 GB of float32 weights
+    t0 = time.perf_counter()
+    try:
+        out["op"] = phase_op(torch, cfg2, params2, path, reqs[:2],
+                             want[:2], served[:2])
+    finally:
+        shutil.rmtree(path)              # ~6 GB of float32 weights
+    log(f"[phase] op {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+#: ``[op]``'s Inference: its name, its predictor's and the text the
+#: console's playground sends (the byte tokenizer's ids all lie in the
+#: vocabulary; the random model's answer decodes to whatever bytes its
+#: ids below 259 give)
+OP_NAME, OP_PREDICTOR = "op-llama", "main"
+OP_PROMPT = "The operator brings up the predictor of a port to Hopper:"
+#: proxied and direct calls timed for ``[op]``'s medians
+OP_REPS = 5
+
+
+def _op_command(cmd: list) -> list:
+    """The rendered container's command as kubelet would exec it on this
+    machine: its ``python`` is this interpreter."""
+    return [sys.executable if cmd[0] == "python" else cmd[0], *cmd[1:]]
+
+
+def _op_wait(fn, what: str, timeout: float = 120.0, proc=None,
+             log_path=None):
+    """``fn()``'s first truthy value, polled; a dead predictor or the
+    timeout fails."""
+    deadline = time.time() + timeout
+    while True:
+        got = fn()
+        if got:
+            return got
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"[op] the predictor exited "
+                                 f"{proc.returncode} waiting for {what}: "
+                                 f"{log_path.read_text()[-3000:]}")
+        if time.time() > deadline:
+            raise AssertionError(f"[op] {what} never happened")
+        time.sleep(0.05)
+
+
+def _get_json(url: str):
+    with urllib.request.urlopen(url, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def _op_seconds(fn, reps: int = OP_REPS) -> list:
+    """The host seconds of ``reps`` calls of ``fn``."""
+    seconds = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        seconds.append(time.perf_counter() - t0)
+    return seconds
+
+
+def phase_op(torch, cfg2, params2, path, reqs, want, served) -> dict:
+    """The port's operator bringing up the port's predictor on the card,
+    with the console and the clients in front of it (the checks are in
+    the module's docstring). ``path`` is ``[pred]``'s artifact; ``reqs``,
+    ``want`` and ``served`` are its first two requests, the in-process
+    engine's tokens for them and what its predictor served."""
+    import os
+    import signal
+    import sqlite3
+
+    from kubedl_tpu_torch import __main__ as op_main
+    from kubedl_tpu_torch.client import Clientset
+    from kubedl_tpu_torch.client.inference import InferenceClient
+    from kubedl_tpu_torch.console import (ConsoleConfig, ConsoleServer,
+                                          DataProxy)
+    from kubedl_tpu_torch.controllers.registry import build_operator
+    from kubedl_tpu_torch.controllers.testing import set_pod_phase
+
+    card = _card()
+    db = BUILD_OUT / "op.db"
+    db.unlink(missing_ok=True)
+    args = op_main.parse_args([
+        "--workloads", "PyTorchJob", "--enable-tracing",
+        "--metrics-port", "0", "--object-storage", f"sqlite://{db}",
+        "--event-storage", f"sqlite://{db}"])
+    template_env = {"KUBEDL_SERVING_LANES": "4",
+                    "KUBEDL_SERVING_MAX_LEN": str(CONT_MAX_LEN),
+                    "KUBEDL_MODEL_NAME": "m", "KUBEDL_TOKENIZER": "byte"}
+    inf = {"apiVersion": "serving.kubedl.io/v1alpha1", "kind": "Inference",
+           "metadata": {"name": OP_NAME, "namespace": "default"},
+           "spec": {"framework": "JAXServing", "predictors": [{
+               "name": OP_PREDICTOR, "replicas": 1,
+               "modelPath": "/models/m",
+               "template": {"spec": {"containers": [{
+                   "name": "predictor", "image": "kubedl-tpu-torch",
+                   "env": [{"name": k, "value": v}
+                           for k, v in template_env.items()]}]}}}]}}
+    deploy_name = f"{OP_NAME}-{OP_PREDICTOR}"
+    pod_name = f"{deploy_name}-0"
+    root = Path(__file__).resolve().parent
+    log_path = BUILD_OUT / "op_predictor.log"
+    proc = console = operator = None
+    out = {"card": card}
+    try:
+        operator = build_operator(config=op_main.config_from_args(args))
+        operator.run()
+        api, cs = operator.api, Clientset(operator.api)
+        t_submit = time.perf_counter()
+        cs.kind("Inference").create(inf)
+        pod = _op_wait(lambda: api.try_get("Pod", "default", pod_name),
+                       "the predictor's pod")
+        ct = pod["spec"]["containers"][0]
+        env = {e["name"]: e["value"] for e in ct.get("env", [])
+               if "value" in e}
+        checks = {
+            "command": ct.get("command") == [
+                "python", "-m", "kubedl_tpu_torch.serving"],
+            "port 8000": env.get("KUBEDL_SERVING_PORT") == "8000",
+            "model path": env.get("KUBEDL_MODEL_PATH") == "/models/m",
+            "template env": all(env.get(k) == v
+                                for k, v in template_env.items())}
+        log(f"[op] rendered pod {pod_name}: command {ct.get('command')}, "
+            f"env {env}")
+        if not all(checks.values()):
+            raise AssertionError(f"[op] bad rendered pod: {checks}")
+        out["rendered_env"] = env
+        # kubelet: the rendered command and env, with the model path, the
+        # port and PYTHONPATH rewritten for this machine
+        port = _free_port()
+        url = f"http://127.0.0.1:{port}"
+        run_env = {**os.environ, **env, "KUBEDL_MODEL_PATH": str(path),
+                   "KUBEDL_SERVING_PORT": str(port),
+                   "PYTHONPATH": str(root)}
+        run_env.pop("KUBEDL_KV_MODE", None)
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(
+                _op_command(ct["command"]) + list(ct.get("args") or []),
+                env=run_env, cwd=root, stdout=logf,
+                stderr=subprocess.STDOUT)
+        _wait_ready(url, proc, log_path, timeout=600)
+        set_pod_phase(api, pod, "Running")
+        pod = api.get("Pod", "default", pod_name)
+        pod["status"]["conditions"] = [{"type": "Ready", "status": "True"}]
+        api.update_status(pod)
+
+        def ready():
+            st = api.get("Inference", "default", OP_NAME).get("status", {})
+            ps = st.get("predictorStatuses") or [{}]
+            return st if ps[0].get("readyReplicas") == 1 else None
+        status = _op_wait(ready, "a ready predictor", proc=proc,
+                          log_path=log_path)
+        out["submit_to_ready_s"] = time.perf_counter() - t_submit
+        log(f"[op] submit -> predictor ready in "
+            f"{out['submit_to_ready_s']:.2f} s (the predictor's start "
+            f"included) on {card}")
+
+        proxy = DataProxy(api, operator.object_backend,
+                          operator.event_backend,
+                          job_kinds=tuple(operator.engines),
+                          tracer=operator.tracer,
+                          scheduler=operator.scheduler,
+                          telemetry=operator.telemetry,
+                          journal=operator.journal,
+                          replication=operator.replication,
+                          elastic=operator.elastic_enabled,
+                          serving_fleet=operator.serving_fleet)
+        console = ConsoleServer(proxy, ConsoleConfig(
+            host="127.0.0.1", port=_free_port(), users={},
+            predictor_resolver=lambda _inf: url))
+        console.start()
+        # 1. the console lists the Inference, its predictor and its status
+        listed = [i for i in _get_json(
+            console.url + "/api/v1/inference/list")["data"]
+            if i["name"] == OP_NAME]
+        if not (len(listed) == 1 and listed[0]["predictors"] == [
+                {"name": OP_PREDICTOR, "replicas": 1}]
+                and listed[0]["status"] == status):
+            raise AssertionError(f"[op] bad /api/v1/inference/list "
+                                 f"{listed}")
+        # 2. the playground's text route, proxied and direct
+        body = {"namespace": "default", "name": OP_NAME,
+                "prompt": OP_PROMPT, "max_tokens": 12}
+        direct_body = {"max_tokens": 12, "prompt": OP_PROMPT}
+        proxied = json.loads(_post(console.url, "/api/v1/inference/predict",
+                                   body))["data"]
+        direct = json.loads(_post(url, "/v1/completions", direct_body))
+
+        def same(a, b):
+            keep = {k: v for k, v in a.items() if k not in ("id", "created")}
+            return json.dumps(keep, sort_keys=True) == json.dumps(
+                {k: v for k, v in b.items() if k not in ("id", "created")},
+                sort_keys=True)
+        n_proxied = int(proxied["id"].rsplit("-", 1)[1])
+        if not (same(proxied, direct)
+                and direct["id"] == f"cmpl-{n_proxied + 1}"
+                and 0 < direct["usage"]["completion_tokens"] <= 12):
+            raise AssertionError(f"[op] the console's answer {proxied} is "
+                                 f"not the predictor's {direct}")
+        out["proxy_ms"] = _median_ms(_op_seconds(lambda: _post(
+            console.url, "/api/v1/inference/predict", body)))
+        out["direct_ms"] = _median_ms(_op_seconds(lambda: _post(
+            url, "/v1/completions", direct_body)))
+        log(f"[op] /api/v1/inference/predict == /v1/completions but for "
+            f"the id and time ({direct['usage']}); host ms, median of "
+            f"{OP_REPS}: proxied {out['proxy_ms']:.2f}, direct "
+            f"{out['direct_ms']:.2f} on {card}")
+        # 3. :predict with [pred]'s requests
+        got = json.loads(_post(url, "/v1/models/m:predict", {
+            "instances": [{"prompt_tokens": p, "max_tokens": n}
+                          for p, n in reqs]}))
+        toks = [p["tokens"] for p in got["predictions"]]
+        if toks != served:
+            raise AssertionError(f"[op] :predict gave {toks}, [pred]'s "
+                                 f"predictor {served}")
+        _hold(torch, cfg2, params2, reqs, toks, "[op] operator's predictor",
+              want=want, want_label="the in-process engine")
+        # 4. the client's embeddings, bit for bit the raw route's
+        vecs = InferenceClient(url).embed(list(EMBED_TEXTS))
+        raw = json.loads(_post(url, "/v1/embeddings",
+                               {"input": list(EMBED_TEXTS)}))
+        raw_vecs = [d["embedding"] for d in sorted(
+            raw["data"], key=lambda d: d["index"])]
+        if not (vecs == raw_vecs and len(vecs) == 2
+                and len(vecs[0]) == cfg2.d_model):
+            raise AssertionError("[op] InferenceClient.embed differs from "
+                                 "the raw /v1/embeddings")
+        log(f"[op] :predict == [pred]'s tokens; InferenceClient.embed == "
+            f"/v1/embeddings bit for bit ({len(vecs)} x {len(vecs[0])})")
+        # 5. teardown: the Inference goes, the operator takes the
+        # Deployment and the pod with it, kubelet stops the container
+        cs.kind("Inference").delete(OP_NAME)
+        _op_wait(lambda: api.try_get("Deployment", "default", deploy_name)
+                 is None and api.try_get("Pod", "default", pod_name) is None,
+                 "the Deployment's and the pod's removal")
+        proc.send_signal(signal.SIGTERM)
+        out["sigterm_rc"] = proc.wait(timeout=120)
+        if out["sigterm_rc"] != 0:
+            raise AssertionError(f"[op] the predictor exited "
+                                 f"{out['sigterm_rc']} on SIGTERM")
+        # 6. storage: the pod's record and the operator's events outlive
+        # them in SQLite, and the console serves the events from there
+        def stored():
+            with sqlite3.connect(db) as conn:
+                pods = conn.execute(
+                    "SELECT name, is_in_etcd FROM pods").fetchall()
+                events = conn.execute(
+                    "SELECT obj_name, reason FROM events").fetchall()
+            return (pods, events) if (pod_name, 0) in pods and events \
+                else None
+        pods, events = _op_wait(stored, "the stored records")
+        served_events = _get_json(
+            console.url + f"/api/v1/event/events/default/{OP_NAME}")["data"]
+        if not (served_events and sorted(
+                (e["obj_name"], e["reason"]) for e in served_events)
+                == sorted(e for e in events if e[0] == OP_NAME)):
+            raise AssertionError(f"[op] the console's events "
+                                 f"{served_events}, the store's {events}")
+        out["stored"] = {"pods": pods, "events": events}
+        log(f"[op] teardown: the pod and the Deployment removed, SIGTERM "
+            f"-> 0; stored pods {pods}, events {events}, served back by "
+            f"the console")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        if console is not None:
+            console.stop()
+        if operator is not None:
+            operator.manager.stop()
+        db.unlink(missing_ok=True)
     return out
 
 
@@ -7020,7 +7305,7 @@ def _replay_probe(torch, only, timed) -> None:
 
 def _probe(torch, argv, timed) -> int:
     """``--phases hf,lifecycle,resnet,moe_timing,dist,tp,tp2,ring,cp2,ep2,
-    pp,pp2,grpo,replay,spec,auto,fed,native,moe_int8 [--layers N]``: the
+    pp,pp2,grpo,replay,spec,auto,fed,native,moe_int8,op [--layers N]``: the
     named
     phases alone after the
     build,
@@ -7034,7 +7319,7 @@ def _probe(torch, argv, timed) -> int:
             len(argv) == 4 and argv[2] != "--layers"):
         print("usage: chip_smoke.py [--phases hf,lifecycle,resnet,"
               "moe_timing,dist,tp,tp2,ring,cp2,ep2,pp,pp2,grpo,replay,spec,"
-              "auto,fed,native,moe_int8 [--layers N]]", file=sys.stderr)
+              "auto,fed,native,moe_int8,op [--layers N]]", file=sys.stderr)
         return 2
     only = set(argv[1].split(","))
     layers = int(argv[3]) if len(argv) == 4 else None
@@ -7043,6 +7328,16 @@ def _probe(torch, argv, timed) -> int:
         _tp_probe(torch, only, timed)
     if only & {"replay", "spec", "auto", "fed"}:
         _replay_probe(torch, only, timed)
+    if "op" in only:
+        from kubedl_tpu_torch.models import llama
+        cfg = llama.llama3_8b()
+        params = llama.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        timed("predictor", phase_predictor, torch, cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     if "native" in only:
         timed("native", phase_native, torch)
     if "moe_int8" in only:

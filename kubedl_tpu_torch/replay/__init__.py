@@ -20,13 +20,22 @@ them, :class:`ClusterReplay` drives a job day through the real control
 plane (the journaled, replicated API server, the manager, the slice
 scheduler and the engine, under chaos) and no serving engine
 (``replay/harness.py``, a copy); the federation day runs one per region
-(:mod:`kubedl_tpu_torch.federation`). The scorecards and the elastic
-comparison stay with the JAX operator.
+(:mod:`kubedl_tpu_torch.federation`). The scorecards that gate those days
+(``replay/scorecard.py``) and the elastic comparison, spot shrink against
+whole-gang restarts through the job day (``replay/elastic.py``), are
+copies too.
 """
 
 from .workload import PROFILES, Profile, Workload, generate  # noqa: F401
 from .harness import ClusterReplay  # noqa: F401
 from .serving import ServingReplay, default_serving_slos  # noqa: F401
+from .scorecard import (build_scorecard, check_regression,  # noqa: F401
+                        evaluate_gates)
+from .scorecard import (build_campaign_scorecard,  # noqa: F401
+                        check_campaign_regression,
+                        evaluate_campaign_gates)
+from .elastic import (build_elastic_block,  # noqa: F401
+                      run_elastic_comparison)
 from .fleet import (FLEET_PROFILES, FleetProfile,  # noqa: F401
                     FleetWorkload, ServingFleetReplay, generate_fleet,
                     run_autoscaler_leg, run_disagg_comparison,

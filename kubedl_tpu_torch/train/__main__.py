@@ -802,7 +802,10 @@ def _maybe_elastic_agent(manager, env, api=None):
     runs in a cluster (``KUBERNETES_SERVICE_HOST``); None otherwise
     (standalone runs), as in the JAX entrypoint. The agent talks to
     ``api``, or to the cluster's API server through the pod's service
-    account."""
+    account. That client's default scheme lacks some job kinds
+    (``RLJob``), so the job's kind is registered from the clientset's
+    table: the JAX entrypoint registers nothing, and its RLJob agent
+    fails on its first poll with ``Invalid``."""
     kind = env.get("KUBEDL_JOB_KIND", "")
     ns = env.get("KUBEDL_JOB_NAMESPACE", "")
     name = env.get("KUBEDL_JOB_NAME", "")
@@ -812,8 +815,12 @@ def _maybe_elastic_agent(manager, env, api=None):
         return None
     from .checkpoint import ElasticCheckpointAgent
     if api is None:
+        from ..client.clientset import KIND_TABLE
         from ..core.kubeclient import ClusterConfig, KubeAPIServer
         api = KubeAPIServer(ClusterConfig.in_cluster())
+        if kind in KIND_TABLE:
+            info = KIND_TABLE[kind]
+            api.register_kind(info.api_version, kind, info.plural)
     return ElasticCheckpointAgent(api, kind, ns, name, manager)
 
 

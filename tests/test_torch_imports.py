@@ -168,6 +168,22 @@ def test_the_federation_slice_modules_are_checked():
             "kubedl_tpu_torch.forensics"} <= set(MODULES)
 
 
+def test_the_operator_slice_modules_are_checked():
+    """...and so is the rest of the operator (slice 20): its binary, the
+    registry and the workload controllers, admission, storage, the
+    clients and the console."""
+    assert {"kubedl_tpu_torch.__main__",
+            "kubedl_tpu_torch.controllers.registry",
+            "kubedl_tpu_torch.controllers.workloads",
+            "kubedl_tpu_torch.controllers.workloads.pytorch",
+            "kubedl_tpu_torch.core.admission", "kubedl_tpu_torch.storage",
+            "kubedl_tpu_torch.storage.backends", "kubedl_tpu_torch.client",
+            "kubedl_tpu_torch.client.clientset",
+            "kubedl_tpu_torch.console", "kubedl_tpu_torch.console.server",
+            "kubedl_tpu_torch.replay.scorecard",
+            "kubedl_tpu_torch.replay.elastic"} <= set(MODULES)
+
+
 #: the replays' twins and the modules the port copies for them
 REPLAY_TWINS = ("replay/serving", "replay/rl")
 REPLAY_COPIES = ("core/clock", "api/slo", "core/meta", "telemetry/slo",
@@ -212,29 +228,40 @@ FEDERATION_COPIES = (
 COMPLETED_COPIES = ("core/events", "core/__init__", "metrics/registry",
                     "metrics/__init__", "trace/tracer", "trace/__init__",
                     "telemetry/__init__")
-for _path in FEDERATION_COPIES + COMPLETED_COPIES + ("federation/replay",):
+#: the rest of the operator, copied (slice 20), and the two modules it
+#: completed: the client's operator verbs and the metrics endpoint's server
+OPERATOR_COPIES = (
+    "__main__", "client/__init__", "client/clientset", "client/inference",
+    "client/informers", "console/__init__", "console/presubmit",
+    "console/proxy", "console/server", "console/sources",
+    "controllers/registry", "controllers/workloads/__init__",
+    "controllers/workloads/elasticdl", "controllers/workloads/jaxjob",
+    "controllers/workloads/mars", "controllers/workloads/mpi",
+    "controllers/workloads/pytorch", "controllers/workloads/rljob",
+    "controllers/workloads/tensorflow", "controllers/workloads/xdl",
+    "controllers/workloads/xgboost", "core/admission", "core/deployment",
+    "core/features", "platform/cron", "platform/notebook",
+    "replay/elastic", "replay/scorecard", "storage/__init__",
+    "storage/backends", "storage/dmo", "storage/external",
+    "storage/persist", "utils/concurrent", "utils/cronschedule",
+    "utils/quota", "utils/workloadgate")
+OPERATOR_COMPLETED = ("core/kubeclient", "metrics/http")
+for _path in (FEDERATION_COPIES + COMPLETED_COPIES + ("federation/replay",)
+              + OPERATOR_COPIES + OPERATOR_COMPLETED):
     TWINS[f"kubedl_tpu/{_path}.py"] = "kubedl_tpu_torch." + _path.replace(
         "/", ".").removesuffix(".__init__")
-#: public names a twin leaves out on purpose: the in-cluster job reads and
-#: patches its own job object, so the client keeps ``get``/``try_get``/
-#: ``patch_merge`` and the job kinds' mapping (kubeconfig files need
-#: ``yaml``; the operator's verbs, clock, watches and informers have no
-#: caller in the port)
-LEFT_OUT = {"kubedl_tpu/core/kubeclient.py": {
-    "ClusterConfig.from_kubeconfig", "KubeAPIServer.now",
-    "KubeAPIServer.register_kind", "KubeAPIServer.create",
-    "KubeAPIServer.list", "KubeAPIServer.update",
-    "KubeAPIServer.update_status", "KubeAPIServer.delete",
-    "KubeAPIServer.pod_logs", "KubeAPIServer.watch", "KubeAPIServer.start",
-    "KubeAPIServer.stop"}}
+#: public names a twin leaves out on purpose: none since slice 20, when the
+#: API-server client became JAX's whole (kubeconfig files, the operator's
+#: verbs, its clock and watches)
+LEFT_OUT: dict = {}
 
 
 @pytest.mark.parametrize("source", sorted(TWINS))
 def test_the_twins_have_the_jax_modules_public_names(source):
     """Read from the JAX sources without importing them: since slice 14
     none is missing (``build_pp_pretrain``, ``run_grpo``,
-    ``resolve_reward`` and ``Trainer.remesh`` were), apart from the
-    client's ``LEFT_OUT``."""
+    ``resolve_reward`` and ``Trainer.remesh`` were), and since slice 20
+    ``LEFT_OUT`` is empty."""
     import ast
     import importlib
     mod = importlib.import_module(TWINS[source])
@@ -312,6 +339,12 @@ def test_the_federation_modules_take_the_jax_ones_parameters(path):
     _check_parameters(path, allow_none=True)
 
 
+@pytest.mark.parametrize("path", OPERATOR_COPIES + OPERATOR_COMPLETED)
+def test_the_operator_modules_take_the_jax_ones_parameters(path):
+    """Every copy of the operator (slice 20) takes JAX's parameters."""
+    _check_parameters(path, allow_none=True)
+
+
 def _check_parameters(path, allow_none=False):
     import ast
     import importlib
@@ -333,6 +366,12 @@ def _check_parameters(path, allow_none=False):
                 obj = vars(getattr(mod, node.name))[fn.name]
                 obj = getattr(obj, "fget", None) or getattr(
                     obj, "__func__", obj)
+            # a decorator's wrapper (``storage/backends``' ``_locked``
+            # takes ``*args, **kwargs``): the function it closes over
+            obj = next((c.cell_contents for c in getattr(
+                obj, "__closure__", None) or ()
+                if getattr(c.cell_contents, "__name__", None) == fn.name
+                and callable(c.cell_contents)), obj)
             args = fn.args
             want = [a.arg for a in args.posonlyargs + args.args]
             want += [args.vararg.arg] if args.vararg else []
@@ -362,16 +401,20 @@ def _without_docs_and_imports(source: str) -> str:
 
 @pytest.mark.parametrize("path", [p for p in REPLAY_COPIES if p not in (
     "replay/fleet", "rl/publisher")] + list(FEDERATION_COPIES
-                                           + COMPLETED_COPIES))
+                                           + COMPLETED_COPIES
+                                           + OPERATOR_COPIES
+                                           + OPERATOR_COMPLETED))
 def test_the_copied_modules_are_the_jax_ones_to_the_statement(path):
     """A copy differs from its JAX source only in imports and docstrings
     (and in naming the port's package where it names its own, as its
-    loggers, the OTLP scope and the predictor's command do).
+    loggers, the root logger of ``python -m kubedl_tpu_torch``, the OTLP
+    scope and the predictor's command do).
     ``replay/fleet`` (the ``device`` and the per-replica weights seam)
     and ``rl/publisher`` (the install through ``load_weights``) differ on
     purpose and are checked by name and parameter above."""
     want = (ROOT / f"kubedl_tpu/{path}.py").read_text().replace(
-        '"kubedl_tpu.', '"kubedl_tpu_torch.')
+        '"kubedl_tpu.', '"kubedl_tpu_torch.').replace(
+        '"kubedl_tpu"', '"kubedl_tpu_torch"')
     got = (PKG / f"{path}.py").read_text()
     assert _without_docs_and_imports(got) == _without_docs_and_imports(want)
 
@@ -546,6 +589,42 @@ def test_every_jax_module_that_reaches_jax_has_a_twin():
     for name, item in QUEUED.items():
         assert f"**{item}" in roadmap and name.split(".", 1)[1].replace(
             ".", "/") in roadmap, (name, item)
+
+
+def test_every_module_of_the_jax_package_has_a_twin():
+    """The census by file (slice 20): every ``.py`` under ``kubedl_tpu/``
+    has a twin of the same path under ``kubedl_tpu_torch/``."""
+    jax_files = {p.relative_to(ROOT / "kubedl_tpu")
+                 for p in (ROOT / "kubedl_tpu").rglob("*.py")}
+    assert len(jax_files) > 150
+    assert sorted(str(p) for p in jax_files
+                  if not (PKG / p).is_file()) == []
+
+
+def test_the_consoles_frontend_is_the_jax_ones_byte_for_byte():
+    """``console/server.py`` serves its assets from beside itself: the
+    port's copy of the dashboard is JAX's, file for file, byte for
+    byte."""
+    def files(root):
+        return {p.relative_to(root): p.read_bytes()
+                for p in root.rglob("*") if p.is_file()}
+    want = files(ROOT / "kubedl_tpu/console/frontend")
+    assert len(want) == 16
+    assert files(PKG / "console/frontend") == want
+
+
+def test_the_jax_replay_packages_exports_are_the_ports():
+    """Every name ``kubedl_tpu.replay`` imports into its package,
+    ``kubedl_tpu_torch.replay`` has too: the scorecards and the elastic
+    comparison since slice 20."""
+    import ast
+
+    import kubedl_tpu_torch.replay as replay
+    tree = ast.parse((ROOT / "kubedl_tpu/replay/__init__.py").read_text())
+    want = [a.asname or a.name for n in tree.body
+            if isinstance(n, ast.ImportFrom) for a in n.names]
+    assert "build_elastic_block" in want and "build_scorecard" in want
+    assert [n for n in want if not hasattr(replay, n)] == []
 
 
 def test_the_jax_serving_packages_exports_are_the_ports():

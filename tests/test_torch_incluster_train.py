@@ -1,8 +1,9 @@
-"""The port as an in-cluster job of the repo's own operator, on the CPU.
+"""The port as an in-cluster job of its own operator, on the CPU.
 
-The JAX operator reconciles an elastic PyTorchJob (one Master, two
-Workers) on the in-memory store that ``tests/fakekube.FakeKube`` serves
-over HTTP. Each pod's container runs as a kubelet would run it: the
+The port's operator (``kubedl_tpu_torch.controllers.registry``, a copy of
+the JAX operator since slice 20) reconciles an elastic PyTorchJob (one
+Master, two Workers) on the port's in-memory store, which
+``tests/fakekube.FakeKube`` serves over HTTP. Each pod's container runs as a kubelet would run it: the
 port's restart agent wrapping ``python -m kubedl_tpu_torch.train``'s
 ``main`` (through a small entry script that hands ``main`` the CPU and an API
 client over the fake's URL), with the env the operator rendered (the
@@ -36,9 +37,10 @@ import pytest
 import torch
 
 from fakekube import FakeKube
-from kubedl_tpu.api import common as c
-from kubedl_tpu.controllers.registry import OperatorConfig, build_operator
-from kubedl_tpu.core import meta as m
+from kubedl_tpu_torch.api import common as c
+from kubedl_tpu_torch.controllers.registry import (OperatorConfig,
+                                                   build_operator)
+from kubedl_tpu_torch.core import meta as m
 from kubedl_tpu_torch.parallel.launch import free_port
 from kubedl_tpu_torch.train import __main__ as tmain
 from kubedl_tpu_torch.train import checkpoint as ck
@@ -257,6 +259,15 @@ class Pods:
     def errors(self) -> str:
         return "\n".join(f"--- {p.name}\n{p.read_text()[-3000:]}"
                          for p in sorted(self.tmp.glob("*.err")))
+
+
+@pytest.fixture
+def api():
+    """The port's in-memory store on a simulated clock (the conftest's
+    ``api`` is the JAX package's)."""
+    from kubedl_tpu_torch.core.apiserver import APIServer
+    from kubedl_tpu_torch.core.clock import SimClock
+    return APIServer(clock=SimClock())
 
 
 def run_to_running(api, op):

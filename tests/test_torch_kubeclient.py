@@ -49,22 +49,96 @@ def _stable(obj):
     return {**obj, "metadata": md}
 
 
-def test_the_rest_mapping_matches_for_the_job_kinds(clients):
+def _agent(fake, monkeypatch, kind, manager=None):
+    """The elastic agent the port's trainer builds in a pod of a ``kind``
+    job (``train.__main__._maybe_elastic_agent``), its in-cluster client
+    pointed at ``fake``."""
+    from kubedl_tpu_torch.train import __main__ as tmain
+    monkeypatch.setattr(tkc.ClusterConfig, "in_cluster", staticmethod(
+        lambda: tkc.ClusterConfig(server=fake.url)))
+    env = {"KUBEDL_JOB_KIND": kind, "KUBEDL_JOB_NAMESPACE": "default",
+           "KUBEDL_JOB_NAME": "pj", "KUBERNETES_SERVICE_HOST": "127.0.0.1"}
+    return tmain._maybe_elastic_agent(manager or object(), env)
+
+
+def test_the_rest_mapping_matches_for_the_job_kinds(fake, clients,
+                                                    monkeypatch):
+    """Every job kind the operator reconciles (each of its pods carries
+    ``KUBEDL_JOB_KIND``) maps, in the client the port's trainer gives its
+    elastic agent, to the clientset's version and plural, and to the JAX
+    client's path. The copied client itself is JAX's: its default scheme
+    lacks ``RLJob``, which the trainer registers. The JAX trainer does
+    not, so its client has no mapping for ``RLJob`` (a fault of the
+    reference)."""
+    from kubedl_tpu_torch.client.clientset import KIND_TABLE, TRAINING_KINDS
     jax_client, port = clients
     assert tkc.api_prefix("v1") == jkc.api_prefix("v1") == "/api/v1"
-    for kind in tkc.JOB_SCHEME:
+    assert tkc.DEFAULT_SCHEME == jkc.DEFAULT_SCHEME
+    assert "RLJob" in TRAINING_KINDS
+    for kind in TRAINING_KINDS:
+        agent_api = _agent(fake, monkeypatch, kind).api
+        info = KIND_TABLE[kind]
+        assert agent_api.mapping(kind) == (info.api_version, info.plural)
         if kind == "RLJob":
-            # the JAX client learns it from the objects it writes; its
-            # clientset names the same version and plural
-            from kubedl_tpu.client.clientset import KIND_TABLE
-            info = KIND_TABLE["RLJob"]
-            assert port.mapping(kind) == (info.api_version, info.plural)
+            with pytest.raises(Invalid, match="register_kind"):
+                jax_client.mapping(kind)
             continue
-        assert port.mapping(kind) == jax_client.mapping(kind), kind
-        assert port._path(kind, "ns", "j") == jax_client._path(
+        assert agent_api.mapping(kind) == port.mapping(kind) \
+            == jax_client.mapping(kind), kind
+        assert agent_api._path(kind, "ns", "j") == jax_client._path(
             kind, "ns", "j")
     with pytest.raises(tkc.Invalid, match="no REST mapping"):
         port.mapping("Widget")
+
+
+class _SavingManager:
+    """A checkpoint manager that records the agent's saves."""
+
+    def __init__(self):
+        self.saved = []
+
+    def save(self, state, force=False, data_state=None):
+        self.saved.append((state, force))
+
+    def wait_until_finished(self):
+        pass
+
+
+def test_an_rljob_agent_reads_and_acknowledges_its_own_job(fake, monkeypatch):
+    """The RLJob learner's elastic agent, as the port's trainer builds it
+    in a pod, reads its job (``try_get``) and acknowledges the requested
+    checkpoint (``patch_merge``) on an API server that serves RLJobs. The
+    JAX trainer's agent fails at its first read on the same job."""
+    import fakekube
+    from kubedl_tpu.train import __main__ as jmain
+    from kubedl_tpu_torch.train.checkpoint import (
+        ANNOTATION_CKPT_COMPLETED_VERSION, ANNOTATION_CKPT_REQUESTED_VERSION)
+    monkeypatch.setitem(fakekube.PLURAL_TO_KIND, "rljobs", "RLJob")
+    job = pytorchjob()
+    job["kind"] = "RLJob"
+    job["metadata"]["annotations"][ANNOTATION_CKPT_REQUESTED_VERSION] = "3"
+    fake.api.create(job)
+
+    manager = _SavingManager()
+    agent = _agent(fake, monkeypatch, "RLJob", manager)
+    assert agent.api.try_get("RLJob", "default", "pj")["kind"] == "RLJob"
+    assert agent.poll("state") is True
+    assert manager.saved == [("state", True)]
+    ann = fake.api.get("RLJob", "default", "pj")["metadata"]["annotations"]
+    assert ann[ANNOTATION_CKPT_COMPLETED_VERSION] == "3"
+    assert agent.poll("state") is False  # acknowledged: nothing pending
+
+    # the reference fault: the JAX trainer's client has no RLJob mapping
+    monkeypatch.setattr(jkc.ClusterConfig, "in_cluster", staticmethod(
+        lambda: jkc.ClusterConfig(server=fake.url)))
+    for key, value in {"KUBEDL_JOB_KIND": "RLJob",
+                       "KUBEDL_JOB_NAMESPACE": "default",
+                       "KUBEDL_JOB_NAME": "pj",
+                       "KUBERNETES_SERVICE_HOST": "127.0.0.1"}.items():
+        monkeypatch.setenv(key, value)
+    jagent = jmain._maybe_elastic_agent(object())
+    with pytest.raises(Invalid, match="no REST mapping"):
+        jagent.poll("state")
 
 
 @pytest.mark.parametrize("kind", ["PyTorchJob", "JAXJob", "TFJob", "MPIJob",
@@ -123,10 +197,10 @@ def test_errors_map_to_the_same_classes(fake, clients, status, error):
         == error.__name__
     assert got_jax.code == got_port.code == status
     assert isinstance(got_port, tkc.ApiError)
-    # the same mapping for every status, for the two methods the port's
-    # client sends (it never creates, so never meets a POST's 409)
+    # the same mapping for every status and method (a POST's 409 is
+    # ``AlreadyExists``, any other 409 a ``Conflict``)
     for code in (400, 404, 409, 422, 429, 500, 503):
-        for method in ("GET", "PATCH"):
+        for method in ("GET", "PATCH", "POST", "PUT", "DELETE"):
             a = jkc.KubeAPIServer._error(code, b'{"message": "m"}', method,
                                          "/p")
             b = tkc.KubeAPIServer._error(code, b'{"message": "m"}', method,

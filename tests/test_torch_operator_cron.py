@@ -1,0 +1,6 @@
+"""The scenarios of ``tests/test_cron.py`` run on the port's modules
+(``tests/operator_scenarios.py``)."""
+
+from operator_scenarios import load
+
+load("test_cron.py", globals())
