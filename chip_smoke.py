@@ -6145,6 +6145,128 @@ AUTO_SLO = dict(p99_latency_ms=25.0, ttft_ms=100.0)
 AUTO_DRAFT_LAYERS, AUTO_SERVED = 2, 4
 
 
+def _recording_runs(torch, runs: list):
+    """A context in which every run of a ``ContinuousBatchingEngine``
+    (scheduler steps from one that finds requests queued on an idle engine
+    to one that finds nothing left: ``run`` and the probe's own stepping
+    alike) appends a record to ``runs``: lanes, requests, new tokens each,
+    the tokens each got, wall ms, the ms of each step (the first admits
+    every lane: the prefills and one tick) and of each admission (a
+    prompt's prefill), the garbage collector's ms, the allocator's
+    cudaMalloc calls, the decode graphs captured and the decode ticks run,
+    and on an engine's first run its tick bound (``_tick_bound_ms`` on
+    its own weights at its lanes, every lane holding the prompt)."""
+    import contextlib
+
+    from kubedl_tpu_torch.serving import batching
+    eng_cls = batching.ContinuousBatchingEngine
+    real_step, real_admit = eng_cls._step_once, eng_cls._admit
+    real_capture = batching.DecodeTick._capture
+    clock = {"gc_ms": 0.0, "captures": 0, "t": 0.0}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            clock["t"] = time.perf_counter()
+        else:
+            clock["gc_ms"] += 1e3 * (time.perf_counter() - clock["t"])
+
+    def capture(self, host):
+        clock["captures"] += 1
+        return real_capture(self, host)
+
+    def counters(eng):
+        return {"gc_ms": clock["gc_ms"], "captures": clock["captures"],
+                "mallocs": torch.cuda.memory_stats().get(
+                    "num_device_alloc", 0),
+                "ticks": sum(eng.tick_launches.values())}
+
+    def admit(self, lane):
+        t0 = time.perf_counter()
+        try:
+            return real_admit(self, lane)
+        finally:
+            self._auto_rec["admits_ms"].append(
+                1e3 * (time.perf_counter() - t0))
+
+    def step_once(self):
+        rec = getattr(self, "_auto_rec", None)
+        if rec is None:
+            reqs = list(self._queue)
+            rec = self._auto_rec = {
+                "lanes": self.lanes, "requests": len(reqs),
+                "new": reqs[0].max_new, "steps_ms": [],
+                "admits_ms": [], "reqs": reqs, "at": counters(self)}
+            if not getattr(self, "_auto_seen", False):
+                self._auto_seen = True
+                rec["bound_ms"], rec["weight_gb"] = _tick_bound_ms(
+                    self.config, self.params, self.lanes,
+                    self.lanes * len(reqs[0].prompt))
+        t0 = time.perf_counter()
+        more = real_step(self)
+        rec["steps_ms"].append(1e3 * (time.perf_counter() - t0))
+        if not more:
+            self._auto_rec = None
+            at, now = rec.pop("at"), counters(self)
+            rec.update({k: now[k] - at[k] for k in now},
+                       wall_ms=sum(rec["steps_ms"]),
+                       tokens=sorted({len(r.tokens)
+                                      for r in rec.pop("reqs")}))
+            runs.append(rec)
+        return more
+
+    @contextlib.contextmanager
+    def recording():
+        gc.callbacks.append(on_gc)
+        try:
+            with unittest.mock.patch.object(eng_cls, "_step_once",
+                                            step_once), \
+                    unittest.mock.patch.object(eng_cls, "_admit", admit), \
+                    unittest.mock.patch.object(batching.DecodeTick,
+                                               "_capture", capture):
+                yield runs
+        finally:
+            gc.callbacks.remove(on_gc)
+    return recording()
+
+
+def _probe_runs(cand, probe, mine, repeats, smi) -> dict:
+    """One probe's runs (the two warm-ups, the TTFT run, then one run a
+    repeat, whose short run ends with its admitting step) held to its
+    physical ceiling: ``batch`` tokens a tick bound (``batch * (k + 1)``
+    a bound under speculative k); fails if the probe reads above it or a
+    run returned other than the tokens it asked for. Returns the reading,
+    printed with the timed runs' spread: their admitting steps (the
+    prefills) against the steps after them."""
+    for rec in mine:
+        if rec["tokens"] != [rec["new"]]:
+            raise AssertionError(f"[auto] {cand}: a run of {rec['new']} "
+                                 f"tokens returned {rec['tokens']}")
+    timed = mine[3:]
+    bound_ms = mine[0]["bound_ms"]
+    ceiling = cand.batch * (cand.speculative_k + 1) / (bound_ms / 1e3)
+    read = probe["decode_tokens_per_s"]
+    admits = sorted(x for r in timed for x in r["admits_ms"])
+    out = {"ceiling": ceiling, "bound_ms": bound_ms,
+           "weight_gb": mine[0]["weight_gb"],
+           "remeasured": len(timed) - repeats,
+           "admitting_ms": [r["steps_ms"][0] for r in timed],
+           "after_ms": [r["wall_ms"] - r["steps_ms"][0] for r in timed],
+           "prefill_ms": (admits[0], admits[-1]), "runs": mine}
+    log(f"[auto] {cand}: {read} tokens/s against a ceiling of "
+        f"{ceiling:.2f} ({cand.batch} lanes x {cand.speculative_k + 1} "
+        f"tokens a {bound_ms:.3f} ms tick bound, {out['weight_gb']:.3f} GB "
+        f"of weights); {out['remeasured']} repeat(s) measured again; each "
+        f"run's admitting step ms " + ", ".join(
+            f"{x:.1f}" for x in out["admitting_ms"])
+        + ", the steps after it " + ", ".join(
+            f"{x:.1f}" for x in out["after_ms"])
+        + f"; a prefill {admits[0]:.1f}-{admits[-1]:.1f} ms ({smi})")
+    if not read <= ceiling:
+        raise AssertionError(f"[auto] {cand} reads {read} tokens/s, above "
+                             f"its physical ceiling {ceiling:.2f}")
+    return out
+
+
 def _config_only(cfg, path: Path) -> str:
     """A model directory holding ``cfg``'s ``config.json`` and no weights
     (``_loading`` hands the weights over): the predictor reads its config
@@ -6176,8 +6298,13 @@ def phase_auto(torch, cfg, params) -> dict:
     then the winner's ``to_env()`` goes through the predictor's env reader
     (``serving.__main__.engine_settings``) into ``build_engine``, whose
     engine serves [cont]'s first requests, held to the teacher-forced
-    reference by the near-tie rule."""
+    reference by the near-tie rule. Every engine run of the search is
+    recorded (``_recording_runs``): each probe must read at most its
+    physical ceiling (``_probe_runs``); the repeats it measured again and
+    its timed runs' admitting steps against the steps after them are
+    printed."""
     import dataclasses
+    import inspect
 
     from kubedl_tpu_torch.serving import (Candidate, ContinuousBatchingEngine,
                                           ServingSLO, autoconfig,
@@ -6188,31 +6315,46 @@ def phase_auto(torch, cfg, params) -> dict:
              _first_layers(params, AUTO_DRAFT_LAYERS))
     free, _ = torch.cuda.mem_get_info()
     slo = ServingSLO(**AUTO_SLO)
-    probes = []
+    probes, runs, read = [], [], []
     real = autoconfig.probe_candidate
+    repeats = inspect.signature(real).parameters["repeats"].default
+    smi = _card()
 
     def timed_probe(model, cand, **kw):
+        mark = len(runs)
         t0 = time.perf_counter()
         probe = real(model, cand, **kw)
         probes.append((cand, time.perf_counter() - t0))
         log(f"[auto] probe {cand}: {probe} in {probes[-1][1]:.2f} s")
+        if probe is not None:
+            read.append({"cand": str(cand), **_probe_runs(
+                cand, probe, runs[mark:], kw.get("repeats", repeats), smi)})
         gc.collect()
         torch.cuda.empty_cache()
         return probe
     t0 = time.perf_counter()
     with unittest.mock.patch.object(autoconfig, "probe_candidate",
-                                    timed_probe):
+                                    timed_probe), _recording_runs(torch,
+                                                                  runs):
         res = autoconfigure_multi((cfg, params), draft, slo=slo,
                                   hbm_budget_bytes=free, device="cuda",
                                   **AUTO_SEARCH)
     search_s = time.perf_counter() - t0
+    BUILD_OUT.mkdir(parents=True, exist_ok=True)
+    (BUILD_OUT / "auto_runs.json").write_text(json.dumps(read, indent=1))
+    timed = [run for r in read for run in r["runs"][3:]]
+    log(f"[auto] {sum(r['remeasured'] for r in read)} repeat(s) measured "
+        f"again over {len(read)} probes; over the {len(timed)} timed runs "
+        f"at most {max(r['gc_ms'] for r in timed):.2f} ms of garbage "
+        f"collection a run, {sum(r['mallocs'] for r in timed)} cudaMalloc "
+        f"calls, {sum(r['captures'] for r in timed)} graph captures (every "
+        f"run in {BUILD_OUT / 'auto_runs.json'})")
     best = res.best_probe
     least = min(res.measurements, key=slo.violation)
     if not (slo.met_by(best) or slo.violation(best)
             == slo.violation(least)):
         raise AssertionError(f"[auto] the winner {res.best} neither meets "
                              f"{slo} nor violates it least: {best}")
-    smi = _card()
     log(f"[auto] {len(res.measurements)} probes in {search_s:.1f} s under "
         f"{slo} (budget {free / 2**30:.2f} GiB free after the weights); "
         f"winner {res.best}, probe {best}, meets the SLO "

@@ -26,15 +26,22 @@ config the operator renders into the predictor env that
 ``serving/__main__.py`` reads.
 
 Copied from ``kubedl_tpu/serving/autoconfig.py`` (the port imports nothing
-of the JAX package), statement for statement, with one addition:
-``probe_candidate`` and ``autoconfigure_multi`` take ``device=`` (the card
-unless the caller names the CPU) and hand it to the engines they build;
-``autoconfigure`` uses the engine it is given. The choice depends on the
-hardware: on the card the cost of int8 against bf16 is measured, not
-assumed. Every timed ``run`` ends with its tokens on the host, so the
-wall clock needs no extra sync; on the speculative lanes the last round's
-draft backfill tick is queued after the last read-back, so its time lands
-in the next timed region, which the short/long difference cancels.
+of the JAX package), statement for statement, with one addition and one
+repair. The addition: ``probe_candidate`` and ``autoconfigure_multi`` take
+``device=`` (the card unless the caller names the CPU) and hand it to the
+engines they build; ``autoconfigure`` uses the engine it is given. The
+repair is ``probe_candidate``'s repeat loop: JAX's times a short and a
+long run of the batch apart and clamps a repeat whose long run came in no
+longer than its short one to 1e-9 s, which reads as near-infinite
+throughput and wins the search. Here a repeat's short run is the start of
+its long run, a repeat whose long run is not longer is measured again (at
+most ``REMEASURES`` times) and is never a sample, and a probe left with no
+sample raises. The choice depends on the hardware: on the card the cost
+of int8 against bf16 is measured, not assumed. Every scheduler step ends
+with its tokens on the host, so the wall clock needs no extra sync; on
+the speculative lanes the last round's draft backfill tick is queued
+after the last read-back, so its time lands in the next run's admitting
+step, before that run's difference.
 """
 
 from __future__ import annotations
@@ -45,6 +52,11 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
 from .engine import InferenceEngine
+
+#: how many times ``probe_candidate`` measures a repeat again whose long
+#: run came in no longer than its short one: such a repeat holds no
+#: decode time
+REMEASURES = 3
 
 
 @dataclass
@@ -202,6 +214,15 @@ def probe_candidate(model, cand: Candidate, prompt_len: int = 64,
     * ``decode_tokens_per_s`` — batch / best per-token time (all lanes
       decode one token per tick).
 
+    A repeat's short run is its long run up to the step after which
+    every lane holds ``lo`` tokens, so the two share their prefills (two
+    separate runs do not: on the card their host-bound prefills drift
+    apart by more than the decode between them). A repeat whose long run
+    is not longer than its short one is
+    measured again, at most ``REMEASURES`` times, and gives no sample if
+    it never is; a probe with no sample at all raises ``RuntimeError``
+    naming the candidate and every (short, long) reading.
+
     Returns None when the candidate is unbuildable (speculative without
     a draft model). The engines run on ``device``: the card unless the
     caller names the CPU."""
@@ -253,16 +274,28 @@ def probe_candidate(model, cand: Candidate, prompt_len: int = 64,
     gen_one(1)
     ttft = time.perf_counter() - t0
 
-    samples = []
+    samples, readings = [], []
     for _ in range(repeats):
-        t0 = time.perf_counter()
-        gen(lo)
-        d_lo = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        gen(hi)
-        d_hi = time.perf_counter() - t0
-        # same batch, same prefills: the difference is pure decode
-        samples.append(max(d_hi - d_lo, 1e-9) / max(hi - lo, 1))
+        for _ in range(1 + REMEASURES):
+            t0 = time.perf_counter()
+            reqs = [eng.submit(prompt, hi) for _ in range(cand.batch)]
+            d_lo = None
+            while eng.step():
+                if d_lo is None and all(len(r.tokens) >= lo for r in reqs):
+                    d_lo = time.perf_counter() - t0
+            for r in reqs:
+                r.result()
+            d_hi = time.perf_counter() - t0
+            readings.append((d_lo, d_hi))
+            if d_hi > d_lo:
+                # one run, its prefills before d_lo: the rest is decode
+                samples.append((d_hi - d_lo) / max(hi - lo, 1))
+                break
+    if not samples:
+        raise RuntimeError(
+            f"probe_candidate: {cand}: no {hi}-token run took longer than "
+            f"its first {lo} tokens in {len(readings)} attempts; "
+            f"(short, long) seconds: {readings}")
     tps = cand.batch / min(samples)
     return {
         "batch": cand.batch, "quantize": cand.quantize or "",

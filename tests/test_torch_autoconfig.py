@@ -3,9 +3,13 @@ against the JAX package's: the selection under the JAX tests' fake cost
 model (``tests/test_autoconfig.py``) through both packages with equal
 results, ``kv_cache_bytes`` equal for each family's tiny config, and
 live probes on JAX-made tiny weights carried across by ``models/io.py``
-(keys and positive numbers: timings cannot match)."""
+(keys and positive numbers: timings cannot match), and the probe's repeat
+loop on a patched clock, where the port measures a repeat again whose long
+run is not longer than its short one and JAX clamps it (reference fault
+7)."""
 
 import dataclasses
+import types
 
 import pytest
 import torch
@@ -18,11 +22,13 @@ from kubedl_tpu.models import io as jio  # noqa: E402
 from kubedl_tpu.models import llama as jllama  # noqa: E402
 from kubedl_tpu.models import moe as jmoe  # noqa: E402
 from kubedl_tpu.serving import autoconfig as jauto  # noqa: E402
+from kubedl_tpu.serving import batching as jbatching  # noqa: E402
 from kubedl_tpu_torch.models import gemma as tgemma  # noqa: E402
 from kubedl_tpu_torch.models import io as tio  # noqa: E402
 from kubedl_tpu_torch.models import llama as tllama  # noqa: E402
 from kubedl_tpu_torch.models import moe as tmoe  # noqa: E402
 from kubedl_tpu_torch.serving import autoconfig as tauto  # noqa: E402
+from kubedl_tpu_torch.serving import batching as tbatching  # noqa: E402
 
 #: what a probe reports, by the JAX source's return statement
 PROBE_KEYS = {"batch", "quantize", "speculative_k", "kv_block",
@@ -150,6 +156,181 @@ def test_the_budget_prunes_as_jax_does():
                                     hbm_budget_bytes=budget)
     assert got.to_dict() == want.to_dict()
     assert {p["batch"] for p in got.measurements} == {1, 2}
+
+
+def _stub_engines(monkeypatch, cost):
+    """Both packages' ``ContinuousBatchingEngine`` replaced by a stub that
+    computes nothing and schedules as the engine does: ``submit`` queues,
+    ``step`` admits every queued request (its first token) and then runs
+    one tick for every live lane (one token each), returning False once
+    idle; ``run`` submits and steps. Admitting and ticking move the clock
+    that both probes' ``time.perf_counter`` read by ``cost(lanes, run,
+    "admit" or "tick")`` seconds, ``run`` counting the engine's runs (a
+    run begins at a submit to an idle engine). Returns the runs as
+    ``[lanes, run, requests, new tokens]``."""
+    now, runs = [0.0], []
+
+    class Req:
+        def __init__(self, max_new):
+            self.max_new, self.tokens = max_new, []
+
+        def result(self):
+            return self.tokens
+
+    class Stub:
+        def __init__(self, cfg, params, lanes=1, **kw):
+            self.lanes, self.run_no, self.queue, self.live = lanes, -1, [], []
+
+        def submit(self, prompt, max_new):
+            if not self.queue and not self.live:
+                self.run_no += 1
+                runs.append([self.lanes, self.run_no, 0, max_new])
+            runs[-1][2] += 1
+            self.queue.append(Req(max_new))
+            return self.queue[-1]
+
+        def step(self):
+            if self.queue:
+                now[0] += cost(self.lanes, self.run_no, "admit")
+                for r in self.queue:
+                    r.tokens.append(0)
+                self.live += [r for r in self.queue if r.max_new > 1]
+                self.queue = []
+            if not self.live:
+                return False
+            now[0] += cost(self.lanes, self.run_no, "tick")
+            for r in self.live:
+                r.tokens.append(0)
+            self.live = [r for r in self.live if len(r.tokens) < r.max_new]
+            return True
+
+        def run(self, requests):
+            reqs = [self.submit(p, n) for p, n in requests]
+            while self.step():
+                pass
+            return [r.result() for r in reqs]
+    clock = types.SimpleNamespace(perf_counter=lambda: now[0])
+    for mod in (jauto, tauto):
+        monkeypatch.setattr(mod, "time", clock)
+    for mod in (jbatching, tbatching):
+        monkeypatch.setattr(mod, "ContinuousBatchingEngine", Stub)
+    return runs
+
+
+def _clock(zero_ticks=(), stalls=(), tick=1 / 128):
+    """Every admission 1/4 s, every tick ``tick`` s; the runs in
+    ``zero_ticks`` tick in no time, those in ``stalls`` admit 2 s late
+    (runs 0-2 are the warm-ups and the TTFT run). Dyadic seconds, so the
+    clock's sums and differences are exact."""
+    def cost(lanes, run, what):
+        if what == "tick":
+            return 0.0 if run in zero_ticks else tick
+        return 0.25 + (2.0 if run in stalls else 0.0)
+    return cost
+
+
+def _probe(mod, cand_kw, **kw):
+    model = ((jllama if mod is jauto else tllama).tiny(), None)
+    return mod.probe_candidate(model, mod.Candidate(**cand_kw),
+                               new_tokens=16, **kw)
+
+
+#: the clock both probes run on below: the fourth run ticks in no time,
+#: the sixth admits 2 s late. JAX's timed runs are short, long in turn
+#: (runs 3-8), the port's are long runs (3-5, and 6 for the repeat it
+#: measures again)
+CLOCK = dict(zero_ticks=(4,), stalls=(5,))
+
+
+def test_reference_fault_7_jax_clamps_a_repeat_to_1e9_s(monkeypatch):
+    """Reference fault 7: JAX's probe reads a repeat whose 16-token run
+    took no longer than its 2-token run as a decode time of 1e-9 s, so the
+    batch reads ``batch * (hi - lo) / 1e-9`` tokens/s whatever its valid
+    repeats say (the port does not repeat it)."""
+    runs = _stub_engines(monkeypatch, _clock(**CLOCK))
+    probe = _probe(jauto, dict(batch=8))
+    assert probe["decode_tokens_per_s"] == 8 * (16 - 2) / 1e-9
+    assert len(runs) == 3 + 2 * 3
+    assert [r[3] for r in runs[3:]] == [2, 16] * 3
+
+
+def test_the_port_measures_a_bad_repeat_again(monkeypatch):
+    """The same clock through the port: a repeat's short run is its long
+    run up to every lane's second token, so the late admission falls
+    before the difference; the run that ticks in no time is not longer
+    than its short run (``<=``), is measured again and is no sample. The
+    probe's numbers are JAX's formulas over the valid differences, here
+    14 ticks of 1/128 s each."""
+    runs = _stub_engines(monkeypatch, _clock(**CLOCK))
+    probe = _probe(tauto, dict(batch=8))
+    assert probe == {
+        "batch": 8, "quantize": "", "speculative_k": 0, "kv_block": 0,
+        "pool_blocks": 0, "decode_tokens_per_s": 8 * 128.0,
+        "p50_latency_ms": round(1000 / 128, 3),
+        "p99_latency_ms": round(1000 / 128, 3), "ttft_ms": 250.0}
+    assert [r[1:] for r in runs[3:]] == [[3, 8, 16], [4, 8, 16],
+                                         [5, 8, 16], [6, 8, 16]]
+
+
+@pytest.mark.parametrize("dropped", [(), (4, 5, 6, 7)],
+                         ids=["three_samples", "repeat_dropped"])
+def test_the_probe_reads_over_the_valid_samples(monkeypatch, dropped):
+    """A repeat that never comes good within ``1 + REMEASURES`` attempts
+    gives no sample: p50 and p99 are over the others, here ticks of 1/128
+    s in the first repeat and 1/64 s in the later ones."""
+    assert len(dropped) in (0, 1 + tauto.REMEASURES)
+
+    def cost(lanes, run, what):
+        if what == "admit":
+            return 0.25
+        return 1 / 128 if run == 3 else 0.0 if run in dropped else 1 / 64
+    runs = _stub_engines(monkeypatch, cost)
+    probe = _probe(tauto, dict(batch=8))
+    per_token = [1 / 128, 1 / 64] + ([] if dropped else [1 / 64])
+    assert probe["decode_tokens_per_s"] == 8 * 128.0
+    assert probe["p50_latency_ms"] == round(1000 * per_token[1], 3)
+    assert probe["p99_latency_ms"] == round(1000 / 64, 3)
+    assert len(runs) == 3 + 2 + max(len(dropped), 1)
+
+
+def test_the_port_raises_when_no_repeat_is_valid(monkeypatch):
+    """Every attempt of every repeat ticks in no time: the probe raises,
+    naming the candidate and the readings, after ``1 + REMEASURES``
+    attempts a repeat."""
+    runs = _stub_engines(monkeypatch, _clock(zero_ticks=range(3, 100)))
+    with pytest.raises(RuntimeError) as err:
+        _probe(tauto, dict(batch=4, quantize="int8"), repeats=2)
+    attempts = 2 * (1 + tauto.REMEASURES)
+    assert "Candidate(batch=4, quantize='int8'" in str(err.value)
+    assert f"in {attempts} attempts" in str(err.value)
+    assert str([(0.25, 0.25)] * attempts) in str(err.value)
+    assert len(runs) == 3 + attempts
+
+
+def test_the_search_picks_what_the_valid_repeats_pick(monkeypatch):
+    """Two candidates: one lane ticks in 1/128 s (128 tokens/s), eight in
+    1/8 s (64 tokens/s); the eight lanes' first timed run admits 2 s late
+    and ticks in no time. JAX's search reads it as a clamped repeat and
+    picks eight lanes; the port's measures it again and picks one lane,
+    as the valid repeats do."""
+    def cost(lanes, run, what):
+        bad = lanes == 8 and run == 3
+        if what == "admit":
+            return 0.25 + (2.0 if bad else 0.0)
+        return 0.0 if bad else 1 / 128 if lanes == 1 else 1 / 8
+    kw = dict(batches=(1, 8), quantize_opts=(None,), spec_ks=(0,),
+              new_tokens=16)
+    runs = _stub_engines(monkeypatch, cost)
+    want = jauto.autoconfigure_multi((jllama.tiny(), None), **kw)
+    assert want.best.batch == 8
+    assert want.best_probe["decode_tokens_per_s"] == 8 * 14 / 1e-9
+    del runs[:]
+    got = tauto.autoconfigure_multi((tllama.tiny(), None), **kw)
+    assert got.best.batch == 1
+    assert [p["decode_tokens_per_s"] for p in got.measurements] == [
+        128.0, 64.0]
+    # one lane: 3 warm-up runs and 3 timed; eight: one attempt more
+    assert [r[0] for r in runs] == [1] * 6 + [8] * 7
 
 
 @pytest.fixture(scope="module")

@@ -476,19 +476,66 @@ def _without_additions(source: str, added: dict) -> str:
     return ast.unparse(Strip().visit(ast.parse(source)))
 
 
+#: where a twin departs from its JAX source on purpose, by function: the
+#: statements from the one that assigns the first name up to, not
+#: including, the one that assigns the second. The auto-configurator's
+#: probe repairs the repeat loop (``samples = []`` up to ``tps = ...``):
+#: JAX's clamps a repeat whose long run is not longer than its short one
+#: to 1e-9 s, the port's measures it again and raises when none is valid
+DIVERGED = {"serving/autoconfig": {"probe_candidate": ("samples", "tps")}}
+
+
+def _without_divergence(source: str, diverged: dict) -> str:
+    """``source`` without the statements ``diverged`` names, and without
+    the module constants that only those statements read."""
+    import ast
+    tree = ast.parse(source)
+
+    def at(body, name):
+        hits = [i for i, stmt in enumerate(body)
+                if isinstance(stmt, ast.Assign) and any(
+                    isinstance(n, ast.Name) and n.id == name
+                    for t in stmt.targets for n in ast.walk(t))]
+        assert hits, f"no statement assigns {name}"
+        return hits[0]
+    cut = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name in diverged:
+            first, stop = diverged[node.name]
+            lo, hi = at(node.body, first), at(node.body, stop)
+            cut += node.body[lo:hi]
+            node.body[lo:hi] = []
+    assert len(cut) > 0, f"no statement of {sorted(diverged)} was cut"
+
+    def loads(nodes):
+        return {n.id for stmt in nodes for n in ast.walk(stmt)
+                if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Load)}
+    only = loads(cut) - loads(tree.body)
+    tree.body = [stmt for stmt in tree.body if not (
+        isinstance(stmt, ast.Assign) and all(
+            isinstance(t, ast.Name) and t.id in only for t in stmt.targets))]
+    return ast.unparse(tree)
+
+
 @pytest.mark.parametrize("path", sorted(ADDED))
 def test_the_slice_18_twins_are_the_jax_ones_but_for_their_additions(path):
     """The auto-configurator, the multi-model day and the federation day
     are their JAX sources statement for statement once ``ADDED`` is taken
     out: the selection, the early stop, the pruning, the fallback and the
-    days are JAX's."""
+    days are JAX's. ``DIVERGED`` is cut from both sources, and only
+    there."""
     import ast
     want = ast.unparse(ast.parse((ROOT / f"kubedl_tpu/{path}.py")
                                  .read_text()))
     got = _without_additions((PKG / f"{path}.py").read_text(), ADDED[path])
+    assert _without_additions(want, ADDED[path]) == want
+    if path in DIVERGED:
+        assert _without_docs_and_imports(got) != \
+            _without_docs_and_imports(want)
+        got = _without_divergence(got, DIVERGED[path])
+        want = _without_divergence(want, DIVERGED[path])
     assert _without_docs_and_imports(got) == \
         _without_docs_and_imports(want)
-    assert _without_additions(want, ADDED[path]) == want
 
 
 @pytest.mark.parametrize("name", ["train_tokenizer", "encode_corpus",
