@@ -16,9 +16,10 @@ failure raises and the script exits non-zero before its last line:
    for bf16/f16 at hd 64, 128 and 256; ``simt``: ``flash_fwd.cu`` for
    the rest), timed beside its plain version, SDPA, its bound and the
    earlier design (``flash_fwd.cu`` on the same bf16 inputs);
-3. serving — Llama-3-8B at full width (random bf16 weights from a seed)
-   behind ``InferenceServer`` over ``InferenceEngine``: ``:predict``
-   (buffered, streamed, and greedy held against ``greedy_rollout``),
+3. serving — Llama-3-8B at full width, its first ``SERVE_LAYERS`` of 32
+   layers (random bf16 weights from a seed), behind ``InferenceServer``
+   over ``InferenceEngine``: ``:predict`` (buffered, streamed, and greedy
+   held against ``greedy_rollout``),
    ``/v1/completions`` and ``/v1/embeddings``, whose every layer must
    launch the flash kernel once, every launch on the ``sm90`` route;
 4. backward kernel check — the dQ and dK/dV kernels against their plain
@@ -121,7 +122,7 @@ Since slice 12, right after the adapter pages, tensor-parallel serving:
 posted on the step channel, every tick on the graph route; tokens equal
 to the continuous phase's bit for bit), reads the graph tick against the
 unsharded one in turns, serves ``/v1/embeddings`` through the server on
-that engine (32 K1 launches on ``sm90``, vectors equal bit for bit to an
+that engine (one K1 launch a layer on ``sm90``, vectors equal bit for bit to an
 unsharded server's), checks that ``build_engine(tp=2)`` refuses on one
 card, and times K1 at one tp=2 rank's embeddings shape. ``tp2`` runs
 tp=2 for real in two processes on the one card under gloo (NCCL refuses
@@ -231,10 +232,10 @@ phases' Llama-3-8B bf16 weights, held key by key to the same day on the
 CPU on the tiny float32 model, every decode tick on the graph route,
 K1-K3 counted for the kernels line; its journals go to a temporary
 directory under ``build/chip_smoke/``, removed after the day
-(``--phases fed``). To keep the script inside its time limit, ``replay``'s
-days on Llama-3-8B run it cut to its first 8 layers (``REPLAY_LAYERS``)
-and ``gemma_predictor`` serves Gemma-2B cut to its first 4 of 18
-(``GPRED_LAYERS``).
+(``--phases fed``). To keep the script inside its time limit,
+``gemma_predictor`` serves Gemma-2B cut to its first 4 of 18
+(``GPRED_LAYERS``), and every serving phase's Llama-3-8B, ``replay``'s
+days included, runs at its first 8 of 32 layers (``SERVE_LAYERS``).
 
 Since slice 20, inside ``predictor``, after its batch mode and on the
 same 2-layer artifact, ``op`` runs the port's operator in process as
@@ -252,6 +253,20 @@ for bit, deleting the ``Inference`` takes the pod away and the
 predictor exits 0 on SIGTERM, and the store and the console keep the
 pod's record and the operator's events (``--phases op``: ``predictor``
 and ``op`` alone).
+
+The configurations the JAX package runs beside: ``tp2``'s two ranks also
+serve Llama-3-8B's first 2 layers over ``fsdp=2`` (each rank JAX's
+``embed`` shard, gathered per use), ``dp=2`` and ``pp=2`` (replicated,
+the model's mesh showing them as 1), tokens held by the near-tie rule;
+``tp8``, after ``tp2``, serves Qwen2-7B at full width, 2 layers deep,
+over tp=8 in eight gloo processes on the card, its 28 query heads as 4
+on ranks 0-3 and 3 on ranks 4-7 (K1 at each rank's heads, checked and
+two of them timed), with the tokens held as above, the embeddings
+against the unsharded forward and each rank's bytes; ``cp2``'s ranks
+also take a packed Gemma-2-2B-width first step on the ring setting
+(its knobs on the chunked path at global offsets) against one process
+(``--phases tp2,tp8,cp2``). For the time limit ``tp2``'s Llama-3-8B run
+at tp=2 serves ``TP2_REQS`` requests.
 """
 
 from __future__ import annotations
@@ -766,6 +781,17 @@ CONT_LENS = (31, 512, 97, 300, 64, 200, 128, 450, 40, 256, 77, 380, 150,
 PREFIXED = (3, 7, 11, 13)
 SYSTEM_LEN = 256
 CONT_LANES, CONT_MAX_LEN = 8, 1024
+#: the serving phases' depth: Llama-3-8B at full width cut to its first 8
+#: of 32 layers, to keep the whole script inside its time limit with room
+#: to spare on a slower host
+SERVE_LAYERS = 8
+
+
+def _serving_llama(llama):
+    """The serving phases' model: Llama-3-8B at full width,
+    ``SERVE_LAYERS`` deep."""
+    import dataclasses
+    return dataclasses.replace(llama.llama3_8b(), n_layers=SERVE_LAYERS)
 
 
 def _cont_requests(cfg) -> tuple:
@@ -1022,8 +1048,9 @@ def _tick_launches(torch, eng, route) -> tuple:
 
 def phase_continuous(torch, cfg, params) -> dict:
     """The predictor's engine, ``ContinuousBatchingEngine``, on Llama-3-8B
-    at full width and depth (the serving phase's weights): (a) 16 greedy
-    requests through ``InferenceServer`` against ``greedy_rollout``; (b)
+    at full width, ``SERVE_LAYERS`` deep (the serving phase's weights):
+    (a) 16 greedy requests through ``InferenceServer`` against
+    ``greedy_rollout``; (b)
     parity, a shrunk pool that preempts and prefill lanes that hand off;
     (c) a registered prefix; (d) speculative lanes with the target's
     first 2 layers as the draft; (e) the graph tick against the eager tick
@@ -1034,6 +1061,7 @@ def phase_continuous(torch, cfg, params) -> dict:
     from kubedl_tpu_torch.models import llama
     from kubedl_tpu_torch.serving import (ContinuousBatchingEngine,
                                           InferenceServer, ServerConfig)
+    from kubedl_tpu_torch.ops.quant import tree_nbytes
     from kubedl_tpu_torch.serving.engine import greedy_rollout
 
     torch.cuda.reset_peak_memory_stats()
@@ -1195,7 +1223,7 @@ def phase_continuous(torch, cfg, params) -> dict:
                                "[cont] (e)")
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"[cont] {out['peak_gib']:.2f} GiB peak device memory in the phase "
-        f"(16.06 GB of weights)")
+        f"({tree_nbytes(params) / 1e9:.2f} GB of weights)")
     out["reqs"], out["served"] = reqs, served
     return out
 
@@ -1390,6 +1418,18 @@ EMBED_TEXTS = ("kubedl " * 73)[:511], "a TPU kernel ported by hand to " \
     "Hopper " * 8
 
 
+#: ``[tp2]``'s serving runs over the axes that place nothing (``dp``,
+#: ``pp``) or the model width (``fsdp``): Llama-3-8B's first
+#: ``TP2_OTHER_LAYERS`` layers, the first ``len(TP2_OTHER_NEW)`` continuous
+#: requests with these new-token counts (under ``fsdp`` every step gathers
+#: each weight through the host, 0.9 GB a layer and 2.1 GB of embedding
+#: and head: ~3 s a step on an H100 at 700 W, PERF.md §6)
+TP2_OTHER_AXES, TP2_OTHER_LAYERS, TP2_OTHER_NEW = ("fsdp", "dp", "pp"), 2, (
+    4, 4)
+#: ``[tp2]``'s Llama-3-8B requests at tp=2 (the script's time limit)
+TP2_REQS = 4
+
+
 #: ``[tp2]``'s embeddings check: the least cosine of any position's hidden
 #: state on rank 0 with the unsharded forward's (bf16 rounds the two
 #: ranks' partial sums before their sum, so the directions differ a
@@ -1433,7 +1473,7 @@ def phase_tp(torch, cfg, params, cont) -> dict:
     engine's on the same state, in turns (the channel's host cost: a
     reading, not a gate); (c)
     ``/v1/embeddings`` through ``InferenceServer`` on the meshed engine:
-    32 K1 launches, all ``sm90``, vectors equal bit for bit to an
+    one K1 launch a layer, all ``sm90``, vectors equal bit for bit to an
     unsharded server's on the same weights; (d) ``build_engine`` with
     ``tp=2`` refuses on a one-card machine before reading anything.
 
@@ -1670,6 +1710,37 @@ def _tp2_rank(rank, port, models, queue):
                 eng._pool["k"].shape)
             res[tag] = row
             del eng, p
+        c2, p2, rs2 = models.pop("llama2")
+        res["meshes"] = {}
+        for axis in TP2_OTHER_AXES:
+            other = build_mesh(MeshConfig(**{"fsdp": 1, axis: 2}),
+                               device="cuda:0")
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            eng = ContinuousBatchingEngine(c2, p2, lanes=CONT_LANES,
+                                           max_len=CONT_MAX_LEN, mesh=other,
+                                           device="cuda:0")
+            wq = eng.params["layers"]["wq"]
+            row = {"route": eng._tick_p.route,
+                   "model_mesh": {a: n for a, n in eng.mesh.shape.items()
+                                  if n > 1},
+                   "local_wq": tuple(getattr(wq, "local", wq).shape)}
+            if eng._channel.leader:
+                t0 = time.perf_counter()
+                row["tokens"], row["logprobs"] = _run(eng, rs2)
+                row["seconds"] = time.perf_counter() - t0
+                row["ticks"] = eng.tick_launches
+                eng.stop()
+            else:
+                row["followed"] = eng.follow()
+            torch.cuda.synchronize()
+            row["peak_gib"] = (torch.cuda.max_memory_allocated()
+                               - held) / 2**30
+            res["meshes"][axis] = row
+            del eng, wq
+        del p2
         gc.collect()
         dist.destroy_process_group()
         queue.put((rank, res))
@@ -1677,10 +1748,56 @@ def _tp2_rank(rank, port, models, queue):
         queue.put((rank, traceback.format_exc()))
 
 
-def _tp2_hidden(torch, tag, cfg, params, ids, hidden) -> dict:
-    """Rank 0's embeddings forward at tp=2 (``hidden`` [b, s, d]) held to
-    the unsharded ``forward_hidden`` on the same weights and ids, position
-    by position: the least cosine must reach ``TP2_HIDDEN_COS``."""
+def _tp2_meshes(torch, res, cfg2, params2, reqs2) -> dict:
+    """``[tp2]``'s serving runs over ``fsdp``, ``dp`` and ``pp`` = 2,
+    checked: every served token held to the teacher-forced reference by
+    the near-tie rule and counted against the one-process engine's; the
+    tick's route (``graph`` where the step runs no collective: ``dp`` and
+    ``pp`` replicate, the model's mesh shows them as 1; ``eager`` under
+    ``fsdp``'s gloo gathers); rank 1 followed every step; ``fsdp`` holds
+    half of ``wq``'s model-width rows, ``dp`` and ``pp`` all of them."""
+    from kubedl_tpu_torch.serving import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(cfg2, params2, lanes=CONT_LANES,
+                                   max_len=CONT_MAX_LEN, device="cuda")
+    want, _ = _run(eng, reqs2)
+    del eng
+    gc.collect()
+    out = {}
+    for axis in TP2_OTHER_AXES:
+        lead, follow = res[0]["meshes"][axis], res[1]["meshes"][axis]
+        route = "eager" if axis == "fsdp" else "graph"
+        want_rank = (route, cfg2.d_model // (2 if axis == "fsdp" else 1),
+                     {"fsdp": 2} if axis == "fsdp" else {})
+        bad = [f"rank {r}: route, local wq rows, model mesh {got}, want "
+               f"{want_rank}" for r, got in enumerate(
+                   (run["route"], run["local_wq"][1], run["model_mesh"])
+                   for run in (lead, follow)) if got != want_rank]
+        if not follow["followed"] or lead["ticks"][route] == 0:
+            bad.append(f"ticks {lead['ticks']}, rank 1 followed "
+                       f"{follow['followed']} steps")
+        if bad:
+            raise AssertionError(f"[tp2] {axis}=2: {bad}")
+        r = _hold(torch, cfg2, params2, reqs2, lead["tokens"],
+                  f"[tp2] {axis}=2", want=want,
+                  want_label="the one-process engine", lps=lead["logprobs"])
+        out[axis] = {"reading": r, "seconds": lead["seconds"],
+                     "ticks": lead["ticks"],
+                     "followed": follow["followed"],
+                     "peak_gib": [lead["peak_gib"], follow["peak_gib"]]}
+        log(f"[tp2] {axis}=2 ({cfg2.n_layers} layers): {len(reqs2)} "
+            f"requests in {lead['seconds']:.2f} s, ticks {lead['ticks']}, "
+            f"rank 1 followed {follow['followed']} steps; local wq "
+            f"{lead['local_wq']}; peak "
+            f"{[round(x, 3) for x in out[axis]['peak_gib']]} GiB by rank")
+    return out
+
+
+def _tp2_hidden(torch, tag, cfg, params, ids, hidden, tp=2,
+                phase="tp2") -> dict:
+    """Rank 0's embeddings forward at ``tp`` (``hidden`` [b, s, d]) held
+    to the unsharded ``forward_hidden`` on the same weights and ids,
+    position by position: the least cosine must reach
+    ``TP2_HIDDEN_COS``."""
     from kubedl_tpu_torch.models import llama
     from kubedl_tpu_torch.ops import attention as attn
 
@@ -1690,22 +1807,23 @@ def _tp2_hidden(torch, tag, cfg, params, ids, hidden) -> dict:
     _reset_counts(attn)          # the reference ran K1 too
     got = torch.from_numpy(hidden).cuda()
     if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"[tp2] {tag} embeddings: shape "
+        raise AssertionError(f"[{phase}] {tag} embeddings: shape "
                              f"{tuple(got.shape)}, want {tuple(ref.shape)}, "
                              "all finite")
     cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
     rel = (got - ref).norm(dim=-1) / ref.norm(dim=-1)
-    half = cfg.vocab_size // 2
+    last = cfg.vocab_size // tp * (tp - 1)
     out = {"min_cos": cos.min().item(), "max_rel": rel.max().item(),
            "max_abs_err": (got - ref).abs().max().item(),
-           "ids_on_rank1": int((ids >= half).sum())}
-    log(f"[tp2] {tag} embeddings of {ids.shape} ids ({out['ids_on_rank1']} "
-        f"in rank 1's vocab shard) against the unsharded forward, by "
-        f"position: least cosine {out['min_cos']:.6f}, largest relative "
-        f"error {out['max_rel']:.4f}, max_abs_err {out['max_abs_err']:.4f}")
+           "ids_on_last_rank": int((ids >= last).sum())}
+    log(f"[{phase}] {tag} embeddings of {ids.shape} ids "
+        f"({out['ids_on_last_rank']} in rank {tp - 1}'s vocab shard) "
+        f"against the unsharded forward, by position: least cosine "
+        f"{out['min_cos']:.6f}, largest relative error "
+        f"{out['max_rel']:.4f}, max_abs_err {out['max_abs_err']:.4f}")
     if out["min_cos"] < TP2_HIDDEN_COS:
-        raise AssertionError(f"[tp2] {tag} embeddings disagree with the "
-                             f"unsharded forward: {out}")
+        raise AssertionError(f"[{phase}] {tag} embeddings disagree with "
+                             f"the unsharded forward: {out}")
     return out
 
 
@@ -1752,16 +1870,20 @@ def phase_tp2(torch, cfg, params, reqs) -> dict:
     and every collective moves through the host. Llama-3-8B at full width
     (the continuous phase's weights, shared with the children over CUDA
     IPC): each rank holds half of every sharded leaf and 4 of the 8 KV
-    heads; 8 of the continuous phase's requests, every served token and
-    its log-probability held to the unsharded teacher-forced reference
-    (``_hold``). Then Gemma-2B at full size (random bf16, seed 0; one KV
+    heads; ``TP2_REQS`` of the continuous phase's requests, every served
+    token and its log-probability held to the unsharded teacher-forced
+    reference (``_hold``). Then Gemma-2B at full size (random bf16, seed 0; one KV
     head, so every rank holds K/V whole and writes the same cache) with 4
     requests. Each rank checks K1 at its local embeddings shape against
     the plain version and runs the embeddings forward as an engine step
     (K1 on its own heads: 32 and 18 launches a rank) on [2, 512] ids
     drawn over the whole vocabulary; rank 0's hidden states must agree
     with the unsharded forward's position by position (``_tp2_hidden``);
-    each rank's peak memory is reported."""
+    each rank's peak memory is reported. Then the same two ranks serve
+    Llama-3-8B's first 2 layers over ``fsdp=2``, ``dp=2`` and ``pp=2``
+    (``_tp2_meshes``)."""
+    import dataclasses
+
     import torch.multiprocessing as tmp
 
     from kubedl_tpu_torch.models import gemma, llama
@@ -1769,14 +1891,18 @@ def phase_tp2(torch, cfg, params, reqs) -> dict:
     gcfg = gemma.gemma_2b()
     gparams = llama.init_params(
         gcfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    reqs8 = reqs[:8]
+    reqs_tp = reqs[:TP2_REQS]
     greqs = [(p[:200], n) for p, n in reqs[8:12]]
     ctx = tmp.get_context("spawn")
     queue = ctx.Queue()
     port = _free_port()
+    cfg2 = dataclasses.replace(cfg, n_layers=TP2_OTHER_LAYERS)
+    params2 = _first_layers(params, TP2_OTHER_LAYERS)
+    reqs2 = [(p, n) for (p, _), n in zip(reqs, TP2_OTHER_NEW)]
     t0 = time.perf_counter()
-    models = {"llama": (cfg, params, reqs8, _tp2_embed_ids(cfg)),
-              "gemma": (gcfg, gparams, greqs, _tp2_embed_ids(gcfg))}
+    models = {"llama": (cfg, params, reqs_tp, _tp2_embed_ids(cfg)),
+              "gemma": (gcfg, gparams, greqs, _tp2_embed_ids(gcfg)),
+              "llama2": (cfg2, params2, reqs2)}
     procs = [ctx.Process(target=_tp2_rank, daemon=True,
                          args=(r, port, models, queue)) for r in range(2)]
     for p in procs:
@@ -1802,6 +1928,7 @@ def phase_tp2(torch, cfg, params, reqs) -> dict:
     out = {"seconds": wall}
     for tag in ("llama", "gemma"):
         out[tag] = _tp2_reading(torch, tag, res, models[tag])
+    out["meshes"] = _tp2_meshes(torch, res, cfg2, params2, reqs2)
     out["k1_err"] = [res[k]["k1_err"] for k in (0, 1)]
     if max(out["k1_err"]) > ATOL["bfloat16"] or {
             res[k]["k1_route"] for k in (0, 1)} != {"sm90"}:
@@ -1820,6 +1947,238 @@ def phase_tp2(torch, cfg, params, reqs) -> dict:
     if freed < 0.99 * want:
         raise AssertionError("[tp2] the weights the ranks shared were not "
                              "given back")
+    return out
+
+
+#: ``[tp8]``: Qwen2-7B at full width, TP8_LAYERS deep, random bf16 from
+#: seed 0, over tp=8 in eight gloo processes on the one card; its
+#: continuous requests are the first TP8_REQS of the continuous phase's
+#: prompts (drawn over its vocabulary), TP8_NEW new tokens each (an eager
+#: tick of eight gloo ranks took ~0.5 s on an H100 at 700 W: PERF.md §6)
+TP8, TP8_LAYERS, TP8_REQS, TP8_NEW = 8, 2, 4, 16
+#: K1 at two of ``[tp8]``'s local embeddings shapes, timed: rank 0's 4
+#: query heads over the 1 KV head they read, rank 5's 3 over 3
+TP8_LOCAL = {"rank0": {**TP_LOCAL, "nh": 4, "nkv": 1},
+             "rank5": {**TP_LOCAL, "nh": 3, "nkv": 3}}
+
+
+def _tp8_rank(rank, port, model, queue):
+    """One of ``[tp8]``'s eight ranks on ``cuda:0``: a gloo group of 8,
+    the serving mesh at tp=8 (28 query heads: ranks 0-3 compute 4, ranks
+    4-7 three; the 4 KV heads held whole), K1 at this rank's embeddings
+    shape (its query heads and the KV heads they read, ``_local_kv``)
+    against its plain version, then ``ContinuousBatchingEngine(mesh=...)``
+    on the parent's weights (CUDA IPC): rank 0 serves the requests and
+    runs the embeddings forward as an engine step, the others follow.
+    Reports the rank's bytes of weights and cache, its peak memory and its
+    K1 launches. Puts ``(rank, result)`` or ``(rank, traceback)`` on
+    ``queue``."""
+    import traceback
+    from datetime import timedelta
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from kubedl_tpu_torch.models import llama
+        from kubedl_tpu_torch.ops import attention as attn
+        from kubedl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+        from kubedl_tpu_torch.serving import ContinuousBatchingEngine
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=TP8, rank=rank,
+                                timeout=timedelta(seconds=TP_TIMEOUT_S))
+        mesh = build_mesh(MeshConfig(dp=1, fsdp=1, tp=TP8), device="cuda:0")
+        cfg, params, reqs, ids = model
+        first, n = llama.head_split(cfg.n_heads, TP8, rank)
+        res = {"rank": rank, "heads": (first, n)}
+        kv = torch.randn((TP_LOCAL["b"], TP_LOCAL["sq"], cfg.n_kv_heads,
+                          cfg.hd), generator=torch.Generator(
+                              device="cuda").manual_seed(480 + rank),
+                         device="cuda", dtype=torch.bfloat16)
+        k, v = llama._local_kv(cfg, kv, kv.flip(1), mesh)
+        q = torch.randn((TP_LOCAL["b"], TP_LOCAL["sq"], n, cfg.hd),
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            490 + rank), device="cuda", dtype=torch.bfloat16)
+        o, _ = attn.flash_forward(q, k, v, True)
+        ref, _ = attn.flash_forward_plain(q, k, v, True)
+        res["k1_shape"] = (tuple(q.shape), tuple(k.shape))
+        res["k1_err"] = (o.float() - ref.float()).abs().max().item()
+        res["k1_route"] = attn.flash_fwd_route(q.dtype, cfg.hd)
+        del q, k, v, o, ref, kv
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng = ContinuousBatchingEngine(cfg, params, lanes=CONT_LANES,
+                                       max_len=CONT_MAX_LEN, mesh=mesh,
+                                       device="cuda:0")
+        res["build_s"] = time.perf_counter() - t0
+        res["route"] = eng._tick_p.route
+        res["weight_bytes"] = sum(
+            t.numel() * t.element_size() for v in eng.params.values()
+            for t in (v.values() if isinstance(v, dict) else [v]))
+        res["cache_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in eng._pool.values())
+        res["local_wq"] = tuple(eng.params["layers"]["wq"].shape)
+        res["local_pool"] = tuple(eng._pool["k"].shape)
+        if eng._channel.leader:
+            t0 = time.perf_counter()
+            res["tokens"], res["logprobs"] = _run(eng, reqs)
+            res["seconds"] = time.perf_counter() - t0
+            res["ticks"] = eng.tick_launches
+            _reset_counts(attn)
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                res["hidden"] = eng.hidden_states(ids).float().cpu().numpy()
+            res["embed_s"] = time.perf_counter() - t0
+            eng.stop()
+        else:
+            _reset_counts(attn)
+            res["followed"] = eng.follow()
+        torch.cuda.synchronize()
+        res["k1"] = attn.flash_forward.launches
+        res["k1_by_route"] = dict(attn.flash_forward.launches_by_route)
+        res["peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+        del eng, params, model
+        gc.collect()
+        dist.destroy_process_group()
+        queue.put((rank, res))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_tp8(torch) -> dict:
+    """Tensor-parallel serving where ``tp`` does not divide the query
+    heads: Qwen2-7B (``qwen2_7b()``: 28 query heads over 4 KV heads of
+    width 128, q/k/v biases) at full width, ``TP8_LAYERS`` layers deep,
+    random bf16 weights from seed 0, over tp=8 in eight processes on
+    ``cuda:0`` under gloo (``_tp8_rank``; the weights shared over CUDA
+    IPC). Ranks 0-3 compute 4 whole query heads and ranks 4-7 three;
+    every rank holds the 4 KV heads whole and reads the ones its heads
+    map to. ``TP8_REQS`` greedy requests served on rank 0, every token
+    and its log-probability held to the teacher-forced reference by the
+    near-tie rule and counted against the one-process engine's tokens;
+    ``/v1/embeddings``' forward of [2, 512] ids as an engine step, K1 once
+    a layer on every rank, all ``sm90`` (at 4 and 3 local query heads),
+    rank 0's hidden states against the unsharded forward position by
+    position (``TP2_HIDDEN_COS``); each rank's K1 at its local shape
+    against the plain version, and K1 timed at two of them
+    (``TP8_LOCAL``); seconds, bytes and peak memory by rank."""
+    import dataclasses
+
+    import torch.multiprocessing as tmp
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.ops import attention as attn
+    from kubedl_tpu_torch.serving import ContinuousBatchingEngine
+
+    cfg = dataclasses.replace(llama.qwen2_7b(), n_layers=TP8_LAYERS)
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    reqs = [(p, TP8_NEW) for p, _ in _cont_requests(cfg)[1][:TP8_REQS]]
+    ids = _tp2_embed_ids(cfg)
+    eng = ContinuousBatchingEngine(cfg, params, lanes=CONT_LANES,
+                                   max_len=CONT_MAX_LEN, device="cuda")
+    want, _ = _run(eng, reqs)
+    del eng
+    gc.collect()
+    ctx = tmp.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_tp8_rank, daemon=True,
+                         args=(r, port, (cfg, params, reqs, ids), queue))
+             for r in range(TP8)]
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        while len(res) < TP8:
+            rank, value = queue.get(timeout=TP_TIMEOUT_S)
+            if isinstance(value, str):
+                raise AssertionError(f"[tp8] rank {rank} failed:\n{value}")
+            res[rank] = value
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        torch.cuda.ipc_collect()
+    wall = time.perf_counter() - t0
+    lead = res[0]
+    bad = []
+    for r in range(TP8):
+        row = res[r]
+        first, n = row["heads"]
+        if row["route"] != "eager" or row["k1"] != cfg.n_layers or \
+                row["k1_by_route"]["sm90"] != cfg.n_layers:
+            bad.append(f"rank {r}: tick route {row['route']}, K1 "
+                       f"{row['k1_by_route']} (want eager, {cfg.n_layers} "
+                       "on sm90)")
+        if row["local_wq"] != (cfg.n_layers, cfg.d_model, n * cfg.hd):
+            bad.append(f"rank {r}: local wq {row['local_wq']} for {n} "
+                       "heads")
+        if row["k1_err"] > ATOL["bfloat16"] or row["k1_route"] != "sm90":
+            bad.append(f"rank {r}: K1 at {row['k1_shape']} on "
+                       f"{row['k1_route']}: max_abs_err {row['k1_err']}")
+        if r and not row["followed"]:
+            bad.append(f"rank {r} followed no step")
+    if lead["ticks"]["graph"] or not lead["ticks"]["eager"]:
+        bad.append(f"ticks {lead['ticks']}")
+    if bad:
+        raise AssertionError(f"[tp8] {bad}")
+    reading = _hold(torch, cfg, params, reqs, lead["tokens"], "[tp8] tp=8",
+                    want=want, want_label="the one-process engine",
+                    lps=lead["logprobs"])
+    hidden = _tp2_hidden(torch, "qwen2-7b", cfg, params, ids,
+                         lead.pop("hidden"), tp=TP8, phase="tp8")
+    heads = [res[r]["heads"][1] for r in range(TP8)]
+    timed = {}
+    for tag, case in TP8_LOCAL.items():
+        row = timed[tag] = {"shape": _shape(case),
+                            **_fwd_timing(torch, case, seed=500 + case["nh"])}
+        q, k, v, _ = _inputs(torch, case, seed=500 + case["nh"])
+        row["max_abs_err"] = (attn.flash_forward(q, k, v, True)[0].float()
+                              - attn.flash_forward_plain(q, k, v, True)[0]
+                              .float()).abs().max().item()
+        if row["max_abs_err"] > ATOL["bfloat16"] or \
+                row["kernel_route"] != "sm90":
+            raise AssertionError(f"[tp8] K1 at {row['shape']}: {row}")
+        log(f"[tp8] K1 at {tag}'s shape {row['shape']} "
+            f"({row['kernel_route']}): max_abs_err {row['max_abs_err']:.3e}, "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+    out = {"seconds": wall, "timed": timed, "serve_s": lead["seconds"],
+           "embed_s": lead["embed_s"], "ticks": lead["ticks"],
+           "reading": reading, "hidden": hidden, "heads": heads,
+           "k1": [res[r]["k1"] for r in range(TP8)],
+           "k1_shapes": [res[r]["k1_shape"] for r in range(TP8)],
+           "k1_err": [res[r]["k1_err"] for r in range(TP8)],
+           "weight_bytes": [res[r]["weight_bytes"] for r in range(TP8)],
+           "cache_bytes": [res[r]["cache_bytes"] for r in range(TP8)],
+           "peak_gib": [res[r]["peak_gib"] for r in range(TP8)],
+           "build_s": [res[r]["build_s"] for r in range(TP8)],
+           "whole_weight_bytes": cfg.num_params * 2}
+    log(f"[tp8] Qwen2-7B ({cfg.n_layers} layers, bf16) over tp=8 in 8 gloo "
+        f"processes: query heads by rank {heads}; {len(reqs)} requests in "
+        f"{lead['seconds']:.2f} s (ticks {lead['ticks']}); embeddings "
+        f"{ids.shape} in {lead['embed_s']:.3f} s, K1 by rank {out['k1']}, "
+        f"all sm90; phase {wall:.1f} s ({_card()})")
+    log(f"[tp8] K1 by rank at (q, k) shapes {out['k1_shapes']}: max_abs_err "
+        f"{[f'{e:.3e}' for e in out['k1_err']]}")
+    log(f"[tp8] bytes by rank: weights {out['weight_bytes']} (whole "
+        f"{out['whole_weight_bytes']}), KV pool {out['cache_bytes']}; peak "
+        f"{[round(x, 3) for x in out['peak_gib']]} GiB; engine built in "
+        f"{[round(x, 2) for x in out['build_s']]} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4086,11 +4445,15 @@ def _first_step(torch, path) -> dict:
     mesh = build_mesh(MeshConfig(**cfg["mesh"]), device="cuda")
     params = fam.init_params(config, torch.Generator(
         device="cuda").manual_seed(int(cfg["seed"])), device="cuda")
-    host = next(iter(train_main._raw_stream(cfg["data"], config,
-                                            cfg["batch"], cfg["seq"])))
+    host = (_packed_batch(config, cfg["batch"], cfg["seq"], int(cfg["seed"]))
+            if cfg.get("packed") else next(iter(train_main._raw_stream(
+                cfg["data"], config, cfg["batch"], cfg["seq"]))))
     route = moe.route
 
-    def hidden(p, tokens, m, picks):
+    def packing(b):
+        return {k: b[k] for k in ("segment_ids", "positions") if k in b}
+
+    def hidden(p, b, m, picks):
         def recording(config_, probs, capacity, token_mask=None,
                       mesh=None):
             picks.append((probs.topk(config_.top_k, -1).indices,
@@ -4098,7 +4461,8 @@ def _first_step(torch, path) -> dict:
             return route(config_, probs, capacity, token_mask, mesh=mesh)
         with torch.no_grad(), unittest.mock.patch.object(
                 moe, "route", recording):
-            h = fam.forward_hidden(config, p, tokens, mesh=m)
+            h = fam.forward_hidden(config, p, b["tokens"], mesh=m,
+                                   **packing(b))
         return h[0] if isinstance(h, tuple) else h
 
     rank = dist.get_rank()
@@ -4110,12 +4474,12 @@ def _first_step(torch, path) -> dict:
              for k, v in tdata.shard_batch(host, mesh).items()}
     picks = []
     h = collectives.all_gather(
-        hidden(sharding.views(placed, mesh), batch["tokens"], mesh, picks),
+        hidden(sharding.views(placed, mesh), batch, mesh, picks),
         mesh, 1).float()
     view = sharding.views(placed, mesh, requires_grad=True)
     leaves = tree_leaves(view)
     share = fam.loss_fn(config, view, batch["tokens"], batch["targets"],
-                        mesh=mesh)
+                        mesh=mesh, mask=batch.get("mask"), **packing(batch))
     grads = torch.autograd.grad(share, [getattr(p, "local", p)
                                         for _, p in leaves])
     loss = float(collectives.world_sum(share))
@@ -4126,9 +4490,10 @@ def _first_step(torch, path) -> dict:
     log(f"[first step] rank {rank}: unsharded")
     full = tdata.to_device(host, torch.device("cuda"))
     ref_picks = []
-    ref_h = hidden(params, full["tokens"], None, ref_picks).float()
+    ref_h = hidden(params, full, None, ref_picks).float()
     ref_leaves = [(k, t.requires_grad_()) for k, t in tree_leaves(params)]
-    ref_loss = fam.loss_fn(config, params, full["tokens"], full["targets"])
+    ref_loss = fam.loss_fn(config, params, full["tokens"], full["targets"],
+                           mask=full.get("mask"), **packing(full))
     ref_grads = torch.autograd.grad(ref_loss, [t for _, t in ref_leaves])
     _reset_counts(attn)            # the checks launched K1-K3 too
     out = {"loss": loss, "ref_loss": float(ref_loss),
@@ -4148,6 +4513,27 @@ def _first_step(torch, path) -> dict:
             for (a, _), (b, _) in zip(ref_picks[:n], picks[:n])]
         out["router"] = _flips(torch, ref_picks, picks, config)
     return out
+
+
+def _packed_batch(config, batch: int, seq: int, seed: int) -> dict:
+    """A packed batch of ``batch`` rows of ``seq`` tokens from ``seed``:
+    three documents a row, the middle one across the middle of the row
+    (so across the cut between two ``cp`` ranks), positions restarting
+    per document and a mask over the targets inside one document (the
+    form ``train.data.pack_documents`` gives)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(3, config.vocab_size, (batch, seq + 1))
+    cuts = [0, seq * 3 // 8, seq * 7 // 10, seq]
+    seg = np.zeros((batch, seq), np.int64)
+    pos = np.zeros((batch, seq), np.int64)
+    for i in range(3):
+        seg[:, cuts[i]:cuts[i + 1]] = i
+        pos[:, cuts[i]:cuts[i + 1]] = np.arange(cuts[i + 1] - cuts[i])
+    mask = np.concatenate([seg[:, :-1] == seg[:, 1:],
+                           np.zeros((batch, 1), bool)], 1)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+            "segment_ids": seg, "positions": pos, "mask": mask}
 
 
 def _first_step_dpo(torch, path) -> dict:
@@ -4289,7 +4675,8 @@ def _mesh_rank(rank, port, jobs, queue):
     ranks on one device): ``python -m kubedl_tpu_torch.train``'s ``main``
     on each ``(tag, config path)`` of ``jobs`` over the open group
     (``_main_readings``), and for a training or DPO job its first step
-    against the same step unsharded. Puts ``(rank, {tag: readings})`` or
+    against the same step unsharded; a ``packed`` job (``_packed_batch``)
+    takes its first step only. Puts ``(rank, {tag: readings})`` or
     ``(rank, traceback)`` on ``queue``."""
     import traceback
     from datetime import timedelta
@@ -4305,10 +4692,13 @@ def _mesh_rank(rank, port, jobs, queue):
                                 timeout=timedelta(seconds=MESH_TIMEOUT_S))
         res = {}
         for tag, path in jobs:
+            cfg = json.loads(Path(path).read_text())
+            if cfg.get("packed"):
+                res[tag] = {"first_step": _first_step(torch, path)}
+                continue
             res[tag] = _main_readings(torch, path)
             gc.collect()
             torch.cuda.empty_cache()
-            cfg = json.loads(Path(path).read_text())
             mode = cfg.get("mode", "pretrain")
             if mode == "evaluate":
                 continue
@@ -4566,6 +4956,43 @@ def _hold_mesh_mode(tag, job, res, ref, factor) -> tuple:
     return out, [f"[{tag}] {job}: {b}" for b in bad]
 
 
+#: [cp2]'s packed Gemma-2 step: Gemma-2-2B width (8 query heads over 4
+#: KV heads of width 256, softcaps, query scale 256, sandwich norms, the
+#: alternate window) cut to 2 layers and its window to 1024 tokens, so
+#: the even layer's window cuts into the other rank's rows; one packed
+#: row of 4096 tokens (``_packed_batch``), first step only, on the ring
+#: setting at cp=2 (the knobs' chunked path at global offsets)
+CP2_GEMMA2 = {"model": "gemma.gemma2_2b",
+              "model_overrides": {"n_layers": 2, "sliding_window": 1024,
+                                  "loss_chunk": 512},
+              "mesh": {"cp": 2}, "seed": 0, "batch": 1, "seq": 4096,
+              "packed": True}
+
+
+def _hold_packed_step(tag, job, res) -> tuple:
+    """Both ranks' first step of the packed ``job`` against the same step
+    unsharded (``_first_step``), held to ``MESH_BOUNDS[tag]``: the loss
+    gap, the final hidden states and the whole gradient, norm-wise.
+    Returns (readings, failures)."""
+    bounds = MESH_BOUNDS[tag]
+    first = dict(res[0][job]["first_step"])
+    first["grad_rel"], first["worst_leaf"], first["worst_leaf_rel"] = \
+        _grad_rel([res[r][job]["first_step"] for r in (0, 1)])
+    del first["leaves"]
+    first["loss_gap"] = abs(first["loss"] - first["ref_loss"])
+    bad = [f"[{tag}] {job}: {key} {first[key]} > {bounds[key]}"
+           for key in ("loss_gap", "hidden_rel", "grad_rel")
+           if not first[key] <= bounds[key]]
+    log(f"[{tag}] {job} first step against the same step unsharded: loss "
+        f"{first['loss']} / {first['ref_loss']} (gap {first['loss_gap']:.3e},"
+        f" limit {bounds['loss_gap']}); final hidden states norm-wise "
+        f"{first['hidden_rel']:.4e} (limit {bounds['hidden_rel']}), least "
+        f"cosine by position {first['hidden_min_cos']:.6f}; gradients "
+        f"norm-wise {first['grad_rel']:.4e} (limit {bounds['grad_rel']}), "
+        f"worst leaf {first['worst_leaf']} {first['worst_leaf_rel']:.4e}")
+    return first, bad
+
+
 def phase_cp2(torch) -> dict:
     """Context parallelism at cp=2 on the one card: ``python -m
     kubedl_tpu_torch.train``'s ``main`` on Llama-3-8B at full width, 2
@@ -4577,7 +5004,9 @@ def phase_cp2(torch) -> dict:
     layer). Each run against the same job unsharded on one process:
     every K1-K3 launch on ``sm90``, the losses, and the first step's
     hidden states and gradients (``_hold_mesh_run``); each rank's step
-    time and peak memory. Both runs are read before either fails."""
+    time and peak memory. Both runs are read before either fails. In the
+    same two ranks, a packed Gemma-2 first step (``CP2_GEMMA2``) on the
+    ring setting against one process (``_hold_packed_step``)."""
     over = {"n_layers": CP2_LAYERS}
     path, tokens, cfg = _train_config("cp2_ref", overrides=over, batch=2,
                                       steps=CP2_STEPS, seq=CP2_SEQ)
@@ -4591,6 +5020,9 @@ def phase_cp2(torch) -> dict:
     modes = _cp2_mode_configs(tokens)
     jobs += [(f"{tag}_{impl}", p) for (tag, impl), p in modes.items()
              if impl]
+    packed = BUILD_OUT / "cp2_gemma2_packed.json"
+    packed.write_text(json.dumps(CP2_GEMMA2))
+    jobs.append(("gemma2_packed", str(packed)))
     mode_refs = {tag: _main_readings(torch, p)
                  for (tag, impl), p in modes.items() if impl is None}
     t0 = time.perf_counter()
@@ -4614,6 +5046,9 @@ def phase_cp2(torch) -> dict:
             out[f"{tag}_{impl}"], more = _hold_mesh_mode(
                 "cp2", f"{tag}_{impl}", res, mode_ref, factor)
             bad += more
+    out["gemma2_packed"], more = _hold_packed_step(
+        "cp2", "gemma2_packed", res)
+    bad += more
     log(f"[cp2] unsharded: step {ref['step_s']:.4f} s, peak "
         f"{ref['peak_gib']:.2f} GiB; the two ranks ran in "
         f"{out['seconds']:.1f} s ({_card()})")
@@ -5577,12 +6012,6 @@ def _median_ms(seconds) -> float:
     return 1e3 * statistics.median(seconds)
 
 
-#: [replay]'s depth for the days on Llama-3-8B ((a), (b), (d)): full width
-#: cut to its first 8 layers since slice 19, to keep the script inside its
-#: time limit (a day observes scheduling, which no layer count changes)
-REPLAY_LAYERS = 8
-
-
 def phase_replay(torch, cfg, params) -> dict:
     """The engine-driven replays on the card, each held to the same day
     run on the CPU on the replays' tiny float32 model: every request has
@@ -5603,8 +6032,9 @@ def phase_replay(torch, cfg, params) -> dict:
     day (``REPLAY_MM``), adapter-aware and adapter-blind, its two
     replicas sharing the Llama-3-8B weights, each arm held to its CPU
     day, with adapter faults, evictions and per-model TTFT p99. The
-    Llama-3-8B of (a), (b) and (d) is cut to its first ``REPLAY_LAYERS``
-    layers."""
+    Llama-3-8B of (a), (b) and (d) is the serving phases' model,
+    ``SERVE_LAYERS`` deep (a day observes scheduling, which no layer count
+    changes)."""
     import dataclasses
 
     from kubedl_tpu_torch.models import llama
@@ -5613,8 +6043,6 @@ def phase_replay(torch, cfg, params) -> dict:
                                          FlywheelReplay, RLJobSpec,
                                          ServingFleetReplay, ServingReplay,
                                          generate, generate_fleet)
-    cfg = dataclasses.replace(cfg, n_layers=REPLAY_LAYERS)
-    params = _first_layers(params, REPLAY_LAYERS)
     out = {}
 
     # (a) the serving smoke day
@@ -7406,7 +7834,7 @@ def _tp_probe(torch, only, timed) -> None:
     requests, which ``[tp]`` compares with."""
     from kubedl_tpu_torch.models import llama
     from kubedl_tpu_torch.serving import ContinuousBatchingEngine
-    cfg = llama.llama3_8b()
+    cfg = _serving_llama(llama)
     params = llama.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
 
@@ -7433,7 +7861,7 @@ def _replay_probe(torch, only, timed) -> None:
     """``[replay]``, ``[spec]``, ``[auto]`` and ``[fed]`` on their own,
     on Llama-3-8B from seed 0 (the serving phase's weights)."""
     from kubedl_tpu_torch.models import llama
-    cfg = llama.llama3_8b()
+    cfg = _serving_llama(llama)
     params = llama.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     for name, fn in (("replay", phase_replay), ("spec", phase_spec),
@@ -7446,8 +7874,9 @@ def _replay_probe(torch, only, timed) -> None:
 
 
 def _probe(torch, argv, timed) -> int:
-    """``--phases hf,lifecycle,resnet,moe_timing,dist,tp,tp2,ring,cp2,ep2,
-    pp,pp2,grpo,replay,spec,auto,fed,native,moe_int8,op [--layers N]``: the
+    """``--phases hf,lifecycle,resnet,moe_timing,dist,tp,tp2,tp8,ring,cp2,
+    ep2,pp,pp2,grpo,replay,spec,auto,fed,native,moe_int8,op [--layers N]``:
+    the
     named
     phases alone after the
     build,
@@ -7460,7 +7889,8 @@ def _probe(torch, argv, timed) -> int:
     if len(argv) not in (2, 4) or argv[0] != "--phases" or (
             len(argv) == 4 and argv[2] != "--layers"):
         print("usage: chip_smoke.py [--phases hf,lifecycle,resnet,"
-              "moe_timing,dist,tp,tp2,ring,cp2,ep2,pp,pp2,grpo,replay,spec,"
+              "moe_timing,dist,tp,tp2,tp8,ring,cp2,ep2,pp,pp2,grpo,replay,"
+              "spec,"
               "auto,fed,native,moe_int8,op [--layers N]]", file=sys.stderr)
         return 2
     only = set(argv[1].split(","))
@@ -7468,11 +7898,13 @@ def _probe(torch, argv, timed) -> int:
     log("[env] " + _card())
     if only & {"tp", "tp2"}:
         _tp_probe(torch, only, timed)
+    if "tp8" in only:
+        timed("tp8", phase_tp8, torch)
     if only & {"replay", "spec", "auto", "fed"}:
         _replay_probe(torch, only, timed)
     if "op" in only:
         from kubedl_tpu_torch.models import llama
-        cfg = llama.llama3_8b()
+        cfg = _serving_llama(llama)
         params = llama.init_params(
             cfg, torch.Generator(device="cuda").manual_seed(0),
             device="cuda")
@@ -7552,7 +7984,7 @@ def main() -> int:
         return _probe(torch, sys.argv[1:], timed)
     fwd = timed("kernel_check", phase_kernel_check, torch)
     from kubedl_tpu_torch.models import llama
-    cfg8b = llama.llama3_8b()
+    cfg8b = _serving_llama(llama)
     serving_launches, params = timed("serving", phase_serving, torch, cfg8b)
     log(f"[serve] {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak "
         "device memory")
@@ -7564,12 +7996,14 @@ def main() -> int:
     gc.collect()
     tp2_run = timed("tp2", phase_tp2, torch, cfg8b, params, cont["reqs"])
     gc.collect()
+    tp8_run = timed("tp8", phase_tp8, torch)
+    gc.collect()
     replay_run = timed("replay", phase_replay, torch, cfg8b, params)
     spec_run = timed("spec", phase_spec, torch, cfg8b, params)
     timed("auto", phase_auto, torch, cfg8b, params)
     fed_run = timed("fed", phase_fed, torch, cfg8b, params)
     del params, cont
-    gc.collect()                 # the 16 GB serving model goes first
+    gc.collect()                 # the serving model goes first
     torch.cuda.empty_cache()
     gcfg, gparams, gemma = timed("gemma", phase_gemma, torch)
     timed("gemma_predictor", phase_gemma_predictor, torch, gcfg, gparams)
@@ -7690,7 +8124,8 @@ def main() -> int:
         moe_embeddings=moe_out["embeddings_launches"],
         tp_embeddings=tp_run["embeddings_launches"],
         spec_embeddings=spec_run["embeddings_launches"],
-        tp2_embeddings=sum(tp2_run["llama"]["k1"] + tp2_run["gemma"]["k1"]))
+        tp2_embeddings=sum(tp2_run["llama"]["k1"] + tp2_run["gemma"]["k1"]),
+        tp8_embeddings=sum(tp8_run["k1"]))
     new_paths = {**hf["launches"], **life["launches"]}
     for name in launches:
         launches[name].update({path: new_paths[path][name]
@@ -7776,8 +8211,13 @@ def main() -> int:
                 "launches": {"tp_embeddings": tp_run["embeddings_launches"],
                              "tp2_embeddings_by_rank": {
                                  "llama": tp2_run["llama"]["k1"],
-                                 "gemma": tp2_run["gemma"]["k1"]}},
-                "tp2_max_abs_err_by_rank": tp2_run["k1_err"]},
+                                 "gemma": tp2_run["gemma"]["k1"]},
+                             "tp8_embeddings_by_rank": tp8_run["k1"]},
+                "tp2_max_abs_err_by_rank": tp2_run["k1_err"],
+                "tp8": {"query_heads_by_rank": tp8_run["heads"],
+                        "shapes_by_rank": tp8_run["k1_shapes"],
+                        "max_abs_err_by_rank": tp8_run["k1_err"],
+                        **tp8_run["timed"]}},
          "simt_source": source("flash_forward", "simt"),
          "kernel_route": "sm90", "design": DESIGN["flash_forward"]},
         {"name": "flash_dq", "route": "cuda",

@@ -24,7 +24,12 @@ kernels on the rank's own heads (``wq``/``wk``/``wv`` column-parallel,
 on its own ``d_ff`` columns the same way. When ``tp`` does not divide
 ``n_kv_heads`` (Gemma's one KV head) the K/V weights are gathered whole,
 so every rank holds the KV heads its query heads read, as the JAX
-serving path replicates its cache. The embedding and the LM head are
+serving path replicates its cache. When ``tp`` does not divide
+``n_heads`` (Qwen2-7B's 28 at ``tp=8``) the storage stays JAX's equal
+column chunks, which split a head; the attention leaves are then
+gathered whole and each rank computes whole heads, one more on each of
+the first ``n_heads % tp`` ranks (:func:`head_split`,
+:func:`_attn_views`). The embedding and the LM head are
 gathered whole over ``tp`` for the lookup and the loss, their storage
 and gradients staying sharded (a vocab-parallel loss would skip that
 gather: ROADMAP B11).
@@ -34,13 +39,15 @@ one of the JAX block's three branches: Ulysses (``cp_impl="ulysses"``,
 ``parallel/ulysses.py``), the ring (``parallel/ring.py``) when there are
 no segment ids, or, with segment ids on the ring setting, the rank's
 query rows against K, V and the segment ids all-gathered over ``cp`` (K1
-at offsets ``(my * s_local, 0)``), which GSPMD does for the JAX block.
+at offsets ``(my * s_local, 0)``; with Gemma-2's knobs the chunked path
+at the same offsets), which GSPMD does for the JAX block.
 RoPE positions are global (``my * s_local + arange``), and the loss
 takes the rank's columns of a ``[b, s]`` mask that ``shard_batch``
 leaves whole.
 
 Tensor-parallel serving (``serving.engine.shard_for_serving``) hands the
-model plain tensors, each rank's own shard, with the serving ``mesh``:
+model plain tensors, each rank's own shard (whole query heads), with the
+serving ``mesh`` (``fsdp``-sharded leaves come as views, as in training):
 the cache-aware steps (:func:`forward_step`, :func:`attention_step`)
 run the rank's heads against its KV heads (the cache from
 :func:`init_cache` / :func:`init_block_pool` holds ``n_kv_heads // tp``
@@ -61,13 +68,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..ops.attention import flash_attention, multi_head_attention
+from ..ops.attention import (chunked_attention, flash_attention,
+                             multi_head_attention)
 from ..ops.loss import chunked_token_nll
 from ..ops.quant import mm as _mm
 from ..ops.quant import to_dense
 from ..parallel.collectives import (all_gather, is_sharded, loss_share,
                                     tp_sum, vocab_gather, vocab_lookup)
-from ..parallel.sharding import materialize, spec
+from ..parallel.sharding import ShardedTensor, materialize, spec
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -503,12 +511,28 @@ def _kv_replicated(config: LlamaConfig, mesh) -> bool:
     return tp > 1 and config.n_kv_heads % tp != 0
 
 
-def _local_kv(config: LlamaConfig, k, v, nq: int, mesh):
-    """Of whole K/V [b, s, n_kv_heads, hd], the KV heads the rank's ``nq``
-    query heads read: a slice when they are a run of whole GQA groups,
-    else one KV head per query head."""
+def head_split(n_heads: int, tp: int, rank: int) -> tuple:
+    """``(first, count)`` of the whole query heads ``tp`` rank ``rank``
+    computes: ``n_heads // tp`` each, and one more on each of the first
+    ``n_heads % tp`` ranks (Qwen2-7B's 28 heads at ``tp=8``: 4, 4, 4, 4,
+    3, 3, 3, 3)."""
+    base, extra = divmod(n_heads, tp)
+    return rank * base + min(rank, extra), base + (rank < extra)
+
+
+def _rank_heads(config: LlamaConfig, mesh) -> tuple:
+    """:func:`head_split` of this ``tp`` rank (the mesh's ``tp`` size and
+    index; the whole model on one rank)."""
+    tp = mesh.size("tp") if mesh is not None else 1
+    return head_split(config.n_heads, tp, mesh.index("tp") if tp > 1 else 0)
+
+
+def _local_kv(config: LlamaConfig, k, v, mesh):
+    """Of whole K/V [b, s, n_kv_heads, hd], the KV heads the rank's query
+    heads (:func:`_rank_heads`) read: a slice when they are a run of whole
+    GQA groups, else one KV head per query head."""
     group = config.n_heads // config.n_kv_heads
-    first = mesh.index("tp") * nq
+    first, nq = _rank_heads(config, mesh)
     idx = [(first + i) // group for i in range(nq)]
     lo, n = idx[0], idx[-1] + 1 - idx[0]
     if nq % n == 0 and idx == [lo + i // (nq // n) for i in range(nq)]:
@@ -530,7 +554,57 @@ def kv_heads_local(config: LlamaConfig, mesh) -> int:
 
 _ATTN_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
                 "post_attn_norm")
+_KV_LEAVES = ("wk", "wv", "bk", "bv")
 _MLP_LEAVES = ("mlp_norm", "w_gate", "w_up", "w_down", "post_ffw_norm")
+#: the leaves split by query head, and the dim of their ``[in, out]``
+#: product (or bias) that holds the heads
+_HEAD_DIMS = {"wq": -1, "bq": -1, "wo": -2}
+
+
+def _cut_heads(w, dim: int, cols: slice):
+    """``w`` cut to ``cols`` along ``dim`` (-1 the output, -2 the input);
+    a LoRA weight cuts its base and its factor on that side."""
+    if torch.is_tensor(w):
+        return w[..., cols] if dim == -1 else w[..., cols, :]
+    side = "b" if dim == -1 else "a"
+    return dataclasses.replace(w, base=_cut_heads(w.base, dim, cols),
+                               **{side: _cut_heads(getattr(w, side), dim,
+                                                   cols)})
+
+
+def _stored_sharded(w) -> bool:
+    """Whether ``w`` is a placed leaf (a :class:`ShardedTensor`, or a
+    wrapped weight holding them) rather than serving's own cut."""
+    return isinstance(w, ShardedTensor) or any(
+        isinstance(getattr(w, f), ShardedTensor)
+        for f in getattr(w, "_arrays", ()))
+
+
+def _attn_views(config: LlamaConfig, lp: dict, mesh) -> dict:
+    """The attention weights as the rank computes with them: its query
+    heads (:func:`_rank_heads`) of ``wq``/``bq``/``wo``, and its KV heads,
+    or all of them where ``tp`` does not divide ``n_kv_heads``. A placed
+    leaf holds JAX's equal ``tp`` chunks of the columns; where ``tp`` does
+    not divide the query heads those chunks split a head, so it is
+    gathered whole over ``tp`` and cut to the rank's heads (the gather's
+    backward reduce-scatters the gradient back to the chunks). Serving's
+    plain leaves are the rank's heads already
+    (``serving.engine.serving_cut``)."""
+    tp = _tp(mesh)
+    kv_whole = _kv_replicated(config, mesh)
+    if tp == 1 or config.n_heads % tp == 0:
+        return _views(lp, _ATTN_LEAVES, _KV_LEAVES if kv_whole else ())
+    first, n = _rank_heads(config, mesh)
+    cols = slice(first * config.hd, (first + n) * config.hd)
+    out = {}
+    for k in _ATTN_LEAVES:
+        if k not in lp:
+            continue
+        w = materialize(lp[k], gather_tp=True)
+        if k in _HEAD_DIMS and _stored_sharded(lp[k]):
+            w = _cut_heads(w, _HEAD_DIMS[k], cols)
+        out[k] = w
+    return out
 
 
 def _cp_attention(config: LlamaConfig, q, k, v, segment_ids, mesh,
@@ -540,29 +614,53 @@ def _cp_attention(config: LlamaConfig, q, k, v, segment_ids, mesh,
     its heads."""
     c = config
     knobs = _attn_knobs(c)
+    gemma2 = bool(knobs) or window_on is not None
     if c.cp_impl == "ulysses":
         from ..parallel.ulysses import ulysses_attention
         return ulysses_attention(mesh, q, k, v, segment_ids=segment_ids,
                                  window_on=window_on, causal=True,
                                  window=c.sliding_window, **knobs)
-    if knobs or window_on is not None:
-        raise ValueError(
-            "Gemma-2 attention knobs (query scale / attn softcap / "
-            "alternate window pattern) are not supported with a "
-            "ring-sharded sequence; set cp_impl='ulysses'")
     if segment_ids is None:
+        if gemma2:
+            raise ValueError(
+                "Gemma-2 attention knobs (query scale / attn softcap / "
+                "alternate window pattern) are not supported with a "
+                "ring-sharded sequence; set cp_impl='ulysses'")
         from ..parallel.ring import ring_attention
         return ring_attention(mesh, q, k, v, causal=True,
                               window=c.sliding_window)
     # packed rows on the ring setting: this rank's query rows against the
     # whole sequence's K/V and segments (all-gathered over cp; the
-    # backward reduce-scatters dK/dV back to the shards)
+    # backward reduce-scatters dK/dV back to the shards), as GSPMD runs
+    # the JAX block's plain branch
     s = q.shape[1]
-    return flash_attention(
-        q, all_gather(k, mesh, 1), all_gather(v, mesh, 1), causal=True,
-        segment_ids=segment_ids,
-        kv_segment_ids=all_gather(segment_ids, mesh, 1),
-        offsets=(mesh.index("cp") * s, 0), window=c.sliding_window)
+    k_all, v_all = all_gather(k, mesh, 1), all_gather(v, mesh, 1)
+    kv_seg = all_gather(segment_ids, mesh, 1)
+    offsets = (mesh.index("cp") * s, 0)
+    if gemma2:
+        # the knobs' route in both packages: the chunked path
+        return chunked_attention(q, k_all, v_all, causal=True,
+                                 segment_ids=segment_ids,
+                                 kv_segment_ids=kv_seg, offsets=offsets,
+                                 window=c.sliding_window,
+                                 window_on=window_on, **knobs)
+    return flash_attention(q, k_all, v_all, causal=True,
+                           segment_ids=segment_ids, kv_segment_ids=kv_seg,
+                           offsets=offsets, window=c.sliding_window)
+
+
+def _check_ulysses_heads(config: LlamaConfig, mesh) -> None:
+    """Under Ulysses every ``tp`` rank's query heads must split over
+    ``cp``; where ``tp`` does not divide the heads the ranks hold two
+    counts, so both are checked on every rank (a refusal on some ranks
+    would leave the others waiting in a collective)."""
+    tp, cp = _tp(mesh), _cp(mesh)
+    counts = {head_split(config.n_heads, tp, r)[1] for r in range(tp)}
+    bad = sorted(n for n in counts if n % cp)
+    if bad:
+        raise ValueError(
+            f"ulysses needs the tp-local query head count ({bad[0]}) "
+            f"divisible by cp ({cp})")
 
 
 def attention_block(config: LlamaConfig, x, lp, cos, sin, segment_ids,
@@ -578,9 +676,7 @@ def attention_block(config: LlamaConfig, x, lp, cos, sin, segment_ids,
         raise ValueError(
             "window_pattern='alternate' requires a per-layer window_on "
             "flag (thread window_flags(config) through the layer loop)")
-    kv_whole = _kv_replicated(c, mesh)
-    lp = _views(lp, _ATTN_LEAVES,
-                ("wk", "wv", "bk", "bv") if kv_whole else ())
+    lp = _attn_views(c, lp, mesh)
     b, s, _ = x.shape
     hd = c.hd
 
@@ -588,11 +684,13 @@ def attention_block(config: LlamaConfig, x, lp, cos, sin, segment_ids,
     q = _qkv(c, h, lp, "wq", "bq").reshape(b, s, -1, hd)
     k = _qkv(c, h, lp, "wk", "bk").reshape(b, s, -1, hd)
     v = _qkv(c, h, lp, "wv", "bv").reshape(b, s, -1, hd)
-    if kv_whole:
-        k, v = _local_kv(c, k, v, q.shape[2], mesh)
+    if _kv_replicated(c, mesh):
+        k, v = _local_kv(c, k, v, mesh)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if _cp(mesh) > 1:
+        if c.cp_impl == "ulysses":
+            _check_ulysses_heads(c, mesh)
         attn = _cp_attention(c, q, k, v, segment_ids, mesh, window_on)
     else:
         attn = multi_head_attention(q, k, v, causal=True,
@@ -756,6 +854,7 @@ def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
     dev = x.device
     row_pos = torch.is_tensor(start_pos) and start_pos.ndim == 1
     pool_k, pool_v = kc, vc
+    lp = _attn_views(c, lp, mesh)
 
     h = rms_norm(x, lp["attn_norm"], c.rms_eps, c.norm_weight_offset)
     q = apply_rope(_qkv(c, h, lp, "wq", "bq").reshape(b, s, -1, hd),
@@ -824,7 +923,7 @@ def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
                 valid_a = valid[rows, gather]
 
     if _kv_replicated(c, mesh):
-        ka, va = _local_kv(c, ka, va, nh, mesh)
+        ka, va = _local_kv(c, ka, va, mesh)
         nkv = ka.shape[2]
     # GQA-grouped attention straight against the cache, no repeat_kv;
     # products and sums in float32 as the JAX step's

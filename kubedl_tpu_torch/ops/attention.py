@@ -112,11 +112,16 @@ def reference_attention(q, k, v, causal=True, segment_ids=None,
 
 def chunked_attention(q, k, v, causal=True, segment_ids=None,
                       block_k: int = 512, window: int = 0, scale=None,
-                      logit_softcap: float = 0.0, window_on=None):
+                      logit_softcap: float = 0.0, window_on=None,
+                      offsets=None, kv_segment_ids=None):
     """Online-softmax attention over K/V blocks of ``block_k``: O(sq *
     block_k) score memory. ``scale``/``logit_softcap``/``window_on`` as in
     :func:`reference_attention` (softcap is monotonic, so the online max
-    merge is unaffected)."""
+    merge is unaffected). ``offsets`` (q_off, k_off) place the query rows
+    and the keys at global positions, and ``kv_segment_ids`` [b, sk] are
+    the keys' segments where they differ from the rows' ``segment_ids``
+    [b, sq], as in :func:`flash_forward_plain` (one ``cp`` rank's rows
+    against the whole sequence's keys)."""
     _check_window(window, causal)
     b, sq, nh, hd = q.shape
     sk = k.shape[1]
@@ -127,7 +132,9 @@ def chunked_attention(q, k, v, causal=True, segment_ids=None,
     qh = q.transpose(1, 2).float() * scale                  # [b, h, sq, hd]
     kh = k.transpose(1, 2).float()
     vh = v.transpose(1, 2).float()
-    rows = torch.arange(sq, device=q.device)[:, None]
+    q_off, k_off = _offsets(offsets)
+    rows = torch.arange(q_off, q_off + sq, device=q.device)[:, None]
+    kv_seg = segment_ids if kv_segment_ids is None else kv_segment_ids
     windowed = _window_active(window, window_on)
 
     acc = torch.zeros_like(qh)
@@ -139,7 +146,8 @@ def chunked_attention(q, k, v, causal=True, segment_ids=None,
         scores = qh @ kj.transpose(-1, -2)                  # [b, h, sq, n]
         if logit_softcap:
             scores = logit_softcap * torch.tanh(scores / logit_softcap)
-        cols = torch.arange(k0, k0 + kj.shape[2], device=q.device)[None, :]
+        cols = torch.arange(k0 + k_off, k0 + k_off + kj.shape[2],
+                            device=q.device)[None, :]
         keep = None
         if causal:
             keep = cols <= rows
@@ -148,7 +156,7 @@ def chunked_attention(q, k, v, causal=True, segment_ids=None,
             keep = keep[None, None]
         if segment_ids is not None:
             seg = (segment_ids[:, :, None]
-                   == segment_ids[:, None, k0:k0 + kj.shape[2]])[:, None]
+                   == kv_seg[:, None, k0:k0 + kj.shape[2]])[:, None]
             keep = seg if keep is None else keep & seg
         if keep is not None:
             scores = torch.where(keep, scores, _NEG_INF)

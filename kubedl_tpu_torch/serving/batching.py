@@ -46,11 +46,12 @@ the adapter's weight pages allocate from the same refcounted pool as KV
 blocks (``serving/adapters.py``); residency is host accounting, so greedy
 tokens under an adapter equal the base model's, as in the JAX engine.
 
-**Serving over a mesh** (``mesh=`` a serving mesh of ``tp``, ``ep`` and
-``cp`` ranks, one process per card): every rank builds the engine with
-the same arguments and holds its shard of the weights (``tp`` columns,
-``ep`` experts) and its KV heads (``engine.init_mesh_serving``); over
-``cp`` it holds everything and runs the whole step
+**Serving over a mesh** (``mesh=`` a serving mesh over any of its axes,
+one process per card): every rank builds the engine with the same
+arguments and holds its shard of the weights (``tp`` columns of whole
+query heads, ``ep`` experts, the ``embed`` dim's ``fsdp`` shard,
+gathered per use) and its KV heads (``engine.init_mesh_serving``); over
+``dp``, ``pp`` and ``cp`` it holds everything and runs the whole step
 (``engine.serving_mesh``). Rank 0 runs the scheduler, and every
 device step goes through :meth:`ContinuousBatchingEngine._dev`, which
 posts the step and its host arguments on the step channel
@@ -77,10 +78,10 @@ import torch
 from .._device import resolve_device
 from ..parallel.collectives import is_sharded
 from ..trace import NOOP_TRACER
-from .engine import (GenerateConfig, SpecStats, filtered_probs, hit_stop,
-                     init_mesh_serving, load_into, resolve_family,
-                     sample_logits, sample_logits_many, serving_mesh,
-                     serving_tp, spec_accept, token_logprobs)
+from .engine import (SERVING_AXES, GenerateConfig, SpecStats,
+                     filtered_probs, hit_stop, init_mesh_serving, load_into,
+                     resolve_family, sample_logits, sample_logits_many,
+                     serving_mesh, serving_tp, spec_accept, token_logprobs)
 
 log = logging.getLogger("kubedl_tpu_torch.serving")
 
@@ -338,13 +339,13 @@ def decode_tick_route(device, mesh=None) -> str:
     """How a decode tick runs on ``device``: ``graph`` on a CUDA device
     (a captured CUDA graph, replayed every tick; a capture that fails
     raises, there is no eager fallback) when the tick's collectives can
-    be captured (NCCL, or a step that runs none: one rank, or ``cp``
-    alone), ``eager`` under a gloo ``tp`` or ``ep`` group and off the
-    card."""
+    be captured (NCCL, or a step that runs none: one rank, or only
+    ``dp``, ``pp`` and ``cp``), ``eager`` under a gloo ``tp``, ``ep`` or
+    ``fsdp`` group and off the card."""
     if torch.device(device).type != "cuda":
         return "eager"
     mesh = serving_mesh(mesh)
-    for axis in ("tp", "ep"):
+    for axis in SERVING_AXES:
         if is_sharded(mesh) and mesh.size(axis) > 1:
             import torch.distributed as dist
             if dist.get_backend(mesh.group(axis)) != "nccl":

@@ -12,11 +12,14 @@
   applied as the weights move to the device, leaf by leaf;
 * serving over a ``mesh`` of one host's cards (:func:`shard_for_serving`,
   :func:`init_mesh_serving`): under ``tp`` each rank holds its shard of
-  every weight as a plain tensor and its KV heads of the cache, and the
-  model runs the ``tp`` collectives inside each step; under ``ep`` it
-  holds its experts of every MoE stack and the experts' outputs are
-  summed over ``ep``; over ``cp`` everything is replicated and every rank
-  runs the whole step (:func:`serving_mesh`). In torch every card is its
+  every weight as a plain tensor (whole query heads, also where ``tp``
+  does not divide them) and its KV heads of the cache, and the model
+  runs the ``tp`` collectives inside each step; under ``ep`` it holds
+  its experts of every MoE stack and the experts' outputs are summed
+  over ``ep``; under ``fsdp`` it holds JAX's ``embed`` shard of each
+  weight and the step gathers each one per use; over ``dp``, ``pp`` and
+  ``cp`` everything is replicated and every rank runs the whole step
+  (:func:`serving_mesh`). In torch every card is its
   own process, so :class:`InferenceEngine` under a mesh is driven SPMD:
   every rank calls ``generate`` with the same prompts. (The continuous
   engine, which the predictor serves, drives its followers through one
@@ -39,6 +42,7 @@ from ..models import llama
 #: ``init_cache`` / ``forward_step`` / ``forward_step_paged`` contract)
 from ..models.io import family_of as resolve_family
 from ..parallel.collectives import is_sharded
+from ..parallel.sharding import ShardedTensor
 
 
 @dataclass(frozen=True)
@@ -230,76 +234,81 @@ def local_device_count(device) -> int:
     return os.cpu_count() or 1
 
 
-#: the axes a serving mesh may shard over (one host's cards): ``tp``
-#: splits the heads, the MLP and the vocabulary, ``ep`` the MoE experts,
-#: and ``cp`` replicates (every ``cp`` rank runs the whole step)
-SERVING_AXES = ("ep", "cp", "tp")
+#: the axes a serving step runs the model over (one host's cards): ``tp``
+#: splits the heads, the MLP and the vocabulary, ``ep`` the MoE experts
+#: and ``fsdp`` the ``embed`` dim of the stored leaves (gathered per use);
+#: nothing is placed on ``dp``, ``pp`` or ``cp``, whose ranks hold
+#: everything and run the whole step (:func:`serving_mesh`)
+SERVING_AXES = ("fsdp", "ep", "tp")
 
 
 def serving_tp(mesh) -> int:
     """The ``tp`` size of a serving mesh (1 for None or one rank), after
     refusing a mesh without a process group behind it
-    (``llama._check_mesh``) and axes that serving does not shard over:
-    the JAX engines take any local mesh and place the params by the
-    family's specs, which name ``tp`` and ``ep`` (the expert stacks);
-    nothing names ``cp``, so the params and the cache are replicated
-    over it."""
+    (``llama._check_mesh``). The JAX engines take any local mesh and place
+    the params by the family's specs, which name ``fsdp`` (``embed``),
+    ``tp`` and ``ep`` (the expert stacks) and no other axis; so do the
+    port's."""
     if mesh is None:
         return 1
     llama._check_mesh(mesh)
-    other = {a: n for a, n in mesh.shape.items()
-             if a not in SERVING_AXES and n > 1}
-    if other:
-        raise ValueError(f"a serving mesh shards over tp, ep or cp only, "
-                         f"got {other}")
     return mesh.size("tp") if is_sharded(mesh) else 1
 
 
 def serving_mesh(mesh):
-    """The mesh a serving step runs the model on: ``mesh`` with ``cp``
-    shown as 1. Serving replicates the params and the cache over ``cp``
-    (JAX's placement), and every ``cp`` rank runs the whole step on the
-    whole sequence, so the model must not take its training split of the
-    sequence (``models.llama`` reads a ``cp`` axis as a sharded
-    sequence). Its process groups stay whole: the step channel still
-    spans every rank (``serving/tp.py``)."""
-    if mesh is None or mesh.size("cp") == 1:
+    """The mesh a serving step runs the model on: ``mesh`` with ``dp``,
+    ``pp`` and ``cp`` shown as 1. Serving replicates the params and the
+    cache over them (JAX's placement), and every such rank runs the whole
+    step on the whole batch and sequence, so the model must not take its
+    training split of either (``models.llama`` reads a ``cp`` axis as a
+    sharded sequence). Its process groups stay whole: the step channel
+    still spans every rank (``serving/tp.py``)."""
+    if mesh is None or all(mesh.size(a) == 1 for a in ("dp", "pp", "cp")):
         return mesh
-    return replace(mesh, shape={**mesh.shape, "cp": 1})
+    return replace(mesh, shape={**mesh.shape, "dp": 1, "pp": 1, "cp": 1})
 
 
-def check_serving_split(config, tp: int, ep: int = 1) -> None:
-    """Refuse a ``tp`` that does not split the heads, the MLP (or each
-    expert's) hidden dim or the vocabulary into equal shards, or an
-    ``ep`` that does not split an MoE model's experts, naming the
-    dimension. The JAX package pads an uneven split (GSPMD); the port's
-    shards are equal (``parallel/sharding.py``). ``n_kv_heads`` need not
-    divide: the KV heads are then held whole on every rank."""
-    for name in ("n_heads", "d_ff", "vocab_size"):
-        n = getattr(config, name)
-        if n % tp:
-            raise ValueError(
-                f"tensor-parallel serving over tp={tp} needs {name} "
-                f"divisible by {tp}, got {name}={n}: the port's shards are "
-                "equal")
+def check_serving_split(config, tp: int, ep: int = 1, fsdp: int = 1) -> None:
+    """Refuse a mesh that does not split a leaf it shards into equal
+    shards, naming the dimension: the JAX package places the params with
+    ``device_put``, which refuses the same splits. Under ``tp`` those are
+    the query heads' columns (``n_heads * head_dim``; ``n_heads`` itself
+    need not divide, each rank computes whole heads:
+    ``models.llama.head_split``), the MLP's (or each expert's) hidden dim
+    and the vocabulary; ``n_kv_heads`` need not divide either (the KV
+    heads are then held whole on every rank). Under ``ep`` the MoE
+    experts, under ``fsdp`` the model width."""
+    dims = [("tp", tp, "n_heads * head_dim", config.n_heads * config.hd),
+            ("tp", tp, "d_ff", config.d_ff),
+            ("tp", tp, "vocab_size", config.vocab_size),
+            ("fsdp", fsdp, "d_model", config.d_model)]
     experts = getattr(config, "n_experts", None)
-    if ep > 1 and experts is not None and experts % ep:
-        raise ValueError(
-            f"expert-parallel serving over ep={ep} needs n_experts "
-            f"divisible by {ep}, got n_experts={experts}: the port's "
-            "shards are equal")
+    if experts is not None:
+        dims.append(("ep", ep, "n_experts", experts))
+    for axis, size, name, n in dims:
+        if n % size:
+            raise ValueError(
+                f"serving over {axis}={size} needs {name} divisible by "
+                f"{size}, got {name}={n}: the JAX package refuses this "
+                "split too (its device_put places equal shards)")
 
 
 def serving_cut(config, mesh):
     """``cut(name, leaf)``: this rank's shard of a whole leaf (named as
-    ``layers/wq``) under the family's specs (its ``tp`` columns, and
-    under ``ep`` its ``E/ep`` experts of every MoE stack); a leaf already
-    of the shard's shape as it is; ``wk``/``wv`` (and their biases) whole
-    where ``tp`` does not divide the KV heads."""
+    ``layers/wq``) under the family's ``tp`` and ``ep`` specs (its ``tp``
+    columns, and under ``ep`` its ``E/ep`` experts of every MoE stack); a
+    leaf already of the shard's shape as it is; ``wk``/``wv`` (and their
+    biases) whole where ``tp`` does not divide the KV heads. ``wq``,
+    ``bq`` and ``wo`` are cut to the rank's whole query heads
+    (``models.llama.head_split``): JAX's equal chunks where ``tp`` divides
+    the heads, one head more on each of the first ``n_heads % tp`` ranks
+    where it does not. ``fsdp`` is not cut here (:func:`shard_for_serving`
+    places it: a leaf it shards never comes here)."""
     from ..parallel.sharding import local_shard, spec_leaves
     tp = serving_tp(mesh)
-    ep = mesh.size("ep") if is_sharded(mesh) else 1
-    check_serving_split(config, tp, ep)
+    sharded = is_sharded(mesh)
+    ep = mesh.size("ep") if sharded else 1
+    check_serving_split(config, tp, ep, mesh.size("fsdp") if sharded else 1)
     family = resolve_family(config)
     specs = spec_leaves(family.param_specs(config))
     shapes = {}
@@ -311,13 +320,19 @@ def serving_cut(config, mesh):
             shapes[name] = val[0]
     whole = ({f"layers/{k}" for k in ("wk", "wv", "bk", "bv")}
              if config.n_kv_heads % tp else set())
+    first, n = llama.head_split(config.n_heads, tp,
+                                mesh.index("tp") if tp > 1 else 0)
+    heads = {f"layers/{k}": d for k, d in llama._HEAD_DIMS.items()}
 
     def cut(name, leaf):
         if name in whole or tp * ep == 1:
             return leaf
-        if tuple(leaf.shape) == tuple(shapes[name]):
-            return local_shard(leaf, mesh, specs[name])
-        return leaf                  # already this rank's shard
+        if tuple(leaf.shape) != tuple(shapes[name]):
+            return leaf                  # already this rank's shard
+        if name in heads:
+            return leaf.narrow(leaf.ndim + heads[name], first * config.hd,
+                               n * config.hd)
+        return local_shard(leaf, mesh, specs[name])
     return cut
 
 
@@ -325,21 +340,40 @@ def shard_for_serving(config, params, cache, mesh):
     """This rank's local tree for model-parallel serving over a local
     mesh (the cards of ONE host, as the JAX function's): params by the
     family's logical specs (heads, ``mlp`` and the vocab on ``tp``, the
-    MoE experts on ``ep``; replicated over ``cp``), each leaf a plain
-    tensor on the mesh's device, cut once; the cache by KV heads when
-    ``tp`` divides them, else whole on every rank (MQA), and whole over
-    ``ep`` and ``cp``. Either tree may be None. ``params`` may be whole
-    or already this rank's shard (``models.io.load_model(select=)``).
-    Both cache layouts carry the KV heads on axis 3, so one rule cuts the
-    dense slab and the paged pool (the pool's block axis stays whole on
-    every rank). Refuses a split that is not even
+    MoE experts on ``ep``, ``embed`` on ``fsdp``; replicated over ``dp``,
+    ``pp`` and ``cp``), cut once, on the mesh's device; the cache by KV
+    heads when ``tp`` divides them, else whole on every rank (MQA), and
+    whole over every other axis. Either tree may be None. Under ``tp`` and
+    ``ep`` alone each leaf is a plain tensor (:func:`serving_cut`), and
+    ``params`` may be whole or already this rank's shard
+    (``models.io.load_model(select=)``). Under ``fsdp`` every leaf whose
+    spec names it is JAX's shard of the whole leaf, held as a
+    ``parallel.sharding.ShardedTensor`` that the step gathers per use
+    (``materialize``, as in sharded training), and ``params`` must be
+    whole. Both cache layouts carry the KV heads on axis 3, so one rule
+    cuts the dense slab and the paged pool (the pool's block axis stays
+    whole on every rank). Refuses a split that is not even
     (:func:`check_serving_split`)."""
+    from ..parallel.sharding import local_shard, spec_leaves
     cut = serving_cut(config, mesh)
     dev = mesh.device
+    placed = {}
+    if is_sharded(mesh) and mesh.size("fsdp") > 1:
+        placed = {name: s for name, s in spec_leaves(
+            resolve_family(config).param_specs(config)).items()
+            if any(e == "fsdp" or (isinstance(e, tuple) and "fsdp" in e)
+                   for e in s)}
+    model_mesh = serving_mesh(mesh)
+
+    def put(name, leaf):
+        if name in placed:
+            return ShardedTensor(
+                local_shard(leaf, mesh, placed[name]).to(dev).contiguous(),
+                placed[name], model_mesh)
+        return cut(name, leaf).to(dev).contiguous()
     if params is not None:
-        params = {k: ({n: cut(f"layers/{n}", t).to(dev).contiguous()
-                       for n, t in v.items()} if k == "layers"
-                      else cut(k, v).to(dev).contiguous())
+        params = {k: ({n: put(f"layers/{n}", t) for n, t in v.items()}
+                      if k == "layers" else put(k, v))
                   for k, v in params.items()}
     if cache is not None:
         from ..models.llama import kv_heads_local
@@ -376,6 +410,8 @@ def load_into(dst, src) -> None:
         for k in dst:
             load_into(dst[k], src[k])
         return
+    if isinstance(dst, ShardedTensor):
+        dst, src = dst.local, src.local
     fields = getattr(dst, "_arrays", ())
     for d, s in ([(getattr(dst, f), getattr(src, f)) for f in fields]
                  if fields else [(dst, src)]):
@@ -415,7 +451,7 @@ class InferenceEngine:
     """One loaded model and its prefill/decode steps on ``device``
     (``None``: the card; ``"cpu"`` only when asked). Parameters are moved
     to the device once, quantized on the way with ``quantize``. Under a
-    serving ``mesh`` (the mesh's device; ``tp``, ``ep`` and ``cp``) each
+    serving ``mesh`` (the mesh's device; any of its axes) each
     rank holds its shard (:func:`init_mesh_serving`) and every rank calls
     :meth:`generate` with the same arguments; :attr:`mesh` is the one the
     model runs on (:func:`serving_mesh`)."""

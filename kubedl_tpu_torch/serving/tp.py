@@ -1,5 +1,5 @@
-"""Serving over a mesh across processes (``tp``, and the engines' ``ep``
-and ``cp``): the step channel, the follower loop and the follower
+"""Serving over a mesh across processes (``tp``, and the engines' other
+axes): the step channel, the follower loop and the follower
 process's entry point. Port-only (no JAX twin, like
 ``parallel/collectives.py``).
 
@@ -61,7 +61,7 @@ log = logging.getLogger("kubedl_tpu_torch.serving.tp")
 
 class StepChannel:
     """Rank 0's device steps, posted to the other ranks of a serving mesh
-    (every rank of its ``tp``, ``ep`` and ``cp`` axes) over a gloo group
+    (every rank of every axis) over a gloo group
     of the same ranks (none on one rank). ``posts`` counts the steps
     posted."""
 

@@ -10,7 +10,10 @@ The weights are JAX-made float32 and cross over as numpy
 ids, restarting positions, a bool mask ``shard_batch`` leaves whole over
 ``cp``) at ``cp=2`` through Ulysses and through the ring setting (K/V and
 segments all-gathered over ``cp``); Gemma tiny (one KV head) at ``cp=2``
-through Ulysses, with and without Gemma-2's attention knobs; MoE tiny (4 experts) at ``ep=2,fsdp=2``, ``ep=4`` and
+through Ulysses, with and without Gemma-2's attention knobs, and with the
+knobs on packed rows through the ring setting (the chunked path on the
+rank's rows against the gathered K/V); MoE tiny (4 experts) at
+``ep=2,fsdp=2``, ``ep=4`` and
 ``cp=2`` (routing over the whole sequence). The first step's loss and
 every gathered gradient, and the losses of 3 steps, are held within 1e-5
 relative in float32; one bf16 run within 4 bf16 ulps of one process.
@@ -41,8 +44,10 @@ BATCH, SEQ, VOCAB = 8, 32, 256
 OPT = dict(learning_rate=1e-2, warmup_steps=1, decay_steps=10,
            weight_decay=0.1, grad_clip=1.0)
 #: Gemma-2's attention knobs on Gemma tiny: a query scale, an attention
-#: softcap and a sliding window on the even layers (the ring refuses
-#: them; Ulysses runs them through the chunked path on the full sequence)
+#: softcap and a sliding window on the even layers (the ring refuses them
+#: without segment ids; Ulysses runs them through the chunked path on the
+#: full sequence, and the ring setting with segment ids on the rank's rows
+#: against the gathered K/V)
 GEMMA2_KNOBS = {"query_scale": 16.0, "attn_logit_softcap": 50.0,
                 "sliding_window": 12, "window_pattern": "alternate"}
 #: name -> (family, dtype, mesh, model overrides, packed batch)
@@ -57,6 +62,8 @@ CASES = {
                           {"cp_impl": "ulysses"}, False),
     "gemma2-cp2-ulysses": ("gemma", "float32", {"cp": 2},
                            {"cp_impl": "ulysses", **GEMMA2_KNOBS}, False),
+    "gemma2-cp2-ring-packed": ("gemma", "float32", {"cp": 2}, GEMMA2_KNOBS,
+                               True),
     "moe-ep2_fsdp2": ("moe", "float32", {"ep": 2, "fsdp": 2}, {}, False),
     "moe-ep4": ("moe", "float32", {"ep": 4}, {}, False),
     "moe-cp2": ("moe", "float32", {"cp": 2}, {}, False),
@@ -554,7 +561,19 @@ def test_refusals_name_the_reason(tmp_path):
     with pytest.raises(ValueError, match=r"tp-local query head count \(2\) "
                                          r"divisible by cp \(4\)"):
         ulysses_attention(_stub_mesh(cp=4), q, q, q)
-    # the ring refuses the Gemma-2 attention knobs, naming Ulysses
+    # where tp does not divide the query heads the ranks hold two counts:
+    # every rank checks both before any collective (3 heads at tp=2: 2
+    # and 1, and 1 does not split over cp=2)
+    stub = _stub_mesh(cp=2, tp=2)
+    stub.device_mesh = object()
+    with pytest.raises(ValueError, match=r"tp-local query head count \(1\) "
+                                         r"divisible by cp \(2\)"):
+        llama._check_ulysses_heads(
+            dataclasses.replace(llama.tiny(), n_heads=3, n_kv_heads=1,
+                                head_dim=32), stub)
+    # the ring refuses the Gemma-2 attention knobs without segment ids,
+    # naming Ulysses, in JAX's words (with segment ids it runs them: the
+    # gemma2-cp2-ring-packed case)
     cfg = dataclasses.replace(llama.tiny(), query_scale=64.0,
                               attn_logit_softcap=50.0)
     with pytest.raises(ValueError, match="set cp_impl='ulysses'"):

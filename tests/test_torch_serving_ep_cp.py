@@ -1,5 +1,6 @@
-"""Both serving engines over an expert-parallel (``ep=2``) and a
-context-parallel (``cp=2``) mesh across processes, held against the port
+"""Both serving engines over an expert-parallel (``ep=2``), a
+context-parallel (``cp=2``), a data-parallel (``dp=2``), an ``fsdp=2``
+and a pipeline (``pp=2``) mesh across processes, held against the port
 on one process and against the JAX package's engines.
 
 One 2-rank gloo group is spawned once for the file
@@ -7,7 +8,10 @@ One 2-rank gloo group is spawned once for the file
 in it. Under ``ep`` each rank holds 2 of MoE tiny's 4 experts of every
 stack (as the JAX ``shard_for_serving`` places them) and the experts'
 outputs are summed over ``ep``; under ``cp`` (Llama tiny) the params and
-the cache are replicated and every rank runs the whole step. The
+the cache are replicated and every rank runs the whole step, and so
+they are over ``dp`` and ``pp``; under ``fsdp`` each rank holds JAX's
+``embed`` shard of every weight and the step gathers each one per use.
+The
 continuous engine runs with rank 0 scheduling and rank 1 repeating its
 device steps (paged with a prefix, dense, speculative lanes with the
 draft on the mesh, the embeddings forward); the static engine runs SPMD.
@@ -43,6 +47,9 @@ SEEDS = {"moe": 4, "llama": 0, "draft": 2}
 #: the continuous-engine cases of each model: engine keywords
 ENGINES = {"paged": dict(lanes=2, max_len=96),
            "dense": dict(lanes=2, max_len=96, kv_mode="dense")}
+#: the axes that place nothing (``dp``, ``pp``) or the ``embed`` dim
+#: (``fsdp``), each serving Llama tiny over 2 ranks
+OTHER_AXES = ("dp", "fsdp", "pp")
 
 
 def _tcfg(name):
@@ -71,9 +78,10 @@ def _logit_recorder(eng) -> list:
     return seen
 
 
-def _cases(mesh, name, models) -> dict:
-    """Every engine case of model ``name`` over ``mesh``: rank 0 reports
-    what it served, rank 1 how many steps it followed."""
+def _cases(mesh, name, models, cases=("paged", "dense", "spec")) -> dict:
+    """The engine ``cases`` of model ``name`` over ``mesh`` and the static
+    engine: rank 0 reports what it served, rank 1 how many steps it
+    followed."""
     from kubedl_tpu_torch.serving.batching import ContinuousBatchingEngine
     from kubedl_tpu_torch.serving.engine import (GenerateConfig,
                                                  InferenceEngine)
@@ -104,20 +112,23 @@ def _cases(mesh, name, models) -> dict:
                 "accepted": eng.stats.accepted}
 
     out = {case: continuous(with_prefix, **kw)
-           for case, kw in ENGINES.items()}
-    out["spec"] = continuous(spec, lanes=2, max_len=64,
-                             draft_config=_tcfg("draft"),
-                             draft_params=_tparams("draft", models),
-                             spec_k=2)
+           for case, kw in ENGINES.items() if case in cases}
+    if "spec" in cases:
+        out["spec"] = continuous(spec, lanes=2, max_len=64,
+                                 draft_config=_tcfg("draft"),
+                                 draft_params=_tparams("draft", models),
+                                 spec_k=2)
     static = InferenceEngine(_tcfg(name), _tparams(name, models),
                              GenerateConfig(max_len=64), mesh=mesh,
                              device="cpu")
     out["static"] = static.generate(STATIC_PROMPTS, 8)
-    out["leaves"] = {k: tuple(v.shape)
-                     for k, v in static.params["layers"].items()}
-    out["w_gate"] = (static.params["layers"]["w_gate"].numpy().copy()
+    layers = static.params["layers"]
+    out["leaves"] = {k: tuple(getattr(v, "local", v).shape)
+                     for k, v in layers.items()}
+    out["w_gate"] = (layers["w_gate"].numpy().copy()
                      if name == "moe" else None)
-    out["model_mesh_cp"] = static.mesh.size("cp")
+    out["wq"] = getattr(layers["wq"], "local", layers["wq"]).numpy().copy()
+    out["model_mesh"] = dict(static.mesh.shape)
     return out
 
 
@@ -134,8 +145,9 @@ def _refusals(mesh) -> dict:
             dataclasses.replace(cfg, n_experts=3), {}, mesh=mesh,
             device="cpu"),
         "fsdp": lambda: InferenceEngine(
-            cfg, {}, mesh=tmesh.build_mesh(tmesh.MeshConfig(fsdp=2),
-                                           device="cpu"), device="cpu"),
+            dataclasses.replace(cfg, d_model=129, head_dim=32), {},
+            mesh=tmesh.build_mesh(tmesh.MeshConfig(fsdp=2), device="cpu"),
+            device="cpu"),
     }
     out = {}
     for name, make in tries.items():
@@ -162,6 +174,10 @@ def rank_main(models):
         mesh = tmesh.build_mesh(tmesh.MeshConfig(fsdp=1, **{axis: WORLD}),
                                 device="cpu")
         out[name] = _cases(mesh, name, models)
+    for axis in OTHER_AXES:
+        mesh = tmesh.build_mesh(tmesh.MeshConfig(**{"fsdp": 1, axis: WORLD}),
+                                device="cpu")
+        out[axis] = _cases(mesh, "llama", models, cases=("paged",))
     out["refusals"] = _refusals(tmesh.build_mesh(
         tmesh.MeshConfig(fsdp=1, ep=WORLD), device="cpu"))
     dist.destroy_process_group()
@@ -192,6 +208,7 @@ def _jax_refs(jmodels) -> dict:
     (it takes any local mesh), and the unsharded continuous engine."""
     import jax
 
+    from kubedl_tpu.models import moe as jmoe
     from kubedl_tpu.parallel.mesh import MeshConfig, build_mesh
     from kubedl_tpu.serving import engine as jengine
     from kubedl_tpu.serving.batching import ContinuousBatchingEngine
@@ -214,6 +231,25 @@ def _jax_refs(jmodels) -> dict:
         eng.register_prefix(PREFIX)
         res["prefixed"] = eng.run(PREFIXED)
         out[name] = res
+    cfg, params = jmodels["llama"]
+    for axis in OTHER_AXES:
+        mesh = build_mesh(MeshConfig(**{"fsdp": 1, axis: WORLD}), devices)
+        p, _ = jengine.shard_for_serving(cfg, params, None, mesh)
+        out[axis] = {
+            "static": jengine.InferenceEngine(
+                cfg, params, jengine.GenerateConfig(max_len=64),
+                mesh=mesh).generate(STATIC_PROMPTS, 8),
+            "wq": {devices.index(s.device): np.asarray(s.data)
+                   for s in p["layers"]["wq"].addressable_shards}}
+    # the refused fsdp split: JAX's placement refuses it too
+    rcfg = dataclasses.replace(jmodels["moe"][0], d_model=129, head_dim=32)
+    try:
+        jengine.shard_for_serving(
+            rcfg, jmoe.init_params(rcfg, jax.random.PRNGKey(0)), None,
+            build_mesh(MeshConfig(fsdp=WORLD), devices))
+        out["fsdp_refused"] = None
+    except ValueError as e:
+        out["fsdp_refused"] = str(e)
     return out
 
 
@@ -328,17 +364,56 @@ def test_each_ep_rank_holds_its_experts_as_jax_places_them(runs):
         assert leaves["w_router"][-1] == 4
         np.testing.assert_array_equal(rank["moe"]["w_gate"],
                                       jax_ref["moe"]["w_gate"][r])
-        assert rank["llama"]["model_mesh_cp"] == 1
+        assert rank["llama"]["model_mesh"]["cp"] == 1
+
+
+@pytest.mark.parametrize("axis", OTHER_AXES)
+def test_continuous_engine_over_dp_fsdp_and_pp(runs, axis):
+    """Tokens equal JAX's and the one-process port's, with and without a
+    registered prefix; every decode tick's logits and the embeddings
+    forward's hidden states within 1e-5 of one process; the step channel
+    spans both ranks and rank 1 repeats every step."""
+    ranks, single, jax_ref = runs
+    got, want = ranks[0][axis]["paged"], single["llama"]["paged"]
+    assert got["world"] == WORLD
+    assert got["tokens"] == want["tokens"] == jax_ref["llama"]["tokens"]
+    assert got["prefixed"] == jax_ref["llama"]["prefixed"]
+    assert len(got["logits"]) >= len(want["logits"]) > 0
+    for a, b in zip(got["logits"], want["logits"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got["hidden"], single["llama"]["hidden"],
+                               rtol=0, atol=ATOL)
+    assert ranks[1][axis]["paged"]["followed"] > 0
+
+
+@pytest.mark.parametrize("axis", OTHER_AXES)
+def test_static_engine_over_dp_fsdp_and_pp(runs, axis):
+    """SPMD on both ranks: JAX's engine over the same mesh and the
+    one-process port decode the same tokens. ``dp`` and ``pp`` hold every
+    leaf whole and run the model with the axis shown as 1; ``fsdp`` holds
+    JAX's ``embed`` shard of ``wq`` bit for bit."""
+    ranks, single, jax_ref = runs
+    for r, rank in enumerate(ranks):
+        got = rank[axis]
+        assert got["static"] == single["llama"]["static"] == \
+            jax_ref[axis]["static"]
+        np.testing.assert_array_equal(got["wq"], jax_ref[axis]["wq"][r])
+        assert got["model_mesh"][axis] == (WORLD if axis == "fsdp" else 1)
 
 
 @pytest.mark.parametrize("name", ["quantize", "n_experts", "fsdp"])
 def test_refusals_name_the_reason(runs, name):
     """Weight quantization with a mesh is refused in JAX's words; an
-    uneven expert split names its dimension; a serving mesh shards over
-    ``tp``, ``ep`` and ``cp`` only."""
+    uneven expert split and an ``fsdp`` that does not split the model
+    width name their dimension (JAX's placement refuses the latter too:
+    every axis serves since the meshes above, and these are the refusals
+    left, all shared with the JAX package)."""
     want = {"quantize": "mesh-parallel serving does not compose with "
                         "weight quantization yet",
             "n_experts": "needs n_experts divisible by 2",
-            "fsdp": "shards over tp, ep or cp only"}[name]
+            "fsdp": "needs d_model divisible by 2"}[name]
     for rank in runs[0]:
         assert want in (rank["refusals"][name] or ""), name
+    if name == "fsdp":
+        assert "should be divisible by 2" in (runs[2]["fsdp_refused"]
+                                              or "")

@@ -7,9 +7,11 @@ in it: the static engine SPMD on both ranks; the continuous engine with
 rank 0 scheduling and rank 1 following its device steps
 (``ContinuousBatchingEngine.follow``). The weights are JAX-made float32
 and cross over as numpy. Models: ``llama.tiny(vocab=128)`` with 4 query
-and 2 KV heads (one KV head for the MQA cases), Gemma tiny and MoE tiny
-at vocab 128, a 1-layer draft, and a vocab-320 Llama tiny for the HTTP
-front (the byte tokenizer's ids need it).
+and 2 KV heads (one KV head for the MQA cases), a Llama tiny with 3
+query heads over 1 KV head (``odd``: ``tp`` does not divide its heads,
+so rank 0 computes 2 and rank 1 one), Gemma tiny and MoE tiny at vocab
+128, a 1-layer draft, and a vocab-320 Llama tiny for the HTTP front (the
+byte tokenizer's ids need it).
 
 Tolerances: float32 sums in another order (the ``tp`` partial sums)
 move the logits by ~1e-7 of their scale, so greedy tokens are held
@@ -36,17 +38,27 @@ PREFIXED = [([7, 7, 7, 7, 1], 5)]
 LONG = [(list(range(3 + i, 16 + 2 * i)), 10 + i) for i in range(5)]
 STATIC_PROMPTS = [[5, 7, 11], [3], [9, 2]]
 EMBED_INPUT = ["the quick brown fox", "jumps"]
+EMBED_TOKENS = [[5, 7, 11, 2, 9], [3, 9, 4, 0, 0]]
 #: the configurations by name: (family, JAX-side overrides)
 MODELS = {
     "llama": ("llama", dict(vocab=VOCAB), dict(n_heads=4, n_kv_heads=2)),
     "mqa": ("llama", dict(vocab=VOCAB), dict(n_heads=4, n_kv_heads=1)),
+    "odd": ("llama", dict(vocab=VOCAB),
+            dict(n_heads=3, n_kv_heads=1, head_dim=32)),
     "gemma": ("gemma", dict(vocab=VOCAB), {}),
     "moe": ("moe", dict(vocab=VOCAB), {}),
     "draft": ("llama", dict(vocab=VOCAB),
               dict(d_model=64, n_layers=1, d_ff=128)),
     "http": ("llama", dict(vocab=320, seq=128), {}),
 }
-SEEDS = {"llama": 0, "mqa": 1, "gemma": 3, "moe": 4, "draft": 2, "http": 21}
+SEEDS = {"llama": 0, "mqa": 1, "odd": 5, "gemma": 3, "moe": 4, "draft": 2,
+         "http": 21}
+#: the refused configurations: Llama tiny with these overrides
+REFUSED = {"n_heads": dict(n_heads=3, n_kv_heads=1, head_dim=33),
+           "d_ff": dict(d_ff=255), "vocab_size": dict(vocab_size=127)}
+#: what each refusal names
+REFUSED_DIM = {"n_heads": "n_heads * head_dim", "d_ff": "d_ff",
+               "vocab_size": "vocab_size"}
 #: (kv_mode, engine keywords) of the continuous-engine cases on llama
 ENGINES = {
     "paged_prefix": dict(lanes=2, max_len=96),
@@ -126,9 +138,15 @@ def _engine_cases(mesh, models) -> dict:
                    "handoffs": eng.handoffs}
             return res
         out[case] = _continuous(mesh, "llama", models, body, **kw)
-    for name in ("mqa", "gemma", "moe"):
+    for name in ("mqa", "odd", "gemma", "moe"):
         out[name] = _continuous(mesh, name, models, _run_with_prefix,
                                 lanes=2, max_len=96)
+
+    def embed(eng):
+        return {"hidden": eng.hidden_states(np.asarray(EMBED_TOKENS))
+                .numpy().copy()}
+    out["odd_embed"] = _continuous(mesh, "odd", models, embed, lanes=2,
+                                   max_len=64)
 
     def spec(eng):
         return {"tokens": eng.run(REQS), "proposed": eng.stats.proposed,
@@ -184,13 +202,14 @@ def _refusals(mesh, models) -> dict:
         "quantize_static": lambda: InferenceEngine(
             cfg, {}, mesh=mesh, quantize="int8", device="cpu"),
         "n_heads": lambda: ContinuousBatchingEngine(
-            dataclasses.replace(cfg, n_heads=3, n_kv_heads=1, head_dim=32),
-            {}, mesh=mesh, device="cpu"),
-        "d_ff": lambda: ContinuousBatchingEngine(
-            dataclasses.replace(cfg, d_ff=255), {}, mesh=mesh, device="cpu"),
-        "vocab_size": lambda: InferenceEngine(
-            dataclasses.replace(cfg, vocab_size=127), {}, mesh=mesh,
+            dataclasses.replace(cfg, **REFUSED["n_heads"]), {}, mesh=mesh,
             device="cpu"),
+        "d_ff": lambda: ContinuousBatchingEngine(
+            dataclasses.replace(cfg, **REFUSED["d_ff"]), {}, mesh=mesh,
+            device="cpu"),
+        "vocab_size": lambda: InferenceEngine(
+            dataclasses.replace(cfg, **REFUSED["vocab_size"]), {},
+            mesh=mesh, device="cpu"),
     }
     for name, make in tries.items():
         try:
@@ -258,7 +277,7 @@ def rank_main(models, leaves_in):
     mesh = tmesh.build_mesh(tmesh.MeshConfig(dp=1, fsdp=1, tp=WORLD),
                             device="cpu")
     out = {"rank": dist.get_rank(), "leaves": {}}
-    for name in ("llama", "mqa"):
+    for name in ("llama", "mqa", "odd"):
         params, cache = shard_for_serving(
             _tcfg(name), _tparams(name, models),
             {k: torch.from_numpy(v) for k, v in leaves_in[name].items()},
@@ -272,7 +291,7 @@ def rank_main(models, leaves_in):
         name: InferenceEngine(_tcfg(name), _tparams(name, models),
                               GenerateConfig(max_len=64), mesh=mesh,
                               device="cpu").generate(STATIC_PROMPTS, 8)
-        for name in ("llama", "mqa")}
+        for name in ("llama", "mqa", "odd")}
     out["refusals"] = _refusals(mesh, models)
     out["engines"] = _engine_cases(mesh, models)
     out["http"] = _http(mesh, models)
@@ -305,7 +324,7 @@ def _jax_models() -> dict:
 def _caches(jmodels) -> dict:
     """A whole cache per KV layout test (distinct values per KV head)."""
     out = {}
-    for name in ("llama", "mqa"):
+    for name in ("llama", "mqa", "odd"):
         cfg = jmodels[name][0]
         shape = (cfg.n_layers, 1, 4, cfg.n_kv_heads, cfg.hd)
         base = np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
@@ -320,6 +339,7 @@ def _jax_refs(jmodels, caches) -> dict:
     import jax
     import jax.numpy as jnp
 
+    from kubedl_tpu.models import llama as jllama
     from kubedl_tpu.parallel.mesh import MeshConfig, build_mesh
     from kubedl_tpu.serving import engine as jengine
     from kubedl_tpu.serving.batching import ContinuousBatchingEngine
@@ -328,7 +348,7 @@ def _jax_refs(jmodels, caches) -> dict:
     devices = jax.devices()[:WORLD]     # device r is tp rank r
     mesh = build_mesh(MeshConfig(dp=1, fsdp=1, tp=WORLD), devices)
     out = {"shards": {}, "static": {}, "continuous": {}}
-    for name in ("llama", "mqa"):
+    for name in ("llama", "mqa", "odd"):
         cfg, params = jmodels[name]
         p, c = jengine.shard_for_serving(
             cfg, params, {k: jnp.asarray(v) for k, v in caches[name].items()},
@@ -345,12 +365,26 @@ def _jax_refs(jmodels, caches) -> dict:
                                       jengine.GenerateConfig(max_len=64),
                                       mesh=mesh)
         out["static"][name] = eng.generate(STATIC_PROMPTS, 8)
-    for name in ("llama", "mqa", "gemma", "moe"):
+    for name in ("llama", "mqa", "odd", "gemma", "moe"):
         cfg, params = jmodels[name]
         eng = ContinuousBatchingEngine(cfg, params, lanes=2, max_len=96)
         out["continuous"][name] = eng.run(REQS)
         eng.register_prefix(PREFIX)
         out["continuous"][name + "_prefixed"] = eng.run(PREFIXED)
+    cfg, params = jmodels["odd"]
+    out["odd_hidden"] = np.asarray(jllama.forward_hidden(
+        cfg, params, jnp.asarray(EMBED_TOKENS)))
+    # the refused splits: JAX's placement refuses them too
+    out["refused"] = {}
+    for name, over in REFUSED.items():
+        rcfg = dataclasses.replace(jmodels["llama"][0], **over)
+        try:
+            jengine.shard_for_serving(
+                rcfg, jllama.init_params(rcfg, jax.random.PRNGKey(0)), None,
+                mesh)
+            out["refused"][name] = None
+        except ValueError as e:
+            out["refused"][name] = str(e)
     cfg, params = jmodels["http"]
     jsrv = InferenceServer(
         jengine.InferenceEngine(cfg, params,
@@ -380,15 +414,17 @@ def _one_process(models) -> dict:
         name: InferenceEngine(_tcfg(name), _tparams(name, models),
                               GenerateConfig(max_len=64),
                               device="cpu").generate(STATIC_PROMPTS, 8)
-        for name in ("llama", "mqa")}}
+        for name in ("llama", "mqa", "odd")}}
     for case, kw in ENGINES.items():
         eng = engine("llama", **kw)
         if case.endswith("prefix") or case == "parity":
             out[case] = _run_with_prefix(eng)
         else:
             out[case] = {"tokens": eng.run(LONG)}
-    for name in ("mqa", "gemma", "moe"):
+    for name in ("mqa", "odd", "gemma", "moe"):
         out[name] = _run_with_prefix(engine(name, lanes=2, max_len=96))
+    out["odd_hidden"] = engine("odd", lanes=2, max_len=64).hidden_states(
+        np.asarray(EMBED_TOKENS)).numpy()
     out["spec_plain"] = engine("llama", lanes=2, max_len=64).run(REQS)
     srv = InferenceServer(engine("http", lanes=2, max_len=64),
                           ServerConfig(model_name="m", host="127.0.0.1",
@@ -450,9 +486,44 @@ def test_each_rank_holds_the_jax_shards(runs, name):
         assert got["fresh_cache"][3] == 1
 
 
+def test_uneven_heads_each_rank_holds_whole_heads(runs):
+    """``odd``'s 3 query heads over ``tp=2``: rank 0 holds heads 0-1 and
+    rank 1 head 2 of ``wq`` and ``wo`` (JAX splits the middle head's
+    columns, 1.5 heads a rank), the whole KV head (as under MQA) and
+    JAX's shards of every other leaf; the cache is whole on both."""
+    ranks, _, jax_ref = runs
+    want = jax_ref["shards"]["odd"]
+    whole = dict(_leaf_items(want["whole"]))
+    shards = dict(_leaf_items(want["params"]))
+    hd = 32
+    for r, (first, n) in enumerate([(0, 2), (2, 1)]):
+        got = dict(_leaf_items(ranks[r]["leaves"]["odd"]["params"]))
+        assert set(got) == set(shards)
+        cols = slice(first * hd, (first + n) * hd)
+        own = {"layers/wq": whole["layers/wq"][..., cols],
+               "layers/wo": whole["layers/wo"][:, cols],
+               "layers/wk": whole["layers/wk"],
+               "layers/wv": whole["layers/wv"]}
+        for key, leaf in got.items():
+            ref = own[key] if key in own else shards[key][r]
+            np.testing.assert_array_equal(leaf, ref, err_msg=key)
+        for k, leaf in ranks[r]["leaves"]["odd"]["cache"].items():
+            np.testing.assert_array_equal(leaf, want["cache"][k][r])
+
+
+def test_uneven_heads_embeddings_match_one_process_and_jax(runs):
+    """The embeddings forward (the flash path on each rank's 2 and 1
+    heads) within 1e-5 of one process and of JAX's ``forward_hidden``."""
+    ranks, single, jax_ref = runs
+    got = ranks[0]["engines"]["odd_embed"]["hidden"]
+    np.testing.assert_allclose(got, single["odd_hidden"], rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, jax_ref["odd_hidden"], rtol=0,
+                               atol=ATOL)
+
+
 def test_static_engine_matches_one_process_and_jax(runs):
     ranks, single, jax_ref = runs
-    for name in ("llama", "mqa"):
+    for name in ("llama", "mqa", "odd"):
         for rank in ranks:            # SPMD: every rank decodes the same
             assert rank["static"][name] == single["static"][name], name
         assert single["static"][name] == jax_ref["static"][name], name
@@ -477,10 +548,11 @@ def test_continuous_engine_with_a_prefix(runs, case):
     assert got["tick_launches"]["eager"] > 0
 
 
-@pytest.mark.parametrize("name", ["mqa", "gemma", "moe"])
+@pytest.mark.parametrize("name", ["mqa", "odd", "gemma", "moe"])
 def test_mqa_gemma_and_moe_tokens_match_jax(runs, name):
-    """One KV head (MQA, Gemma: the cache whole on every rank) and MoE
-    (each rank's share of every expert; the router replicated)."""
+    """One KV head (MQA, Gemma: the cache whole on every rank), 3 query
+    heads that ``tp=2`` does not divide (``odd``) and MoE (each rank's
+    share of every expert; the router replicated)."""
     ranks, single, jax_ref = runs
     got = ranks[0]["engines"][name]
     assert got["tokens"] == single[name]["tokens"] == \
@@ -522,7 +594,8 @@ def test_http_front_on_rank_zero(runs):
 def test_followers_ran_every_step(runs):
     ranks, _, _ = runs
     followed = ranks[1]["engines"]
-    for case in list(ENGINES) + ["mqa", "gemma", "moe", "spec"]:
+    for case in list(ENGINES) + ["mqa", "odd", "odd_embed", "gemma", "moe",
+                                 "spec"]:
         assert followed[case]["followed"] > 0, case
     assert ranks[1]["http"]["followed"] > 0
 
@@ -530,9 +603,12 @@ def test_followers_ran_every_step(runs):
 @pytest.mark.parametrize("name", ["quantize_continuous", "quantize_static",
                                   "n_heads", "d_ff", "vocab_size"])
 def test_refusals_name_the_reason(runs, name):
-    """Weight quantization with a mesh is refused in JAX's words; an
-    uneven split (the JAX package pads one) names its dimension."""
-    ranks, _, _ = runs
+    """Weight quantization with a mesh is refused in JAX's words; a split
+    of a leaf into unequal shards names its dimension, and the JAX
+    ``shard_for_serving`` refuses the same split (its ``device_put``).
+    The query heads themselves need not divide (``odd``): their columns
+    must."""
+    ranks, _, jax_ref = runs
     for rank in ranks:
         msg = rank["refusals"][name]
         assert msg is not None, name
@@ -540,7 +616,11 @@ def test_refusals_name_the_reason(runs, name):
             assert msg == ("mesh-parallel serving does not compose with "
                            "weight quantization yet")
         else:
-            assert f"needs {name} divisible by 2" in msg
+            assert f"needs {REFUSED_DIM[name]} divisible by 2" in msg
+            assert "the JAX package refuses this split too" in msg
+    if not name.startswith("quantize"):
+        assert "should be divisible by 2" in (jax_ref["refused"][name]
+                                              or ""), name
 
 
 def test_tp_above_the_visible_devices_is_refused_before_loading(

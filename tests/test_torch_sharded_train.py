@@ -9,7 +9,11 @@ as numpy (``models.io.params_from_numpy``); the batches are the shared
 synthetic stream. Meshes ``fsdp=4``, ``dp=2,fsdp=2`` and ``fsdp=2,tp=2``
 train Llama tiny and Gemma tiny (one KV head, which ``tp=2`` cannot
 split); MoE tiny trains under ``fsdp=4`` and ``fsdp=2,tp=2``, LoRA under
-``fsdp=2,tp=2`` and one bf16 run under ``fsdp=2,tp=2``.
+``fsdp=2,tp=2`` and one bf16 run under ``fsdp=2,tp=2``. A Qwen2-shaped
+Llama tiny with 3 query heads over 1 KV head and q/k/v biases
+(``qwen3h``) trains under ``fsdp=2,tp=2``, plain and with LoRA: ``tp``
+does not divide its heads, so JAX's equal column chunks split one and
+each rank computes whole heads (2 and 1).
 
 Tolerances: float32 sums in another order (the shards, the ``tp`` partial
 sums, the all-reduces) move the losses and gradients by ~1e-7 of their
@@ -46,7 +50,14 @@ CASES = {
     "moe-fsdp4": ("moe", "float32", MESHES["fsdp4"], False),
     "moe-fsdp2_tp2": ("moe", "float32", MESHES["fsdp2_tp2"], False),
     "llama-lora-fsdp2_tp2": ("llama", "float32", MESHES["fsdp2_tp2"], True),
+    "qwen3h-fsdp2_tp2": ("qwen3h", "float32", MESHES["fsdp2_tp2"], False),
+    "qwen3h-lora-fsdp2_tp2": ("qwen3h", "float32", MESHES["fsdp2_tp2"],
+                              True),
 }
+#: kind -> (family, overrides of its tiny config)
+KINDS = {"llama": ("llama", {}), "gemma": ("gemma", {}), "moe": ("moe", {}),
+         "qwen3h": ("llama", dict(n_heads=3, n_kv_heads=1, head_dim=32,
+                                  qkv_bias=True))}
 F32 = [n for n, c in CASES.items() if c[1] == "float32" and not c[3]]
 LORA_ALPHA = 8.0
 BF16_ULPS = 4
@@ -54,8 +65,10 @@ BF16_ULPS = 4
 
 def _tcfg(kind: str, dtype: str):
     from kubedl_tpu_torch.models import gemma, llama, moe
-    make = {"llama": llama.tiny, "gemma": gemma.tiny, "moe": moe.tiny}[kind]
-    return dataclasses.replace(make(vocab=VOCAB, seq=64), dtype=dtype)
+    family, over = KINDS[kind]
+    make = {"llama": llama.tiny, "gemma": gemma.tiny, "moe": moe.tiny}[family]
+    return dataclasses.replace(make(vocab=VOCAB, seq=64), dtype=dtype,
+                               **over)
 
 
 def _batches():
@@ -199,10 +212,11 @@ def _jax_params(kind):
     from kubedl_tpu.models import gemma as jgemma
     from kubedl_tpu.models import llama as jllama
     from kubedl_tpu.models import moe as jmoe
+    family, over = KINDS[kind]
     make = {"llama": (jllama, jllama.tiny), "gemma": (jllama, jgemma.tiny),
-            "moe": (jmoe, jmoe.tiny)}[kind]
+            "moe": (jmoe, jmoe.tiny)}[family]
     cfg = dataclasses.replace(make[1](vocab=VOCAB, seq=64),
-                              dtype=np.float32)
+                              dtype=np.float32, **over)
     params = jax.jit(lambda k: make[0].init_params(cfg, k))(
         jax.random.PRNGKey(7))
     return make[0], cfg, jax.tree.map(lambda x: np.asarray(x, np.float32),
@@ -257,8 +271,7 @@ def runs():
     """(rank results, one-process results, JAX results). The JAX cases
     compile on a thread pool while the ranks run."""
     from concurrent.futures import ThreadPoolExecutor
-    params = {kind: _jax_params(kind)[2] for kind in ("llama", "gemma",
-                                                      "moe")}
+    params = {kind: _jax_params(kind)[2] for kind in KINDS}
     with ThreadPoolExecutor(max_workers=4) as pool:
         futures = {name: pool.submit(_jax_case, CASES[name][0],
                                      CASES[name][2],
@@ -365,6 +378,19 @@ def test_lora_trains_as_on_one_process(runs):
         _close_grads({k: v[which] for k, v in got["moments"].items()},
                      {k: v[which] for k, v in want["moments"].items()},
                      1e-5)
+
+
+def test_lora_with_uneven_heads_trains_as_on_one_process(runs):
+    """LoRA on a model whose query heads ``tp`` does not divide: each
+    rank cuts the gathered base and the adapter factor on the head side
+    to its whole heads; the base stays bit for bit."""
+    name = "qwen3h-lora-fsdp2_tp2"
+    ranks, single, _ = runs
+    got, want = ranks[0]["cases"][name], single[name]
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+    _close_grads(got["grads"], want["grads"], 1e-5)
+    for k, v in want["base"].items():
+        np.testing.assert_array_equal(got["base"][k], v, err_msg=k)
 
 
 def test_shard_batch_keeps_each_rank_its_rows(runs):

@@ -243,14 +243,75 @@ def test_local_kv_gives_each_query_head_its_kv_head(nh, nkv, tp):
         def index(self, axis):
             return self.r if axis == "tp" else 0
 
+        def size(self, axis):
+            return tp if axis == "tp" else 1
+
     for rank in range(tp):
-        lk, lv = tllama._local_kv(cfg, k, v, nq, RankMesh(rank))
+        lk, lv = tllama._local_kv(cfg, k, v, RankMesh(rank))
         assert nq % lk.shape[2] == 0
         per_head = lk.repeat_interleave(nq // lk.shape[2], dim=2)
         want = [(rank * nq + i) // (nh // nkv) for i in range(nq)]
         torch.testing.assert_close(per_head, k[:, :, want])
         torch.testing.assert_close(
             lv.repeat_interleave(nq // lv.shape[2], dim=2), v[:, :, want])
+
+
+class _FakeRank:
+    """Rank ``r`` of a ``tp`` axis, as the serving helpers see a mesh
+    with a process group behind it (no collective runs here)."""
+
+    def __init__(self, tp, r):
+        self.shape = {a: (tp if a == "tp" else 1) for a in tmesh.AXES}
+        self.sharded, self.device_mesh, self.r = True, object(), r
+
+    def size(self, axis):
+        return self.shape[axis]
+
+    def index(self, axis):
+        return self.r if axis == "tp" else 0
+
+
+def test_qwen2_7b_heads_split_whole_over_tp8():
+    """Qwen2-7B's 28 query heads over 4 KV heads at ``tp=8``: ranks 0-3
+    compute 4 heads and ranks 4-7 three, in order, every head once (JAX's
+    equal chunks where ``tp`` divides the heads); each rank's ``wq``,
+    ``bq`` and ``wo`` cuts are its heads' columns and rows, its K/V heads
+    the ones GQA maps them to."""
+    from kubedl_tpu_torch.serving import engine as tengine
+    cfg = tllama.qwen2_7b()
+    split = [tllama.head_split(28, 8, r) for r in range(8)]
+    assert split == [(0, 4), (4, 4), (8, 4), (12, 4), (16, 3), (19, 3),
+                     (22, 3), (25, 3)]
+    assert [tllama.head_split(32, 8, r) for r in range(8)] == \
+        [(4 * r, 4) for r in range(8)]
+    hd, d, layers = cfg.hd, cfg.d_model, cfg.n_layers
+    k = torch.arange(4.0).reshape(1, 1, 4, 1).expand(1, 2, 4, 1)
+    for r, (first, n) in enumerate(split):
+        mesh = _FakeRank(8, r)
+        cut = tengine.serving_cut(cfg, mesh)
+
+        def shape(name, full):
+            return tuple(cut(name, torch.empty(full, device="meta")).shape)
+        assert shape("layers/wq", (layers, d, 28 * hd)) == (layers, d,
+                                                            n * hd)
+        assert shape("layers/bq", (layers, 28 * hd)) == (layers, n * hd)
+        assert shape("layers/wo", (layers, 28 * hd, d)) == (layers, n * hd,
+                                                            d)
+        # 4 KV heads cannot split over 8: held whole on every rank
+        assert shape("layers/wk", (layers, d, 4 * hd)) == (layers, d,
+                                                           4 * hd)
+        assert tllama.kv_heads_local(cfg, mesh) == 4
+        got = tllama._local_kv(cfg, k, k, mesh)[0]
+        want = [(first + i) // 7 for i in range(n)]
+        per_head = got.repeat_interleave(n // got.shape[2], dim=2)
+        assert per_head[0, 0, :, 0].tolist() == want
+        # the cut is the head's columns: wq's values at the rank's heads
+        wq = torch.arange(28 * hd, dtype=torch.float32)[None, None].expand(
+            1, d, -1)
+        small = dataclasses.replace(cfg, n_layers=1)
+        got_cols = tengine.serving_cut(small, mesh)("layers/wq", wq)[0, 0]
+        assert got_cols[0] == first * hd and got_cols[-1] == (
+            first + n) * hd - 1
 
 
 @pytest.mark.parametrize("kind", ["text", "tokens"])
