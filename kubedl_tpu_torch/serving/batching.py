@@ -368,16 +368,19 @@ class DecodeTick:
     static output, valid until the next call. Re-running a tick on the
     same inputs rewrites the same K/V at the same slots, so the warm-up
     runs on live lane state are harmless. ``launches`` counts ticks by
-    route."""
+    route; with ``tracer`` enabled, ``launch_at`` is its clock read just
+    before the last tick's replay (or eager step)."""
 
     def __init__(self, step, lanes: int, n_tables: int, device,
-                 route: Optional[str] = None):
+                 route: Optional[str] = None, tracer=NOOP_TRACER):
         self._step = step
         self.lanes = lanes
         self.n_tables = n_tables
         self.device = torch.device(device)
         self.route = route or decode_tick_route(self.device)
         self.launches = {"graph": 0, "eager": 0}
+        self.tracer = tracer
+        self.launch_at = 0.0
         self._graph = None
         self._static = None
         self._logits = None
@@ -405,11 +408,15 @@ class DecodeTick:
         """One tick on a packed buffer, on the tick's route (counted)."""
         if self.route == "eager":
             self.launches["eager"] += 1
+            if self.tracer.enabled:
+                self.launch_at = self.tracer.clock()
             return self.eager(buf)
         host = torch.from_numpy(buf)
         if self._graph is None:
             self._capture(host)
         self._static.copy_(host)
+        if self.tracer.enabled:
+            self.launch_at = self.tracer.clock()
         self._graph.replay()
         self.launches["graph"] += 1
         return self._logits
@@ -473,8 +480,12 @@ class ContinuousBatchingEngine:
         self.device = dev = (mesh.device if mesh is not None
                              else resolve_device(device))
         self.config = config
-        #: per-request span recorder (queue/prefill/decode/preemption)
+        #: span recorder: per request (queue/prefill/decode/preemption)
+        #: and per decode step (``engine.step``/``tick``/``sample``, on
+        #: the engine's own trace)
         self.tracer = tracer if tracer is not None else NOOP_TRACER
+        self._trace_id = self.tracer.new_trace_id()
+        self._steps_traced = 0
         self.lanes = lanes
         self.max_len = max_len
         self.gen = gen or GenerateConfig(max_len=max_len)
@@ -519,6 +530,8 @@ class ContinuousBatchingEngine:
         #: prompt tokens prefilled in the current / all scheduler ticks
         self.prefill_tokens_step = 0
         self.prefill_tokens_total = 0
+        #: requests admitted (prefilled) in the current scheduler tick
+        self.admitted_step = 0
         #: lifetime preemption count (pool ran dry; /metrics counter)
         self.preempted = 0
         #: peak simultaneously-active lanes
@@ -571,7 +584,7 @@ class ContinuousBatchingEngine:
                 lambda cur, pos, _: self.dfam.forward_step(
                     self.dcfg, self.dparams, cur, self._d_cache, pos,
                     mesh=mesh)[0],
-                lanes, 0, dev, route)
+                lanes, 0, dev, route, self.tracer)
             #: per-request host rng for the sampled accept rule,
             #: allocated at admission (seed + admission ordinal)
             self._spec_admitted = 0
@@ -595,7 +608,7 @@ class ContinuousBatchingEngine:
                 lambda cur, pos, _: family.forward_step(
                     config, self.params, cur, self._cache, pos,
                     mesh=mesh)[0],
-                lanes, 0, dev, route)
+                lanes, 0, dev, route, self.tracer)
         if self.kv_mode in ("paged", "parity"):
             self._pool = family.init_block_pool(
                 config, self.pool_blocks + 1, self.kv_block, device=dev,
@@ -606,7 +619,7 @@ class ContinuousBatchingEngine:
                 lambda cur, pos, tables: family.forward_step_paged(
                     config, self.params, cur, self._pool, tables, pos,
                     mesh=mesh)[0],
-                lanes, self._bpl, dev, route)
+                lanes, self._bpl, dev, route, self.tracer)
         #: multi-model serving: an AdapterCatalog turns this engine into a
         #: multiplexer — requests carry a ``model=`` id and the adapter's
         #: weight pages allocate from the SAME refcounted pool as KV
@@ -1699,15 +1712,20 @@ class ContinuousBatchingEngine:
             return logits
         return logits_p
 
-    def _spec_round(self, k: int) -> None:
+    def _spec_round(self, k: int) -> Optional[tuple]:
         """One speculative round for EVERY lane: k draft proposals each
         (k batched [lanes, 1] draft ticks), one [lanes, k+1] target
         verify, per-lane acceptance — greedy prefix-match for greedy
         lanes (output token-identical to the non-speculative engine), the
         ``spec_accept`` rule for sampled lanes. Rejected slots stay
-        causally invisible until overwritten."""
+        causally invisible until overwritten. With tracing on, returns
+        the round's phases for :meth:`_trace_step`."""
         gen = self.gen
         lanes_n = self.lanes
+        tracing = self.tracer.enabled
+        if tracing:
+            t_tick = self.tracer.clock()
+            live, context = self._live_context()
         active = np.asarray([l.request is not None
                              for l in self._lane_state])
         # dead lanes still compute but their writes must stay in range:
@@ -1735,7 +1753,12 @@ class ContinuousBatchingEngine:
                     drafts[i, j] = int(greedy_next[i])
             dcur[:, 0] = drafts[:, j]
         chunk = np.concatenate([cur, drafts], axis=1)
-        tl = _host(self._spec_verify(chunk, pos))      # [lanes, k+1, V]
+        verified = self._spec_verify(chunk, pos)
+        if tracing:
+            t_ret = self.tracer.clock()
+        tl = _host(verified)                            # [lanes, k+1, V]
+        if tracing:
+            t_host = self.tracer.clock()
         # draft backfill: the k-th proposal's KV never entered the draft
         # cache; one batched tick ingests it at pos+k for every lane —
         # lanes that accepted less overwrite that slot before it is ever
@@ -1799,6 +1822,8 @@ class ContinuousBatchingEngine:
                 self._free_lane(i)
                 req._finish()
                 self._trace_finish(req)
+        return (t_tick, t_ret, t_host, None, live, context) if tracing \
+            else None
 
     def _prefill_dense(self, lane_idx: int, seq: list, start: int):
         """Chunked dense-slab prefill of ``seq[start:]`` into one lane."""
@@ -1894,6 +1919,7 @@ class ContinuousBatchingEngine:
         # the request visible to _recover_locked
         lane = self._lane_state[lane_idx]
         lane.request = req
+        self.admitted_step += 1
         if req.model and self._adapters is not None:
             # bind the lane to the (now resident) adapter: incref its
             # weight pages for the life of the lane. The residency gate
@@ -1994,7 +2020,10 @@ class ContinuousBatchingEngine:
         parks for handoff — so a long prompt's chunked prefill never
         occupies a decode lane."""
         gen = self.gen
+        tracing = self.tracer.enabled
+        t_step = self.tracer.clock() if tracing else 0.0
         self.prefill_tokens_step = 0
+        self.admitted_step = 0
         self.adapter_fault_pages_step = 0
         stalled = False
         if self.prefill_lanes:
@@ -2044,7 +2073,9 @@ class ContinuousBatchingEngine:
                     self._grow_active(k)
                     if not self._active():
                         return bool(self._queue)
-                self._spec_round(k)
+                phases = self._spec_round(k)
+                if phases is not None:
+                    self._trace_step(t_step, *phases)
                 return True
             # near the cache cap a verify chunk no longer fits: finish
             # with plain single-token ticks
@@ -2052,6 +2083,9 @@ class ContinuousBatchingEngine:
             self._grow_active(0)
             if not self._active():
                 return bool(self._queue)
+        if tracing:
+            t_tick = self.tracer.clock()
+            lanes, context = self._live_context()
         # one decode tick for every lane (dead lanes compute garbage).
         # Parked prefill lanes are masked to the garbage sink: their
         # tables hold LIVE blocks awaiting handoff
@@ -2076,6 +2110,8 @@ class ContinuousBatchingEngine:
             # near-cap ticks keep the DRAFT cache in lockstep (it ingests
             # the same token at the same position the target just did)
             self._d_decode(self._cur, self._pos)
+        if tracing:
+            t_ret = self.tracer.clock()
 
         def lane_param(attr, default):
             return [getattr(l.request, attr)
@@ -2100,6 +2136,8 @@ class ContinuousBatchingEngine:
         if any(l.request is not None and l.request.want_logprobs
                for l in self._lane_state):
             lane_lps = token_logprobs(logits, nxt_t).cpu().numpy()
+        if tracing:
+            t_host = self.tracer.clock()
         for i, lane in enumerate(self._lane_state):
             req = lane.request
             if req is None or lane.parked:
@@ -2116,7 +2154,45 @@ class ContinuousBatchingEngine:
                 self._free_lane(i)   # lane freed for the next arrival
                 req._finish()
                 self._trace_finish(req)
+        if tracing:
+            self._trace_step(t_step, t_tick, t_ret, t_host,
+                             self._tick if self.kv_mode == "dense"
+                             else self._tick_p, lanes, context)
         return True
+
+    def _live_context(self) -> tuple:
+        """(live lanes that are not parked, the sum over them of the
+        positions their next tick attends, the new one included)."""
+        ctx = [lane.pos + 1 for lane in self._lane_state
+               if lane.request is not None and not lane.parked]
+        return len(ctx), sum(ctx)
+
+    def _trace_step(self, t_step: float, t_tick: float, t_ret: float,
+                    t_host: float, tick, lanes: int, context: int) -> None:
+        """Record one decode step on the engine's trace (tracing on):
+        ``engine.step`` from the step's start to now, the parent of
+        ``engine.tick`` (packing the inputs to the tick's return) and
+        ``engine.sample`` (to the sampled tokens on the host). ``tick``
+        is the :class:`DecodeTick` that ran, which gives ``launch`` (its
+        ordinal on its route) and ``launch_at``; None for a speculative
+        round, whose tick is the draft ticks and the verify pass."""
+        tracer, tid = self.tracer, self._trace_id
+        step_id = tracer.new_span_id()
+        self._steps_traced += 1
+        attrs = {"lanes": lanes, "context": context}
+        if tick is not None:
+            attrs.update(launch=tick.launches[tick.route],
+                         launch_at=tick.launch_at)
+        tracer.record("engine.tick", t_tick, t_ret, trace_id=tid,
+                      parent_id=step_id, component="serving",
+                      attributes=attrs)
+        tracer.record("engine.sample", t_ret, t_host, trace_id=tid,
+                      parent_id=step_id, component="serving")
+        tracer.record("engine.step", t_step, tracer.clock(), trace_id=tid,
+                      span_id=step_id, component="serving",
+                      attributes={"step": self._steps_traced,
+                                  "admitted": self.admitted_step,
+                                  "prefill_tokens": self.prefill_tokens_step})
 
 
 def _host(logits) -> np.ndarray:

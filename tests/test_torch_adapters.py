@@ -386,8 +386,11 @@ def test_an_adapter_requests_spans_carry_its_model(models):
         eng.submit([5, 6, 7, 8], 3, model="m-a")
         eng.submit([9, 10, 11], 2)
         _drain(eng)
+        # the requests' spans (the port's engine adds its own decode-step
+        # spans, ``engine.*``, on a trace of its own)
         got[name] = sorted((s.name, sorted(s.attributes.items()))
-                           for s in tracer.spans())
+                           for s in tracer.spans()
+                           if not s.name.startswith("engine."))
     assert got["port"] == got["jax"]
     prefills = [dict(a) for n, a in got["port"] if n == "request.prefill"]
     assert sorted(p.get("model", "") for p in prefills) == ["", "m-a"]
