@@ -15,7 +15,12 @@ failure raises and the script exits non-zero before its last line:
    gives it (``sm90``: the tensor-core kernel of ``flash_fwd_sm90.cu``
    for bf16/f16 at hd 64, 128 and 256; ``simt``: ``flash_fwd.cu`` for
    the rest), timed beside its plain version, SDPA, its bound and the
-   earlier design (``flash_fwd.cu`` on the same bf16 inputs);
+   earlier design (``flash_fwd.cu`` on the same bf16 inputs); then the
+   decode tick's attention kernel (``paged_decode_sm90.cu``) against its
+   plain version at the chat and batch cells' shapes, Gemma-2's hd 256
+   with softcap and window and a tp=8 rank's head map, timed beside its
+   bound, its plain version, the gathered-view einsum it replaced and
+   SDPA, and a captured tick through it (``--phases decode`` alone);
 3. serving — Llama-3-8B at full width, its first ``SERVE_LAYERS`` of 32
    layers (random bf16 weights from a seed), behind ``InferenceServer``
    over ``InferenceEngine``: ``:predict`` (buffered, streamed, and greedy
@@ -65,12 +70,13 @@ adapter-sized).
 After the Gemma predictor run the MoE family's phases: Mixtral-8x7B at
 full width cut to 8 layers (bf16, dropless routing) in the predictor's
 engine (16 requests through ``:predict`` held to the MoE reference,
-positions that a router near-tie explains excused and planted lost K/V
-writes failing the check; ``/v1/embeddings`` with its 8 K1 launches on
-``sm90``; the tick; the graph route's tokens equal to the eager route's,
-dropless and at the preset's capacity factor 1.25), the predictor
-subprocess on a 1-layer artifact, the same 8 layers widened to float32
-(held with no router excuse), 8 layers in int8 (32 until slice 18) built
+at most ``MOE_HALF_SHARE`` of the tokens beyond ``NEAR_TIE``, and
+planted lost K/V writes failing the check; ``/v1/embeddings`` with its 8
+K1 launches on ``sm90``; the tick; the graph route's tokens equal to the
+eager route's, dropless and at the preset's capacity factor 1.25), the
+predictor subprocess on a 1-layer artifact, the same 8 layers widened to
+float32 (held with ``NEAR_TIE``'s limits for dense models, and planted
+lost K/V writes failing them too), 8 layers in int8 (32 until slice 18) built
 one layer at a time on the card (the tick with bf16 activations; the 16 requests with
 bf16 and with float32 activations through the near-tie check), and
 after the LoRA run Mixtral width 2 layers deep through ``python -m
@@ -609,6 +615,209 @@ def phase_kernel_check(torch):
             "host_ms": host_ms}
 
 
+#: the decode tick's attention (``ops.decode.paged_decode``) on the card:
+#: the serving cells' shapes in a pool of 64-slot blocks, 2,048 slots a
+#: lane (contexts drawn from their mixes' prompt laws, half the chat lanes
+#: idle on the sink block), Gemma-2-9B's heads (hd 256, softcap 50, query
+#: scale 256, a 1,024-key window on and off) and Qwen2-7B's tp=8 rank 1
+#: (query heads 4..7 over KV heads 0 and 1)
+DECODE_CASES = {
+    "chat": dict(nh=28, nkv=4, hd=128, prompt=(512, 0.9, 32, 1536),
+                 out=(128, 0.8, 16, 512), idle=16),
+    "batch": dict(nh=32, nkv=8, hd=128, prompt=(1024, 0.7, 256, 1536),
+                  out=(256, 0.7, 64, 512)),
+    "gemma2_hd256": dict(nh=16, nkv=8, hd=256, prompt=(1024, 0.7, 256,
+                                                       1536),
+                         out=(256, 0.7, 64, 512), softcap=50.0,
+                         scale=256 ** -0.5, window=1024),
+    "gemma2_hd256_global": dict(nh=16, nkv=8, hd=256,
+                                prompt=(1024, 0.7, 256, 1536),
+                                out=(256, 0.7, 64, 512), softcap=50.0,
+                                scale=256 ** -0.5),
+    "tp8_rank1": dict(nh=4, nkv=4, hd=128, prompt=(512, 0.9, 32, 1536),
+                      out=(128, 0.8, 16, 512), q_first=4, group=7),
+}
+DECODE_LANES, DECODE_BLOCK, DECODE_SLOTS = 32, 64, 2048
+
+
+def _decode_inputs(torch, case, seed):
+    """q [lanes, nh, hd] and pools [lanes x 32 + 1 blocks, 64, nkv, hd] in
+    bf16, block tables over a shuffled pool (live blocks only, the rest
+    on the sink block 0) and positions: a prompt drawn from the case's
+    lognormal law (median, sigma, clipped) plus a uniform share of an
+    output drawn likewise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, n_blk = DECODE_LANES, DECODE_SLOTS // DECODE_BLOCK
+
+    def law(spec):
+        med, sigma, lo, hi = spec
+        return np.clip(rng.lognormal(np.log(med), sigma, b), lo, hi)
+
+    pos = law(case["prompt"]) + rng.uniform(0, 1, b) * law(case["out"])
+    pos = np.minimum(pos.astype(np.int64), DECODE_SLOTS - 1)
+    pos[:case.get("idle", 0)] = 0
+    pool_blocks = b * n_blk + 1
+    perm = rng.permutation(pool_blocks - 1) + 1
+    tables = perm.reshape(b, n_blk)
+    tables[np.arange(n_blk)[None, :] > (pos // DECODE_BLOCK)[:, None]] = 0
+    tables[:case.get("idle", 0)] = 0
+    shape = (pool_blocks, DECODE_BLOCK, case["nkv"], case["hd"])
+    k_pool = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    v_pool = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    q = torch.randn((b, case["nh"], case["hd"]), generator=g,
+                    device="cuda").bfloat16()
+    kw = dict(scale=case.get("scale", case["hd"] ** -0.5),
+              softcap=case.get("softcap", 0.0),
+              window=case.get("window", 0), q_first=case.get("q_first", 0),
+              group=case.get("group"))
+    return (q, k_pool, v_pool, torch.from_numpy(tables).cuda(),
+            torch.from_numpy(pos).cuda(), kw)
+
+
+def _decode_bound_ms(q, k_pool, tables, pos, kw) -> float:
+    """The least time for the call: the live K/V rows each lane attends
+    (inside the window) read once, the live table entries, q and the
+    output, at the HBM rate."""
+    b, nh, hd = q.shape
+    nkv = k_pool.shape[2]
+    group = kw["group"] or nh // nkv
+    first = kw["q_first"] // group
+    kv_heads = (kw["q_first"] + nh - 1) // group + 1 - first
+    keys = pos.cpu().long() + 1
+    if kw["window"]:
+        keys = keys.clamp(max=kw["window"])
+    rows = int(keys.sum()) * kv_heads
+    blocks = int(((pos.cpu().long() // DECODE_BLOCK) + 1).sum())
+    moved = (2 * rows * hd * k_pool.element_size() + 8 * blocks
+             + 2 * b * nh * hd * q.element_size())
+    return 1e3 * moved / HBM_BYTES_PER_S
+
+
+def _sdpa_view_ms(torch, q, k_pool, v_pool, tables, pos, kw) -> float:
+    """SDPA (a yardstick only) on the gathered bf16 view, the view made
+    before the timing; the cases without softcap or window."""
+    import torch.nn.functional as F
+    b, nh, hd = q.shape
+    nkv = k_pool.shape[2]
+    kv = [p[tables].reshape(b, -1, nkv, hd).transpose(1, 2).contiguous()
+          for p in (k_pool, v_pool)]
+    mask = (torch.arange(kv[0].shape[2], device="cuda")[None, :]
+            <= pos[:, None])[:, None, None, :]
+    qq = q[:, :, None, :]
+    return _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qq, kv[0], kv[1], attn_mask=mask, scale=kw["scale"],
+        enable_gqa=True))
+
+
+def _decode_check(torch, name, case, seed) -> dict:
+    """The kernel against its plain version (the einsum path's gathered
+    view, the tick's read before the kernel) on one case: in bf16 within
+    one bf16 rounding of the plain version's float32 result, in float32
+    activations within 1e-5, the same bits on a second call; then the
+    kernel's and the plain version's times beside the bound (and SDPA's
+    where it computes the same function)."""
+    from kubedl_tpu_torch.ops import decode
+    q, kp, vp, tables, pos, kw = _decode_inputs(torch, case, seed)
+    want = decode.paged_decode_plain(q.float(), kp, vp, tables, pos, **kw)
+    got = decode.paged_decode(q, kp, vp, tables, pos, **kw)
+    again = decode.paged_decode(q, kp, vp, tables, pos, **kw)
+    got32 = decode.paged_decode(q.float(), kp, vp, tables, pos, **kw)
+    torch.cuda.synchronize()
+    over = float(((got.float() - want).abs()
+                  - 2.0 ** -8 * want.abs()).max())
+    err32 = float((got32 - want).abs().max())
+    out = {"lanes": DECODE_LANES, "heads": (case["nh"], case["nkv"]),
+           "hd": case["hd"], "live_keys": int((pos + 1).sum()),
+           "bf16_over_one_rounding": over, "f32_max_abs_err": err32,
+           "repeats_bit_for_bit": bool(torch.equal(got, again))}
+    if not (over <= 1e-5 and err32 <= 1e-5
+            and out["repeats_bit_for_bit"]):
+        raise AssertionError(f"[decode] {name}: the kernel strays from its "
+                             f"plain version: {out}")
+    args = (q, kp, vp, tables, pos)
+    out["ms"] = _time_ms(torch, lambda: decode.paged_decode(*args, **kw))
+    out["bound_ms"] = _decode_bound_ms(q, kp, tables, pos, kw)
+    out["roofline_pct"] = 100 * out["bound_ms"] / out["ms"]
+    out["plain_ms"] = _time_ms(torch, lambda: decode.paged_decode_plain(
+        *args, **kw), reps=10, warmup=2)
+    if not (kw["softcap"] or kw["window"] or kw["q_first"]):
+        out["sdpa_view_ms"] = _sdpa_view_ms(torch, *args, kw)
+    log(f"[decode] {name}: {out}")
+    return out
+
+
+def _decode_graph(torch) -> dict:
+    """A captured ``DecodeTick`` through the kernel: Qwen2-7B at full
+    width, 2 layers, bf16, 8 paged lanes with a registered prefix; every
+    card tick on the graph route, the tokens equal to the same engine's
+    eager ticks; then parity mode (the dense slab read by the same
+    kernel) asserting dense and paged logits every step."""
+    import dataclasses
+
+    import numpy as np
+
+    from kubedl_tpu_torch.models import llama
+    from kubedl_tpu_torch.ops import decode
+    from kubedl_tpu_torch.serving import ContinuousBatchingEngine
+    cfg = dataclasses.replace(llama.qwen2_7b(), n_layers=2,
+                              max_seq_len=1024)
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(26), device="cuda")
+    rng = np.random.default_rng(26)
+    prefix = rng.integers(3, cfg.vocab_size, 80).tolist()
+    reqs = []
+    for i in range(12):
+        p = rng.integers(3, cfg.vocab_size, int(rng.integers(8, 300)))
+        reqs.append(((prefix if i % 3 == 0 else []) + p.tolist(),
+                     24 + 4 * i))
+
+    def engine(route, **kw):
+        eng = ContinuousBatchingEngine(cfg, params, lanes=8, max_len=1024,
+                                       device="cuda", **kw)
+        if route == "eager":
+            for tick in eng._ticks():
+                tick.route = "eager"
+        if eng.kv_mode == "paged":
+            # parity's dense shadow prefills a prefixed prompt from 0, the
+            # pool from the prefix's end: other bf16 sums, whatever the tick
+            eng.register_prefix(prefix)
+        return eng
+
+    out = {}
+    want = engine("eager").run(reqs)
+    eng = engine("graph")
+    before = decode.paged_decode.launches
+    got = eng.run(reqs)
+    out["kernel_launches"] = decode.paged_decode.launches - before
+    out["ticks"] = _graph_only(eng, "[decode] graph")
+    # a call a layer: the two warm-up ticks before the capture, then each
+    # replay (the captured tick itself launches nothing)
+    out["kernel_launches_want"] = (2 + out["ticks"]["graph"]) * cfg.n_layers
+    out["graph_tokens_equal_eager"] = got == want
+    par = engine("graph", kv_mode="parity")
+    par.run(reqs)                # raises on a step whose layouts diverge
+    out["parity_ticks"] = _graph_only(par, "[decode] parity")
+    log(f"[decode] captured tick: {out}")
+    if not (out["graph_tokens_equal_eager"]
+            and out["kernel_launches"] == out["kernel_launches_want"]):
+        raise AssertionError(f"[decode] the captured tick: {out}")
+    return out
+
+
+def phase_decode(torch) -> dict:
+    """The decode tick's attention kernel on the card: each of
+    ``DECODE_CASES`` against its plain version and timed beside its
+    bound, then a captured tick through it."""
+    out = {name: _decode_check(torch, name, case, 2600 + i)
+           for i, (name, case) in enumerate(DECODE_CASES.items())}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["graph"] = _decode_graph(torch)
+    return out
+
+
 def _post(url: str, path: str, body: dict) -> str:
     req = urllib.request.Request(
         url + path, method="POST", data=json.dumps(body).encode(),
@@ -815,6 +1024,18 @@ def _cont_requests(cfg) -> tuple:
 #: such a choice may go either way, and a flipped expert moves the
 #: position's logits by far more than ``NEAR_TIE``
 ROUTER_TIE_ULPS = 4
+#: the most of an MoE model's served tokens that may lie beyond
+#: ``NEAR_TIE`` in half precision, where a third of the positions sit at
+#: a router near-tie and a flipped expert moves its position's logits, and
+#: those of every later position that reads its K/V, by far more: no
+#: excuse by position tells that from a fault (one that excused positions
+#: at and after a tie under ``ROUTER_TIE_ULPS`` refused 21 of 56
+#: fault-free runs and passed 6 of 48 faulty ones). Over 28 request draws
+#: each of ``phase_moe``'s and ``phase_moe_int8``'s models, fault-free
+#: engines (the tick's attention on its kernel and on the gathered einsum)
+#: put 3.4-9.1% of their tokens beyond ``NEAR_TIE``, and engines that
+#: lose one layer's decode K/V writes (layer 0, 4, 5, 6 or 7) 19.1-93.4%
+MOE_HALF_SHARE = 0.13
 
 
 def _margin_ulps(torch, probs, k):
@@ -866,31 +1087,17 @@ def _gaps(torch, cfg, params, prompt, toks, lps=None) -> tuple:
                                 - lp).abs().cpu(), margin
 
 
-def _router_excused(torch, beyond, margin) -> tuple:
-    """(at, after): of one request's positions beyond ``NEAR_TIE``, those
-    at a router near-tie (``margin`` under ``ROUTER_TIE_ULPS``), and those
-    after the first such one (an expert flipped there, and every later
-    position reads that position's K/V)."""
-    at = beyond & (margin < ROUTER_TIE_ULPS)
-    after = torch.zeros_like(beyond)
-    hit = at.nonzero()
-    if hit.numel():
-        after[int(hit[0]) + 1:] = True
-    return at, beyond & ~at & after
-
-
 def _reading(torch, cfg, params, reqs, outs, lps=None) -> dict:
     """The served tokens against the reference (see ``_gaps``): positions
     off its argmax, the largest gap and log-probability distance, the
     positions beyond ``NEAR_TIE`` on either, and whether the run passes
     (``ok``): at most ``NEAR_TIE_SHARE`` of the tokens beyond
-    ``NEAR_TIE`` and none beyond twice it. For an MoE model in half
-    precision, positions a router near-tie explains
-    (:func:`_router_excused`) are counted apart and excused; the rest are
-    held to those limits."""
+    ``NEAR_TIE`` and none beyond twice it; for an MoE model in half
+    precision, at most ``MOE_HALF_SHARE`` of them beyond ``NEAR_TIE``
+    (those at a router near-tie counted apart, a reading)."""
     r = {"tokens": sum(len(t) for t in outs), "off_argmax": 0,
          "max_gap": 0.0, "max_dlp": None, "beyond": 0, "router": None}
-    worst_held = 0.0
+    worst_all = 0.0
     for i, ((prompt, n), toks) in enumerate(zip(reqs, outs)):
         if len(toks) != n:
             raise AssertionError(f"request {i} got {len(toks)} tokens, "
@@ -903,25 +1110,19 @@ def _reading(torch, cfg, params, reqs, outs, lps=None) -> dict:
         if d is not None:
             r["max_dlp"] = max(r["max_dlp"] or 0.0, float(d.max()))
             worst = torch.maximum(g, d)
+        worst_all = max(worst_all, float(worst.max()))
         beyond = worst > NEAR_TIE
         r["beyond"] += int(beyond.sum())
-        held = torch.ones_like(beyond)
         if margin is not None:
-            at, after = _router_excused(torch, beyond, margin)
-            rt = r["router"] = r["router"] or dict.fromkeys(
-                ("at_tie", "after_tie", "ties"), 0)
-            rt["at_tie"] += int(at.sum())
-            rt["after_tie"] += int(after.sum())
-            rt["ties"] += int((margin < ROUTER_TIE_ULPS).sum())
-            held = ~(at | after)
-        if held.any():
-            worst_held = max(worst_held, float(worst[held].max()))
-    excused = sum(r["router"][k] for k in ("at_tie", "after_tie")) \
-        if r["router"] else 0
-    r["beyond_held"] = r["beyond"] - excused
-    r["max_held"] = worst_held
-    r["ok"] = (worst_held <= 2 * NEAR_TIE
-               and r["beyond_held"] <= NEAR_TIE_SHARE * r["tokens"])
+            tie = margin < ROUTER_TIE_ULPS
+            rt = r["router"] = r["router"] or {"at_tie": 0, "ties": 0}
+            rt["at_tie"] += int((beyond & tie).sum())
+            rt["ties"] += int(tie.sum())
+    if r["router"] is None:
+        r["ok"] = (worst_all <= 2 * NEAR_TIE
+                   and r["beyond"] <= NEAR_TIE_SHARE * r["tokens"])
+    else:
+        r["ok"] = r["beyond"] <= MOE_HALF_SHARE * r["tokens"]
     return r
 
 
@@ -929,17 +1130,17 @@ def _describe(r) -> str:
     lp = ("" if r["max_dlp"] is None else
           f", of a log-probability {r['max_dlp']:.4f}")
     rt = r["router"]
+    limits = (f"{NEAR_TIE_SHARE:.0%} of the tokens, none beyond "
+              f"{2 * NEAR_TIE}" if rt is None else
+              f"{MOE_HALF_SHARE:.0%} of the tokens")
     router = "" if rt is None else (
-        f"; of those, {rt['at_tie']} at a router near-tie (under "
-        f"{ROUTER_TIE_ULPS} bf16 ulps; {rt['ties']} of all positions are) "
-        f"and {rt['after_tie']} after one in their request, "
-        f"{r['beyond_held']} held to the limits, the largest of them "
-        f"{r['max_held']:.4f}")
+        f" ({r['beyond'] / r['tokens']:.1%}); {rt['at_tie']} of them at a "
+        f"router near-tie (under {ROUTER_TIE_ULPS} bf16 ulps; {rt['ties']} "
+        f"of all positions are)")
     return (f"{r['tokens']} tokens; the reference's greedy choice at all but "
             f"{r['off_argmax']} positions; largest gap {r['max_gap']:.4f}"
             f"{lp}; {r['beyond']} positions beyond {NEAR_TIE}{router} "
-            f"(limits: {NEAR_TIE_SHARE:.0%} of the tokens, none beyond "
-            f"{2 * NEAR_TIE})")
+            f"(limits: {limits})")
 
 
 def _hold(torch, cfg, params, reqs, outs, label, want=None,
@@ -3652,10 +3853,9 @@ def phase_moe(torch) -> tuple:
     """Mixtral-8x7B at full width, cut to 8 layers (random bf16 weights
     from seed 0, dropless routing) in the predictor's engine behind
     ``InferenceServer``: the 16 greedy requests through ``:predict``,
-    held to the MoE reference (``_hold``; positions a router near-tie
-    explains are excused, the rest held to ``NEAR_TIE``'s limits), and
-    lost decode K/V writes planted in one layer must fail that check;
-    ``/v1/embeddings`` of 2 inputs (512 and 305 tokens), whose every
+    held to the MoE reference (``_hold``: at most ``MOE_HALF_SHARE`` of
+    the tokens beyond ``NEAR_TIE``), and lost decode K/V writes planted
+    in one layer must fail that check; ``/v1/embeddings`` of 2 inputs (512 and 305 tokens), whose every
     layer must launch K1 once on ``sm90``, held to the chunked attention
     path; the tick at 1, 4 and 8 lanes, graph and eager. Then the 16
     requests inline on the graph route and on the eager route must give
@@ -3830,11 +4030,14 @@ def phase_moe_f32(torch, cfg, params) -> dict:
     """``phase_moe``'s weights widened in place to float32 (the same
     model, exactly), the 16 requests on 8 paged lanes on the graph route,
     every served token and its log-probability held to the MoE reference
-    with ``NEAR_TIE`` unchanged and no router near-tie excused: in
+    with a dense model's limits (``NEAR_TIE``, ``NEAR_TIE_SHARE``): in
     float32 the engine and the reference agree far inside the router's
-    margins, so every token is routed alike on both sides."""
+    margins, so every token is routed alike on both sides. Then the
+    check must refuse a faulty engine: one layer's decode-tick K/V writes
+    lost, in the middle layer and in the last."""
     import dataclasses
 
+    from kubedl_tpu_torch.models import llama
     from kubedl_tpu_torch.serving import ContinuousBatchingEngine
 
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
@@ -3858,8 +4061,26 @@ def phase_moe_f32(torch, cfg, params) -> dict:
         f" GB): 16 requests on 8 paged lanes in {wall:.3f} s, ticks by "
         f"route {ticks}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
-    return _hold(torch, cfg32, params, reqs, got, "(moe f32) continuous",
-                 lps=lps)
+    out = _hold(torch, cfg32, params, reqs, got, "(moe f32) continuous",
+                lps=lps)
+    out["planted"] = {}
+    for layer in (cfg32.n_layers // 2, cfg32.n_layers - 1):
+        bad = ContinuousBatchingEngine(cfg32, params, lanes=CONT_LANES,
+                                       max_len=CONT_MAX_LEN, device="cuda")
+        with unittest.mock.patch.object(
+                llama, "attention_step", _lost_write(llama, bad._pool, layer)):
+            bad_got, bad_lps = _run(bad, reqs)
+        del bad
+        gc.collect()
+        r = out["planted"][layer] = _reading(torch, cfg32, params, reqs,
+                                             bad_got, bad_lps)
+        log(f"[moe32] planted fault, layer {layer}'s decode K/V writes lost: "
+            f"{_describe(r)}; identical to the fault-free run's: "
+            f"{_agree(bad_got, got)[0]}/16 requests")
+        if r["ok"]:
+            raise AssertionError(f"the MoE check passes an engine that loses "
+                                 f"layer {layer}'s K/V writes")
+    return out
 
 
 def phase_moe_predictor(torch, cfg, params) -> dict:
@@ -4014,8 +4235,9 @@ def phase_moe_int8(torch) -> dict:
     16 requests on 8 paged lanes, dropless, with bf16 activations and
     again with float32 activations, every token and its log-probability
     held to the int8 model's reference with ``NEAR_TIE`` unchanged (in
-    bf16 positions a router near-tie explains are excused, as in
-    ``phase_moe``; in float32 none is); peak device memory."""
+    bf16 at most ``MOE_HALF_SHARE`` of the tokens beyond it, as in
+    ``phase_moe``; in float32 a dense model's limits); peak device
+    memory."""
     import dataclasses
 
     from kubedl_tpu_torch.models import moe
@@ -6952,6 +7174,25 @@ def _reset_counts(attn) -> None:
     for fn in (attn.flash_forward, attn.flash_dq, attn.flash_dkv):
         fn.launches = 0
         fn.launches_by_route = {"sm90": 0, "simt": 0}
+    _bank_d1()
+
+
+#: the decode attention kernel's calls in the running phase (``main``'s
+#: ``timed`` clears it before each phase and reads it after): launches on
+#: the card, graph replays included, and calls by route
+D1_TALLY = {"launches": 0, "sm90": 0, "plain": 0}
+
+
+def _bank_d1() -> None:
+    """Add ``ops.decode.paged_decode``'s counts to :data:`D1_TALLY` and set
+    them to 0."""
+    from kubedl_tpu_torch.ops import decode
+    fn = decode.paged_decode
+    D1_TALLY["launches"] += fn.launches
+    for route, n in fn.launches_by_route.items():
+        D1_TALLY[route] += n
+    fn.launches = 0
+    fn.launches_by_route = {"sm90": 0, "plain": 0}
 
 
 def _read_counts(attn, tag, want=None) -> dict:
@@ -7874,8 +8115,9 @@ def _replay_probe(torch, only, timed) -> None:
 
 
 def _probe(torch, argv, timed) -> int:
-    """``--phases hf,lifecycle,resnet,moe_timing,dist,tp,tp2,tp8,ring,cp2,
-    ep2,pp,pp2,grpo,replay,spec,auto,fed,native,moe_int8,op [--layers N]``:
+    """``--phases decode,hf,lifecycle,resnet,moe_timing,dist,tp,tp2,tp8,
+    ring,cp2,ep2,pp,pp2,grpo,replay,spec,auto,fed,native,moe,moe_int8,op
+    [--layers N]``:
     the
     named
     phases alone after the
@@ -7888,14 +8130,17 @@ def _probe(torch, argv, timed) -> int:
     line and no last line)."""
     if len(argv) not in (2, 4) or argv[0] != "--phases" or (
             len(argv) == 4 and argv[2] != "--layers"):
-        print("usage: chip_smoke.py [--phases hf,lifecycle,resnet,"
+        print("usage: chip_smoke.py [--phases decode,hf,lifecycle,resnet,"
               "moe_timing,dist,tp,tp2,tp8,ring,cp2,ep2,pp,pp2,grpo,replay,"
               "spec,"
-              "auto,fed,native,moe_int8,op [--layers N]]", file=sys.stderr)
+              "auto,fed,native,moe,moe_int8,op [--layers N]]",
+              file=sys.stderr)
         return 2
     only = set(argv[1].split(","))
     layers = int(argv[3]) if len(argv) == 4 else None
     log("[env] " + _card())
+    if "decode" in only:
+        timed("decode", phase_decode, torch)
     if only & {"tp", "tp2"}:
         _tp_probe(torch, only, timed)
     if "tp8" in only:
@@ -7914,6 +8159,12 @@ def _probe(torch, argv, timed) -> int:
         torch.cuda.empty_cache()
     if "native" in only:
         timed("native", phase_native, torch)
+    if "moe" in only:
+        mcfg, mparams, _ = timed("moe", phase_moe, torch)
+        timed("moe_f32", phase_moe_f32, torch, mcfg, mparams)
+        del mparams
+        gc.collect()
+        torch.cuda.empty_cache()
     if "moe_int8" in only:
         timed("moe_int8", phase_moe_int8, torch)
     if "dist" in only:
@@ -7970,19 +8221,26 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_all = time.perf_counter()
-    seconds = {}
+    seconds, d1 = {}, {}
 
     def timed(name, fn, *args):
+        _bank_d1()
+        D1_TALLY.update(launches=0, sm90=0, plain=0)
         t0 = time.perf_counter()
         res = fn(*args)
         seconds[name] = time.perf_counter() - t0
-        log(f"[phase] {name} {seconds[name]:.1f} s")
+        _bank_d1()
+        if any(D1_TALLY.values()):
+            d1[name] = dict(D1_TALLY)
+        log(f"[phase] {name} {seconds[name]:.1f} s"
+            + (f"; paged_decode {d1[name]}" if name in d1 else ""))
         return res
 
     timed("build", phase_build)
     if len(sys.argv) > 1:
         return _probe(torch, sys.argv[1:], timed)
     fwd = timed("kernel_check", phase_kernel_check, torch)
+    dec = timed("decode", phase_decode, torch)
     from kubedl_tpu_torch.models import llama
     cfg8b = _serving_llama(llama)
     serving_launches, params = timed("serving", phase_serving, torch, cfg8b)
@@ -8249,6 +8507,17 @@ def main() -> int:
          "simt_source": source("flash_dkv", "simt"),
          "kernel_route": "sm90",
          "design": DESIGN["flash_dkv"]},
+        {"name": "paged_decode", "route": "cuda",
+         "source": "kubedl_tpu_torch/csrc/paged_decode_sm90.cu",
+         "replaces": None,
+         "launches": sum(v["launches"] for v in d1.values()),
+         "launches_by_path": {k: v["launches"] for k, v in d1.items()},
+         "launches_by_route": {r: sum(v[r] for v in d1.values())
+                               for r in ("sm90", "plain")},
+         "launches_counted": "each phase's in-process calls on the card, "
+                             "every graph replay included; the subprocess "
+                             "servers' and follower ranks' are not seen",
+         "cases": dec},
     ]
     print(json.dumps({"kernels": rows}))
     print(f"nvidia-smi: {smi}")

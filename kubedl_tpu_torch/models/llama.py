@@ -11,7 +11,9 @@ and RoPE run in float32. So a JAX artifact loads unchanged
 
 Attention goes through ``ops.attention.multi_head_attention``: the
 hand-written flash kernels on the card (forward, and dQ/dK/dV when
-autograd records), the chunked path on the CPU. Training adds
+autograd records), the chunked path on the CPU; the decode tick's
+attention through ``ops.decode.paged_decode`` (its kernel reads the K/V
+cache in place). Training adds
 :func:`loss_fn`/:func:`lm_loss` (the chunked LM-head loss of
 ``ops/loss.py``) and per-layer recomputation (``config.remat``).
 
@@ -70,6 +72,7 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..ops.attention import (chunked_attention, flash_attention,
                              multi_head_attention)
+from ..ops.decode import paged_decode
 from ..ops.loss import chunked_token_nll
 from ..ops.quant import mm as _mm
 from ..ops.quant import to_dense
@@ -842,6 +845,12 @@ def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
     view here is a copy, so writing the pool first is what keeps the
     writes, at a chunk's bytes instead of a second pass over the view.
 
+    The decode tick (per-row positions, ``s == 1``, no ``valid``), paged
+    or dense, gathers no view: after the write it reads each row's live
+    K/V in place through :func:`_tick_attention` (``ops.decode``'s
+    kernel on the card). Prefill, verify and training keep the path
+    above.
+
     Under a serving ``mesh`` the weights are the rank's shards: it
     projects its own query heads and its KV heads (all of them where
     ``tp`` does not divide ``n_kv_heads``, then reads those its query
@@ -877,9 +886,6 @@ def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
                                                  rounding_mode="floor"))
         kc.index_put_((phys, cols % blk), k.to(kc.dtype))
         vc.index_put_((phys, cols % blk), v.to(vc.dtype))
-        view = tables[:, :n_blocks]
-        kc = kc[view].reshape(b, n_blocks * blk, nkv, hd)
-        vc = vc[view].reshape(b, n_blocks * blk, nkv, hd)
         q_pos = cols if row_pos else cols[:1]
         live = n_blocks * blk if row_pos else start + s
     elif row_pos:
@@ -896,6 +902,14 @@ def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
         vc.index_copy_(1, idx, v.to(vc.dtype))
         q_pos = idx[None, :]                                    # [1, s]
         live = start + s
+    if row_pos and s == 1 and valid is None:
+        attn = _tick_attention(c, q, kc, vc, tables, start_pos, window_on,
+                               mesh).to(x.dtype)
+        return _attn_residual(c, x, lp, attn, mesh), pool_k, pool_v
+    if tables is not None:
+        view = tables[:, :n_blocks]
+        kc = kc[view].reshape(b, n_blocks * blk, nkv, hd)
+        vc = vc[view].reshape(b, n_blocks * blk, nkv, hd)
     max_len = kc.shape[1]
 
     ka, va = kc[:, :live], vc[:, :live]
@@ -947,11 +961,47 @@ def attention_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,
     probs = torch.softmax(scores, dim=-1)
     attn = torch.einsum("bhgqk,bkhd->bqhgd", probs, va.float())
     attn = attn.reshape(b, s, nh, hd).to(x.dtype)
-    delta = tp_sum(_mm(attn.reshape(b, s, nh * hd), lp["wo"]), mesh)
-    if c.sandwich_norms:
-        delta = rms_norm(delta, lp["post_attn_norm"], c.rms_eps,
-                         c.norm_weight_offset)
-    return x + delta, pool_k, pool_v
+    return _attn_residual(c, x, lp, attn, mesh), pool_k, pool_v
+
+
+def _attn_residual(config: LlamaConfig, x, lp, attn, mesh):
+    """x + the output projection of ``attn`` [b, s, nh, hd] (its partial
+    sums added over ``tp``), through the sandwich norm where the family
+    has one."""
+    b, s = attn.shape[:2]
+    delta = tp_sum(_mm(attn.reshape(b, s, -1), lp["wo"]), mesh)
+    if config.sandwich_norms:
+        delta = rms_norm(delta, lp["post_attn_norm"], config.rms_eps,
+                         config.norm_weight_offset)
+    return x + delta
+
+
+def _tick_attention(config: LlamaConfig, q, kc, vc, tables, pos, window_on,
+                    mesh):
+    """The decode tick's attention (one position a lane, per-row
+    positions, no slot mask) through ``ops.decode.paged_decode``: the
+    hand-written kernel on the card, its plain version on the CPU, reading
+    each lane's live K/V in place. ``kc``/``vc`` are the layer's pool with
+    ``tables``, or its dense slab [b, max_len, nkv, hd] without: one block
+    of ``max_len`` slots a lane, so parity mode's two layouts compute the
+    same numbers. Returns [b, 1, nh, hd] in q's dtype."""
+    c = config
+    b, _, nh, hd = q.shape
+    if tables is None:
+        tables = torch.arange(b, device=q.device)[:, None]
+    if _kv_replicated(c, mesh):
+        # the rank's query heads over every KV head (``_local_kv``'s map)
+        q_first, group = _rank_heads(c, mesh)[0], c.n_heads // c.n_kv_heads
+    else:
+        q_first, group = 0, nh // kc.shape[-2]
+    windowed = c.sliding_window and (window_on is None or bool(window_on))
+    attn = paged_decode(
+        q[:, 0], kc, vc, tables, pos,
+        scale=c.query_scale ** -0.5 if c.query_scale else 1.0 / math.sqrt(hd),
+        softcap=c.attn_logit_softcap or 0.0,
+        window=c.sliding_window if windowed else 0, q_first=q_first,
+        group=group)
+    return attn[:, None]
 
 
 def _layer_step(config: LlamaConfig, x, lp, kc, vc, cos, sin, start_pos,

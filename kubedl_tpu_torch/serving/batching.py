@@ -76,6 +76,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..ops.decode import count_replays, paged_decode
 from ..parallel.collectives import is_sharded
 from ..trace import NOOP_TRACER
 from .engine import (SERVING_AXES, GenerateConfig, SpecStats,
@@ -368,7 +369,8 @@ class DecodeTick:
     static output, valid until the next call. Re-running a tick on the
     same inputs rewrites the same K/V at the same slots, so the warm-up
     runs on live lane state are harmless. ``launches`` counts ticks by
-    route; with ``tracer`` enabled, ``launch_at`` is its clock read just
+    route; each replay also counts the attention kernel's calls it holds
+    in ``ops.decode.paged_decode.launches``. With ``tracer`` enabled, ``launch_at`` is its clock read just
     before the last tick's replay (or eager step)."""
 
     def __init__(self, step, lanes: int, n_tables: int, device,
@@ -384,6 +386,7 @@ class DecodeTick:
         self._graph = None
         self._static = None
         self._logits = None
+        self._kernels = 0
 
     def _views(self, buf):
         n = self.lanes
@@ -419,6 +422,8 @@ class DecodeTick:
             self.launch_at = self.tracer.clock()
         self._graph.replay()
         self.launches["graph"] += 1
+        if self._kernels:
+            count_replays(self._kernels)
         return self._logits
 
     def _capture(self, host: torch.Tensor) -> None:
@@ -431,10 +436,12 @@ class DecodeTick:
                 self._step(*args)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        captured = paged_decode.captured
         # thread_local: the HTTP threads may touch the card meanwhile
         # (an embeddings forward); only this thread's calls are captured
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             logits = self._step(*args)
+        self._kernels = paged_decode.captured - captured
         self._static, self._logits, self._graph = static, logits, graph
 
     def reset(self) -> None:

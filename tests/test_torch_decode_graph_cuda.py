@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from kubedl_tpu_torch.models import llama, moe
+from kubedl_tpu_torch.ops.decode import paged_decode
 from kubedl_tpu_torch.serving.batching import (ContinuousBatchingEngine,
                                                decode_tick_route)
 
@@ -81,6 +82,19 @@ def test_graph_tick_gives_the_eager_tokens(model, mode):
     if mode == "paged":
         assert eng.preempted > 0
         assert eng.pool_stats()["blocks_used"] == 1
+
+
+def test_graph_replays_count_the_attention_kernel(model):
+    """Each layer of a paged tick calls the attention kernel once: the two
+    warm-up ticks before the capture launch it, the captured tick only
+    records it, and every replay counts it again."""
+    cfg, _ = model
+    eng = _engine(model, "graph", kv_mode="paged")
+    launches, captured = paged_decode.launches, paged_decode.captured
+    eng.run(_requests())
+    replays = eng.tick_launches["graph"]
+    assert replays > 0 and paged_decode.captured - captured == cfg.n_layers
+    assert paged_decode.launches - launches == (2 + replays) * cfg.n_layers
 
 
 def test_graph_tick_with_prefill_lanes_and_spec_lanes(model):
